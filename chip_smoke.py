@@ -1,0 +1,579 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port on one CUDA card and hold every kernel of
+its main path against the kernel's plain PyTorch version.
+
+    python3 chip_smoke.py [--seed N]
+
+Run from the root of a checkout (it imports ``src/repro_torch``).  Phases:
+
+1. device and build: the card's name and power limit, the kernels built
+   from ``src/repro_torch/csrc`` (timed), cuDNN deterministic, no TF32;
+2. the main path: FedAdam-SSM rounds of the paper's CNN at full width
+   (alpha 0.05, threshold masks, error feedback, 20 clients, 3 local
+   epochs, batch 32, Dirichlet 0.1 synthetic Fashion-MNIST), with the
+   kernel launch counters zeroed just before and read just after, and
+   the first client's wire payload measured on the card; then one more
+   round under torch.profiler (device busy share, top kernels) and one
+   that counts the stream synchronisations the host waits on;
+3. each kernel against its plain version on the card, bitwise, on the
+   inputs the first client's compress gave it and at VGG-11 width-1.0
+   packed shapes, with times from CUDA events and the memory bound;
+4. one round on the card against the same round on the CPU (4 clients,
+   same weights and batch), within the CPU parity tests' tolerances.
+
+It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
+and as its last line ``{"ok": true, "device": {...}}``.  Any failure
+raises, exits non-zero and prints no result line.  A JSON record of the
+run goes to ``chiprun_out/chip_smoke.json``.
+"""
+from __future__ import annotations
+
+import argparse
+import collections
+import itertools
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+#: H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and float32 outside
+#: the tensor cores; the bound of a kernel is the larger of bytes over the
+#: first and operations over the second.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+
+CNN_WIRE_BYTES_PER_CLIENT = 346_880
+CLIENTS = 20
+ROUNDS = 3
+
+KERNELS = {
+    "packed_hist": ("src/repro_torch/csrc/packed_topk.cu",
+                    "src/repro/kernels/packed_topk/packed_topk.py:91"),
+    "packed_apply": ("src/repro_torch/csrc/packed_topk.cu",
+                     "src/repro/kernels/packed_topk/packed_topk.py:233"),
+    "pack_words": ("src/repro_torch/csrc/wirepack.cu",
+                   "src/repro/kernels/wirepack/wirepack.py:92"),
+    "unpack_words": ("src/repro_torch/csrc/wirepack.cu",
+                     "src/repro/kernels/wirepack/wirepack.py:111"),
+}
+
+
+def require(cond, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def log(msg: str) -> None:
+    print(f"[chip_smoke] {msg}", flush=True)
+
+
+def smi_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+# ---------------------------------------------------------------------------
+# Phase 1: device and build
+# ---------------------------------------------------------------------------
+
+
+def phase_device_and_build(torch):
+    require(torch.cuda.is_available(), "no CUDA device is available")
+    require((ROOT / "src" / "repro_torch" / "csrc").is_dir(),
+            "src/repro_torch is missing: run from the root of a checkout")
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.device import exact_float32
+    from repro_torch.kernels import _lib
+
+    smi = smi_line()
+    log(f"card: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
+    t0 = time.perf_counter()
+    _lib.library()
+    log(f"kernel library: {len(_lib.sources())} sources built in "
+        f"{_lib.build_seconds:.2f} s (load {time.perf_counter() - t0:.2f} s)")
+    torch.backends.cudnn.deterministic = True
+    exact_float32()
+    return smi, _lib.build_seconds
+
+
+# ---------------------------------------------------------------------------
+# Phase 2: the main path
+# ---------------------------------------------------------------------------
+
+
+class Capture:
+    """Records (a clone of) the arguments, and the result, of the first
+    call of each wrapped entry point, then calls through unchanged."""
+
+    def __init__(self):
+        self.args = {}
+        self.outs = {}
+
+    def wrap(self, module, attr, name):
+        fn = getattr(module, attr)
+
+        def rec(*args, **kw):
+            first = name not in self.args
+            if first:
+                self.args[name] = ([_clone(a) for a in args], dict(kw))
+            out = fn(*args, **kw)
+            if first:
+                self.outs[name] = out
+            return out
+
+        setattr(module, attr, rec)
+        return fn
+
+
+def make_data(seed, n_clients):
+    from repro_torch.data import dirichlet_partition, synthetic_image_dataset
+    imgs, labels = synthetic_image_dataset("fashion_mnist", 12_000,
+                                           seed=seed)
+    n_train = 10_000
+    parts = dirichlet_partition(labels[:n_train], n_clients=n_clients,
+                                theta=0.1, seed=seed)
+    return imgs, labels, n_train, parts
+
+
+def round_batch(torch, imgs, labels, n_train, parts, r, device):
+    from repro_torch.data import client_batches
+    (bx, by), w = client_batches([imgs[:n_train], labels[:n_train]], parts,
+                                 32, seed=r)
+    return ((torch.from_numpy(bx).to(device),
+             torch.from_numpy(by).to(device)),
+            torch.from_numpy(w).to(device))
+
+
+def phase_main_path(torch, seed):
+    from repro_torch.core import FedConfig, fed_init, make_fl_round
+    from repro_torch.core import sparsify, wire
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models.vision import build_vision
+    from repro_torch.optim import AdamHyper
+
+    dev = torch.device("cuda")
+    params, _, loss_fn, acc_fn, _ = build_vision("cnn", width=1.0,
+                                                 seed=seed, device=dev)
+    d = sum(x.numel() for x in params.values())
+    require(d == 454_688, f"CNN width 1.0 has {d} parameters")
+    imgs, labels, n_train, parts = make_data(seed, CLIENTS)
+    test = (torch.from_numpy(imgs[n_train:]).to(dev),
+            torch.from_numpy(labels[n_train:]).to(dev))
+    fed = FedConfig(algorithm="fedadam_ssm", alpha=0.05, local_epochs=3,
+                    n_clients=CLIENTS, adam=AdamHyper(lr=1e-3),
+                    exact_topk=False, error_feedback=True)
+    round_fn = make_fl_round(fed, loss_fn)
+    state = fed_init(fed, params)
+
+    cap = Capture()
+    cap.wrap(sparsify, "packed_hist", "packed_hist")
+    cap.wrap(sparsify, "packed_apply", "packed_apply")
+    cap.wrap(wire, "pack_mask_bits", "pack_words")
+    cap.wrap(wire, "unpack_mask_bits", "unpack_words")
+    cap.wrap(wire, "pack_shared_mask", "payload")
+
+    rounds = []
+    torch.cuda.synchronize()
+    reset_launches()
+    for r in range(ROUNDS):
+        before = dict(LAUNCHES)
+        batch, w = round_batch(torch, imgs, labels, n_train, parts, r, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, mets = round_fn(state, batch, w)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        with torch.no_grad():
+            acc = float(acc_fn(state.W, test))
+        loss = float(mets["loss"].mean())
+        per_client = float(mets["uplink_bits"]) / 8 / CLIENTS
+        launches = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+        rounds.append({"round": r, "loss": loss, "test_acc": acc,
+                       "wall_s": wall, "wire_bytes_per_client": per_client,
+                       "launches": launches})
+        log(f"round {r}: loss={loss:.6f} test_acc={acc:.4f} "
+            f"wall={wall:.4f} s wire_bytes/client={per_client:.0f} "
+            f"launches={launches}")
+        require(math.isfinite(loss), f"round {r} loss is {loss}")
+        require(per_client == CNN_WIRE_BYTES_PER_CLIENT,
+                f"wire bytes per client {per_client}")
+    main_launches = dict(LAUNCHES)
+    require(all(v > 0 for v in main_launches.values()),
+            f"a kernel of the main path never launched: {main_launches}")
+    for name in "WMV":
+        for k, x in getattr(state, name).items():
+            require(bool(torch.isfinite(x).all()), f"{name}[{k}] not finite")
+    ref = build_vision("cnn", width=1.0, seed=seed, device=dev)[0]
+    require({k: v.shape for k, v in state.W.items()} ==
+            {k: v.shape for k, v in ref.items()}, "parameter shapes changed")
+    # the bytes the card's kernels put on the wire for the first client
+    payload = cap.outs["payload"]
+    require(all(a.is_cuda for part in payload for a in part),
+            "the wire payload was not built on the card")
+    nbytes = wire.payload_nbytes(payload)
+    log(f"first client's payload built on the card: {nbytes} bytes")
+    require(nbytes == CNN_WIRE_BYTES_PER_CLIENT,
+            f"the card's payload holds {nbytes} bytes")
+    captured = {k: cap.args[k] for k in KERNELS}
+    prof = profile_round(torch, round_fn, state, batch, w)
+    prof["syncs"] = count_syncs(torch, round_fn, state, batch, w)
+    log(f"profiled round: {json.dumps(prof)}")
+    return rounds, main_launches, captured, prof, nbytes
+
+
+def count_syncs(torch, round_fn, state, batch, w) -> dict:
+    """Stream synchronisations in one round (host-to-device copies from
+    pageable memory, ``.item()`` and the like), as PyTorch's sync debug
+    mode reports them, with the innermost line of this checkout (and the
+    line outside it) that made each."""
+    import traceback
+    import warnings
+
+    sites = collections.Counter()
+
+    def record(message, *_):
+        if "synchronizing" not in str(message):
+            return
+        stack = [f for f in traceback.extract_stack()[:-1]
+                 if Path(f.filename).name != "warnings.py"]
+        ours = [f for f in stack if Path(f.filename).is_relative_to(ROOT)]
+        here = (f"{Path(ours[-1].filename).relative_to(ROOT)}:"
+                f"{ours[-1].lineno}" if ours else "?")
+        sites[f"{here} -> {stack[-1].filename}:{stack[-1].lineno}"] += 1
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        # switching the mode on reports one sync of its own: not counted
+        torch.cuda.set_sync_debug_mode("warn")
+        warnings.showwarning = record
+        try:
+            round_fn(state, batch, w)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return {"per_round": sum(sites.values()), "sites": dict(sites)}
+
+
+def profile_round(torch, round_fn, state, batch, w):
+    """One more round under torch.profiler, device activity only (the host
+    pays no per-operator cost): its wall time, the device's busy share and
+    the kernels that took the most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        round_fn(state, batch, w)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    ops = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                  for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA), key=lambda r: -r[1])
+    busy_ms = sum(ms for _, ms, _ in ops)
+    require(busy_ms > 0, "the profiler saw no device time in the round")
+    port_ms = sum(ms for key, ms, _ in ops
+                  if any(f"{name}_kernel" in key for name in KERNELS))
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_busy_share": busy_ms / wall_ms,
+            "device_ops": sum(c for *_, c in ops),
+            "port_kernels_ms": port_ms,
+            "top": [{"name": key[:80], "ms": ms, "count": c}
+                    for key, ms, c in ops[:8]]}
+
+
+# ---------------------------------------------------------------------------
+# Phase 3: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def time_ms(torch, fn, iters: int) -> float:
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_ms(torch, fn, iters: int, kernel_names) -> float:
+    """Device time per call of the named CUDA kernels, from torch.profiler.
+    The profiler now and then drops a window's kernel records (one window
+    of 20 launches came back empty on the H100), so an empty window is
+    profiled again, at most three times in all."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA
+                    and any(k in e.key for k in kernel_names))
+        if total > 0:
+            return total / iters / 1e3
+    raise RuntimeError(f"chip_smoke: the profiler saw no device time of "
+                       f"{kernel_names} in three windows")
+
+
+def max_abs_err(torch, a, b) -> float:
+    """Max |a - b|; raises unless a and b are bitwise equal (every output
+    here is 4 bytes wide: float32, int32 or uint32)."""
+    require(a.shape == b.shape and a.dtype == b.dtype,
+            f"shape/dtype {tuple(a.shape)} {a.dtype} vs "
+            f"{tuple(b.shape)} {b.dtype}")
+    a, b = a.view(torch.int32), b.view(torch.int32)
+    same = torch.equal(a, b)
+    err = 0.0 if same else (a.double() - b.double()).abs().max().item()
+    require(same, f"kernel differs from its plain version (max {err})")
+    return err
+
+
+def vgg11_inputs(torch, seed):
+    """Packed select/apply operands at VGG-11 width-1.0 shapes."""
+    from repro_torch.core import sparsify as S
+    from repro_torch.kernels.packed_topk import ops as P
+    from repro_torch.kernels.packed_topk.ref import refine_taus
+    from repro_torch.kernels.topk_mask.ref import log2_taus
+    from repro_torch.models.vision import vgg11_shapes
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    shapes = [s for s, _ in (v for _, v in sorted(vgg11_shapes().items()))]
+    rnd = lambda s, scale: torch.randn(s, generator=gen, device=dev) * scale
+    w = [rnd(s, 1e-3) for s in shapes]
+    m = [rnd(s, 1e-4) for s in shapes]
+    v = [rnd(s, 1e-6).abs() for s in shapes]
+    layout = S.plan_packed_layout(w)
+    require(layout.total == 9_747_456 and layout.num_segments == 11,
+            f"VGG-11 packed layout {layout.total} / {layout.num_segments}")
+    wp, mp, vp = layout.pack(w), layout.pack(m), layout.pack(v)
+    ks, ns = layout.ks_ns(0.05)
+    absmax = S._segment_absmax(layout, w)
+    edges = log2_taus(absmax)
+    taus2 = refine_taus(P.packed_hist_plain(wp, layout.seg_ids, edges),
+                        edges, absmax, ks)
+    return {"packed_hist": ([wp, layout.seg_ids, edges], {}),
+            "packed_apply": ([taus2, layout.seg_ids, ks, ns, (wp, mp, vp),
+                              None], {"with_residual": True,
+                                      "value_dtype": None}),
+            "support_rows": -(-wp.shape[0] // 32) * 32}
+
+
+def kernel_cost(torch, name, args, kw):
+    """(bytes each input read once and each output written once, float32
+    operations) of one call, from this call's shapes."""
+    if name == "packed_hist":
+        xp, seg_ids, edges = args
+        n = xp.numel()
+        return (4 * n + 4 * seg_ids.numel() + 2 * 4 * edges.numel(),
+                2 * 32 * n)
+    if name == "packed_apply":
+        taus2, seg_ids, ks, ns, streams, score = args
+        n = streams[0].numel()
+        n_in = len(streams) + (score is not None)
+        n_out = len(streams) + bool(kw.get("with_residual", True))
+        small = 4 * (taus2.numel() + seg_ids.numel() + ks.numel()
+                     + ns.numel() + 2 * ks.numel())
+        return 4 * n * (n_in + n_out) + small, 2 * 32 * n + 3 * n * n_out
+    if name == "pack_words":
+        (codes,) = args[:1]
+        n = codes.numel()
+        return 4 * n + n // 8, 2 * n
+    (words,) = args[:1]
+    n = words.numel() * 32
+    return n // 8 + 4 * n, 2 * n
+
+
+def run_kernel(torch, name, args, kw):
+    from repro_torch.kernels.packed_topk import ops as P
+    from repro_torch.kernels.wirepack import ops as W
+    if name == "packed_hist":
+        return (lambda: P.packed_hist(*args)), \
+            (lambda: P.packed_hist_plain(*args)), ["packed_hist_kernel"]
+    if name == "packed_apply":
+        return (lambda: P.packed_apply(*args, **kw)), \
+            (lambda: P.packed_apply_plain(*args, **kw)), \
+            ["packed_hist_kernel", "packed_apply_kernel"]
+    if name == "pack_words":
+        codes = args[0].to(torch.int32)
+        return (lambda: W.pack_words(codes, 1)), \
+            (lambda: W.pack_words_plain(codes, 1)), ["pack_words_kernel"]
+    return (lambda: W.unpack_words(args[0], 1)), \
+        (lambda: W.unpack_words_plain(args[0], 1)), ["unpack_words_kernel"]
+
+
+def _clone(a):
+    if isinstance(a, tuple):
+        return tuple(_clone(x) for x in a)
+    return a.clone() if hasattr(a, "clone") else a
+
+
+#: Bytes a timing loop must cycle through so that every launch finds its
+#: inputs in device memory rather than in the 50 MB L2 cache.
+_COLD_BYTES = 2 * 50e6
+
+
+def measure(torch, name, args, kw, iters, plain_iters, cold=False):
+    """Bitwise check against the plain version, then times.  ``cold``
+    cycles the timed launches over enough copies of the inputs that none
+    is still in L2 (as a caller streaming a large model finds them)."""
+    fk, fp, knames = run_kernel(torch, name, args, kw)
+    a, b = fk(), fp()
+    a = a if isinstance(a, tuple) else (a,)
+    b = b if isinstance(b, tuple) else (b,)
+    require(len(a) == len(b), f"{name}: output count")
+    err = max(max_abs_err(torch, x, y) for x, y in zip(a, b))
+    nbytes, ops = kernel_cost(torch, name, args, kw)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_OPS_PER_S * 1e3
+    copies = math.ceil(_COLD_BYTES / nbytes) if cold else 1
+    fks = [fk] + [run_kernel(torch, name, [_clone(x) for x in args], kw)[0]
+                  for _ in range(copies - 1)]
+    nxt = itertools.cycle(fks)
+    timed = lambda: next(nxt)()
+    ms = time_ms(torch, timed, iters)
+    plain = time_ms(torch, fp, plain_iters)
+    dev_ms = device_ms(torch, timed, 20, knames)
+    n = args[4][0].numel() if name == "packed_apply" else (
+        args[0].numel() * 32 if name == "unpack_words" else args[0].numel())
+    return {"max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+            "plain_ms": plain, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "operations": ops, "elements": int(n),
+            "input_copies": copies}
+
+
+def phase_kernels(torch, captured, main_launches, n_client_rounds, seed):
+    from repro_torch.kernels.wirepack import ops as W
+    require(set(captured) == set(KERNELS),
+            f"captured inputs for {sorted(captured)}")
+    vgg = vgg11_inputs(torch, seed)
+    rows = vgg["support_rows"]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    support = (torch.rand((rows, 128), generator=gen, device="cuda")
+               < 0.05).to(torch.int32)
+    vgg["pack_words"] = ([support], {})
+    vgg["unpack_words"] = ([W.pack_words_plain(support, 1)], {})
+    out = []
+    for name, (src, replaces) in KERNELS.items():
+        args, kw = captured[name]
+        cnn = measure(torch, name, args, kw, iters=200, plain_iters=20)
+        big = measure(torch, name, *vgg[name], iters=50, plain_iters=3,
+                      cold=True)
+        log(f"{name}: cnn {json.dumps(cnn)}")
+        log(f"{name}: vgg11 {json.dumps(big)}")
+        out.append({"name": name, "route": "cuda", "source": src,
+                    "replaces": replaces, "launches": main_launches[name],
+                    "max_abs_err": max(cnn["max_abs_err"],
+                                       big["max_abs_err"]),
+                    "ms": cnn["ms"], "plain_ms": cnn["plain_ms"],
+                    "bound_ms": cnn["bound_ms"],
+                    "bound_by": cnn["bound_by"], "library_ms": None,
+                    "device_ms": cnn["device_ms"],
+                    "launches_per_client_round":
+                        main_launches[name] / n_client_rounds,
+                    "at_vgg11": big})
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 4: the card against the CPU
+# ---------------------------------------------------------------------------
+
+
+def phase_card_vs_cpu(torch, np, seed):
+    from repro_torch.core import FedConfig, fed_init, make_fl_round
+    from repro_torch.models.vision import build_vision
+    from repro_torch.optim import AdamHyper
+
+    C = 4
+    params, _, loss_fn, _, _ = build_vision("cnn", width=1.0,
+                                            seed=seed + 1, device="cpu")
+    imgs, labels, n_train, parts = make_data(seed, C)
+    results = {}
+    for dev in ("cuda", "cpu"):
+        fed = FedConfig(algorithm="fedadam_ssm", alpha=0.05, local_epochs=3,
+                        n_clients=C, adam=AdamHyper(lr=1e-3),
+                        exact_topk=False, error_feedback=True,
+                        sparsify_backend="kernel")
+        p = {k: v.to(dev) for k, v in params.items()}
+        batch, w = round_batch(torch, imgs, labels, n_train, parts, 0, dev)
+        state, mets = make_fl_round(fed, loss_fn)(fed_init(fed, p), batch, w)
+        results[dev] = (state, mets)
+    (gs, gm), (cs, cm) = results["cuda"], results["cpu"]
+    require(float(gm["uplink_bits"]) == float(cm["uplink_bits"]),
+            "uplink bits differ between the card and the CPU")
+    # the CPU parity tests' tolerances: loss rtol 1e-5 (1e-4 here: cuDNN
+    # and the CPU sum the convolutions in other orders), W/M/V within
+    # rtol 1e-4 / atol 1e-5 * max except at most 0.2% of the elements,
+    # which sit on a segment's tau and may be kept on one side only
+    np.testing.assert_allclose(gm["loss"].cpu().numpy(),
+                               cm["loss"].numpy(), rtol=1e-4)
+    worst = 0.0
+    for name in "WMV":
+        for k, a in getattr(gs, name).items():
+            b = getattr(cs, name)[k].numpy()
+            bad = ~np.isclose(a.cpu().numpy(), b, rtol=1e-4,
+                              atol=1e-5 * float(np.abs(b).max()))
+            worst = max(worst, float(bad.mean()))
+            require(bad.mean() <= 2e-3, f"{name}[{k}]: {bad.sum()} of "
+                    f"{bad.size} elements differ beyond tolerance")
+    err_g, err_c = gs.client_state["comp"]["err"], cs.client_state["comp"]["err"]
+    support = max(float(np.mean((err_g[k].cpu().numpy() == 0)
+                                != (err_c[k].numpy() == 0))) for k in err_g)
+    require(support <= 2e-3, f"EF supports differ on {support:.2e}")
+    log(f"card vs CPU: loss {gm['loss'].cpu().numpy().tolist()} vs "
+        f"{cm['loss'].numpy().tolist()}; share of W/M/V elements beyond "
+        f"tolerance {worst:.2e}; EF support mismatch {support:.2e}")
+    return {"loss_cuda": gm["loss"].cpu().numpy().tolist(),
+            "loss_cpu": cm["loss"].numpy().tolist(),
+            "wmv_beyond_tolerance": worst, "support_mismatch": support}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    import numpy as np
+    import torch
+
+    t_start = time.perf_counter()
+    smi, build_s = phase_device_and_build(torch)
+    rounds, launches, captured, round_profile, payload_bytes = \
+        phase_main_path(torch, args.seed)
+    kernels = phase_kernels(torch, captured, launches, ROUNDS * CLIENTS,
+                            args.seed)
+    vs_cpu = phase_card_vs_cpu(torch, np, args.seed)
+
+    record = {"card": smi, "torch": torch.__version__,
+              "cuda": torch.version.cuda, "build_s": build_s,
+              "rounds": rounds, "card_payload_bytes": payload_bytes,
+              "round_profile": round_profile,
+              "kernels": kernels, "card_vs_cpu": vs_cpu,
+              "total_s": time.perf_counter() - t_start}
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
+    print(json.dumps({"kernels": kernels}))
+    print(smi_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,136 @@
+"""The ``Compressor`` protocol and registry (Section IV as an API).
+
+Counterpart of ``repro/core/compressors/base.py``:
+
+* ``Deltas``: the raw local update triple (trees of dW, dM, dV);
+* ``Packed``: the compressed triple as dense carriers, encoder-side
+  diagnostics (:data:`DIAG_KEYS`) and the wire payload;
+* ``Compressor``: ``init_state(params) -> state``,
+  ``compress(deltas, state) -> (packed, state, bits)``, ``unpack_wire``,
+  the accounting methods, and the declarative tags ``transport``,
+  ``local_update`` and ``server_update`` that ``core/fed.py`` dispatches
+  on.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch import tree as T
+
+_F32 = torch.float32
+
+#: Canonical diagnostic keys every compressor reports.
+DIAG_KEYS = ("err_w", "err_m", "err_v", "norm_dw", "norm_dm", "norm_dv")
+
+
+class Deltas(NamedTuple):
+    """The client's raw local update (Algorithm 2 step 3)."""
+    W: Any
+    M: Any
+    V: Any
+
+
+class Packed(NamedTuple):
+    """A compressed update triple: dense carriers, diagnostics (never
+    transported) and the :class:`~repro_torch.core.wire.WirePayload`."""
+    W: Any
+    M: Any
+    V: Any
+    diag: Dict[str, torch.Tensor]
+    wire: Any = None
+
+
+def tree_sub(a, b):
+    """Elementwise a - b in float32, cast back to the leaf dtype."""
+    return T.tree_map(lambda x, y: (x.to(_F32) - y.to(_F32)).to(x.dtype),
+                      a, b)
+
+
+def tree_add(a, b):
+    return T.tree_map(lambda x, y: (x.to(_F32) + y.to(_F32)).to(x.dtype),
+                      a, b)
+
+
+def tree_size(t) -> int:
+    return sum(x.numel() for x in T.leaves(t))
+
+
+class Compressor:
+    """Base class / protocol; see ``repro/core/compressors/base.py`` for
+    the full contract."""
+
+    name: str = "base"
+    transport: str = "dense"
+    local_update: str = "adam"
+    server_update: str = "wmv"
+    wire_layout: Optional[str] = None
+
+    def init_state(self, params) -> Optional[Any]:
+        """Per-client state for ONE client (``None``: stateless)."""
+        return None
+
+    def compress(self, deltas: Deltas, state) -> Tuple[Packed, Any, Any]:
+        raise NotImplementedError
+
+    def decompress(self, packed: Packed) -> Deltas:
+        return Deltas(packed.W, packed.M, packed.V)
+
+    def pack_wire(self, carriers: Deltas) -> Optional[Any]:
+        return None
+
+    def unpack_wire(self, wire, like) -> Deltas:
+        raise NotImplementedError(f"{self.name} has no wire realization")
+
+    def bits_per_client(self, d: int) -> int:
+        raise NotImplementedError
+
+    def wire_bits_per_client(self, sizes) -> Optional[int]:
+        return None
+
+
+# ---------------------------------------------------------------------------
+# Registry
+# ---------------------------------------------------------------------------
+
+_REGISTRY: Dict[str, Callable[..., Compressor]] = {}
+
+#: Algorithms the JAX package registers that the port does not have yet,
+#: with the ROADMAP item that brings each.
+NOT_PORTED = {
+    "fedadam_top": "ROADMAP §1.4 (IndependentTopKCompressor)",
+    "fedadam": "ROADMAP §1.8 (dense and quantized compressors)",
+    "fedsgd": "ROADMAP §1.8 (dense and quantized compressors)",
+    "onebit_adam": "ROADMAP §1.8 (dense and quantized compressors)",
+    "efficient_adam": "ROADMAP §1.8 (dense and quantized compressors)",
+}
+
+
+def register(name: str):
+    """Decorator: register ``factory(fed_config) -> Compressor``."""
+    def deco(factory):
+        _REGISTRY[name] = factory
+        return factory
+    return deco
+
+
+def available() -> Tuple[str, ...]:
+    """Registered algorithm names, in registration order."""
+    return tuple(_REGISTRY)
+
+
+def check_algorithm(name: str) -> None:
+    if name in _REGISTRY:
+        return
+    if name in NOT_PORTED:
+        raise NotImplementedError(
+            f"algorithm {name!r} is not ported yet: {NOT_PORTED[name]}")
+    raise KeyError(f"no compressor registered for {name!r}; "
+                   f"known: {sorted(_REGISTRY)}")
+
+
+def make_compressor(fed) -> Compressor:
+    """Build the compressor for ``fed.algorithm`` from its config."""
+    check_algorithm(fed.algorithm)
+    return _REGISTRY[fed.algorithm](fed)

@@ -1,0 +1,162 @@
+"""Shared-mask top-k compressors: FedAdam-SSM and its mask-rule baselines.
+
+Counterpart of ``repro/core/compressors/topk.py`` (``_TopKBase`` and
+``SharedTopKCompressor``; the independent-mask FedAdam-Top compressor is
+ROADMAP §1.4).  ONE boolean mask (rule ``ssm_w``: Top_k(|dW|), Eq. 28) is
+applied to all three deltas, with an optional error-feedback residual on
+dW carried across rounds.
+
+Hot path: with threshold masks (``exact_topk=False``) and the kernel
+backend (auto for CUDA tensors), ``compress`` runs the packed pipeline of
+``core/sparsify.tree_shared_compress_packed`` and the wire payload packs
+its bitmap with the ``wirepack`` kernel.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from repro_torch import tree as T
+from repro_torch.core import comm, masks, wire
+from repro_torch.core import sparsify as S
+from repro_torch.core.compressors.base import (
+    Compressor, Deltas, Packed, register, tree_add, tree_size, tree_sub)
+
+_VALUE_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16}
+
+
+def _cast_values(value_dtype, tree):
+    """Beyond-paper low-precision value transport (cast + cast back)."""
+    if value_dtype is None:
+        return tree
+    dt = _VALUE_DTYPES[value_dtype]
+    return T.tree_map(lambda x: x.to(dt).to(x.dtype), tree)
+
+
+@dataclasses.dataclass(frozen=True)
+class _TopKBase(Compressor):
+    alpha: float = 0.05
+    mask_scope: str = "per_tensor"        # per_tensor | global
+    exact_topk: bool = True
+    error_feedback: bool = False
+    value_dtype: Optional[str] = None
+    q_bits: int = 32
+    sparsify_backend: str = "auto"        # auto | kernel | reference
+
+    def init_state(self, params):
+        if not self.error_feedback:
+            return None
+        return {"err": T.tree_map(torch.zeros_like, params)}
+
+    def _masks(self, dW, dM, dV):
+        raise NotImplementedError
+
+    def _kernel_path(self, device=None) -> bool:
+        return (not self.exact_topk) and \
+            S.use_kernel_path(self.sparsify_backend, device)
+
+    def _fused_compress(self, dW, dM, dV, with_residual):
+        return None
+
+    def _wire_ok(self) -> bool:
+        # wire value streams ship as float32: exact only at q = 32
+        return self.q_bits == wire.VALUE_BITS
+
+    def _mask_capacity(self, sizes) -> int:
+        return wire.mask_value_capacity(sizes, self.alpha,
+                                        self.mask_scope, self.exact_topk)
+
+    def _pack_wire(self, sW, sM, sV, sizes):
+        raise NotImplementedError
+
+    def compress(self, deltas: Deltas, state):
+        dW, dM, dV = deltas
+        if state is not None:
+            dW = tree_add(dW, state["err"])
+        device = T.leaves(dW)[0].device
+        fused = self._fused_compress(dW, dM, dV, state is not None) \
+            if self._kernel_path(device) else None
+        if fused is not None:
+            sW, sM, sV, err, m = fused
+            mW = mM = mV = m
+            new_state = {"err": err} if state is not None else None
+        else:
+            mW, mM, mV = self._masks(dW, dM, dV)
+            sW = _cast_values(self.value_dtype, S.tree_sparsify(dW, mW))
+            sM = _cast_values(self.value_dtype, S.tree_sparsify(dM, mM))
+            sV = _cast_values(self.value_dtype, S.tree_sparsify(dV, mV))
+            new_state = {"err": tree_sub(dW, sW)} \
+                if state is not None else None
+        diag = {
+            "err_w": S.tree_sparsity_error(dW, mW),
+            "err_m": S.tree_sparsity_error(dM, mM),
+            "err_v": S.tree_sparsity_error(dV, mV),
+            "norm_dw": S.tree_norm(dW),
+            "norm_dm": S.tree_norm(dM),
+            "norm_dv": S.tree_norm(dV),
+        }
+        packed = Packed(sW, sM, sV, diag, self.pack_wire(Deltas(sW, sM, sV)))
+        return packed, new_state, self.bits_per_client(tree_size(deltas.W))
+
+    def pack_wire(self, carriers: Deltas):
+        if not self._wire_ok():
+            return None
+        sizes = tuple(x.numel() for x in T.leaves(carriers.W))
+        return self._pack_wire(carriers.W, carriers.M, carriers.V, sizes)
+
+
+@dataclasses.dataclass(frozen=True)
+class SharedTopKCompressor(_TopKBase):
+    """One shared mask for all three tensors (FedAdam-SSM family)."""
+
+    name: str = "fedadam_ssm"
+    rule: str = "ssm_w"                   # ssm_w | ssm_m | ssm_v | fairness_top
+
+    transport = "shared_sparse"
+    wire_layout = "mask_shared"
+
+    def _masks(self, dW, dM, dV):
+        m = masks.shared_mask(self.rule, dW, dM, dV, self.alpha,
+                              self.mask_scope, self.exact_topk,
+                              backend=self.sparsify_backend)
+        return m, m, m
+
+    def _fused_compress(self, dW, dM, dV, with_residual):
+        score = masks.shared_score_tree(self.rule, dW, dM, dV)
+        return S.tree_shared_compress_fused(
+            score, dW, dM, dV, self.alpha, self.mask_scope,
+            value_dtype=self.value_dtype, with_residual=with_residual)
+
+    def _pack_wire(self, sW, sM, sV, sizes):
+        return wire.pack_shared_mask(sW, sM, sV, self._mask_capacity(sizes))
+
+    def unpack_wire(self, payload, like) -> Deltas:
+        return Deltas(*wire.unpack_shared_mask(payload, like))
+
+    def bits_per_client(self, d: int) -> int:
+        return comm.bits_fedadam_ssm(d, S.k_for(d, self.alpha), 1,
+                                     self.q_bits)
+
+    def wire_bits_per_client(self, sizes):
+        if not self._wire_ok():
+            return None
+        return wire.mask_wire_bits(sizes, self.alpha, self.mask_scope,
+                                   self.exact_topk, shared=True)
+
+
+def _shared_factory(rule):
+    def factory(fed) -> SharedTopKCompressor:
+        return SharedTopKCompressor(
+            name=fed.algorithm, rule=rule, alpha=fed.alpha,
+            mask_scope=fed.mask_scope, exact_topk=fed.exact_topk,
+            error_feedback=fed.error_feedback, value_dtype=fed.value_dtype,
+            q_bits=fed.q_bits, sparsify_backend=fed.sparsify_backend)
+    return factory
+
+
+register("fedadam_ssm")(_shared_factory("ssm_w"))
+register("ssm_m")(_shared_factory("ssm_m"))
+register("ssm_v")(_shared_factory("ssm_v"))
+register("fairness_top")(_shared_factory("fairness_top"))

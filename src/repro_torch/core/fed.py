@@ -1,0 +1,244 @@
+"""FedAdam-SSM and its baselines: Algorithms 1 and 2 of the paper.
+
+Counterpart of ``repro/core/fed.py`` with the scan driver.  One round:
+
+1. every client starts from the global (W, M, V);
+2. L local Adam epochs (no bias correction) on the client's batch;
+3. the deltas dW, dM, dV;
+4. the round's compressor encodes them (FedAdam-SSM: one shared mask,
+   Top_k(|dW|)), carrying any per-client error-feedback residual, and
+   the server sees what its wire payload decodes to;
+5. FedAvg over the decoded deltas in client order, then the compressor's
+   ``server_update`` rule advances the globals.
+
+The JAX ``lax.scan`` over clients is a Python loop here, and per-client
+state is stacked ``(C, ...)`` tensors.  Parameters are trees of tensors
+(dicts, flattened in sorted key order); ``loss_fn(params, batch)``
+returns a scalar tensor and gradients come from ``torch.autograd``.
+What the port does not have yet raises ``NotImplementedError`` naming its
+ROADMAP item.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, NamedTuple, Optional
+
+import torch
+
+from repro_torch import tree as T
+from repro_torch.core import compressors
+from repro_torch.core.compressors import Deltas
+from repro_torch.core.compressors.base import tree_add as _tree_add
+from repro_torch.core.compressors.base import tree_sub as _tree_sub
+from repro_torch.optim.adam import AdamHyper, AdamState, adam_step
+
+_F32 = torch.float32
+
+
+@dataclasses.dataclass(frozen=True)
+class FedConfig:
+    algorithm: str = "fedadam_ssm"
+    alpha: float = 0.05                   # sparsification ratio k/d
+    local_epochs: int = 30
+    n_clients: int = 20
+    adam: AdamHyper = AdamHyper()
+    mask_scope: str = "per_tensor"        # per_tensor | global
+    exact_topk: bool = True               # exact sort vs threshold selection
+    # auto | kernel | reference (core/sparsify.resolve_backend: auto sends
+    # CUDA tensors to the kernels; REPRO_TORCH_SPARSIFY_BACKEND overrides)
+    sparsify_backend: str = "auto"
+    error_feedback: bool = False
+    q_bits: int = 32                      # accounting float precision
+    client_mode: str = "scan"             # only scan is ported
+    use_kernel_adam: bool = False         # fused_adam kernel: not ported yet
+    value_dtype: Optional[str] = None     # None | bfloat16 | float16
+    participation: float = 1.0
+
+    def __post_init__(self):
+        compressors.check_algorithm(self.algorithm)
+
+
+def active_client_count(fed: FedConfig) -> int:
+    """Clients sampled per round: ``round(participation * n_clients)``,
+    never below one (Python's banker's rounding, as in the JAX package)."""
+    return max(1, int(round(fed.participation * fed.n_clients)))
+
+
+class FedState(NamedTuple):
+    W: Any                                # global model
+    M: Any                                # global first moments
+    V: Any                                # global second moments
+    round: int
+    client_state: Any                     # {"comp": (C, ...) EF state} or None
+
+
+def fed_init(fed: FedConfig, params) -> FedState:
+    comp = compressors.make_compressor(fed)
+    C = fed.n_clients
+    parts = {}
+    cs1 = comp.init_state(params)
+    if cs1 is not None:
+        parts["comp"] = T.tree_map(lambda x: torch.stack([x] * C), cs1)
+    zeros = lambda: T.tree_map(torch.zeros_like, params)
+    return FedState(W=params, M=zeros(), V=zeros(), round=0,
+                    client_state=parts or None)
+
+
+def _check_ported(fed: FedConfig) -> None:
+    if fed.client_mode != "scan":
+        raise NotImplementedError(
+            f"client_mode={fed.client_mode!r} is not ported yet: ROADMAP "
+            "§1.9 (round_vmap) and §1.10 (multi-GPU driver)")
+    if fed.participation < 1.0:
+        raise NotImplementedError(
+            "participation < 1 (client sampling) is not ported yet: "
+            "ROADMAP §1.6 (participation)")
+    if fed.use_kernel_adam:
+        raise NotImplementedError(
+            "use_kernel_adam needs the fused_adam kernel: ROADMAP §2 row 5")
+
+
+# ---------------------------------------------------------------------------
+# Local training
+# ---------------------------------------------------------------------------
+
+
+def _value_and_grad(loss_fn, params, batch):
+    leaves, td = T.flatten(params)
+    req = [x.detach().requires_grad_(True) for x in leaves]
+    with torch.enable_grad():
+        loss = loss_fn(td.unflatten(req), batch)
+        grads = torch.autograd.grad(loss, req, allow_unused=True)
+    grads = [torch.zeros_like(x) if g is None else g
+             for x, g in zip(leaves, grads)]
+    return loss.detach(), td.unflatten(grads)
+
+
+def _local_adam(loss_fn, W, M, V, batch, fed: FedConfig):
+    """L local Adam epochs from the downloaded global state."""
+    w, st = W, AdamState(M, V, 0)
+    losses = []
+    for _ in range(fed.local_epochs):
+        loss, g = _value_and_grad(loss_fn, w, batch)
+        w, st = adam_step(w, g, st, fed.adam, use_kernel=fed.use_kernel_adam)
+        losses.append(loss)
+    return w, st.m, st.v, torch.stack(losses).mean()
+
+
+# ---------------------------------------------------------------------------
+# The round
+# ---------------------------------------------------------------------------
+
+
+def make_client_step(fed: FedConfig, loss_fn: Callable,
+                     comp: Optional[compressors.Compressor] = None):
+    """ONE client's round: local epochs + compression.
+
+    ``client_step(W, M, V, batch, cstate) -> (sW, sM, sV, new_cstate,
+    metrics)``; the carriers are the ones the wire payload decodes to."""
+    if comp is None:
+        comp = compressors.make_compressor(fed)
+
+    def client_step(W, M, V, batch, cstate):
+        comp_state = cstate.get("comp") if cstate is not None else None
+        w, m, v, loss = _local_adam(loss_fn, W, M, V, batch, fed)
+        deltas = Deltas(_tree_sub(w, W), _tree_sub(m, M), _tree_sub(v, V))
+        packed, new_comp_state, _bits = comp.compress(deltas, comp_state)
+        new_cstate = None
+        if cstate is not None:
+            new_cstate = dict(cstate)
+            if "comp" in cstate:
+                new_cstate["comp"] = new_comp_state
+        mets = dict(packed.diag, loss=loss)
+        if packed.wire is not None and comp.transport != "dense":
+            sW, sM, sV = comp.unpack_wire(packed.wire, deltas.W)
+        else:
+            sW, sM, sV = comp.decompress(packed)
+        return sW, sM, sV, new_cstate, mets
+
+    return client_step
+
+
+def make_server_apply(fed: FedConfig,
+                      comp: Optional[compressors.Compressor] = None):
+    """The server tail of a round: FedAvg mean + the compressor's
+    ``server_update`` rule.  ``server_apply(W, M, V, aW, aM, aV, wsum)``
+    takes weighted SUMS and their weight total."""
+    if comp is None:
+        comp = compressors.make_compressor(fed)
+    h = fed.adam
+
+    def server_apply(W, M, V, aW, aM, aV, wsum):
+        mean = lambda t: T.tree_map(lambda x: x / wsum, t)
+        aW, aM, aV = mean(aW), mean(aM), mean(aV)
+        if comp.server_update == "precond_m":
+            M_new = _tree_add(M, aM)
+            W_new = T.tree_map(
+                lambda w, mm, vv: (w.to(_F32) - h.lr * mm.to(_F32)
+                                   / torch.sqrt(vv.to(_F32) + h.eps)
+                                   ).to(w.dtype), W, M_new, V)
+            return W_new, M_new, V
+        if comp.server_update == "w_only":
+            return _tree_add(W, aW), M, V
+        return _tree_add(W, aW), _tree_add(M, aM), _tree_add(V, aV)
+
+    return server_apply
+
+
+def make_fl_round(fed: FedConfig, loss_fn: Callable):
+    """Build ``round_fn(state, batches, weights=None) -> (state, metrics)``.
+
+    ``batches``: a tree whose leaves have leading dims (C, [L,] ...), on
+    the device of the parameters.  ``weights``: optional (C,) FedAvg
+    weights |D_n| (uniform by default)."""
+    _check_ported(fed)
+    comp = compressors.make_compressor(fed)
+    n_active = active_client_count(fed)
+    client_step = make_client_step(fed, loss_fn, comp)
+    server_apply = make_server_apply(fed, comp)
+
+    def round_scan(state: FedState, batches, weights):
+        W, M, V = state.W, state.M, state.V
+        zero = lambda: T.tree_map(lambda x: torch.zeros(
+            x.shape, dtype=_F32, device=x.device), W)
+        aW, aM, aV = zero(), zero(), zero()
+        wsum = torch.zeros((), dtype=_F32, device=weights.device)
+        cs = state.client_state
+        new_cs, mets = [], []
+        for c in range(fed.n_clients):
+            batch = T.tree_map(lambda x: x[c], batches)
+            cstate = None if cs is None else T.tree_map(lambda x: x[c], cs)
+            wgt = weights[c]
+            sW, sM, sV, ncs, m = client_step(W, M, V, batch, cstate)
+            add = lambda a, s: T.tree_map(
+                lambda x, y: x + wgt * y.to(_F32), a, s)
+            aW, aM, aV = add(aW, sW), add(aM, sM), add(aV, sV)
+            wsum = wsum + wgt
+            new_cs.append(ncs)
+            mets.append(m)
+        stack = lambda items: T.tree_map(lambda *xs: torch.stack(xs),
+                                         *items)
+        return (aW, aM, aV), wsum, \
+            (None if cs is None else stack(new_cs)), stack(mets)
+
+    def round_fn(state: FedState, batches, weights=None):
+        device = T.leaves(state.W)[0].device
+        if weights is None:
+            weights = torch.ones((fed.n_clients,), dtype=_F32, device=device)
+        (aW, aM, aV), wsum, new_cs, mets = round_scan(state, batches,
+                                                      weights)
+        W_new, M_new, V_new = server_apply(state.W, state.M, state.V,
+                                           aW, aM, aV, wsum)
+        # uplink accounting: the measured wire bytes when the compressor
+        # ships a payload, else the paper-analytic count
+        sizes = tuple(x.numel() for x in T.leaves(state.W))
+        per_client = comp.wire_bits_per_client(sizes)
+        if per_client is None:
+            per_client = comp.bits_per_client(sum(sizes))
+        mets = dict(mets)
+        mets["uplink_bits"] = torch.full((), float(n_active * per_client),
+                                         dtype=_F32, device=device)
+        return FedState(W=W_new, M=M_new, V=V_new, round=state.round + 1,
+                        client_state=new_cs), mets
+
+    return round_fn

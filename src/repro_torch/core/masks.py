@@ -1,0 +1,51 @@
+"""Shared-sparse-mask (SSM) rules, Section V of the paper.
+
+Counterpart of ``repro/core/masks.py``.  One boolean mask for all three
+local updates (dW, dM, dV):
+
+* ``ssm_w``: Top_k(|dW|), the paper's optimal rule (Eq. 28);
+* ``ssm_m`` / ``ssm_v``: from |dM| / |dV| (baselines);
+* ``fairness_top``: from the elementwise max of the three
+  magnitude-normalized tensors.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import sparsify as S
+from repro_torch import tree as T
+
+_F32 = torch.float32
+
+SHARED_RULES = ("ssm_w", "ssm_m", "ssm_v", "fairness_top")
+
+
+def shared_score_tree(rule: str, dW, dM, dV):
+    """Score tensors whose |.| the shared mask thresholds; ``None`` for
+    ``ssm_w``, whose score is dW itself (the packed apply then reads the
+    dW stream it already streams instead of a separate score)."""
+    if rule == "ssm_w":
+        return None
+    if rule == "ssm_m":
+        return dM
+    if rule == "ssm_v":
+        return dV
+    if rule == "fairness_top":
+        def norm(x):
+            n = torch.sqrt((x.to(_F32) ** 2).sum()) + 1e-30
+            return x.to(_F32).abs() / n
+
+        return T.tree_map(
+            lambda w, m, v: torch.maximum(norm(w),
+                                          torch.maximum(norm(m), norm(v))),
+            dW, dM, dV)
+    raise ValueError(f"unknown shared mask rule {rule!r}")
+
+
+def shared_mask(rule: str, dW, dM, dV, alpha: float,
+                scope: str = "per_tensor", exact: bool = True,
+                backend=None):
+    score = shared_score_tree(rule, dW, dM, dV)
+    score = T.tree_map(torch.abs, dW if score is None else score)
+    return S.tree_topk_masks(score, alpha, scope=scope, exact=exact,
+                             backend=backend)

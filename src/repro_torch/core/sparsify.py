@@ -1,0 +1,361 @@
+"""Top-k sparsification primitives (Definitions 1 and 2 of the paper).
+
+Counterpart of ``repro/core/sparsify.py``.  Two mask constructions:
+
+* ``topk_mask_exact``: the exact top-k indices (``torch.topk``; the order
+  in which ties are broken is not checked against ``lax.top_k``);
+* ``topk_mask_threshold``: ``|x| >= tau`` with tau found by bisection, the
+  plain reference of the threshold path.
+
+Backend dispatch
+----------------
+:func:`resolve_backend` follows ``repro/core/sparsify.py:resolve_backend``:
+config override, then the ``REPRO_TORCH_SPARSIFY_BACKEND`` environment
+variable, then ``auto``, which picks ``kernel`` for CUDA tensors and
+``reference`` for anything else.  ``kernel`` runs the PACKED pipeline
+(:func:`tree_shared_compress_packed`): every leaf rides one (R, 128)
+buffer and the whole cohort costs three launches on the card (histogram,
+refine count, pick/apply).  On CPU tensors the same pipeline runs through
+the kernels' plain versions, which is what the CPU tests hold against the
+JAX package's kernel backend.  The per-leaf fused path (mixed dtypes,
+``packed=False``) needs kernels 6-10 and raises (ROADMAP §2).
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+import os
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch import tree as T
+from repro_torch.kernels.packed_topk.ops import (
+    BLOCK_ELEMS as PACK_BLOCK_ELEMS, LANES as PACK_LANES, packed_apply,
+    packed_hist)
+from repro_torch.kernels.packed_topk.ref import refine_taus
+from repro_torch.kernels.topk_mask.ref import log2_taus
+
+_F32 = torch.float32
+
+#: Environment override for the port's sparsifier backend.  Its own name,
+#: so that setting the JAX package's variable never flips the port.
+SPARSIFY_BACKEND_ENV = "REPRO_TORCH_SPARSIFY_BACKEND"
+
+_BACKENDS = ("auto", "kernel", "reference")
+
+
+def resolve_backend(override: Optional[str] = None,
+                    device: Optional[torch.device] = None) -> str:
+    """``kernel`` | ``reference``.  Priority: explicit non-auto
+    ``override`` > ``REPRO_TORCH_SPARSIFY_BACKEND`` > auto (CUDA ->
+    kernel, anything else -> reference)."""
+    choice = (override or "auto").lower()
+    if choice == "auto":
+        choice = os.environ.get(SPARSIFY_BACKEND_ENV, "auto").lower()
+    if choice not in _BACKENDS:
+        raise ValueError(f"sparsify backend {choice!r} not in {_BACKENDS}")
+    if choice == "auto":
+        dev = torch.device(device) if device is not None else None
+        return "kernel" if dev is not None and dev.type == "cuda" \
+            else "reference"
+    return choice
+
+
+def use_kernel_path(override: Optional[str] = None,
+                    device: Optional[torch.device] = None) -> bool:
+    return resolve_backend(override, device) == "kernel"
+
+
+def k_for(n: int, alpha: float) -> int:
+    """Number of kept elements for a tensor of n elements (>= 1)."""
+    return max(1, int(round(alpha * n)))
+
+
+#: Leaves above BLOCK elements take exact top-k per BLOCK-sized tile.
+BLOCK = 1 << 20
+
+
+def blocked_topk_mask(x: torch.Tensor, alpha: float,
+                      block: int = BLOCK) -> torch.Tensor:
+    """Exact top-k within each BLOCK-sized tile of flat x."""
+    flat = x.reshape(-1)
+    n = flat.numel()
+    nb = -(-n // block)
+    a = torch.nn.functional.pad(flat, (0, nb * block - n)).abs() \
+        .reshape(nb, block)
+    idx = torch.topk(a, k_for(block, alpha), dim=1).indices
+    mask = torch.zeros((nb, block), dtype=torch.bool, device=x.device)
+    mask.scatter_(1, idx, True)
+    return mask.reshape(-1)[:n].reshape(x.shape)
+
+
+def topk_mask_exact(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Boolean mask of the k largest-|.| elements of x."""
+    flat = x.reshape(-1).abs()
+    mask = torch.zeros(flat.shape, dtype=torch.bool, device=x.device)
+    mask[torch.topk(flat, k).indices] = True
+    return mask.reshape(x.shape)
+
+
+def topk_mask_threshold(x: torch.Tensor, k: int,
+                        iters: int = 24) -> torch.Tensor:
+    """Bisection threshold mask (ties may push the count above k): tau in
+    [0, max|x|] with count(|x| >= tau) ~ k."""
+    a = x.abs().to(_F32)
+    hi = a.max()
+    lo = torch.zeros((), dtype=_F32, device=x.device)
+    kf = torch.full((), float(k), dtype=_F32, device=x.device)
+    for _ in range(iters):
+        mid = 0.5 * (lo + hi)
+        more = (a >= mid).to(_F32).sum() > kf
+        lo, hi = torch.where(more, mid, lo), torch.where(more, hi, mid)
+    tau = torch.where((a >= lo).to(_F32).sum() >= kf, lo, hi)
+    return a >= tau
+
+
+def sparsify(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Top_k(x) = x . mask (Definition 1)."""
+    return torch.where(mask, x, torch.zeros((), dtype=x.dtype,
+                                            device=x.device))
+
+
+# ---------------------------------------------------------------------------
+# Tree-level helpers
+# ---------------------------------------------------------------------------
+
+
+def _unravel_bool(mask_flat, like_tree):
+    leaves, td = T.flatten(like_tree)
+    out, off = [], 0
+    for leaf in leaves:
+        n = leaf.numel()
+        out.append(mask_flat[off:off + n].reshape(leaf.shape))
+        off += n
+    return td.unflatten(out)
+
+
+def tree_topk_masks(score_tree, alpha: float, scope: str = "per_tensor",
+                    exact: bool = True, backend: Optional[str] = None):
+    """Boolean mask tree keeping ~alpha of the elements of score_tree by
+    magnitude, per tensor or over the whole flattened model."""
+    def mk(s, k):
+        if not exact:
+            if use_kernel_path(backend, s.device):
+                raise NotImplementedError(
+                    "per-leaf threshold kernels (absmax_2d, count_ge_2d, "
+                    "apply_mask_2d) are not ported yet: ROADMAP §2 rows 6-8")
+            return topk_mask_threshold(s, k)
+        if s.numel() > BLOCK:
+            return blocked_topk_mask(s, alpha)
+        return topk_mask_exact(s, k)
+
+    if scope == "per_tensor":
+        return T.tree_map(lambda s: mk(s, k_for(s.numel(), alpha)),
+                          score_tree)
+    flat = torch.cat([x.reshape(-1) for x in T.leaves(score_tree)])
+    return _unravel_bool(mk(flat, k_for(flat.numel(), alpha)), score_tree)
+
+
+def tree_sparsify(tree, masks):
+    return T.tree_map(sparsify, tree, masks)
+
+
+def tree_sparsity_error(tree, masks):
+    """|| (1 - mask) . x ||_2 over the whole tree (Theorem 1 terms)."""
+    sq = T.tree_map(
+        lambda x, m: (torch.where(m, 0.0, x.to(_F32)) ** 2).sum(), tree,
+        masks)
+    return torch.sqrt(sum(T.leaves(sq)))
+
+
+def tree_norm(tree):
+    sq = T.tree_map(lambda x: (x.to(_F32) ** 2).sum(), tree)
+    return torch.sqrt(sum(T.leaves(sq)))
+
+
+# ---------------------------------------------------------------------------
+# Packed cohort layout: every leaf through ONE buffer
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=64)
+def _device_constants(padded: tuple, seg_of_leaf: tuple, seg_sizes: tuple,
+                      alpha: Optional[float], device: torch.device):
+    """seg_ids, and ks/ns for ``alpha``, built once per layout and device
+    (a fresh host-to-device copy per client would sync the stream)."""
+    seg_ids = torch.from_numpy(np.concatenate(
+        [np.full(p // PACK_BLOCK_ELEMS, g, np.int32)
+         for p, g in zip(padded, seg_of_leaf)])).to(device)
+    if alpha is None:
+        return seg_ids
+    ks = torch.tensor([float(k_for(n, alpha)) for n in seg_sizes],
+                      dtype=_F32, device=device)
+    ns = torch.tensor([float(n) for n in seg_sizes], dtype=_F32,
+                      device=device)
+    return ks, ns
+
+
+@dataclasses.dataclass(frozen=True)
+class PackedLayout:
+    """Static descriptor of a multi-leaf packed buffer.
+
+    Every leaf is flattened and zero-padded to a multiple of one (8, 128)
+    block (1024 elements); the leaves are concatenated into one (R, 128)
+    buffer.  ``seg_of_leaf`` maps each leaf to its tau segment;
+    ``seg_ids`` maps each block to its segment."""
+
+    shapes: tuple
+    sizes: tuple
+    padded: tuple
+    offsets: tuple
+    seg_of_leaf: tuple
+    num_segments: int
+    seg_sizes: tuple
+    device: torch.device = dataclasses.field(compare=False)
+
+    @property
+    def num_leaves(self) -> int:
+        return len(self.sizes)
+
+    @property
+    def total(self) -> int:
+        return sum(self.padded)
+
+    @property
+    def num_blocks(self) -> int:
+        return self.total // PACK_BLOCK_ELEMS
+
+    @property
+    def seg_ids(self) -> torch.Tensor:
+        return _device_constants(self.padded, self.seg_of_leaf,
+                                 self.seg_sizes, None, self.device)
+
+    def ks_ns(self, alpha: float):
+        """(L,) float32 kept counts and true element counts per segment."""
+        return _device_constants(self.padded, self.seg_of_leaf,
+                                 self.seg_sizes, float(alpha), self.device)
+
+    def pack(self, leaves: Sequence[torch.Tensor]) -> torch.Tensor:
+        """Flatten + pad + concatenate into the (R, 128) buffer."""
+        dtype = leaves[0].dtype
+        buf = torch.zeros((self.total,), dtype=dtype, device=self.device)
+        for leaf, off, n in zip(leaves, self.offsets, self.sizes):
+            buf[off:off + n] = leaf.reshape(-1).to(dtype)
+        return buf.reshape(-1, PACK_LANES)
+
+    def unpack(self, buf: torch.Tensor) -> list:
+        """Shape-only inverse of :meth:`pack` (padding discarded)."""
+        flat = buf.reshape(-1)
+        return [flat[off:off + n].reshape(shape) for off, n, shape
+                in zip(self.offsets, self.sizes, self.shapes)]
+
+
+def plan_packed_layout(leaves, groups: Optional[Sequence[int]] = None
+                       ) -> PackedLayout:
+    """The :class:`PackedLayout` of a list of leaves.  ``groups`` assigns
+    each leaf to a tau segment (default: one segment per leaf)."""
+    shapes = tuple(tuple(leaf.shape) for leaf in leaves)
+    sizes = tuple(int(leaf.numel()) for leaf in leaves)
+    padded = tuple(-(-n // PACK_BLOCK_ELEMS) * PACK_BLOCK_ELEMS
+                   for n in sizes)
+    offsets, off = [], 0
+    for p in padded:
+        offsets.append(off)
+        off += p
+    if groups is None:
+        groups = range(len(sizes))
+    seg_of_leaf = tuple(int(g) for g in groups)
+    num_segments = max(seg_of_leaf) + 1
+    seg_sizes = [0] * num_segments
+    for n, g in zip(sizes, seg_of_leaf):
+        seg_sizes[g] += n
+    return PackedLayout(shapes=shapes, sizes=sizes, padded=padded,
+                        offsets=tuple(offsets), seg_of_leaf=seg_of_leaf,
+                        num_segments=num_segments,
+                        seg_sizes=tuple(seg_sizes),
+                        device=leaves[0].device)
+
+
+def _segment_absmax(layout: PackedLayout, score_leaves) -> torch.Tensor:
+    """(L,) float32 max|x| per segment (max is exact, so the reduce over a
+    segment's leaves equals the raveled max)."""
+    out = [None] * layout.num_segments
+    for leaf, g in zip(score_leaves, layout.seg_of_leaf):
+        am = leaf.to(_F32).abs().max()
+        out[g] = am if out[g] is None else torch.maximum(out[g], am)
+    return torch.stack(out)
+
+
+def _packed_select_inputs(layout: PackedLayout, score_leaves, score_p,
+                          alpha: float):
+    """Launch 1 (histogram) + the refine candidates.  Returns the apply
+    operands (taus2, ks, ns)."""
+    ks, ns = layout.ks_ns(alpha)
+    absmax = _segment_absmax(layout, score_leaves)
+    edges = log2_taus(absmax)
+    c1 = packed_hist(score_p, layout.seg_ids, edges)
+    return refine_taus(c1, edges, absmax, ks), ks, ns
+
+
+def _leaf_masks(layout: PackedLayout, score_leaves, taus):
+    """Boolean masks per leaf, recomputed from tau (diagnostics only)."""
+    return [leaf.to(_F32).abs() >= taus[g]
+            for leaf, g in zip(score_leaves, layout.seg_of_leaf)]
+
+
+def _uniform_dtype(*trees) -> bool:
+    return len({leaf.dtype for t in trees if t is not None
+                for leaf in T.leaves(t)}) == 1
+
+
+def tree_shared_compress_packed(score_tree, dW, dM, dV, alpha: float,
+                                scope: str = "per_tensor", *,
+                                value_dtype=None,
+                                with_residual: bool = False):
+    """Packed shared-mask compress: every leaf of (score, dW, dM, dV) rides
+    one buffer; the segmented histogram, the refine candidates and the
+    fused count/pick/apply give the masked triple, the optional
+    ``value_dtype`` round-trip and the EF residual.  Returns
+    ``(sW, sM, sV, err_tree | None, mask_tree)``."""
+    w_leaves, td = T.flatten(dW)
+    m_leaves = T.leaves(dM)
+    v_leaves = T.leaves(dV)
+    s_leaves = None if score_tree is None else T.leaves(score_tree)
+    groups = None if scope == "per_tensor" else [0] * len(w_leaves)
+    layout = plan_packed_layout(w_leaves, groups)
+
+    wp = layout.pack(w_leaves)
+    mp = layout.pack(m_leaves)
+    vp = layout.pack(v_leaves)
+    sp = None if s_leaves is None else layout.pack(s_leaves)
+    score_leaves = w_leaves if s_leaves is None else s_leaves
+
+    taus2, ks, ns = _packed_select_inputs(
+        layout, score_leaves, wp if sp is None else sp, alpha)
+    outs = packed_apply(taus2, layout.seg_ids, ks, ns, (wp, mp, vp), sp,
+                        with_residual=with_residual, value_dtype=value_dtype)
+    taus = outs[-2][:, 0]
+    unflat = lambda buf: td.unflatten(layout.unpack(buf))
+    err_tree = unflat(outs[3]) if with_residual else None
+    mask_tree = td.unflatten(_leaf_masks(layout, score_leaves, taus))
+    return unflat(outs[0]), unflat(outs[1]), unflat(outs[2]), err_tree, \
+        mask_tree
+
+
+def tree_shared_compress_fused(score_tree, dW, dM, dV, alpha: float,
+                               scope: str = "per_tensor", *,
+                               value_dtype=None,
+                               with_residual: bool = False,
+                               packed: bool = True):
+    """Kernel-path shared-mask compress.  Uniform-dtype cohorts take the
+    packed path; the per-leaf loop (mixed dtypes, ``packed=False``) needs
+    the per-leaf kernels and raises until they are ported."""
+    if packed and _uniform_dtype(score_tree, dW, dM, dV):
+        return tree_shared_compress_packed(
+            score_tree, dW, dM, dV, alpha, scope,
+            value_dtype=value_dtype, with_residual=with_residual)
+    raise NotImplementedError(
+        "the per-leaf fused compress (topk_mask + ssm_apply_ef kernels) is "
+        "not ported yet: ROADMAP §2 rows 6-10")

@@ -1,0 +1,213 @@
+"""The uplink wire format: what a client's payload actually ships.
+
+Counterpart of ``repro/core/wire.py`` (the static layout math and the
+shared-mask codec; the other codecs are ROADMAP §1.5 and §1.8).  A
+:class:`WirePayload` holds the transported arrays, uint32 bit-packed
+words plus float32 value streams, and :func:`payload_nbytes` is measured
+from them, so ``uplink_bits == 8 * nbytes`` holds by construction.
+
+``mask_shared`` (FedAdam-SSM): ONE support bitmap (1 bit per aligned
+parameter slot, packed by the ``wirepack`` kernel at b=1) and three
+compacted float32 value streams of static capacity.  Every leaf is
+zero-padded to 1024 elements and the buffer to 4096 (the (32, 128) row
+group of the word packer).  The words and values are byte-identical to
+the JAX package's for the same carriers.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Sequence, Tuple
+
+import torch
+
+from repro_torch.core import sparsify as S
+from repro_torch import tree as T
+from repro_torch.kernels.topk_mask.ref import overselect_bound
+from repro_torch.kernels.wirepack.ops import (
+    CODE_SUBLANES, LANES, pack_mask_bits, unpack_mask_bits)
+
+_F32 = torch.float32
+
+#: Elements per float32 scale block == the packed layout's padding quantum.
+SCALE_BLOCK = 1024
+assert SCALE_BLOCK == S.PACK_BLOCK_ELEMS
+
+#: Word-packer row-group granularity (32 rows x 128 lanes).
+ALIGN_ELEMS = CODE_SUBLANES * LANES
+
+#: All value/scale side streams ship as float32.
+VALUE_BITS = 32
+
+
+class WirePayload(NamedTuple):
+    """A client's transported payload: uint32 ``words``, float32
+    ``values`` and float32 ``scales``, each a tuple of tensors."""
+    words: Tuple[torch.Tensor, ...]
+    values: Tuple[torch.Tensor, ...]
+    scales: Tuple[torch.Tensor, ...]
+
+
+def payload_nbytes(payload: WirePayload) -> int:
+    """Measured payload size in bytes, from the tensors' shapes/dtypes."""
+    return sum(a.numel() * a.element_size() for part in payload for a in part)
+
+
+# ---------------------------------------------------------------------------
+# Static layout math (host ints)
+# ---------------------------------------------------------------------------
+
+
+def padded_total(sizes: Sequence[int]) -> int:
+    """Packed-buffer elements: each leaf padded to SCALE_BLOCK."""
+    return sum(-(-int(n) // SCALE_BLOCK) * SCALE_BLOCK for n in sizes)
+
+
+def aligned_total(sizes: Sequence[int]) -> int:
+    """:func:`padded_total` padded to the (32, 128) row-group quantum."""
+    t = padded_total(sizes)
+    return -(-t // ALIGN_ELEMS) * ALIGN_ELEMS
+
+
+def mask_value_capacity(sizes: Sequence[int], alpha: float,
+                        mask_scope: str = "per_tensor",
+                        exact_topk: bool = True) -> int:
+    """Static worst-case population of one top-k mask over leaves of
+    ``sizes``: the capacity of each compacted value stream."""
+    def cap_exact(n: int) -> int:
+        if n <= S.BLOCK:
+            return min(n, S.k_for(n, alpha))
+        nb = -(-n // S.BLOCK)
+        return min(n, nb * S.k_for(S.BLOCK, alpha))
+
+    def cap_thresh(n: int) -> int:
+        k = S.k_for(n, alpha)
+        return min(n, k + overselect_bound(k, n))
+
+    cap = cap_exact if exact_topk else cap_thresh
+    if mask_scope == "per_tensor":
+        return sum(cap(int(n)) for n in sizes)
+    return cap(int(sum(int(n) for n in sizes)))
+
+
+def mask_wire_bits(sizes: Sequence[int], alpha: float,
+                   mask_scope: str = "per_tensor",
+                   exact_topk: bool = True, *, shared: bool = True) -> int:
+    """Wire bits of one client's mask payload: bitmap + 3 value streams
+    (shared) or three (bitmap, stream) pairs (independent)."""
+    t32 = aligned_total(sizes)
+    cap = mask_value_capacity(sizes, alpha, mask_scope, exact_topk)
+    if shared:
+        return t32 + 3 * cap * VALUE_BITS
+    return 3 * (t32 + cap * VALUE_BITS)
+
+
+def sign_wire_bits(sizes: Sequence[int]) -> int:
+    """1-bit Adam payload: sign bitplane + one scale per aligned block."""
+    t32 = aligned_total(sizes)
+    return t32 + VALUE_BITS * (t32 // SCALE_BLOCK)
+
+
+def bbit_wire_bits(sizes: Sequence[int], bits: int) -> int:
+    """Efficient-Adam payload: b bits per aligned slot + per-block scales."""
+    t = padded_total(sizes)
+    t32 = aligned_total(sizes)
+    return bits * t32 + VALUE_BITS * (t // SCALE_BLOCK)
+
+
+def dense_wire_bits(sizes: Sequence[int], n_tensors: int = 3) -> int:
+    """Dense payload: raveled float32 planes, no padding."""
+    return n_tensors * int(sum(int(n) for n in sizes)) * VALUE_BITS
+
+
+# ---------------------------------------------------------------------------
+# Aligned-buffer plumbing
+# ---------------------------------------------------------------------------
+
+
+def _pack_aligned(layout: S.PackedLayout, leaves) -> torch.Tensor:
+    """Leaves -> the ALIGNED (R32, 128) buffer."""
+    buf = layout.pack(leaves)
+    rows = buf.shape[0]
+    arows = -(-rows // CODE_SUBLANES) * CODE_SUBLANES
+    if arows != rows:
+        buf = torch.nn.functional.pad(buf, (0, 0, 0, arows - rows))
+    return buf
+
+
+def _unpack_aligned(layout: S.PackedLayout, buf, like_leaves) -> list:
+    """Aligned buffer -> leaves cast to the template dtypes."""
+    rows = layout.total // S.PACK_LANES
+    leaves = layout.unpack(buf[:rows])
+    return [x.to(t.dtype) for x, t in zip(leaves, like_leaves)]
+
+
+def _f32_leaves(tree):
+    leaves, td = T.flatten(tree)
+    return [x.to(_F32) for x in leaves], td
+
+
+def _compact(flat_support, pos, buf, capacity: int) -> torch.Tensor:
+    """Gather the supported entries of ``buf`` into the first
+    ``count <= capacity`` slots of a (capacity,) stream.  Slot
+    ``capacity`` of the (capacity + 1) scratch is the drop slot for
+    unsupported entries and for overflow past the capacity."""
+    flat = buf.reshape(-1).to(_F32)
+    idx = torch.where(flat_support & (pos < capacity), pos,
+                      torch.full_like(pos, capacity))
+    out = torch.zeros((capacity + 1,), dtype=_F32, device=buf.device)
+    out.scatter_(0, idx, flat)
+    return out[:capacity]
+
+
+def _expand(flat_support, pos, values, shape) -> torch.Tensor:
+    """Inverse of :func:`_compact` (overflow slots decode to zero)."""
+    cap = values.shape[0]
+    taken = values[pos.clamp(0, cap - 1)]
+    return torch.where(flat_support & (pos < cap), taken,
+                       torch.zeros((), dtype=_F32, device=values.device)
+                       ).reshape(shape)
+
+
+def _support_positions(flat_support):
+    """Rank of each supported slot in flat order (prefix sum - 1)."""
+    return torch.cumsum(flat_support.to(torch.int64), 0) - 1
+
+
+# ---------------------------------------------------------------------------
+# Shared-mask codec
+# ---------------------------------------------------------------------------
+
+
+def pack_shared_mask(sW, sM, sV, capacity: int) -> WirePayload:
+    """FedAdam-SSM wire: one bitmap of the UNION support of the three
+    sparse carriers + three compacted value streams."""
+    w_leaves, _ = _f32_leaves(sW)
+    m_leaves, _ = _f32_leaves(sM)
+    v_leaves, _ = _f32_leaves(sV)
+    layout = S.plan_packed_layout(w_leaves)
+    wp = _pack_aligned(layout, w_leaves)
+    mp = _pack_aligned(layout, m_leaves)
+    vp = _pack_aligned(layout, v_leaves)
+    support = (wp != 0) | (mp != 0) | (vp != 0)
+    words = pack_mask_bits(support)
+    flat_sup = support.reshape(-1)
+    pos = _support_positions(flat_sup)
+    return WirePayload(
+        words=(words,),
+        values=(_compact(flat_sup, pos, wp, capacity),
+                _compact(flat_sup, pos, mp, capacity),
+                _compact(flat_sup, pos, vp, capacity)),
+        scales=())
+
+
+def unpack_shared_mask(payload: WirePayload, like):
+    """Decode to the (sW, sM, sV) triple; ``like`` is any tree with the
+    carrier's structure, shapes and dtypes."""
+    leaves, td = T.flatten(like)
+    layout = S.plan_packed_layout(leaves)
+    support = unpack_mask_bits(payload.words[0])
+    flat_sup = support.reshape(-1) == 1
+    pos = _support_positions(flat_sup)
+    return tuple(
+        td.unflatten(_unpack_aligned(
+            layout, _expand(flat_sup, pos, vals, support.shape), leaves))
+        for vals in payload.values)

@@ -1,0 +1,42 @@
+"""Argument checks shared by the kernel wrappers (run before any pointer
+reaches native code)."""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+
+def on_cpu(t: torch.Tensor) -> bool:
+    """True for a CPU tensor (plain version), False for a CUDA one
+    (kernel); raises for any other device."""
+    if t.device.type == "cpu":
+        return True
+    if t.device.type == "cuda":
+        return False
+    raise ValueError(f"unsupported device {t.device}")
+
+
+def cuda_arg(name: str, t: torch.Tensor, dtype: torch.dtype, shape=None,
+             device=None) -> torch.Tensor:
+    if t.device.type != "cuda" or (device is not None and t.device != device):
+        raise ValueError(f"{name}: expected a tensor on {device or 'cuda'}, "
+                         f"got {t.device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: must be 16-byte aligned")
+    return t
+
+
+def ptr(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+
+def stream(device: torch.device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)

@@ -1,0 +1,6 @@
+from repro_torch.optim.adam import (  # noqa: F401
+    AdamHyper,
+    AdamState,
+    adam_init,
+    adam_step,
+)
