@@ -19,7 +19,21 @@ Run from the root of a checkout (it imports ``src/repro_torch``).  Phases:
    inputs the first client's compress gave it and at VGG-11 width-1.0
    packed shapes, with times from CUDA events and the memory bound;
 4. one round on the card against the same round on the CPU (4 clients,
-   same weights and batch), within the CPU parity tests' tolerances.
+   same weights and batch), within the CPU parity tests' tolerances;
+5. the transformer path: 2 FedAdam-SSM rounds of starcoder2-3b at full
+   width (d_model 3072, vocab 49152, bfloat16 with float32 norm scales)
+   cut to 2 pattern repeats, 4 clients, 3 local epochs of the fused Adam,
+   batch 2, sequence 128, threshold masks, error feedback, through
+   ``repro_torch.launch.train``; the launch counters zeroed just before
+   and read just after (exact counts per client and round), peak device
+   memory and round wall times; then one round under torch.profiler and
+   one that counts stream synchronisations, in which the first client's
+   wire payload is measured and the kernels' inputs are kept for 6;
+6. the per-leaf kernels (fused_adam, absmax, count_ge, ssm_apply_ef)
+   against their plain versions on the card, on the inputs the first
+   client of that round gave them at the embed, w_up and norm leaf
+   shapes, with times;
+7. one round of the smoke starcoder2 on the card against the CPU.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.  Any failure
@@ -50,6 +64,23 @@ CNN_WIRE_BYTES_PER_CLIENT = 346_880
 CLIENTS = 20
 ROUNDS = 3
 
+#: The transformer path: starcoder2-3b at full width, 2 pattern repeats.
+LM_REPEATS = 2
+LM_PARAMS = 493_894_656
+LM_WIRE_BYTES_PER_CLIENT = 375_854_948
+LM_CLIENTS = 4
+LM_ROUNDS = 2
+LM_LOCAL_EPOCHS = 3
+#: Expected kernel launches per client and round on the transformer path:
+#: fused_adam once per leaf and local epoch; per leaf one absmax, two
+#: counts and one apply; one bitmap pack and one unpack per client.
+LM_LAUNCHES_PER_CLIENT_ROUND = {
+    "packed_hist": 0, "packed_apply": 0, "pack_words": 1, "unpack_words": 1,
+    "fused_adam": 11 * LM_LOCAL_EPOCHS, "absmax": 11, "count_ge": 22,
+    "ssm_apply_ef": 11}
+#: Leaf sizes whose first inputs phase 6 replays: embed, w_up, a norm.
+LM_SHAPES = {"embed": 150_994_944, "w_up": 75_497_472, "norm": 6_144}
+
 KERNELS = {
     "packed_hist": ("src/repro_torch/csrc/packed_topk.cu",
                     "src/repro/kernels/packed_topk/packed_topk.py:91"),
@@ -59,6 +90,19 @@ KERNELS = {
                    "src/repro/kernels/wirepack/wirepack.py:92"),
     "unpack_words": ("src/repro_torch/csrc/wirepack.cu",
                      "src/repro/kernels/wirepack/wirepack.py:111"),
+}
+
+#: The transformer path's per-leaf kernels: (source, TPU kernel, position
+#: of the leaf among the wrapper's arguments).
+LM_KERNELS = {
+    "fused_adam": ("src/repro_torch/csrc/fused_adam.cu",
+                   "src/repro/kernels/fused_adam/fused_adam.py:56", 1),
+    "absmax": ("src/repro_torch/csrc/topk_mask.cu",
+               "src/repro/kernels/topk_mask/topk_mask.py:55", 0),
+    "count_ge": ("src/repro_torch/csrc/topk_mask.cu",
+                 "src/repro/kernels/topk_mask/topk_mask.py:89", 1),
+    "ssm_apply_ef": ("src/repro_torch/csrc/ssm_apply.cu",
+                     "src/repro/kernels/ssm_apply/ssm_apply.py:110", 1),
 }
 
 
@@ -109,26 +153,35 @@ def phase_device_and_build(torch):
 
 class Capture:
     """Records (a clone of) the arguments, and the result, of the first
-    call of each wrapped entry point, then calls through unchanged."""
+    call of each wrapped entry point, then calls through unchanged.  With
+    ``arg`` and ``sizes``, the first call for each size in ``sizes`` of
+    argument ``arg`` instead: ``args[name][size]``."""
 
     def __init__(self):
-        self.args = {}
+        self.args = collections.defaultdict(dict)
         self.outs = {}
+        self.wrapped = []
 
-    def wrap(self, module, attr, name):
+    def restore(self):
+        """Put every wrapped entry point back."""
+        for module, attr, fn in self.wrapped:
+            setattr(module, attr, fn)
+
+    def wrap(self, module, attr, name, arg=None, sizes=(None,)):
         fn = getattr(module, attr)
+        self.wrapped.append((module, attr, fn))
 
         def rec(*args, **kw):
-            first = name not in self.args
+            key = None if arg is None else args[arg].numel()
+            first = key in sizes and key not in self.args[name]
             if first:
-                self.args[name] = ([_clone(a) for a in args], dict(kw))
+                self.args[name][key] = ([_clone(a) for a in args], dict(kw))
             out = fn(*args, **kw)
-            if first:
+            if first and arg is None:
                 self.outs[name] = out
             return out
 
         setattr(module, attr, rec)
-        return fn
 
 
 def make_data(seed, n_clients):
@@ -204,7 +257,7 @@ def phase_main_path(torch, seed):
         require(per_client == CNN_WIRE_BYTES_PER_CLIENT,
                 f"wire bytes per client {per_client}")
     main_launches = dict(LAUNCHES)
-    require(all(v > 0 for v in main_launches.values()),
+    require(all(main_launches[k] > 0 for k in KERNELS),
             f"a kernel of the main path never launched: {main_launches}")
     for name in "WMV":
         for k, x in getattr(state, name).items():
@@ -220,7 +273,8 @@ def phase_main_path(torch, seed):
     log(f"first client's payload built on the card: {nbytes} bytes")
     require(nbytes == CNN_WIRE_BYTES_PER_CLIENT,
             f"the card's payload holds {nbytes} bytes")
-    captured = {k: cap.args[k] for k in KERNELS}
+    cap.restore()
+    captured = {k: cap.args[k][None] for k in KERNELS}
     prof = profile_round(torch, round_fn, state, batch, w)
     prof["syncs"] = count_syncs(torch, round_fn, state, batch, w)
     log(f"profiled round: {json.dumps(prof)}")
@@ -279,7 +333,8 @@ def profile_round(torch, round_fn, state, batch, w):
     busy_ms = sum(ms for _, ms, _ in ops)
     require(busy_ms > 0, "the profiler saw no device time in the round")
     port_ms = sum(ms for key, ms, _ in ops
-                  if any(f"{name}_kernel" in key for name in KERNELS))
+                  if any(f"{name}_kernel" in key
+                         for name in (*KERNELS, *LM_KERNELS)))
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_busy_share": busy_ms / wall_ms,
             "device_ops": sum(c for *_, c in ops),
@@ -330,16 +385,19 @@ def device_ms(torch, fn, iters: int, kernel_names) -> float:
 
 
 def max_abs_err(torch, a, b) -> float:
-    """Max |a - b|; raises unless a and b are bitwise equal (every output
-    here is 4 bytes wide: float32, int32 or uint32)."""
+    """Max |a - b|; raises unless a and b are bitwise equal (outputs are
+    float32, int32, uint32 or bfloat16)."""
     require(a.shape == b.shape and a.dtype == b.dtype,
             f"shape/dtype {tuple(a.shape)} {a.dtype} vs "
             f"{tuple(b.shape)} {b.dtype}")
-    a, b = a.view(torch.int32), b.view(torch.int32)
-    same = torch.equal(a, b)
+    same = torch.equal(_bits(torch, a), _bits(torch, b))
     err = 0.0 if same else (a.double() - b.double()).abs().max().item()
     require(same, f"kernel differs from its plain version (max {err})")
     return err
+
+
+def _bits(torch, x):
+    return x.view(torch.int16 if x.element_size() == 2 else torch.int32)
 
 
 def vgg11_inputs(torch, seed):
@@ -542,6 +600,263 @@ def phase_card_vs_cpu(torch, np, seed):
             "loss_cpu": cm["loss"].numpy().tolist(),
             "wmv_beyond_tolerance": worst, "support_mismatch": support}
 
+# ---------------------------------------------------------------------------
+# Phase 5: the transformer path
+# ---------------------------------------------------------------------------
+
+
+def lm_fed(n_clients):
+    from repro_torch.core import FedConfig
+    from repro_torch.optim import AdamHyper
+    return FedConfig(algorithm="fedadam_ssm", alpha=0.05,
+                     local_epochs=LM_LOCAL_EPOCHS, n_clients=n_clients,
+                     adam=AdamHyper(lr=1e-3), exact_topk=False,
+                     error_feedback=True, use_kernel_adam=True)
+
+
+def phase_transformer(torch, seed):
+    import dataclasses
+    from repro_torch import tree as T
+    from repro_torch.configs import get_config
+    from repro_torch.core import sparsify, wire
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.fused_adam import ops as FA
+    from repro_torch.kernels.topk_mask import ops as TM
+    from repro_torch.launch import train
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(get_config("starcoder2-3b"),
+                              pattern_repeats=LM_REPEATS)
+    fed = lm_fed(LM_CLIENTS)
+    torch.cuda.reset_peak_memory_stats()
+    round_fn, state = train.make_trainer(cfg, fed, seed=seed, device=dev)
+    sizes = tuple(x.numel() for x in T.leaves(state.W))
+    require(sum(sizes) == LM_PARAMS and len(sizes) == 11,
+            f"starcoder2-3b at 2 repeats has {sum(sizes)} parameters in "
+            f"{len(sizes)} leaves")
+    dtypes = sorted({str(x.dtype) for x in T.leaves(state.W)})
+    require(dtypes == ["torch.bfloat16", "torch.float32"],
+            f"leaf dtypes {dtypes}")
+
+    rounds = []
+    batches = [train.build_client_batches(cfg, LM_CLIENTS, 2, 128, seed=r,
+                                          device=dev)
+               for r in range(LM_ROUNDS)]
+    torch.cuda.synchronize()
+    reset_launches()
+    for r in range(LM_ROUNDS):
+        t0 = time.perf_counter()
+        state, mets = round_fn(state, batches[r])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        losses = mets["loss"].cpu().tolist()
+        rounds.append({"round": r, "loss": losses, "wall_s": wall})
+        log(f"lm round {r}: loss={losses} wall={wall:.3f} s")
+        require(all(math.isfinite(x) for x in losses),
+                f"lm round {r} loss is {losses}")
+    launches = dict(LAUNCHES)
+    n_cr = LM_ROUNDS * LM_CLIENTS
+    want = {k: v * n_cr for k, v in LM_LAUNCHES_PER_CLIENT_ROUND.items()}
+    log(f"lm launches: {launches}")
+    require(launches == want, f"launches {launches}, expected {want}")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"lm peak device memory: {peak / 2**30:.2f} GiB")
+    for name in "WMV":
+        for x in T.leaves(getattr(state, name)):
+            require(bool(torch.isfinite(x).all()), f"{name} not finite")
+    uplink = float(mets["uplink_bits"])
+    require(wire.mask_wire_bits(sizes, 0.05, exact_topk=False)
+            == 8 * LM_WIRE_BYTES_PER_CLIENT, "accounted wire bits")
+    require(uplink == float(torch.tensor(
+        float(LM_CLIENTS * 8 * LM_WIRE_BYTES_PER_CLIENT),
+        dtype=torch.float32)), f"uplink bits {uplink}")
+    batch = batches[-1]
+    prof = profile_round(torch, round_fn, state, batch, None)
+    # the inputs phase 6 replays are captured in the sync-counting round,
+    # so that the copies kept for it stay out of the measured peak
+    cap = Capture()
+    cap.wrap(wire, "pack_shared_mask", "payload")
+    for module, attr, name in ((FA, "fused_adam_apply", "fused_adam"),
+                               (TM, "absmax", "absmax"),
+                               (TM, "count_ge", "count_ge"),
+                               (sparsify, "ssm_apply_ef", "ssm_apply_ef")):
+        cap.wrap(module, attr, name, LM_KERNELS[name][2],
+                 tuple(LM_SHAPES.values()))
+    prof["syncs"] = count_syncs(torch, round_fn, state, batch, None)
+    cap.restore()
+    log(f"lm profiled round: {json.dumps(prof)}")
+    payload = cap.outs["payload"]
+    require(all(a.is_cuda for part in payload for a in part),
+            "the wire payload was not built on the card")
+    nbytes = wire.payload_nbytes(payload)
+    log(f"lm first client's payload built on the card: {nbytes} bytes")
+    require(nbytes == LM_WIRE_BYTES_PER_CLIENT,
+            f"the card's payload holds {nbytes} bytes")
+    require(all(len(cap.args[k]) == len(LM_SHAPES) for k in LM_KERNELS),
+            f"captured {({k: sorted(v) for k, v in cap.args.items()})}")
+    require(prof["syncs"]["per_round"] == 0,
+            f"the transformer round synchronised the stream: {prof['syncs']}")
+    return {"rounds": rounds, "launches": launches, "peak_bytes": peak,
+            "payload_bytes": nbytes, "uplink_bits": uplink,
+            "round_profile": prof}, cap.args
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: the per-leaf kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def lm_kernel(torch, name, args, kw):
+    """(kernel call, plain call, CUDA kernel names, library call or None,
+    bytes, float32 operations) for one captured call."""
+    from repro_torch.kernels.fused_adam import ops as FA
+    from repro_torch.kernels.ssm_apply import ops as SSM
+    from repro_torch.kernels.topk_mask import ops as TM
+    if name == "fused_adam":
+        scalars, w, g, m, v = args
+        n, e = w.numel(), w.element_size()
+        return (lambda: FA.fused_adam_apply(*args)), \
+            (lambda: FA.fused_adam_plain(*args)), ["fused_adam_kernel"], \
+            None, 7 * n * e + 16, 12 * n
+    if name == "absmax":
+        (x,) = args
+        n, e = x.numel(), x.element_size()
+        inf = float("inf")
+        return (lambda: TM.absmax(x)), (lambda: TM.absmax_plain(x)), \
+            ["absmax_kernel"], \
+            (lambda: torch.linalg.vector_norm(x, inf)), n * e + 4, 2 * n
+    if name == "count_ge":
+        taus, x = args
+        n, e = x.numel(), x.element_size()
+        return (lambda: TM.count_ge(taus, x)), \
+            (lambda: TM.count_ge_plain(taus, x)), ["count_ge_kernel"], \
+            None, n * e + 2 * 4 * 32, 2 * 32 * n + n
+    tau, dw, dm, dv, score = (list(args) + [None])[:5]
+    n, e = dw.numel(), dw.element_size()
+    n_out = 3 + bool(kw.get("with_residual", True))
+    n_in = 3 + (score is not None)
+    return (lambda: SSM.ssm_apply_ef(*args, **kw)), \
+        (lambda: SSM.ssm_apply_ef_plain(*args, **kw)), \
+        ["ssm_apply_ef_kernel"], None, (n_in + n_out) * n * e + 4, 6 * n
+
+
+def fused_adam_w_check(torch, a, b, w):
+    """w' bitwise, or within the root's bound: the kernel and the plain
+    version both take rsqrtf, but should their roots differ by a float32
+    ulp, lr * upd moves by 2 float32 epsilons of itself and w' rounds once
+    to its dtype: |a - b| <= spacing(w') + 4 eps32 |w - w'|.  Returns the
+    largest difference in units of the dtype's last place."""
+    if torch.equal(_bits(torch, a), _bits(torch, b)):
+        return 0.0
+    a64, b64, w64 = a.double(), b.double(), w.double()
+    ulp = torch.finfo(a.dtype).eps
+    spacing = b64.abs().clamp_min(torch.finfo(a.dtype).tiny) * ulp
+    bound = spacing + 4 * torch.finfo(torch.float32).eps * (w64 - b64).abs()
+    err = (a64 - b64).abs()
+    require(bool((err <= bound).all()),
+            f"fused_adam w' beyond its bound by {float((err - bound).max())}")
+    return float((err / spacing).max())
+
+
+def phase_lm_kernels(torch, captured, launches):
+    out = []
+    n_cr = LM_ROUNDS * LM_CLIENTS
+    for name, (src, replaces, leaf_arg) in LM_KERNELS.items():
+        per_shape = {}
+        for shape_name, n in LM_SHAPES.items():
+            args, kw = captured[name][n]
+            fk, fp, knames, lib, nbytes, ops = lm_kernel(torch, name, args,
+                                                         kw)
+            a, b = fk(), fp()
+            a = a if isinstance(a, tuple) else (a,)
+            b = b if isinstance(b, tuple) else (b,)
+            require(len(a) == len(b), f"{name}: output count")
+            ulps = 0.0
+            if name == "fused_adam":
+                ulps = fused_adam_w_check(torch, a[0], b[0], args[1])
+                a, b = a[1:], b[1:]
+            err = max(max_abs_err(torch, x, y) for x, y in zip(a, b))
+            big = n >= 1 << 20
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = ops / F32_OPS_PER_S * 1e3
+            rec = {"elements": n, "dtype": str(args[leaf_arg].dtype),
+                   "max_abs_err": err, "w_max_ulps": ulps,
+                   "ms": time_ms(torch, fk, 20 if big else 200),
+                   "device_ms": device_ms(torch, fk, 10 if big else 50,
+                                          knames),
+                   "plain_ms": time_ms(torch, fp, 3 if big else 20),
+                   "library_ms": None if lib is None else
+                   time_ms(torch, lib, 20 if big else 200),
+                   "bound_ms": max(t_bytes, t_ops),
+                   "bound_by": "bytes" if t_bytes >= t_ops
+                   else "operations",
+                   "bytes": nbytes, "operations": ops}
+            per_shape[shape_name] = rec
+            log(f"{name} at {shape_name}: {json.dumps(rec)}")
+        head = per_shape["embed"]
+        out.append({"name": name, "route": "cuda", "source": src,
+                    "replaces": replaces, "launches": launches[name],
+                    "max_abs_err": max(r["max_abs_err"]
+                                       for r in per_shape.values()),
+                    "ms": head["ms"], "plain_ms": head["plain_ms"],
+                    "bound_ms": head["bound_ms"],
+                    "bound_by": head["bound_by"],
+                    "library_ms": head["library_ms"],
+                    "device_ms": head["device_ms"],
+                    "launches_per_client_round": launches[name] / n_cr,
+                    "at": per_shape})
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: the transformer round on the card against the CPU
+# ---------------------------------------------------------------------------
+
+
+def phase_lm_card_vs_cpu(torch, np, seed):
+    import dataclasses
+    from repro_torch import tree as T
+    from repro_torch.configs import get_config, reduce_for_smoke
+    from repro_torch.core import fed_init, make_fl_round
+    from repro_torch.launch import train
+    from repro_torch.models import model as TM
+
+    # reduce_for_smoke rebuilds each layer with the default gated MLP: put
+    # back starcoder2's tanh-GELU MLP, the one phase 5 runs (11 leaves)
+    cfg = reduce_for_smoke(get_config("starcoder2-3b"))
+    cfg = dataclasses.replace(cfg, layer_pattern=tuple(
+        dataclasses.replace(s, gated_mlp=False) for s in cfg.layer_pattern))
+    params = TM.init_params(cfg, seed=seed + 1, device="cpu")
+    require(len(T.leaves(params)) == 11, "smoke starcoder2 is not 11 leaves")
+    C = 4
+    results = {}
+    for dev in ("cuda", "cpu"):
+        fed = dataclasses.replace(lm_fed(C), sparsify_backend="kernel")
+        p = T.tree_map(lambda x: x.to(dev), params)
+        batch = train.build_client_batches(cfg, C, 2, 128, seed=0,
+                                           device=dev)
+        loss = lambda q, b: TM.loss_fn(cfg, q, b["tokens"])
+        results[dev] = make_fl_round(fed, loss)(fed_init(fed, p), batch)
+    (gs, gm), (cs, cm) = results["cuda"], results["cpu"]
+    require(float(gm["uplink_bits"]) == float(cm["uplink_bits"]),
+            "uplink bits differ between the card and the CPU")
+    # the CPU parity tests' bfloat16 tolerances: loss within 2e-3, each
+    # client's support on at most 4% of a leaf's elements
+    np.testing.assert_allclose(gm["loss"].cpu().numpy(),
+                               cm["loss"].numpy(), rtol=2e-3)
+    support = 0.0
+    for a, b in zip(T.leaves(gs.client_state["comp"]["err"]),
+                    T.leaves(cs.client_state["comp"]["err"])):
+        support = max(support, float(np.mean(
+            (a.cpu().float().numpy() == 0) != (b.float().numpy() == 0))))
+    require(support <= 4e-2, f"EF supports differ on {support:.2e}")
+    log(f"lm card vs CPU: loss {gm['loss'].cpu().numpy().tolist()} vs "
+        f"{cm['loss'].numpy().tolist()}; support mismatch {support:.2e}")
+    return {"loss_cuda": gm["loss"].cpu().numpy().tolist(),
+            "loss_cpu": cm["loss"].numpy().tolist(),
+            "support_mismatch": support}
+
+
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -558,12 +873,20 @@ def main(argv=None):
     kernels = phase_kernels(torch, captured, launches, ROUNDS * CLIENTS,
                             args.seed)
     vs_cpu = phase_card_vs_cpu(torch, np, args.seed)
+    lm, lm_captured = phase_transformer(torch, args.seed)
+    for k in kernels:
+        if k["name"] in ("pack_words", "unpack_words"):
+            k["launches_transformer"] = lm["launches"][k["name"]]
+    kernels += phase_lm_kernels(torch, lm_captured, lm["launches"])
+    del lm_captured
+    lm_vs_cpu = phase_lm_card_vs_cpu(torch, np, args.seed)
 
     record = {"card": smi, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": build_s,
               "rounds": rounds, "card_payload_bytes": payload_bytes,
               "round_profile": round_profile,
               "kernels": kernels, "card_vs_cpu": vs_cpu,
+              "transformer": lm, "transformer_card_vs_cpu": lm_vs_cpu,
               "total_s": time.perf_counter() - t_start}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

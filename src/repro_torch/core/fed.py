@@ -50,7 +50,7 @@ class FedConfig:
     error_feedback: bool = False
     q_bits: int = 32                      # accounting float precision
     client_mode: str = "scan"             # only scan is ported
-    use_kernel_adam: bool = False         # fused_adam kernel: not ported yet
+    use_kernel_adam: bool = False         # fused_adam kernel per leaf
     value_dtype: Optional[str] = None     # None | bfloat16 | float16
     participation: float = 1.0
 
@@ -93,9 +93,6 @@ def _check_ported(fed: FedConfig) -> None:
         raise NotImplementedError(
             "participation < 1 (client sampling) is not ported yet: "
             "ROADMAP §1.6 (participation)")
-    if fed.use_kernel_adam:
-        raise NotImplementedError(
-            "use_kernel_adam needs the fused_adam kernel: ROADMAP §2 row 5")
 
 
 # ---------------------------------------------------------------------------
@@ -143,6 +140,9 @@ def make_client_step(fed: FedConfig, loss_fn: Callable,
         comp_state = cstate.get("comp") if cstate is not None else None
         w, m, v, loss = _local_adam(loss_fn, W, M, V, batch, fed)
         deltas = Deltas(_tree_sub(w, W), _tree_sub(m, M), _tree_sub(v, V))
+        # the deltas carry the local state from here: freeing it keeps a
+        # model's worth of three trees out of the compress's peak memory
+        del w, m, v
         packed, new_comp_state, _bits = comp.compress(deltas, comp_state)
         new_cstate = None
         if cstate is not None:

@@ -17,8 +17,12 @@ variable, then ``auto``, which picks ``kernel`` for CUDA tensors and
 buffer and the whole cohort costs three launches on the card (histogram,
 refine count, pick/apply).  On CPU tensors the same pipeline runs through
 the kernels' plain versions, which is what the CPU tests hold against the
-JAX package's kernel backend.  The per-leaf fused path (mixed dtypes,
-``packed=False``) needs kernels 6-10 and raises (ROADMAP §2).
+JAX package's kernel backend.  Mixed-dtype cohorts (a bfloat16 model with
+float32 norm scales) and ``packed=False`` take the PER-LEAF fused path
+(:func:`tree_shared_compress_fused`): for each leaf the selection passes of
+``kernels/topk_mask`` (absmax, two counts) and one ``ssm_apply_ef`` pass.
+Threshold MASKS on the kernel backend (``tree_topk_masks``) need the
+``apply_mask_2d`` kernel and raise (ROADMAP §2 row 8).
 """
 from __future__ import annotations
 
@@ -35,6 +39,8 @@ from repro_torch.kernels.packed_topk.ops import (
     BLOCK_ELEMS as PACK_BLOCK_ELEMS, LANES as PACK_LANES, packed_apply,
     packed_hist)
 from repro_torch.kernels.packed_topk.ref import refine_taus
+from repro_torch.kernels.ssm_apply.ops import ssm_apply_ef
+from repro_torch.kernels.topk_mask.ops import select_tau
 from repro_torch.kernels.topk_mask.ref import log2_taus
 
 _F32 = torch.float32
@@ -144,8 +150,8 @@ def tree_topk_masks(score_tree, alpha: float, scope: str = "per_tensor",
         if not exact:
             if use_kernel_path(backend, s.device):
                 raise NotImplementedError(
-                    "per-leaf threshold kernels (absmax_2d, count_ge_2d, "
-                    "apply_mask_2d) are not ported yet: ROADMAP §2 rows 6-8")
+                    "threshold masks on the kernel backend need the "
+                    "apply_mask_2d kernel, not ported yet: ROADMAP §2 row 8")
             return topk_mask_threshold(s, k)
         if s.numel() > BLOCK:
             return blocked_topk_mask(s, alpha)
@@ -344,18 +350,73 @@ def tree_shared_compress_packed(score_tree, dW, dM, dV, alpha: float,
         mask_tree
 
 
+def _fused_leaf(score, w, m, v, k: int, value_dtype, with_residual: bool):
+    """One leaf of the fused compress: the selection passes on the score
+    (``w`` when ``score`` is None), then ONE apply/cast/residual pass.
+    Returns ``(sw, sm, sv, err | None, mask)``; the mask is recomputed
+    from tau for the diagnostics only."""
+    s = w if score is None else score
+    tau, _ = select_tau(s, k)
+    outs = ssm_apply_ef(tau, w, m, v, score, with_residual=with_residual,
+                        value_dtype=value_dtype)
+    err = outs[3] if with_residual else None
+    return outs[0], outs[1], outs[2], err, s.to(_F32).abs() >= tau
+
+
+def _ravel(tree):
+    """Flat concatenation of the leaves in their common dtype (as
+    ``jax.flatten_util.ravel_pytree`` promotes), and its inverse, which
+    casts each piece back to its leaf's dtype."""
+    leaves, td = T.flatten(tree)
+    dtype = functools.reduce(torch.promote_types,
+                             [x.dtype for x in leaves])
+    flat = torch.cat([x.reshape(-1).to(dtype) for x in leaves])
+
+    def unravel(buf):
+        out, off = [], 0
+        for x in leaves:
+            out.append(buf[off:off + x.numel()].reshape(x.shape)
+                       .to(x.dtype))
+            off += x.numel()
+        return td.unflatten(out)
+
+    return flat, unravel
+
+
 def tree_shared_compress_fused(score_tree, dW, dM, dV, alpha: float,
                                scope: str = "per_tensor", *,
                                value_dtype=None,
                                with_residual: bool = False,
                                packed: bool = True):
     """Kernel-path shared-mask compress.  Uniform-dtype cohorts take the
-    packed path; the per-leaf loop (mixed dtypes, ``packed=False``) needs
-    the per-leaf kernels and raises until they are ported."""
+    packed path (``packed=True``); mixed-dtype trees and ``packed=False``
+    take the per-leaf loop: for each leaf (or the raveled model when
+    ``scope == "global"``) :func:`_fused_leaf`.  ``score_tree=None`` means
+    the scores are dW (the ssm_w rule).  Returns ``(sW, sM, sV, err_tree |
+    None, mask_tree)``; given the same tau the arithmetic is that of the
+    composed reference ops."""
     if packed and _uniform_dtype(score_tree, dW, dM, dV):
         return tree_shared_compress_packed(
             score_tree, dW, dM, dV, alpha, scope,
             value_dtype=value_dtype, with_residual=with_residual)
-    raise NotImplementedError(
-        "the per-leaf fused compress (topk_mask + ssm_apply_ef kernels) is "
-        "not ported yet: ROADMAP §2 rows 6-10")
+    if scope == "global":
+        flat_w, unravel = _ravel(dW)
+        flat_m, _ = _ravel(dM)
+        flat_v, _ = _ravel(dV)
+        flat_s = None if score_tree is None else _ravel(score_tree)[0]
+        sw, sm, sv, err, mask = _fused_leaf(
+            flat_s, flat_w, flat_m, flat_v, k_for(flat_w.numel(), alpha),
+            value_dtype, with_residual)
+        return (unravel(sw), unravel(sm), unravel(sv),
+                None if err is None else unravel(err),
+                _unravel_bool(mask, dW))
+    w_leaves, td = T.flatten(dW)
+    s_leaves = ([None] * len(w_leaves) if score_tree is None
+                else T.leaves(score_tree))
+    outs = [_fused_leaf(s, w, m, v, k_for(w.numel(), alpha), value_dtype,
+                        with_residual)
+            for s, w, m, v in zip(s_leaves, w_leaves, T.leaves(dM),
+                                  T.leaves(dV))]
+    unflat = lambda i: td.unflatten([o[i] for o in outs])
+    return (unflat(0), unflat(1), unflat(2),
+            unflat(3) if with_residual else None, unflat(4))

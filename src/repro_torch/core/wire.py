@@ -140,19 +140,13 @@ def _unpack_aligned(layout: S.PackedLayout, buf, like_leaves) -> list:
     return [x.to(t.dtype) for x, t in zip(leaves, like_leaves)]
 
 
-def _f32_leaves(tree):
-    leaves, td = T.flatten(tree)
-    return [x.to(_F32) for x in leaves], td
-
-
 def _compact(flat_support, pos, buf, capacity: int) -> torch.Tensor:
     """Gather the supported entries of ``buf`` into the first
     ``count <= capacity`` slots of a (capacity,) stream.  Slot
     ``capacity`` of the (capacity + 1) scratch is the drop slot for
     unsupported entries and for overflow past the capacity."""
     flat = buf.reshape(-1).to(_F32)
-    idx = torch.where(flat_support & (pos < capacity), pos,
-                      torch.full_like(pos, capacity))
+    idx = torch.where(flat_support & (pos < capacity), pos, capacity)
     out = torch.zeros((capacity + 1,), dtype=_F32, device=buf.device)
     out.scatter_(0, idx, flat)
     return out[:capacity]
@@ -168,8 +162,9 @@ def _expand(flat_support, pos, values, shape) -> torch.Tensor:
 
 
 def _support_positions(flat_support):
-    """Rank of each supported slot in flat order (prefix sum - 1)."""
-    return torch.cumsum(flat_support.to(torch.int64), 0) - 1
+    """Rank of each supported slot in flat order (prefix sum - 1), in
+    place on the one int64 buffer the sum needs."""
+    return torch.cumsum(flat_support, 0, dtype=torch.int64).sub_(1)
 
 
 # ---------------------------------------------------------------------------
@@ -180,13 +175,10 @@ def _support_positions(flat_support):
 def pack_shared_mask(sW, sM, sV, capacity: int) -> WirePayload:
     """FedAdam-SSM wire: one bitmap of the UNION support of the three
     sparse carriers + three compacted value streams."""
-    w_leaves, _ = _f32_leaves(sW)
-    m_leaves, _ = _f32_leaves(sM)
-    v_leaves, _ = _f32_leaves(sV)
-    layout = S.plan_packed_layout(w_leaves)
-    wp = _pack_aligned(layout, w_leaves)
-    mp = _pack_aligned(layout, m_leaves)
-    vp = _pack_aligned(layout, v_leaves)
+    layout = S.plan_packed_layout(T.leaves(sW))
+    # each tree's float32 copy lives only while its buffer is packed
+    wp, mp, vp = (_pack_aligned(layout, [x.to(_F32) for x in T.leaves(t)])
+                  for t in (sW, sM, sV))
     support = (wp != 0) | (mp != 0) | (vp != 0)
     words = pack_mask_bits(support)
     flat_sup = support.reshape(-1)

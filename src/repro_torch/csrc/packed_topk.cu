@@ -21,7 +21,7 @@
 //   * the histogram counts in int32 registers (32 per thread), reduces a
 //     warp with __reduce_add_sync, a CTA in shared memory, and adds into the
 //     (L, 32) global histogram with one atomicAdd per (segment, bin) per
-//     CTA.  Integer counts are exact and order-free, so run-to-run atomics
+//     CTA (common.cuh, shared with the per-leaf count of topk_mask.cu).  Integer counts are exact and order-free, so run-to-run atomics
 //     order cannot change a bit.  They equal the TPU's float32 counts
 //     wherever those are exact (below 2^24 per segment);
 //   * the TPU ran the apply as one (2, nb) grid whose first sweep counts and
@@ -34,36 +34,18 @@
 //     index 0 when none does, as jnp.argmax does), never computed, so it is
 //     bitwise one of the host's refine candidates.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
+#include "common.cuh"
 
 namespace {
 
+using repro::cast_value;
+using repro::count_ge1;
+using repro::hist_flush;
+using repro::kBins;
+
 constexpr int kBlockElems = 1024;      // one (8, 128) packed block
-constexpr int kBins = 32;              // candidates per segment
 constexpr int kThreads = 256;          // 256 threads x float4 = one block
 constexpr int kHistBlocksPerCta = 8;   // packed blocks walked by one CTA
-
-// Adds the CTA's per-thread counts of segment `seg` into the global
-// histogram and zeroes them.  Every thread of the CTA must call it.
-__device__ __forceinline__ void hist_flush(int (&cnt)[kBins], int* s_hist,
-                                           int* out, int seg) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int j = 0; j < kBins; ++j) {
-    const int s = __reduce_add_sync(0xffffffffu, cnt[j]);
-    if (lane == 0 && s != 0) atomicAdd(&s_hist[j], s);
-    cnt[j] = 0;
-  }
-  __syncthreads();
-  if (threadIdx.x < kBins) {
-    const int h = s_hist[threadIdx.x];
-    if (h != 0) atomicAdd(&out[seg * kBins + threadIdx.x], h);
-    s_hist[threadIdx.x] = 0;
-  }
-  __syncthreads();
-}
 
 // out[seg, j] += count(|x| >= edges[seg, j]) over the CTA's blocks.
 __global__ void __launch_bounds__(kThreads)
@@ -89,7 +71,7 @@ packed_hist_kernel(const float* __restrict__ x,
   for (int b = b0; b < b1; ++b) {
     const int sb = seg_ids[b];            // uniform across the CTA
     if (sb != seg) {
-      hist_flush(cnt, s_hist, out, seg);
+      hist_flush(cnt, s_hist, out + seg * kBins);
       seg = sb;
       if (threadIdx.x < kBins)
         s_edges[threadIdx.x] = edges[seg * kBins + threadIdx.x];
@@ -97,21 +79,12 @@ packed_hist_kernel(const float* __restrict__ x,
     }
     const float4 v = reinterpret_cast<const float4*>(
         x + static_cast<size_t>(b) * kBlockElems)[threadIdx.x];
-    const float a0 = fabsf(v.x), a1 = fabsf(v.y);
-    const float a2 = fabsf(v.z), a3 = fabsf(v.w);
-#pragma unroll
-    for (int j = 0; j < kBins; ++j) {
-      const float e = s_edges[j];
-      cnt[j] += (a0 >= e) + (a1 >= e) + (a2 >= e) + (a3 >= e);
-    }
+    count_ge1(cnt, s_edges, fabsf(v.x));
+    count_ge1(cnt, s_edges, fabsf(v.y));
+    count_ge1(cnt, s_edges, fabsf(v.z));
+    count_ge1(cnt, s_edges, fabsf(v.w));
   }
-  hist_flush(cnt, s_hist, out, seg);
-}
-
-__device__ __forceinline__ float cast_value(float x, int vdt) {
-  if (vdt == 1) return __bfloat162float(__float2bfloat16_rn(x));
-  if (vdt == 2) return __half2float(__float2half_rn(x));
-  return x;
+  hist_flush(cnt, s_hist, out + seg * kBins);
 }
 
 __device__ __forceinline__ float4 apply4(const float4 x, const bool k[4],

@@ -24,7 +24,11 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
 
 def exact_float32() -> None:
     """Make float32 mean float32 on the card: no TF32 in cuDNN
-    convolutions (PyTorch's default allows it) or in matrix products.
-    The JAX reference computes both in full float32 on the CPU."""
+    convolutions (PyTorch's default allows it) or in matrix products, and
+    bfloat16 matrix products that sum in float32 (cuBLAS may otherwise
+    reduce in bfloat16).  The JAX reference computes the same on the
+    CPU."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+        False

@@ -18,7 +18,10 @@ def on_cpu(t: torch.Tensor) -> bool:
 
 
 def cuda_arg(name: str, t: torch.Tensor, dtype: torch.dtype, shape=None,
-             device=None) -> torch.Tensor:
+             device=None, aligned: bool = True) -> torch.Tensor:
+    """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype`` (and
+    ``shape`` / ``device`` where given), 16-byte aligned unless the kernel
+    takes any alignment (``aligned=False``)."""
     if t.device.type != "cuda" or (device is not None and t.device != device):
         raise ValueError(f"{name}: expected a tensor on {device or 'cuda'}, "
                          f"got {t.device}")
@@ -29,9 +32,20 @@ def cuda_arg(name: str, t: torch.Tensor, dtype: torch.dtype, shape=None,
                          f"got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
-    if t.data_ptr() % 16:
+    if aligned and t.data_ptr() % 16:
         raise ValueError(f"{name}: must be 16-byte aligned")
     return t
+
+
+#: Element types of the per-leaf kernels -> the kernels' dtype code.
+LEAF_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def leaf_dtype_code(name: str, t: torch.Tensor) -> int:
+    if t.dtype not in LEAF_DTYPES:
+        raise TypeError(f"{name}: the kernel takes float32 or bfloat16, got "
+                        f"{t.dtype}")
+    return LEAF_DTYPES[t.dtype]
 
 
 def ptr(t) -> ctypes.c_void_p:

@@ -1,9 +1,10 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Every ``*.cu`` under ``src/repro_torch/csrc/`` is compiled for Hopper
-(``sm_90a``) on first use: one ``nvcc -c`` per source, all started
-together, then one link into a single shared library with a plain C
-interface, loaded with :mod:`ctypes`.  The library lands in
+Every ``*.cu`` under ``src/repro_torch/csrc/`` (with the shared device
+helpers of ``common.cuh``) is compiled for Hopper (``sm_90a``) on first
+use: one ``nvcc -c`` per source, all started together, then one link
+into a single shared library with a plain C interface, loaded with
+:mod:`ctypes`.  The library lands in
 ``build/repro_torch/<hash>/`` at the root of the checkout, keyed on a
 hash of the sources and flags, so an edited source rebuilds and an
 unchanged one loads at once.  Nothing here runs at import time.
@@ -38,6 +39,10 @@ SIGNATURES = {
     "repro_packed_apply": (_P,) * 15 + (_I, _I, _I, _P),
     "repro_pack_words": (_P, _P, _I64, _I, _P),
     "repro_unpack_words": (_P, _P, _I64, _I, _P),
+    "repro_fused_adam": (_P,) * 8 + (_I64, _I, _P),
+    "repro_absmax": (_P, _P, _I64, _I, _P),
+    "repro_count_ge": (_P, _P, _P, _I64, _I, _P),
+    "repro_ssm_apply_ef": (_P,) * 9 + (_I64, _I, _I, _P),
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -50,8 +55,9 @@ def sources() -> list:
 
 
 def _digest() -> str:
+    """Hash of the flags, the sources and the headers they include."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sorted(CSRC.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]

@@ -1,0 +1,76 @@
+"""Fused shared-mask apply with error feedback, one leaf per call.
+
+Counterpart of ``repro/kernels/ssm_apply/{ssm_apply,ops,ref}.py``
+(``ssm_apply_ef``).  With tau from ``topk_mask.ops.select_tau`` this is the
+per-leaf kernel-path compress:
+
+    tau, _ = select_tau(dW, k)
+    sW, sM, sV, err = ssm_apply_ef(tau, dW, dM, dV)
+
+On a CUDA tensor it launches the kernel of ``csrc/ssm_apply.cu`` (float32
+or bfloat16 leaves of any length, every stream of one call in one dtype);
+on a CPU tensor it runs :func:`ssm_apply_ef_plain`, the composed
+arithmetic of the reference compress path.  The 3-in/3-out ``ssm_apply_2d``
+without cast or residual has no caller on the port's paths and is not
+ported yet (ROADMAP §2 row 10).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import LAUNCHES, _lib
+from repro_torch.kernels._check import (cuda_arg, leaf_dtype_code, on_cpu,
+                                        ptr, stream)
+from repro_torch.kernels.packed_topk.ops import _value_code
+
+_F32 = torch.float32
+_TORCH_VALUE_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16}
+
+
+def ssm_apply_ef_plain(tau, dw, dm, dv, score=None, *, with_residual=True,
+                       value_dtype=None):
+    """``keep = |score or dw| >= tau``; ``where(keep, cast(x), 0)`` for
+    dw, dm, dv; the residual ``dw - sw`` in float32, cast back."""
+    _value_code(value_dtype)
+    s = dw if score is None else score
+    keep = s.to(_F32).abs() >= tau
+
+    def apply(x):
+        if value_dtype is not None:
+            x = x.to(_TORCH_VALUE_DTYPES[value_dtype]).to(x.dtype)
+        return torch.where(keep, x, torch.zeros((), dtype=x.dtype,
+                                                device=x.device))
+
+    sw, sm, sv = apply(dw), apply(dm), apply(dv)
+    if not with_residual:
+        return sw, sm, sv
+    return sw, sm, sv, (dw.to(_F32) - sw.to(_F32)).to(dw.dtype)
+
+
+def ssm_apply_ef(tau: torch.Tensor, dw, dm, dv,
+                 score: Optional[torch.Tensor] = None, *,
+                 with_residual: bool = True, value_dtype=None):
+    """Fused compress pass over same-shape leaves: ``(sw, sm, sv)`` or
+    ``(sw, sm, sv, err)``.  ``score`` defaults to ``dw`` (the ssm_w rule),
+    which the kernel then reads once.  ONE launch on the card."""
+    if on_cpu(dw):
+        return ssm_apply_ef_plain(tau, dw, dm, dv, score,
+                                  with_residual=with_residual,
+                                  value_dtype=value_dtype)
+    vdt = _value_code(value_dtype)
+    code = leaf_dtype_code("dw", dw)
+    dev = dw.device
+    cuda_arg("tau", tau, _F32, (), dev, aligned=False)
+    for name, x in (("dw", dw), ("dm", dm), ("dv", dv), ("score", score)):
+        if x is not None:
+            cuda_arg(name, x, dw.dtype, dw.shape, dev, aligned=False)
+    outs = [torch.empty_like(x) for x in (dw, dm, dv)]
+    err = torch.empty_like(dw) if with_residual else None
+    _lib.launch("repro_ssm_apply_ef", ptr(tau), ptr(score), ptr(dw),
+                ptr(dm), ptr(dv), ptr(outs[0]), ptr(outs[1]), ptr(outs[2]),
+                ptr(err), dw.numel(), code, vdt, stream(dev))
+    LAUNCHES["ssm_apply_ef"] += 1
+    return tuple(outs) + ((err,) if with_residual else ())
+

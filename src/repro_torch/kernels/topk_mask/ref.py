@@ -1,8 +1,9 @@
-"""Host helpers of the threshold top-k selection (the candidate rows and
-the over-selection contract).  Counterpart of
-``repro/kernels/topk_mask/ref.py:log2_taus``/``linear_taus`` and
-``repro/kernels/topk_mask/ops.py:overselect_bound``; the per-leaf kernels
-of this family are ported later (ROADMAP §2 rows 6-8).
+"""Helpers and oracle of the threshold top-k selection: the candidate
+rows, the over-selection contract and the pure-PyTorch selection.
+Counterpart of ``repro/kernels/topk_mask/ref.py`` and
+``repro/kernels/topk_mask/ops.py:overselect_bound``.  The selection passes
+themselves (absmax, count_ge, select_tau) are in ``ops.py``; the mask apply
+kernel ``apply_mask_2d`` is not ported yet (ROADMAP §2 row 8).
 
 Both candidate rows reproduce the JAX package's EAGER float32 arithmetic
 bit for bit:
@@ -56,3 +57,24 @@ def overselect_bound(k: int, n: int | None = None) -> int:
     ``n - k``)."""
     bound = int(0.06 * k) + 8
     return min(bound, (n - k) if n is not None else bound)
+
+
+def select_tau_ref(x: torch.Tensor, k: int) -> torch.Tensor:
+    """The two-level selection in plain PyTorch over the whole leaf at
+    once (``select_tau_ref`` of the JAX package): tau as a float32
+    scalar."""
+    a = x.reshape(-1).to(torch.float32).abs()
+    am = a.max()
+    taus1 = log2_taus(am)
+    counts1 = (a[None, :] >= taus1[:, None]).sum(dim=1).to(torch.float32)
+    idx = torch.argmax((counts1 >= k).to(torch.uint8))
+    hi = torch.where(idx > 0, taus1[(idx - 1).clamp(min=0)], am)
+    taus2 = linear_taus(taus1[idx], hi)
+    counts2 = (a[None, :] >= taus2[:, None]).sum(dim=1).to(torch.float32)
+    tau = taus2[torch.argmax((counts2 >= k).to(torch.uint8))]
+    return torch.zeros_like(tau) if k >= a.numel() else tau
+
+
+def topk_mask_ref(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Boolean ``|x| >= tau`` with :func:`select_tau_ref`'s tau."""
+    return x.to(torch.float32).abs() >= select_tau_ref(x, k)

@@ -1,0 +1,126 @@
+"""FL training driver of the port: a transformer of the zoo under a FedAdam
+algorithm, synchronous rounds.
+
+Counterpart of ``repro/launch/train.py``.  Runs on the CUDA card (the
+default; the compress, the wire and, with ``--kernel-adam``, the local
+Adam go through the hand-written kernels) or on the CPU with ``--device
+cpu``, where each kernel wrapper runs its plain version:
+
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch starcoder2-3b --smoke --rounds 2 --device cpu \\
+        --kernel-adam --threshold-topk
+
+The buffered-async driver (``--async-buffer``) and ``--checkpoint`` are
+not offered yet: ROADMAP §1.11 and §1.12.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch import tree as T
+from repro_torch.configs import get_config, reduce_for_smoke
+from repro_torch.core import FedConfig, fed_init, make_fl_round
+from repro_torch.core.compressors import make_compressor
+from repro_torch.core.compressors import available as available_algorithms
+from repro_torch.data import synthetic_tokens
+from repro_torch.device import DeviceLike, exact_float32, resolve_device
+from repro_torch.models.model import init_params, loss_fn
+from repro_torch.optim import AdamHyper
+
+
+def build_client_batches(cfg, n_clients, batch_size, seq_len, *, seed=0,
+                         non_iid=True, device: DeviceLike = None):
+    """``{"tokens": (C, B, S) int32}`` on ``device``: Zipf tokens with a
+    topic per client (non-IID), from the seed."""
+    if cfg.stub_frontend:
+        raise NotImplementedError(
+            "stub frontends are not ported yet: ROADMAP §1.13")
+    toks = np.stack([
+        synthetic_tokens(batch_size, seq_len, cfg.vocab_size, seed=seed,
+                         topic=(c if non_iid else 0))
+        for c in range(n_clients)])
+    return {"tokens": torch.from_numpy(toks).to(resolve_device(device))}
+
+
+def make_trainer(cfg, fed: FedConfig, *, seed: int = 0,
+                 device: DeviceLike = None):
+    """``(round_fn, state)`` of ``cfg`` under ``fed`` on ``device``, from
+    random weights made from ``seed``.  Turns TF32 off
+    (:func:`repro_torch.device.exact_float32`)."""
+    dev = resolve_device(device)
+    exact_float32()
+    params = init_params(cfg, seed=seed, device=dev)
+
+    def loss(p, batch):
+        return loss_fn(cfg, p, batch["tokens"], remat="none")
+
+    return make_fl_round(fed, loss), fed_init(fed, params)
+
+
+def main(argv: Optional[list] = None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--algorithm", default="fedadam_ssm",
+                    choices=available_algorithms())
+    ap.add_argument("--alpha", type=float, default=0.05)
+    ap.add_argument("--rounds", type=int, default=10)
+    ap.add_argument("--local-epochs", type=int, default=3)
+    ap.add_argument("--clients", type=int, default=4)
+    ap.add_argument("--batch", type=int, default=2)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--smoke", action="store_true",
+                    help="reduced config (CPU-runnable)")
+    ap.add_argument("--iid", action="store_true")
+    ap.add_argument("--kernel-adam", action="store_true",
+                    help="local Adam through the fused_adam kernel")
+    ap.add_argument("--threshold-topk", action="store_true",
+                    help="O(d) threshold masks instead of exact top-k")
+    ap.add_argument("--sparsify-backend", default="auto",
+                    choices=("auto", "kernel", "reference"),
+                    help="threshold-mask implementation (auto: the kernels "
+                         "on the card, the bisection reference on the CPU)")
+    ap.add_argument("--participation", type=float, default=1.0)
+    ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+
+    dev = resolve_device(args.device)
+    cfg = get_config(args.arch)
+    if args.smoke:
+        cfg = reduce_for_smoke(cfg)
+    fed = FedConfig(
+        algorithm=args.algorithm, alpha=args.alpha,
+        local_epochs=args.local_epochs, n_clients=args.clients,
+        adam=AdamHyper(lr=args.lr), client_mode="scan",
+        use_kernel_adam=args.kernel_adam,
+        exact_topk=not args.threshold_topk,
+        sparsify_backend=args.sparsify_backend,
+        participation=args.participation)
+    comp = make_compressor(fed)
+    round_fn, state = make_trainer(cfg, fed, device=dev)
+    n_params = sum(x.numel() for x in T.leaves(state.W))
+    print(f"[train] {cfg.name}: {n_params/1e6:.2f}M params, "
+          f"{args.clients} clients, L={args.local_epochs}, "
+          f"alpha={args.alpha}, algo={args.algorithm} "
+          f"(transport={comp.transport}, "
+          f"{comp.bits_per_client(n_params)/8e6:.2f} MB/client/round), "
+          f"device: {dev}")
+    for r in range(args.rounds):
+        batch = build_client_batches(cfg, args.clients, args.batch,
+                                     args.seq, seed=r, non_iid=not args.iid,
+                                     device=dev)
+        t0 = time.time()
+        state, mets = round_fn(state, batch)
+        loss_v = float(mets["loss"].mean())
+        bits = float(mets["uplink_bits"])
+        print(f"[round {r:3d}] loss={loss_v:.4f} "
+              f"uplink={bits/8e6:.2f} MB  ({time.time()-t0:.1f}s)")
+
+
+if __name__ == "__main__":
+    main()

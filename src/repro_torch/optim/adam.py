@@ -23,6 +23,7 @@ from typing import Any, NamedTuple
 import torch
 
 from repro_torch import tree as T
+from repro_torch.kernels.fused_adam import ops as fused
 
 _F32 = torch.float32
 
@@ -75,13 +76,23 @@ def _adam_leaf(w, g, m, v, h: AdamHyper, count: int):
 
 def adam_step(params, grads, state: AdamState, h: AdamHyper,
               use_kernel: bool = False):
-    """One Adam step.  Returns (new_params, new_state)."""
-    if use_kernel:
-        raise NotImplementedError(
-            "the fused_adam kernel is not ported yet: ROADMAP §2 row 5 "
-            "(use_kernel_adam)")
+    """One Adam step.  Returns (new_params, new_state).  ``use_kernel``
+    sends every leaf through the fused_adam kernel (plain version on CPU
+    tensors), whose arithmetic differs from :func:`_adam_leaf`'s: see
+    ``repro_torch/kernels/fused_adam/ops.py``."""
     pw, td = T.flatten(params)
-    outs = [_adam_leaf(w, g, m, v, h, state.count) for w, g, m, v in
+    if use_kernel:
+        # one float32[4] per step, shared by every leaf: the moments stay
+        # uncorrected, bias correction lives in the scalars
+        scalars = fused.effective_scalars(h, state.count, pw[0].device)
+
+        def leaf(w, g, m, v):
+            return fused.fused_adam_apply(scalars, w, g, m, v)
+    else:
+        def leaf(w, g, m, v):
+            return _adam_leaf(w, g, m, v, h, state.count)
+
+    outs = [leaf(w, g, m, v) for w, g, m, v in
             zip(pw, T.leaves(grads), T.leaves(state.m), T.leaves(state.v))]
     return (td.unflatten([o[0] for o in outs]),
             AdamState(td.unflatten([o[1] for o in outs]),

@@ -40,16 +40,62 @@ def to_jax(tree):
 
 
 def bits(x) -> np.ndarray:
-    """The raw bits of a float32/int32/uint32/bool array or tensor."""
+    """The raw bits of a float32/int32/uint32/bfloat16/bool array or
+    tensor."""
     if isinstance(x, torch.Tensor):
         x = x.detach().cpu()
         if x.dtype == torch.uint32:
             x = x.view(torch.int32)
+        elif x.dtype in (torch.bfloat16, torch.float16):
+            x = x.view(torch.int16)
         x = x.numpy()
     x = np.asarray(x)
     if x.dtype == np.bool_:
         return x
+    if x.itemsize == 2:
+        return x.view(np.int16)
     return x.view(np.int32) if x.itemsize == 4 else x
+
+
+# bfloat16 crosses between the packages as its uint16 bit pattern, so both
+# sides hold the same values (numpy has no bfloat16 of its own; JAX's is
+# the ml_dtypes type).
+
+
+def bf16_bits(x: np.ndarray) -> np.ndarray:
+    """float32 -> the uint16 bits of its bfloat16 rounding (nearest even)."""
+    import jax.numpy as jnp
+    return np.asarray(x, np.float32).astype(jnp.bfloat16).view(np.uint16)
+
+
+def as_dtype(x: np.ndarray, dtype: str) -> np.ndarray:
+    """float32 data in the working dtype's numpy form: float32 as is,
+    bfloat16 as its uint16 bits."""
+    return bf16_bits(x) if dtype == "bfloat16" else np.asarray(x, np.float32)
+
+
+def np_bits_tree(tree):
+    """A JAX tree as numpy leaves, bfloat16 leaves as uint16 bit views."""
+    import jax
+    return jax.tree.map(
+        lambda x: np.asarray(x).view(np.uint16) if x.dtype.itemsize == 2
+        else np.asarray(x), tree)
+
+
+def leaf_to_torch(x: np.ndarray, device="cpu") -> torch.Tensor:
+    """A numpy leaf as a tensor; uint16 is taken as bfloat16 bits."""
+    x = np.asarray(x)
+    if x.dtype == np.uint16:
+        return torch.from_numpy(x.view(np.int16).copy()).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(x.copy()).to(device)
+
+
+def leaf_to_jax(x: np.ndarray):
+    """A numpy leaf as a JAX array; uint16 is taken as bfloat16 bits."""
+    import jax.numpy as jnp
+    x = np.asarray(x)
+    return jnp.asarray(x.view(jnp.bfloat16) if x.dtype == np.uint16 else x)
 
 
 def assert_bitwise(a, b, what=""):

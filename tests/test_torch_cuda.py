@@ -7,8 +7,12 @@ repository's ``tests/conftest.py`` (which imports jax) is skipped:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
-Counts are integers and the apply is a select plus elementwise casts, so
-every comparison is bitwise.
+Counts are integers and the applies are selects plus elementwise casts, so
+every comparison is bitwise; so is the fused Adam, whose kernel rounds
+every product and sum as the plain version's separate float32 ops do and
+takes the same root (rsqrtf).  The per-leaf kernels run in float32 and
+bfloat16 at lengths that exercise the vector loop, the ragged tail and a
+misaligned view.
 """
 import numpy as np
 import pytest
@@ -22,6 +26,10 @@ from repro_torch.kernels.packed_topk import ops as P
 from repro_torch.kernels.packed_topk import ref as pref
 from repro_torch.kernels.topk_mask import ref as tmref
 from repro_torch.kernels.wirepack import ops as W
+from repro_torch.kernels.fused_adam import ops as FA
+from repro_torch.kernels.ssm_apply import ops as SSM
+from repro_torch.kernels.topk_mask import ops as TM
+from repro_torch.optim import AdamHyper
 
 ALPHA = 0.05
 # a multi-block leaf, a sub-tile leaf, an exact-tile 2-D leaf and an
@@ -92,3 +100,91 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
     layout, xp, edges, *_ = _cuda_case(cuda_device)
     with pytest.raises(ValueError):
         P.packed_hist(xp, layout.seg_ids.cpu(), edges)
+
+
+# ---------------------------------------------------------------------------
+# Per-leaf kernels
+# ---------------------------------------------------------------------------
+
+LEAF_DTYPES = [torch.float32, torch.bfloat16]
+# a vector-loop-only length, a ragged tail, a norm-scale length
+LEAF_LENGTHS = [8192, 20001, 3072]
+
+
+def _leaf(device, n, dtype, seed, scale=1.0, offset=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(n + offset, generator=g, device=device) * scale
+    return x.to(dtype)[offset:]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", LEAF_DTYPES)
+@pytest.mark.parametrize("n", LEAF_LENGTHS)
+@pytest.mark.parametrize("bias", [False, True])
+def test_cuda_fused_adam_matches_plain(cuda_device, dtype, n, bias):
+    w, g, m = (_leaf(cuda_device, n, dtype, s, sc)
+               for s, sc in ((1, 1.0), (2, 0.1), (3, 0.01)))
+    v = _leaf(cuda_device, n, dtype, 4, 0.01).abs()
+    h = AdamHyper(lr=3e-3, bias_correction=bias)
+    scalars = FA.effective_scalars(h, 5, cuda_device)
+    reset_launches()
+    out = FA.fused_adam_apply(scalars, w, g, m, v)
+    assert LAUNCHES["fused_adam"] == 1
+    for a, b in zip(out, FA.fused_adam_plain(scalars, w, g, m, v)):
+        assert a.dtype == dtype
+        assert_bitwise(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", LEAF_DTYPES)
+@pytest.mark.parametrize("n", LEAF_LENGTHS)
+def test_cuda_absmax_count_select_match_plain(cuda_device, dtype, n):
+    for offset in (0, 1):               # aligned, and a misaligned view
+        x = _leaf(cuda_device, n, dtype, 7, offset=offset)
+        reset_launches()
+        am = TM.absmax(x)
+        assert_bitwise(am, TM.absmax_plain(x))
+        taus = tmref.log2_taus(am)
+        assert_bitwise(TM.count_ge(taus, x), TM.count_ge_plain(taus, x))
+        k = S.k_for(n, ALPHA)
+        tau, count = TM.select_tau(x, k)
+        assert LAUNCHES["absmax"] == 2 and LAUNCHES["count_ge"] == 3
+        assert_bitwise(tau, tmref.select_tau_ref(x, k))
+        assert k <= int(count) <= k + tmref.overselect_bound(k, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", LEAF_DTYPES)
+@pytest.mark.parametrize("n", LEAF_LENGTHS)
+@pytest.mark.parametrize("value_dtype", [None, "bfloat16", "float16"])
+def test_cuda_ssm_apply_ef_matches_plain(cuda_device, dtype, n,
+                                         value_dtype):
+    dw, dm, sc = (_leaf(cuda_device, n, dtype, s) for s in (8, 9, 10))
+    dv = _leaf(cuda_device, n, dtype, 11).abs()
+    tau = TM.select_tau(dw, S.k_for(n, ALPHA))[0]
+    for score in (None, sc):
+        for with_residual in (True, False):
+            kw = dict(with_residual=with_residual, value_dtype=value_dtype)
+            reset_launches()
+            a = SSM.ssm_apply_ef(tau, dw, dm, dv, score, **kw)
+            assert LAUNCHES["ssm_apply_ef"] == 1
+            b = SSM.ssm_apply_ef_plain(tau, dw, dm, dv, score, **kw)
+            assert len(a) == len(b) == 3 + with_residual
+            for x, y in zip(a, b):
+                assert_bitwise(x, y, f"score={score is not None}")
+
+
+@pytest.mark.cuda
+def test_cuda_per_leaf_wrappers_reject_what_the_kernels_do_not_take(
+        cuda_device):
+    x = torch.zeros(64, dtype=torch.float16, device=cuda_device)
+    with pytest.raises(TypeError):
+        TM.absmax(x)
+    y = torch.zeros(64, device=cuda_device)
+    with pytest.raises(TypeError):
+        FA.fused_adam_apply(FA.effective_scalars(AdamHyper(), 0,
+                                                 cuda_device),
+                            y, y.to(torch.bfloat16), y, y)
+    with pytest.raises(ValueError):
+        SSM.ssm_apply_ef(torch.zeros((), device=cuda_device), y, y, y[:32],
+                         None)

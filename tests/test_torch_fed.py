@@ -3,6 +3,7 @@ the port's guards.
 
 * Adam: bitwise against the eager JAX ``_adam_leaf``; against the jitted
   one within an ulp bound (XLA fuses ``b1*m + (1-b1)*g`` into an FMA).
+  The fused_adam path is tests/test_torch_perleaf_kernels.py's.
 * Vision models: the same weights (carried from JAX through numpy) and
   batch give the same loss and gradients up to float32 summation order.
 * The round: 3 rounds with error feedback, the port on the CPU with the
@@ -83,9 +84,16 @@ def test_adam_leaf_vs_jitted_jax_within_ulps():
 
 
 def test_adam_step_kernel_raises_until_ported():
+    """The fused_adam kernel is ported: ``use_kernel=True`` runs its plain
+    version on CPU tensors and raises only for a device that has neither
+    (the per-leaf JAX parity is tests/test_torch_perleaf_kernels.py)."""
     p = {"w": torch.zeros(4)}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        adam.adam_step(p, p, adam.adam_init(p), adam.AdamHyper(),
+    new_p, st = adam.adam_step(p, p, adam.adam_init(p), adam.AdamHyper(),
+                               use_kernel=True)
+    assert st.count == 1 and torch.equal(new_p["w"], p["w"])
+    q = {"w": torch.zeros(4, device="meta")}
+    with pytest.raises(ValueError, match="unsupported device"):
+        adam.adam_step(q, q, adam.adam_init(q), adam.AdamHyper(),
                        use_kernel=True)
 
 
@@ -270,7 +278,7 @@ def test_entry_points_need_a_card_or_device_cpu(monkeypatch):
 @pytest.mark.parametrize("kw,what", [
     (dict(client_mode="vmap"), "§1.9"),
     (dict(participation=0.5), "§1.6"),
-    (dict(use_kernel_adam=True), "§2 row 5"),
+    (dict(client_mode="shard_map"), "§1.10"),
 ])
 def test_round_outside_the_slice_raises(kw, what):
     fed = FedConfig(**kw)

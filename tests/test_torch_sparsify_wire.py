@@ -119,10 +119,18 @@ def test_resolve_backend_precedence(monkeypatch):
 
 
 def test_per_leaf_kernel_paths_raise_until_ported():
+    """The per-leaf fused compress is ported (rows 6, 7 and 9: its parity
+    is tests/test_torch_perleaf_kernels.py's) and equals the packed path on
+    a uniform tree; threshold MASKS on the kernel backend still need the
+    apply_mask_2d kernel (row 8) and raise."""
     dW, dM, dV = (to_torch(t) for t in _deltas(40))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        S.tree_shared_compress_fused(None, dW, dM, dV, ALPHA, packed=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    per_leaf = S.tree_shared_compress_fused(None, dW, dM, dV, ALPHA,
+                                            packed=False, with_residual=True)
+    packed = S.tree_shared_compress_fused(None, dW, dM, dV, ALPHA,
+                                          with_residual=True)
+    for a, b in zip(per_leaf, packed):
+        assert_tree_bitwise(a, b, "per-leaf vs packed")
+    with pytest.raises(NotImplementedError, match="ROADMAP §2 row 8"):
         S.tree_topk_masks(dW, ALPHA, exact=False, backend="kernel")
 
 
