@@ -14,12 +14,19 @@ Run from the root of a checkout (it imports ``src/repro_torch``).  Phases:
    kernel launch counters zeroed just before and read just after, and
    the first client's wire payload measured on the card; then one more
    round under torch.profiler (device busy share, top kernels) and one
-   that counts the stream synchronisations the host waits on;
+   that counts the stream synchronisations the host waits on; then one
+   FedAdam-Top round of the same configuration (three independent masks
+   through the packed compress, exact launches per client, the
+   three-bitmap payload measured on the card) and a sync-counting one;
 3. each kernel against its plain version on the card, bitwise, on the
    inputs the first client's compress gave it and at VGG-11 width-1.0
-   packed shapes, with times from CUDA events and the memory bound;
+   packed shapes, with times from CUDA events and the memory bound; the
+   packed histogram and apply also on the FedAdam-Top client's inputs
+   (dW ++ dM ++ dV in 3L segments, the single-stream apply with its
+   residual over every row);
 4. one round on the card against the same round on the CPU (4 clients,
-   same weights and batch), within the CPU parity tests' tolerances;
+   same weights and batch), within the CPU parity tests' tolerances, for
+   FedAdam-SSM and for FedAdam-Top;
 5. the transformer path: 2 FedAdam-SSM rounds of starcoder2-3b at full
    width (d_model 3072, vocab 49152, bfloat16 with float32 norm scales)
    cut to 2 pattern repeats, 4 clients, 3 local epochs of the fused Adam,
@@ -29,11 +36,17 @@ Run from the root of a checkout (it imports ``src/repro_torch``).  Phases:
    memory and round wall times; then one round under torch.profiler and
    one that counts stream synchronisations, in which the first client's
    wire payload is measured and the kernels' inputs are kept for 6;
-6. the per-leaf kernels (fused_adam, absmax, count_ge, ssm_apply_ef)
-   against their plain versions on the card, on the inputs the first
-   client of that round gave them at the embed, w_up and norm leaf
-   shapes, with times;
-7. one round of the smoke starcoder2 on the card against the CPU.
+6. the per-leaf kernels (fused_adam, absmax, count_ge, ssm_apply_ef, and
+   ssm_apply, which no path calls, on ssm_apply_ef's inputs) against
+   their plain versions on the card, on the inputs the first client of
+   that round gave them at the embed, w_up and norm leaf shapes, with
+   times; then phase 5 again for FedAdam-Top on the same configuration
+   (the per-leaf threshold masks of three deltas: absmax, two counts and
+   apply_mask per leaf and delta; three bitmaps), its trainer built
+   after phase 5's is freed, and apply_mask against its plain version on
+   that round's inputs;
+7. one round of the smoke starcoder2 on the card against the CPU, for
+   FedAdam-SSM and for FedAdam-Top.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.  Any failure
@@ -63,23 +76,54 @@ F32_OPS_PER_S = 67e12
 CNN_WIRE_BYTES_PER_CLIENT = 346_880
 CLIENTS = 20
 ROUNDS = 3
+#: FedAdam-Top on the CNN: three (bitmap, value stream) pairs per client.
+CNN_TOP_WIRE_BYTES_PER_CLIENT = 461_568
 
 #: The transformer path: starcoder2-3b at full width, 2 pattern repeats.
 LM_REPEATS = 2
 LM_PARAMS = 493_894_656
-LM_WIRE_BYTES_PER_CLIENT = 375_854_948
 LM_CLIENTS = 4
 LM_ROUNDS = 2
 LM_LOCAL_EPOCHS = 3
-#: Expected kernel launches per client and round on the transformer path:
-#: fused_adam once per leaf and local epoch; per leaf one absmax, two
-#: counts and one apply; one bitmap pack and one unpack per client.
-LM_LAUNCHES_PER_CLIENT_ROUND = {
-    "packed_hist": 0, "packed_apply": 0, "pack_words": 1, "unpack_words": 1,
-    "fused_adam": 11 * LM_LOCAL_EPOCHS, "absmax": 11, "count_ge": 22,
-    "ssm_apply_ef": 11}
 #: Leaf sizes whose first inputs phase 6 replays: embed, w_up, a norm.
 LM_SHAPES = {"embed": 150_994_944, "w_up": 75_497_472, "norm": 6_144}
+
+
+def per_client_round(**nonzero):
+    """Expected launches of every kernel per client and round: those
+    named, and 0 for the others."""
+    names = ("packed_hist", "packed_apply", "pack_words", "unpack_words",
+             "fused_adam", "absmax", "count_ge", "apply_mask",
+             "ssm_apply_ef", "ssm_apply")
+    return {k: nonzero.get(k, 0) for k in names}
+
+
+#: Expected launches per client and round of the CNN's FedAdam-Top: the
+#: histogram and the refine count, the pick/apply, and three bitmaps packed
+#: and unpacked.
+CNN_TOP_LAUNCHES = per_client_round(packed_hist=2, packed_apply=1,
+                                    pack_words=3, unpack_words=3)
+
+#: The transformer's two algorithms: payload bytes per client, the
+#: payload's encoder, expected launches per client and round, and the
+#: per-leaf kernels whose inputs phase 6 replays.  FedAdam-SSM: fused_adam
+#: once per leaf and local epoch; per leaf one absmax, two counts and one
+#: fused apply; one bitmap.  FedAdam-Top: per leaf and delta one absmax,
+#: two counts and one mask apply; three bitmaps.
+LM_PATHS = {
+    "fedadam_ssm": {
+        "wire_bytes": 375_854_948, "encoder": "pack_shared_mask",
+        "launches": per_client_round(
+            pack_words=1, unpack_words=1, fused_adam=11 * LM_LOCAL_EPOCHS,
+            absmax=11, count_ge=22, ssm_apply_ef=11),
+        "replayed": ("fused_adam", "absmax", "count_ge", "ssm_apply_ef")},
+    "fedadam_top": {
+        "wire_bytes": 499_328_868, "encoder": "pack_independent_mask",
+        "launches": per_client_round(
+            pack_words=3, unpack_words=3, fused_adam=11 * LM_LOCAL_EPOCHS,
+            absmax=33, count_ge=66, apply_mask=33),
+        "replayed": ("apply_mask",)},
+}
 
 KERNELS = {
     "packed_hist": ("src/repro_torch/csrc/packed_topk.cu",
@@ -101,8 +145,12 @@ LM_KERNELS = {
                "src/repro/kernels/topk_mask/topk_mask.py:55", 0),
     "count_ge": ("src/repro_torch/csrc/topk_mask.cu",
                  "src/repro/kernels/topk_mask/topk_mask.py:89", 1),
+    "apply_mask": ("src/repro_torch/csrc/topk_mask.cu",
+                   "src/repro/kernels/topk_mask/topk_mask.py:115", 1),
     "ssm_apply_ef": ("src/repro_torch/csrc/ssm_apply.cu",
                      "src/repro/kernels/ssm_apply/ssm_apply.py:110", 1),
+    "ssm_apply": ("src/repro_torch/csrc/ssm_apply.cu",
+                  "src/repro/kernels/ssm_apply/ssm_apply.py:46", 1),
 }
 
 
@@ -279,6 +327,92 @@ def phase_main_path(torch, seed):
     prof["syncs"] = count_syncs(torch, round_fn, state, batch, w)
     log(f"profiled round: {json.dumps(prof)}")
     return rounds, main_launches, captured, prof, nbytes
+
+
+def phase_cnn_top(torch, seed):
+    """One FedAdam-Top round of the CNN at full width on phase 2's
+    configuration: exact launches per client, the first client's
+    three-bitmap payload measured on the card, then a round that counts
+    stream synchronisations.  Also returns the first client's inputs to the
+    packed kernels (one buffer of dW ++ dM ++ dV in 3L segments, the
+    single-stream apply), which ``phase_cnn_top_kernels`` replays."""
+    from repro_torch.core import FedConfig, fed_init, make_fl_round
+    from repro_torch.core import sparsify, wire
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models.vision import build_vision
+    from repro_torch.optim import AdamHyper
+
+    dev = torch.device("cuda")
+    params, _, loss_fn, _, _ = build_vision("cnn", width=1.0, seed=seed,
+                                            device=dev)
+    imgs, labels, n_train, parts = make_data(seed, CLIENTS)
+    fed = FedConfig(algorithm="fedadam_top", alpha=0.05, local_epochs=3,
+                    n_clients=CLIENTS, adam=AdamHyper(lr=1e-3),
+                    exact_topk=False, error_feedback=True)
+    round_fn = make_fl_round(fed, loss_fn)
+    state = fed_init(fed, params)
+    batch, w = round_batch(torch, imgs, labels, n_train, parts, 0, dev)
+    cap = Capture()
+    cap.wrap(wire, "pack_independent_mask", "payload")
+    cap.wrap(sparsify, "packed_hist", "packed_hist")
+    cap.wrap(sparsify, "packed_apply", "packed_apply")
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    state, mets = round_fn(state, batch, w)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    cap.restore()
+    loss = float(mets["loss"].mean())
+    log(f"cnn fedadam_top round: loss={loss:.6f} wall={wall:.4f} s "
+        f"launches={launches}")
+    want = {k: v * CLIENTS for k, v in CNN_TOP_LAUNCHES.items()}
+    require(launches == want, f"launches {launches}, expected {want}")
+    require(math.isfinite(loss), f"cnn fedadam_top loss is {loss}")
+    for name in "WMV":
+        for k, x in getattr(state, name).items():
+            require(bool(torch.isfinite(x).all()), f"{name}[{k}] not finite")
+    payload = cap.outs["payload"]
+    require(len(payload.words) == 3 and all(
+        a.is_cuda for part in payload for a in part),
+        "the three-bitmap payload was not built on the card")
+    nbytes = wire.payload_nbytes(payload)
+    uplink = float(mets["uplink_bits"])
+    log(f"cnn fedadam_top first client's payload built on the card: "
+        f"{nbytes} bytes; uplink bits {uplink}")
+    require(nbytes == CNN_TOP_WIRE_BYTES_PER_CLIENT,
+            f"the card's payload holds {nbytes} bytes")
+    require(uplink == CLIENTS * 8 * CNN_TOP_WIRE_BYTES_PER_CLIENT,
+            f"uplink bits {uplink}")
+    syncs = count_syncs(torch, round_fn, state, batch, w)
+    log(f"cnn fedadam_top syncs: {json.dumps(syncs)}")
+    # the apply is called without a score: make it explicit for the replay
+    args, kw = cap.args["packed_apply"][None]
+    require(len(args[4]) == 1 and len(args) == 5,
+            "FedAdam-Top's packed apply is not the single-stream call")
+    require(args[2].numel() == 3 * len(params),
+            f"{args[2].numel()} tau segments for {len(params)} leaves")
+    captured = {"packed_hist": cap.args["packed_hist"][None],
+                "packed_apply": (args + [None], kw)}
+    return {"loss": loss, "wall_s": wall, "launches": launches,
+            "payload_bytes": nbytes, "uplink_bits": uplink,
+            "syncs": syncs}, captured
+
+
+def phase_cnn_top_kernels(torch, captured, kernels):
+    """The packed kernels against their plain versions on FedAdam-Top's
+    inputs: the histogram over 3L segments and the single-stream apply
+    with its residual over every row.  Adds the record to ``kernels``."""
+    by_name = {k["name"]: k for k in kernels}
+    for name in ("packed_hist", "packed_apply"):
+        args, kw = captured[name]
+        rec = measure(torch, name, args, kw, iters=200, plain_iters=20)
+        rec["segments"] = captured["packed_apply"][0][2].numel()
+        log(f"{name}: cnn fedadam_top {json.dumps(rec)}")
+        k = by_name[name]
+        k["max_abs_err"] = max(k["max_abs_err"], rec["max_abs_err"])
+        k["at_cnn_fedadam_top"] = rec
 
 
 def count_syncs(torch, round_fn, state, batch, w) -> dict:
@@ -552,7 +686,9 @@ def phase_kernels(torch, captured, main_launches, n_client_rounds, seed):
 # ---------------------------------------------------------------------------
 
 
-def phase_card_vs_cpu(torch, np, seed):
+def phase_card_vs_cpu(torch, np, seed, algorithm):
+    """One CNN round of ``algorithm`` on the card and on the CPU (plain
+    versions of the kernels), from the same weights and batch."""
     from repro_torch.core import FedConfig, fed_init, make_fl_round
     from repro_torch.models.vision import build_vision
     from repro_torch.optim import AdamHyper
@@ -563,7 +699,7 @@ def phase_card_vs_cpu(torch, np, seed):
     imgs, labels, n_train, parts = make_data(seed, C)
     results = {}
     for dev in ("cuda", "cpu"):
-        fed = FedConfig(algorithm="fedadam_ssm", alpha=0.05, local_epochs=3,
+        fed = FedConfig(algorithm=algorithm, alpha=0.05, local_epochs=3,
                         n_clients=C, adam=AdamHyper(lr=1e-3),
                         exact_topk=False, error_feedback=True,
                         sparsify_backend="kernel")
@@ -577,7 +713,8 @@ def phase_card_vs_cpu(torch, np, seed):
     # the CPU parity tests' tolerances: loss rtol 1e-5 (1e-4 here: cuDNN
     # and the CPU sum the convolutions in other orders), W/M/V within
     # rtol 1e-4 / atol 1e-5 * max except at most 0.2% of the elements,
-    # which sit on a segment's tau and may be kept on one side only
+    # which sit on a segment's tau and may be kept on one side only (for
+    # FedAdam-Top, on any of the three streams' taus)
     np.testing.assert_allclose(gm["loss"].cpu().numpy(),
                                cm["loss"].numpy(), rtol=1e-4)
     worst = 0.0
@@ -593,7 +730,8 @@ def phase_card_vs_cpu(torch, np, seed):
     support = max(float(np.mean((err_g[k].cpu().numpy() == 0)
                                 != (err_c[k].numpy() == 0))) for k in err_g)
     require(support <= 2e-3, f"EF supports differ on {support:.2e}")
-    log(f"card vs CPU: loss {gm['loss'].cpu().numpy().tolist()} vs "
+    log(f"cnn {algorithm} card vs CPU: loss "
+        f"{gm['loss'].cpu().numpy().tolist()} vs "
         f"{cm['loss'].numpy().tolist()}; share of W/M/V elements beyond "
         f"tolerance {worst:.2e}; EF support mismatch {support:.2e}")
     return {"loss_cuda": gm["loss"].cpu().numpy().tolist(),
@@ -605,29 +743,42 @@ def phase_card_vs_cpu(torch, np, seed):
 # ---------------------------------------------------------------------------
 
 
-def lm_fed(n_clients):
+def lm_fed(n_clients, algorithm):
     from repro_torch.core import FedConfig
     from repro_torch.optim import AdamHyper
-    return FedConfig(algorithm="fedadam_ssm", alpha=0.05,
+    return FedConfig(algorithm=algorithm, alpha=0.05,
                      local_epochs=LM_LOCAL_EPOCHS, n_clients=n_clients,
                      adam=AdamHyper(lr=1e-3), exact_topk=False,
                      error_feedback=True, use_kernel_adam=True)
 
 
-def phase_transformer(torch, seed):
+def _lm_entry_points():
+    """(module, attribute) where the path looks up each per-leaf kernel's
+    wrapper, and so where phase 5 captures its inputs."""
+    from repro_torch.core import sparsify
+    from repro_torch.kernels.fused_adam import ops as FA
+    from repro_torch.kernels.topk_mask import ops as TM
+    return {"fused_adam": (FA, "fused_adam_apply"),
+            "absmax": (TM, "absmax"), "count_ge": (TM, "count_ge"),
+            "apply_mask": (TM, "apply_mask"),
+            "ssm_apply_ef": (sparsify, "ssm_apply_ef")}
+
+
+def phase_transformer(torch, seed, algorithm):
     import dataclasses
     from repro_torch import tree as T
     from repro_torch.configs import get_config
-    from repro_torch.core import sparsify, wire
+    from repro_torch.core import wire
     from repro_torch.kernels import LAUNCHES, reset_launches
-    from repro_torch.kernels.fused_adam import ops as FA
-    from repro_torch.kernels.topk_mask import ops as TM
     from repro_torch.launch import train
 
+    spec = LM_PATHS[algorithm]
     dev = torch.device("cuda")
     cfg = dataclasses.replace(get_config("starcoder2-3b"),
                               pattern_repeats=LM_REPEATS)
-    fed = lm_fed(LM_CLIENTS)
+    fed = lm_fed(LM_CLIENTS, algorithm)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     round_fn, state = train.make_trainer(cfg, fed, seed=seed, device=dev)
     sizes = tuple(x.numel() for x in T.leaves(state.W))
@@ -651,54 +802,57 @@ def phase_transformer(torch, seed):
         wall = time.perf_counter() - t0
         losses = mets["loss"].cpu().tolist()
         rounds.append({"round": r, "loss": losses, "wall_s": wall})
-        log(f"lm round {r}: loss={losses} wall={wall:.3f} s")
+        log(f"lm {algorithm} round {r}: loss={losses} wall={wall:.3f} s")
         require(all(math.isfinite(x) for x in losses),
                 f"lm round {r} loss is {losses}")
     launches = dict(LAUNCHES)
     n_cr = LM_ROUNDS * LM_CLIENTS
-    want = {k: v * n_cr for k, v in LM_LAUNCHES_PER_CLIENT_ROUND.items()}
-    log(f"lm launches: {launches}")
+    want = {k: v * n_cr for k, v in spec["launches"].items()}
+    log(f"lm {algorithm} launches: {launches}")
     require(launches == want, f"launches {launches}, expected {want}")
     peak = torch.cuda.max_memory_allocated()
-    log(f"lm peak device memory: {peak / 2**30:.2f} GiB")
+    log(f"lm {algorithm} peak device memory: {peak / 2**30:.2f} GiB "
+        f"({held / 2**30:.2f} GiB held before the phase began)")
     for name in "WMV":
         for x in T.leaves(getattr(state, name)):
             require(bool(torch.isfinite(x).all()), f"{name} not finite")
     uplink = float(mets["uplink_bits"])
-    require(wire.mask_wire_bits(sizes, 0.05, exact_topk=False)
-            == 8 * LM_WIRE_BYTES_PER_CLIENT, "accounted wire bits")
+    wire_bytes = spec["wire_bytes"]
+    require(wire.mask_wire_bits(sizes, 0.05, exact_topk=False,
+                                shared=algorithm != "fedadam_top")
+            == 8 * wire_bytes, "accounted wire bits")
     require(uplink == float(torch.tensor(
-        float(LM_CLIENTS * 8 * LM_WIRE_BYTES_PER_CLIENT),
-        dtype=torch.float32)), f"uplink bits {uplink}")
+        float(LM_CLIENTS * 8 * wire_bytes), dtype=torch.float32)),
+        f"uplink bits {uplink}")
     batch = batches[-1]
     prof = profile_round(torch, round_fn, state, batch, None)
     # the inputs phase 6 replays are captured in the sync-counting round,
     # so that the copies kept for it stay out of the measured peak
     cap = Capture()
-    cap.wrap(wire, "pack_shared_mask", "payload")
-    for module, attr, name in ((FA, "fused_adam_apply", "fused_adam"),
-                               (TM, "absmax", "absmax"),
-                               (TM, "count_ge", "count_ge"),
-                               (sparsify, "ssm_apply_ef", "ssm_apply_ef")):
-        cap.wrap(module, attr, name, LM_KERNELS[name][2],
+    cap.wrap(wire, spec["encoder"], "payload")
+    entry = _lm_entry_points()
+    for name in spec["replayed"]:
+        cap.wrap(*entry[name], name, LM_KERNELS[name][2],
                  tuple(LM_SHAPES.values()))
     prof["syncs"] = count_syncs(torch, round_fn, state, batch, None)
     cap.restore()
-    log(f"lm profiled round: {json.dumps(prof)}")
+    log(f"lm {algorithm} profiled round: {json.dumps(prof)}")
     payload = cap.outs["payload"]
     require(all(a.is_cuda for part in payload for a in part),
             "the wire payload was not built on the card")
     nbytes = wire.payload_nbytes(payload)
-    log(f"lm first client's payload built on the card: {nbytes} bytes")
-    require(nbytes == LM_WIRE_BYTES_PER_CLIENT,
+    log(f"lm {algorithm} first client's payload built on the card: "
+        f"{nbytes} bytes")
+    require(nbytes == wire_bytes,
             f"the card's payload holds {nbytes} bytes")
-    require(all(len(cap.args[k]) == len(LM_SHAPES) for k in LM_KERNELS),
+    require(all(len(cap.args[k]) == len(LM_SHAPES)
+                for k in spec["replayed"]),
             f"captured {({k: sorted(v) for k, v in cap.args.items()})}")
     require(prof["syncs"]["per_round"] == 0,
             f"the transformer round synchronised the stream: {prof['syncs']}")
     return {"rounds": rounds, "launches": launches, "peak_bytes": peak,
-            "payload_bytes": nbytes, "uplink_bits": uplink,
-            "round_profile": prof}, cap.args
+            "held_bytes_at_start": held, "payload_bytes": nbytes,
+            "uplink_bits": uplink, "round_profile": prof}, dict(cap.args)
 
 
 # ---------------------------------------------------------------------------
@@ -731,6 +885,18 @@ def lm_kernel(torch, name, args, kw):
         return (lambda: TM.count_ge(taus, x)), \
             (lambda: TM.count_ge_plain(taus, x)), ["count_ge_kernel"], \
             None, n * e + 2 * 4 * 32, 2 * 32 * n + n
+    if name == "apply_mask":
+        tau, x = args
+        n, e = x.numel(), x.element_size()
+        return (lambda: TM.apply_mask(tau, x)), \
+            (lambda: TM.apply_mask_plain(tau, x)), ["apply_mask_kernel"], \
+            None, n * e + 4 + n, 2 * n
+    if name == "ssm_apply":
+        tau, dw, dm, dv = args
+        n, e = dw.numel(), dw.element_size()
+        return (lambda: SSM.ssm_apply(*args)), \
+            (lambda: SSM.ssm_apply_plain(*args)), ["ssm_apply_kernel"], \
+            None, 6 * n * e + 4, 5 * n
     tau, dw, dm, dv, score = (list(args) + [None])[:5]
     n, e = dw.numel(), dw.element_size()
     n_out = 3 + bool(kw.get("with_residual", True))
@@ -758,10 +924,14 @@ def fused_adam_w_check(torch, a, b, w):
     return float((err / spacing).max())
 
 
-def phase_lm_kernels(torch, captured, launches):
+def phase_lm_kernels(torch, captured, launches, names):
+    """The per-leaf kernels ``names`` against their plain versions on
+    ``captured`` inputs, with times; ``launches``: the counts of the path
+    that gave the inputs."""
     out = []
     n_cr = LM_ROUNDS * LM_CLIENTS
-    for name, (src, replaces, leaf_arg) in LM_KERNELS.items():
+    for name in names:
+        src, replaces, leaf_arg = LM_KERNELS[name]
         per_shape = {}
         for shape_name, n in LM_SHAPES.items():
             args, kw = captured[name][n]
@@ -787,6 +957,9 @@ def phase_lm_kernels(torch, captured, launches):
                    "plain_ms": time_ms(torch, fp, 3 if big else 20),
                    "library_ms": None if lib is None else
                    time_ms(torch, lib, 20 if big else 200),
+                   # every device kernel of the library call
+                   "library_device_ms": None if lib is None else
+                   device_ms(torch, lib, 10 if big else 50, [""]),
                    "bound_ms": max(t_bytes, t_ops),
                    "bound_by": "bytes" if t_bytes >= t_ops
                    else "operations",
@@ -803,6 +976,7 @@ def phase_lm_kernels(torch, captured, launches):
                     "bound_by": head["bound_by"],
                     "library_ms": head["library_ms"],
                     "device_ms": head["device_ms"],
+                    "library_device_ms": head["library_device_ms"],
                     "launches_per_client_round": launches[name] / n_cr,
                     "at": per_shape})
     return out
@@ -813,7 +987,7 @@ def phase_lm_kernels(torch, captured, launches):
 # ---------------------------------------------------------------------------
 
 
-def phase_lm_card_vs_cpu(torch, np, seed):
+def phase_lm_card_vs_cpu(torch, np, seed, algorithm):
     import dataclasses
     from repro_torch import tree as T
     from repro_torch.configs import get_config, reduce_for_smoke
@@ -822,7 +996,8 @@ def phase_lm_card_vs_cpu(torch, np, seed):
     from repro_torch.models import model as TM
 
     # reduce_for_smoke rebuilds each layer with the default gated MLP: put
-    # back starcoder2's tanh-GELU MLP, the one phase 5 runs (11 leaves)
+    # back starcoder2's tanh-GELU MLP, the one phase 5 runs (11 leaves).
+    # FedAdam-Top runs the per-leaf masks on that mixed-dtype tree.
     cfg = reduce_for_smoke(get_config("starcoder2-3b"))
     cfg = dataclasses.replace(cfg, layer_pattern=tuple(
         dataclasses.replace(s, gated_mlp=False) for s in cfg.layer_pattern))
@@ -831,7 +1006,8 @@ def phase_lm_card_vs_cpu(torch, np, seed):
     C = 4
     results = {}
     for dev in ("cuda", "cpu"):
-        fed = dataclasses.replace(lm_fed(C), sparsify_backend="kernel")
+        fed = dataclasses.replace(lm_fed(C, algorithm),
+                                  sparsify_backend="kernel")
         p = T.tree_map(lambda x: x.to(dev), params)
         batch = train.build_client_batches(cfg, C, 2, 128, seed=0,
                                            device=dev)
@@ -841,7 +1017,7 @@ def phase_lm_card_vs_cpu(torch, np, seed):
     require(float(gm["uplink_bits"]) == float(cm["uplink_bits"]),
             "uplink bits differ between the card and the CPU")
     # the CPU parity tests' bfloat16 tolerances: loss within 2e-3, each
-    # client's support on at most 4% of a leaf's elements
+    # client's (dW) support on at most 4% of a leaf's elements
     np.testing.assert_allclose(gm["loss"].cpu().numpy(),
                                cm["loss"].numpy(), rtol=2e-3)
     support = 0.0
@@ -850,11 +1026,26 @@ def phase_lm_card_vs_cpu(torch, np, seed):
         support = max(support, float(np.mean(
             (a.cpu().float().numpy() == 0) != (b.float().numpy() == 0))))
     require(support <= 4e-2, f"EF supports differ on {support:.2e}")
-    log(f"lm card vs CPU: loss {gm['loss'].cpu().numpy().tolist()} vs "
-        f"{cm['loss'].numpy().tolist()}; support mismatch {support:.2e}")
+    # W, M and V (FedAdam-Top's M and V carry masks of their own): at most
+    # 3% of a leaf beyond rtol 2^-7 plus 1e-3 (W) or 4e-2 (M, V) of the
+    # leaf's largest, the bound the CPU tests hold FedAdam-Top's round to
+    worst = {}
+    for name, atol in (("W", 1e-3), ("M", 4e-2), ("V", 4e-2)):
+        for a, b in zip(T.leaves(getattr(gs, name)),
+                        T.leaves(getattr(cs, name))):
+            a, b = a.cpu().float().numpy(), b.float().numpy()
+            bad = ~np.isclose(a, b, rtol=2.0 ** -7,
+                              atol=atol * float(np.abs(b).max()))
+            worst[name] = max(worst.get(name, 0.0), float(bad.mean()))
+    require(all(v <= 3e-2 for v in worst.values()),
+            f"W/M/V beyond tolerance on {worst}")
+    log(f"lm {algorithm} card vs CPU: loss "
+        f"{gm['loss'].cpu().numpy().tolist()} vs "
+        f"{cm['loss'].numpy().tolist()}; support mismatch {support:.2e}; "
+        f"worst share of a leaf beyond tolerance {worst}")
     return {"loss_cuda": gm["loss"].cpu().numpy().tolist(),
             "loss_cpu": cm["loss"].numpy().tolist(),
-            "support_mismatch": support}
+            "support_mismatch": support, "wmv_beyond_tolerance": worst}
 
 
 
@@ -872,21 +1063,43 @@ def main(argv=None):
         phase_main_path(torch, args.seed)
     kernels = phase_kernels(torch, captured, launches, ROUNDS * CLIENTS,
                             args.seed)
-    vs_cpu = phase_card_vs_cpu(torch, np, args.seed)
-    lm, lm_captured = phase_transformer(torch, args.seed)
+    cnn_top, captured = phase_cnn_top(torch, args.seed)
+    phase_cnn_top_kernels(torch, captured, kernels)
+    del captured
+    vs_cpu = {a: phase_card_vs_cpu(torch, np, args.seed, a)
+              for a in ("fedadam_ssm", "fedadam_top")}
+    lm, captured = phase_transformer(torch, args.seed, "fedadam_ssm")
+    # ssm_apply has no caller on any path: it replays ssm_apply_ef's
+    # inputs, the transformer's deltas at the same leaves
+    captured["ssm_apply"] = {n: (a[:4], {}) for n, (a, _)
+                             in captured["ssm_apply_ef"].items()}
+    kernels += phase_lm_kernels(torch, captured, lm["launches"],
+                                LM_PATHS["fedadam_ssm"]["replayed"]
+                                + ("ssm_apply",))
+    del captured
+    lm_top, captured = phase_transformer(torch, args.seed, "fedadam_top")
+    kernels += phase_lm_kernels(torch, captured, lm_top["launches"],
+                                LM_PATHS["fedadam_top"]["replayed"])
+    del captured
     for k in kernels:
+        k["launches_fedadam_top"] = {"cnn": cnn_top["launches"][k["name"]],
+                                     "lm": lm_top["launches"][k["name"]]}
         if k["name"] in ("pack_words", "unpack_words"):
             k["launches_transformer"] = lm["launches"][k["name"]]
-    kernels += phase_lm_kernels(torch, lm_captured, lm["launches"])
-    del lm_captured
-    lm_vs_cpu = phase_lm_card_vs_cpu(torch, np, args.seed)
+    require(sorted(k["name"] for k in kernels)
+            == sorted((*KERNELS, *LM_KERNELS)), "a kernel was not measured")
+    lm_vs_cpu = phase_lm_card_vs_cpu(torch, np, args.seed, "fedadam_ssm")
+    lm_top_vs_cpu = phase_lm_card_vs_cpu(torch, np, args.seed,
+                                         "fedadam_top")
 
     record = {"card": smi, "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": build_s,
               "rounds": rounds, "card_payload_bytes": payload_bytes,
-              "round_profile": round_profile,
+              "round_profile": round_profile, "cnn_fedadam_top": cnn_top,
               "kernels": kernels, "card_vs_cpu": vs_cpu,
-              "transformer": lm, "transformer_card_vs_cpu": lm_vs_cpu,
+              "transformer": lm, "transformer_fedadam_top": lm_top,
+              "transformer_card_vs_cpu": lm_vs_cpu,
+              "transformer_fedadam_top_card_vs_cpu": lm_top_vs_cpu,
               "total_s": time.perf_counter() - t_start}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

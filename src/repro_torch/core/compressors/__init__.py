@@ -16,5 +16,6 @@ from repro_torch.core.compressors.base import (  # noqa: F401
     tree_sub,
 )
 from repro_torch.core.compressors.topk import (  # noqa: F401
+    IndependentTopKCompressor,
     SharedTopKCompressor,
 )

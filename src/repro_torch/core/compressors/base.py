@@ -99,7 +99,6 @@ _REGISTRY: Dict[str, Callable[..., Compressor]] = {}
 #: Algorithms the JAX package registers that the port does not have yet,
 #: with the ROADMAP item that brings each.
 NOT_PORTED = {
-    "fedadam_top": "ROADMAP §1.4 (IndependentTopKCompressor)",
     "fedadam": "ROADMAP §1.8 (dense and quantized compressors)",
     "fedsgd": "ROADMAP §1.8 (dense and quantized compressors)",
     "onebit_adam": "ROADMAP §1.8 (dense and quantized compressors)",

@@ -1,15 +1,18 @@
-"""Shared-mask top-k compressors: FedAdam-SSM and its mask-rule baselines.
+"""Top-k compressors: FedAdam-SSM, its mask-rule baselines and FedAdam-Top.
 
-Counterpart of ``repro/core/compressors/topk.py`` (``_TopKBase`` and
-``SharedTopKCompressor``; the independent-mask FedAdam-Top compressor is
-ROADMAP §1.4).  ONE boolean mask (rule ``ssm_w``: Top_k(|dW|), Eq. 28) is
-applied to all three deltas, with an optional error-feedback residual on
-dW carried across rounds.
+Counterpart of ``repro/core/compressors/topk.py``.
+``SharedTopKCompressor`` applies ONE boolean mask (rule ``ssm_w``:
+Top_k(|dW|), Eq. 28) to all three deltas; ``IndependentTopKCompressor``
+(FedAdam-Top, the paper's baseline) gives each delta its own Top_k mask.
+Both carry an optional error-feedback residual on dW across rounds.
 
 Hot path: with threshold masks (``exact_topk=False``) and the kernel
 backend (auto for CUDA tensors), ``compress`` runs the packed pipeline of
-``core/sparsify.tree_shared_compress_packed`` and the wire payload packs
-its bitmap with the ``wirepack`` kernel.
+``core/sparsify`` (``tree_shared_compress_packed`` /
+``tree_independent_compress_packed``) on a uniform-dtype tree, and on a
+mixed-dtype one the per-leaf kernels (the fused compress, or FedAdam-Top's
+threshold masks); the wire payload packs its bitmaps with the ``wirepack``
+kernel.
 """
 from __future__ import annotations
 
@@ -79,8 +82,10 @@ class _TopKBase(Compressor):
         fused = self._fused_compress(dW, dM, dV, state is not None) \
             if self._kernel_path(device) else None
         if fused is not None:
+            # independent compressors return a (mW, mM, mV) tuple, shared
+            # ones one mask for all three
             sW, sM, sV, err, m = fused
-            mW = mM = mV = m
+            mW, mM, mV = m if isinstance(m, tuple) else (m, m, m)
             new_state = {"err": err} if state is not None else None
         else:
             mW, mM, mV = self._masks(dW, dM, dV)
@@ -146,6 +151,47 @@ class SharedTopKCompressor(_TopKBase):
                                    self.exact_topk, shared=True)
 
 
+@dataclasses.dataclass(frozen=True)
+class IndependentTopKCompressor(_TopKBase):
+    """Three independent Top_k masks (FedAdam-Top)."""
+
+    name: str = "fedadam_top"
+
+    transport = "independent_sparse"
+    wire_layout = "mask_independent"
+
+    def _masks(self, dW, dM, dV):
+        return masks.independent_masks(dW, dM, dV, self.alpha,
+                                       self.mask_scope, self.exact_topk,
+                                       backend=self.sparsify_backend)
+
+    def _fused_compress(self, dW, dM, dV, with_residual):
+        # mixed dtypes defeat the packed layout: compress() then takes
+        # the per-leaf threshold masks of _masks
+        if not S._uniform_dtype(dW, dM, dV):
+            return None
+        return S.tree_independent_compress_packed(
+            dW, dM, dV, self.alpha, self.mask_scope,
+            value_dtype=self.value_dtype, with_residual=with_residual)
+
+    def _pack_wire(self, sW, sM, sV, sizes):
+        return wire.pack_independent_mask(sW, sM, sV,
+                                          self._mask_capacity(sizes))
+
+    def unpack_wire(self, payload, like) -> Deltas:
+        return Deltas(*wire.unpack_independent_mask(payload, like))
+
+    def bits_per_client(self, d: int) -> int:
+        return comm.bits_fedadam_top(d, S.k_for(d, self.alpha), 1,
+                                     self.q_bits)
+
+    def wire_bits_per_client(self, sizes):
+        if not self._wire_ok():
+            return None
+        return wire.mask_wire_bits(sizes, self.alpha, self.mask_scope,
+                                   self.exact_topk, shared=False)
+
+
 def _shared_factory(rule):
     def factory(fed) -> SharedTopKCompressor:
         return SharedTopKCompressor(
@@ -160,3 +206,12 @@ register("fedadam_ssm")(_shared_factory("ssm_w"))
 register("ssm_m")(_shared_factory("ssm_m"))
 register("ssm_v")(_shared_factory("ssm_v"))
 register("fairness_top")(_shared_factory("fairness_top"))
+
+
+@register("fedadam_top")
+def _fedadam_top(fed) -> IndependentTopKCompressor:
+    return IndependentTopKCompressor(
+        name="fedadam_top", alpha=fed.alpha, mask_scope=fed.mask_scope,
+        exact_topk=fed.exact_topk, error_feedback=fed.error_feedback,
+        value_dtype=fed.value_dtype, q_bits=fed.q_bits,
+        sparsify_backend=fed.sparsify_backend)

@@ -6,7 +6,9 @@ local updates (dW, dM, dV):
 * ``ssm_w``: Top_k(|dW|), the paper's optimal rule (Eq. 28);
 * ``ssm_m`` / ``ssm_v``: from |dM| / |dV| (baselines);
 * ``fairness_top``: from the elementwise max of the three
-  magnitude-normalized tensors.
+  magnitude-normalized tensors;
+
+and FedAdam-Top's three independent masks (:func:`independent_masks`).
 """
 from __future__ import annotations
 
@@ -49,3 +51,13 @@ def shared_mask(rule: str, dW, dM, dV, alpha: float,
     score = T.tree_map(torch.abs, dW if score is None else score)
     return S.tree_topk_masks(score, alpha, scope=scope, exact=exact,
                              backend=backend)
+
+
+def independent_masks(dW, dM, dV, alpha: float, scope: str = "per_tensor",
+                      exact: bool = True, backend=None):
+    """FedAdam-Top: three separate Top_k masks, one per tensor."""
+    def mk(t):
+        return S.tree_topk_masks(T.tree_map(torch.abs, t), alpha,
+                                 scope=scope, exact=exact, backend=backend)
+
+    return mk(dW), mk(dM), mk(dV)

@@ -21,8 +21,12 @@ JAX package's kernel backend.  Mixed-dtype cohorts (a bfloat16 model with
 float32 norm scales) and ``packed=False`` take the PER-LEAF fused path
 (:func:`tree_shared_compress_fused`): for each leaf the selection passes of
 ``kernels/topk_mask`` (absmax, two counts) and one ``ssm_apply_ef`` pass.
-Threshold MASKS on the kernel backend (``tree_topk_masks``) need the
-``apply_mask_2d`` kernel and raise (ROADMAP §2 row 8).
+FedAdam-Top's three independent masks take
+:func:`tree_independent_compress_packed` on a uniform-dtype cohort (every
+leaf of dW ++ dM ++ dV in one buffer, one tau segment per leaf and stream);
+on a mixed-dtype tree they are threshold MASKS (``tree_topk_masks``), which
+on the kernel backend run ``topk_mask`` per leaf: the selection passes and
+the ``apply_mask`` kernel.
 """
 from __future__ import annotations
 
@@ -40,7 +44,7 @@ from repro_torch.kernels.packed_topk.ops import (
     packed_hist)
 from repro_torch.kernels.packed_topk.ref import refine_taus
 from repro_torch.kernels.ssm_apply.ops import ssm_apply_ef
-from repro_torch.kernels.topk_mask.ops import select_tau
+from repro_torch.kernels.topk_mask.ops import select_tau, topk_mask
 from repro_torch.kernels.topk_mask.ref import log2_taus
 
 _F32 = torch.float32
@@ -145,13 +149,13 @@ def _unravel_bool(mask_flat, like_tree):
 def tree_topk_masks(score_tree, alpha: float, scope: str = "per_tensor",
                     exact: bool = True, backend: Optional[str] = None):
     """Boolean mask tree keeping ~alpha of the elements of score_tree by
-    magnitude, per tensor or over the whole flattened model."""
+    magnitude, per tensor or over the whole flattened model.  Threshold
+    masks (``exact=False``) run :func:`topk_mask` on the kernel backend and
+    the bisection reference elsewhere."""
     def mk(s, k):
         if not exact:
             if use_kernel_path(backend, s.device):
-                raise NotImplementedError(
-                    "threshold masks on the kernel backend need the "
-                    "apply_mask_2d kernel, not ported yet: ROADMAP §2 row 8")
+                return topk_mask(s, k)[0]
             return topk_mask_threshold(s, k)
         if s.numel() > BLOCK:
             return blocked_topk_mask(s, alpha)
@@ -348,6 +352,37 @@ def tree_shared_compress_packed(score_tree, dW, dM, dV, alpha: float,
     mask_tree = td.unflatten(_leaf_masks(layout, score_leaves, taus))
     return unflat(outs[0]), unflat(outs[1]), unflat(outs[2]), err_tree, \
         mask_tree
+
+
+def tree_independent_compress_packed(dW, dM, dV, alpha: float,
+                                     scope: str = "per_tensor", *,
+                                     value_dtype=None,
+                                     with_residual: bool = False):
+    """Packed compress of FedAdam-Top's three masks: every leaf of dW ++ dM
+    ++ dV rides one buffer, each stream's leaves in tau segments of their
+    own (3L segments for "per_tensor", 3 for "global"), and each segment's
+    score is the stream itself, so the three selections cost the launches
+    of one.  Returns ``(sW, sM, sV, err_tree | None, (mW, mM, mV))``; the
+    residual is dW's (the M and V rows of the kernel's residual are
+    dropped, as in the composed path)."""
+    w_leaves, td = T.flatten(dW)
+    leaves = w_leaves + T.leaves(dM) + T.leaves(dV)
+    L = len(w_leaves)
+    groups = (list(range(3 * L)) if scope == "per_tensor"
+              else [0] * L + [1] * L + [2] * L)
+    layout = plan_packed_layout(leaves, groups)
+
+    xp = layout.pack(leaves)
+    taus2, ks, ns = _packed_select_inputs(layout, leaves, xp, alpha)
+    outs = packed_apply(taus2, layout.seg_ids, ks, ns, (xp,),
+                        with_residual=with_residual, value_dtype=value_dtype)
+    taus = outs[-2][:, 0]
+    thirds = lambda ls: tuple(td.unflatten(ls[i * L:(i + 1) * L])
+                              for i in range(3))
+    sW, sM, sV = thirds(layout.unpack(outs[0]))
+    err_tree = (td.unflatten(layout.unpack(outs[1])[:L])
+                if with_residual else None)
+    return sW, sM, sV, err_tree, thirds(_leaf_masks(layout, leaves, taus))
 
 
 def _fused_leaf(score, w, m, v, k: int, value_dtype, with_residual: bool):

@@ -1,17 +1,23 @@
 """The uplink wire format: what a client's payload actually ships.
 
 Counterpart of ``repro/core/wire.py`` (the static layout math and the
-shared-mask codec; the other codecs are ROADMAP §1.5 and §1.8).  A
-:class:`WirePayload` holds the transported arrays, uint32 bit-packed
-words plus float32 value streams, and :func:`payload_nbytes` is measured
-from them, so ``uplink_bits == 8 * nbytes`` holds by construction.
+shared- and independent-mask codecs; the others are ROADMAP §1.5 and
+§1.8).  A :class:`WirePayload` holds the transported arrays, uint32
+bit-packed words plus float32 value streams, and :func:`payload_nbytes`
+is measured from them, so ``uplink_bits == 8 * nbytes`` holds by
+construction.
 
 ``mask_shared`` (FedAdam-SSM): ONE support bitmap (1 bit per aligned
 parameter slot, packed by the ``wirepack`` kernel at b=1) and three
 compacted float32 value streams of static capacity.  Every leaf is
 zero-padded to 1024 elements and the buffer to 4096 (the (32, 128) row
-group of the word packer).  The words and values are byte-identical to
-the JAX package's for the same carriers.
+group of the word packer).
+
+``mask_independent`` (FedAdam-Top): three (bitmap, value stream) pairs,
+each tensor's own support, each stream of the shared layout's capacity.
+
+The words and values are byte-identical to the JAX package's for the same
+carriers.
 """
 from __future__ import annotations
 
@@ -203,3 +209,47 @@ def unpack_shared_mask(payload: WirePayload, like):
         td.unflatten(_unpack_aligned(
             layout, _expand(flat_sup, pos, vals, support.shape), leaves))
         for vals in payload.values)
+
+
+# ---------------------------------------------------------------------------
+# Independent-mask codec
+# ---------------------------------------------------------------------------
+
+
+def _pack_own_support(tree, capacity: int):
+    """One tree's bitmap words and compacted value stream.  Its float32
+    staging and int64 positions are freed on return, before the next
+    tree's are made."""
+    leaves = T.leaves(tree)
+    layout = S.plan_packed_layout(leaves)
+    xp = _pack_aligned(layout, [x.to(_F32) for x in leaves])
+    support = xp != 0
+    words = pack_mask_bits(support)
+    flat_sup = support.reshape(-1)
+    return words, _compact(flat_sup, _support_positions(flat_sup), xp,
+                           capacity)
+
+
+def pack_independent_mask(sW, sM, sV, capacity: int) -> WirePayload:
+    """FedAdam-Top wire: three (bitmap, value stream) pairs, each tensor's
+    own support."""
+    words, values = zip(*(_pack_own_support(t, capacity)
+                          for t in (sW, sM, sV)))
+    return WirePayload(words=tuple(words), values=tuple(values), scales=())
+
+
+def _unpack_own_support(words, values, layout, leaves, td):
+    support = unpack_mask_bits(words)
+    flat_sup = support.reshape(-1) == 1
+    buf = _expand(flat_sup, _support_positions(flat_sup), values,
+                  support.shape)
+    return td.unflatten(_unpack_aligned(layout, buf, leaves))
+
+
+def unpack_independent_mask(payload: WirePayload, like):
+    """Decode to the (sW, sM, sV) triple; ``like`` as for
+    :func:`unpack_shared_mask`."""
+    leaves, td = T.flatten(like)
+    layout = S.plan_packed_layout(leaves)
+    return tuple(_unpack_own_support(w, v, layout, leaves, td)
+                 for w, v in zip(payload.words, payload.values))

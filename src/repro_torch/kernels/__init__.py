@@ -12,7 +12,8 @@ from __future__ import annotations
 #: Kernel launches since the last :func:`reset_launches`, by kernel name.
 LAUNCHES = {"packed_hist": 0, "packed_apply": 0,
             "pack_words": 0, "unpack_words": 0,
-            "fused_adam": 0, "absmax": 0, "count_ge": 0, "ssm_apply_ef": 0}
+            "fused_adam": 0, "absmax": 0, "count_ge": 0, "apply_mask": 0,
+            "ssm_apply_ef": 0, "ssm_apply": 0}
 
 
 def reset_launches() -> None:

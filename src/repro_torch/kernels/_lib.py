@@ -42,7 +42,9 @@ SIGNATURES = {
     "repro_fused_adam": (_P,) * 8 + (_I64, _I, _P),
     "repro_absmax": (_P, _P, _I64, _I, _P),
     "repro_count_ge": (_P, _P, _P, _I64, _I, _P),
+    "repro_apply_mask": (_P, _P, _P, _I64, _I, _P),
     "repro_ssm_apply_ef": (_P,) * 9 + (_I64, _I, _I, _P),
+    "repro_ssm_apply": (_P,) * 7 + (_I64, _I, _P),
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -1,18 +1,18 @@
-"""Fused shared-mask apply with error feedback, one leaf per call.
+"""Shared-mask applies, one leaf per call.
 
-Counterpart of ``repro/kernels/ssm_apply/{ssm_apply,ops,ref}.py``
-(``ssm_apply_ef``).  With tau from ``topk_mask.ops.select_tau`` this is the
-per-leaf kernel-path compress:
+Counterpart of ``repro/kernels/ssm_apply/{ssm_apply,ops,ref}.py``.
+``ssm_apply_ef`` is the fused apply with error feedback; with tau from
+``topk_mask.ops.select_tau`` it is the per-leaf kernel-path compress:
 
     tau, _ = select_tau(dW, k)
     sW, sM, sV, err = ssm_apply_ef(tau, dW, dM, dV)
 
-On a CUDA tensor it launches the kernel of ``csrc/ssm_apply.cu`` (float32
-or bfloat16 leaves of any length, every stream of one call in one dtype);
-on a CPU tensor it runs :func:`ssm_apply_ef_plain`, the composed
-arithmetic of the reference compress path.  The 3-in/3-out ``ssm_apply_2d``
-without cast or residual has no caller on the port's paths and is not
-ported yet (ROADMAP §2 row 10).
+``ssm_apply`` is the 3-in/3-out apply without cast, score or residual
+(``ssm_apply_2d``); like the JAX package's, it has no caller on the
+training paths.  On a CUDA tensor each launches its kernel of
+``csrc/ssm_apply.cu`` (float32 or bfloat16 leaves of any length, every
+stream of one call in one dtype); on a CPU tensor each runs its plain
+version, the composed arithmetic of the reference compress path.
 """
 from __future__ import annotations
 
@@ -74,3 +74,33 @@ def ssm_apply_ef(tau: torch.Tensor, dw, dm, dv,
     LAUNCHES["ssm_apply_ef"] += 1
     return tuple(outs) + ((err,) if with_residual else ())
 
+
+
+def ssm_apply_plain(tau, dw, dm, dv):
+    """``keep = |dw| >= tau``; ``where(keep, x, 0)`` for dw, dm, dv."""
+    return ssm_apply_ef_plain(tau, dw, dm, dv, with_residual=False)
+
+
+def ssm_apply(tau: torch.Tensor, dw, dm, dv):
+    """The 3-in/3-out shared-mask apply over same-shape leaves of one
+    dtype: ``(sw, sm, sv)``.  ONE launch on the card.  The JAX kernel also
+    takes a dtype per stream; the port does not (ROADMAP §3), and raises
+    for mixed dtypes on either device."""
+    if not dw.dtype == dm.dtype == dv.dtype:
+        raise TypeError(
+            f"ssm_apply takes three streams of one dtype, got {dw.dtype}, "
+            f"{dm.dtype}, {dv.dtype}: mixed dtypes are not ported "
+            "(ROADMAP §3, ssm_apply per-stream dtypes)")
+    if on_cpu(dw):
+        return ssm_apply_plain(tau, dw, dm, dv)
+    code = leaf_dtype_code("dw", dw)
+    dev = dw.device
+    cuda_arg("tau", tau, _F32, (), dev, aligned=False)
+    for name, x in (("dw", dw), ("dm", dm), ("dv", dv)):
+        cuda_arg(name, x, dw.dtype, dw.shape, dev, aligned=False)
+    outs = [torch.empty_like(x) for x in (dw, dm, dv)]
+    _lib.launch("repro_ssm_apply", ptr(tau), ptr(dw), ptr(dm), ptr(dv),
+                ptr(outs[0]), ptr(outs[1]), ptr(outs[2]), dw.numel(), code,
+                stream(dev))
+    LAUNCHES["ssm_apply"] += 1
+    return tuple(outs)

@@ -1,16 +1,15 @@
 """Per-leaf threshold top-k selection: absmax -> log2 count -> linear
-refine count -> tau.
+refine count -> tau, and the mask apply ``|x| >= tau``.
 
 Counterpart of ``repro/kernels/topk_mask/{topk_mask,ops}.py``.  On a CUDA
-tensor the passes launch the kernels of ``csrc/topk_mask.cu`` (``absmax``
-and ``count_ge``, float32 or bfloat16 leaves of any length); on a CPU tensor
-they run the plain versions below.  :func:`select_tau` keeps every step on
-the leaf's device (the picks are ``argmax`` and gathers, never ``.item()``),
-so a client's compress never waits on the host.
-
-The mask apply of this family (``apply_mask_2d``, ROADMAP §2 row 8) is not
-ported: the fused compress consumes tau directly
-(``kernels/ssm_apply/ops.py``).
+tensor the passes launch the kernels of ``csrc/topk_mask.cu`` (``absmax``,
+``count_ge`` and ``apply_mask``, float32 or bfloat16 leaves of any length);
+on a CPU tensor they run the plain versions below.  :func:`select_tau`
+keeps every step on the leaf's device (the picks are ``argmax`` and
+gathers, never ``.item()``), so a client's compress never waits on the
+host.  :func:`select_tau` alone feeds the fused compress
+(``kernels/ssm_apply/ops.py``); :func:`topk_mask` adds the apply and
+gives the boolean mask, as ``topk_mask_kernel`` does.
 """
 from __future__ import annotations
 
@@ -39,6 +38,11 @@ def count_ge_plain(taus: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     for i in range(0, a.numel(), _PLAIN_CHUNK):
         out += (a[None, i:i + _PLAIN_CHUNK] >= taus[:, None]).sum(dim=1)
     return out.to(_F32)
+
+
+def apply_mask_plain(tau: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Boolean ``|x| >= tau`` (float32 compare) in x's shape."""
+    return x.to(_F32).abs() >= tau
 
 
 def _leaf_arg(x: torch.Tensor) -> int:
@@ -97,3 +101,27 @@ def select_tau(x: torch.Tensor, k: int):
         tau = torch.zeros_like(tau)
         count = torch.full_like(count, float(n))
     return tau, count
+
+
+def apply_mask(tau: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Boolean ``|x| >= tau`` in x's shape, tau a float32 scalar on x's
+    device: ONE launch on the card (one byte per element, as the TPU's
+    int8 mask)."""
+    if on_cpu(x):
+        return apply_mask_plain(tau, x)
+    code = _leaf_arg(x)
+    cuda_arg("tau", tau, _F32, (), x.device, aligned=False)
+    out = torch.empty(x.shape, dtype=torch.bool, device=x.device)
+    _lib.launch("repro_apply_mask", ptr(tau), ptr(x), ptr(out), x.numel(),
+                code, stream(x.device))
+    LAUNCHES["apply_mask"] += 1
+    return out
+
+
+def topk_mask(x: torch.Tensor, k: int):
+    """Threshold top-k mask of ``x`` (any shape) for ``k`` kept elements:
+    ``(mask, tau, achieved_count)``, as ``topk_mask_kernel``.  Four
+    launches on the card: :func:`select_tau`'s three, then
+    :func:`apply_mask`."""
+    tau, count = select_tau(x, k)
+    return apply_mask(tau, x), tau, count

@@ -2,8 +2,8 @@
 rows, the over-selection contract and the pure-PyTorch selection.
 Counterpart of ``repro/kernels/topk_mask/ref.py`` and
 ``repro/kernels/topk_mask/ops.py:overselect_bound``.  The selection passes
-themselves (absmax, count_ge, select_tau) are in ``ops.py``; the mask apply
-kernel ``apply_mask_2d`` is not ported yet (ROADMAP §2 row 8).
+themselves (absmax, count_ge, select_tau) and the mask apply (apply_mask,
+topk_mask) are in ``ops.py``.
 
 Both candidate rows reproduce the JAX package's EAGER float32 arithmetic
 bit for bit:

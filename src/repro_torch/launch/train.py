@@ -8,7 +8,11 @@ cpu``, where each kernel wrapper runs its plain version:
 
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch starcoder2-3b --smoke --rounds 2 --device cpu \\
-        --kernel-adam --threshold-topk
+        --kernel-adam --threshold-topk [--algorithm fedadam_top]
+
+``--algorithm`` takes any registered compressor: ``fedadam_ssm`` (the
+default; one shared mask) or ``fedadam_top`` (three independent masks,
+the paper's baseline), among others.
 
 The buffered-async driver (``--async-buffer``) and ``--checkpoint`` are
 not offered yet: ROADMAP §1.11 and §1.12.

@@ -3,6 +3,11 @@
 Dicts flatten in SORTED key order, as ``jax.tree_util`` does, so a leaf's
 position in the packed buffer (and hence its bits on the wire) is the
 same in both packages.  ``None`` is an empty subtree, as in JAX.
+
+The recursive walks are module functions that take their accumulator as
+an argument: a nested function that calls itself is a reference cycle,
+and one that holds the leaves would keep a model's worth of tensors
+alive until Python's cyclic collector happens to run.
 """
 from __future__ import annotations
 
@@ -23,37 +28,37 @@ class TreeDef:
 
     def unflatten(self, leaves) -> Any:
         it = iter(leaves)
-
-        def build(spec):
-            kind = spec[0]
-            if kind == "leaf":
-                return next(it)
-            if kind == "none":
-                return None
-            if kind == "dict":
-                return {k: build(s) for k, s in spec[1]}
-            return spec[2]([build(s) for s in spec[1]])
-
-        out = build(self._spec)
+        out = _build(self._spec, it)
         if next(it, None) is not None:
             raise ValueError("too many leaves for this tree structure")
         return out
 
 
+def _build(spec, it) -> Any:
+    kind = spec[0]
+    if kind == "leaf":
+        return next(it)
+    if kind == "none":
+        return None
+    if kind == "dict":
+        return {k: _build(s, it) for k, s in spec[1]}
+    return spec[2]([_build(s, it) for s in spec[1]])
+
+
+def _walk(t, leaves: List[Any]):
+    if isinstance(t, dict):
+        return ("dict", tuple((k, _walk(t[k], leaves)) for k in sorted(t)))
+    if type(t) in (list, tuple):
+        return ("seq", tuple(_walk(x, leaves) for x in t), type(t))
+    if t is None:
+        return ("none",)
+    leaves.append(t)
+    return ("leaf",)
+
+
 def flatten(tree) -> Tuple[List[Any], TreeDef]:
     leaves: List[Any] = []
-
-    def walk(t):
-        if isinstance(t, dict):
-            return ("dict", tuple((k, walk(t[k])) for k in sorted(t)))
-        if type(t) in (list, tuple):
-            return ("seq", tuple(walk(x) for x in t), type(t))
-        if t is None:
-            return ("none",)
-        leaves.append(t)
-        return ("leaf",)
-
-    return leaves, TreeDef(walk(tree))
+    return leaves, TreeDef(_walk(tree, leaves))
 
 
 def leaves(tree) -> List[Any]:

@@ -127,6 +127,7 @@ def jax_packed_oracles(monkeypatch):
     oracles.  ``packed_hist_2d``/``packed_apply_2d`` call ``pl.load``/
     ``pl.store``, which the installed jax no longer has, so they cannot
     run in interpret mode here; ``packed_hist_ref``/``packed_apply_ef_ref``
+    (and its single-stream form ``packed_mask_apply_ref``, FedAdam-Top's)
     replay the kernels' block order exactly (the JAX package's own parity
     tests hold them bitwise equal)."""
     import repro.core.sparsify as JS
@@ -140,3 +141,4 @@ def jax_packed_oracles(monkeypatch):
 
     monkeypatch.setattr(JS, "packed_hist_kernel", jpref.packed_hist_ref)
     monkeypatch.setattr(JS, "packed_apply_ef", apply_ef)
+    monkeypatch.setattr(JS, "packed_mask_apply", jpref.packed_mask_apply_ref)

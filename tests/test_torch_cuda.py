@@ -7,8 +7,8 @@ repository's ``tests/conftest.py`` (which imports jax) is skipped:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
-Counts are integers and the applies are selects plus elementwise casts, so
-every comparison is bitwise; so is the fused Adam, whose kernel rounds
+Counts are integers, the masks compares, and the applies selects plus
+elementwise casts, so every comparison is bitwise; so is the fused Adam, whose kernel rounds
 every product and sum as the plain version's separate float32 ops do and
 takes the same root (rsqrtf).  The per-leaf kernels run in float32 and
 bfloat16 at lengths that exercise the vector loop, the ragged tail and a
@@ -75,6 +75,49 @@ def test_cuda_packed_apply_matches_plain(cuda_device, value_dtype):
                                  score, value_dtype=value_dtype)
         for x, y in zip(a, b):
             assert_bitwise(x, y, f"score={score is not None}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_residual", [False, True])
+def test_cuda_packed_apply_single_stream_matches_plain(cuda_device,
+                                                       with_residual):
+    """FedAdam-Top's call: one stream, its own score, the residual (when
+    asked) over every row."""
+    layout, xp, edges, ks, ns, absmax = _cuda_case(cuda_device)
+    taus2 = pref.refine_taus(P.packed_hist(xp, layout.seg_ids, edges),
+                             edges, absmax, ks)
+    reset_launches()
+    a = P.packed_apply(taus2, layout.seg_ids, ks, ns, (xp,),
+                       with_residual=with_residual)
+    assert LAUNCHES["packed_apply"] == 1
+    b = P.packed_apply_plain(taus2, layout.seg_ids, ks, ns, (xp,),
+                             with_residual=with_residual)
+    assert len(a) == len(b) == 1 + with_residual + 2
+    for x, y in zip(a, b):
+        assert_bitwise(x, y, f"with_residual={with_residual}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scope", ["per_tensor", "global"])
+def test_cuda_independent_compress_packed_matches_cpu(cuda_device, scope):
+    """FedAdam-Top's packed compress (3L or 3 segments) on the card against
+    the same call on the CPU, which runs the kernels' plain versions."""
+    trees = [dict(enumerate(rand_leaves(seed, SHAPES))) for seed in (3, 4, 5)]
+    trees[2] = {k: np.abs(v) for k, v in trees[2].items()}
+    on = lambda dev: [{k: torch.from_numpy(v).to(dev) for k, v in t.items()}
+                      for t in trees]
+    reset_launches()
+    a = S.tree_independent_compress_packed(*on(cuda_device), ALPHA, scope,
+                                           with_residual=True)
+    assert LAUNCHES["packed_hist"] == 2 and LAUNCHES["packed_apply"] == 1
+    b = S.tree_independent_compress_packed(*on("cpu"), ALPHA, scope,
+                                           with_residual=True)
+    for i, (ta, tb) in enumerate(zip(a[:4], b[:4])):
+        for k in ta:
+            assert_bitwise(ta[k].cpu(), tb[k], f"output {i} leaf {k}")
+    for ma, mb in zip(a[4], b[4]):
+        for k in ma:
+            assert torch.equal(ma[k].cpu(), mb[k])
 
 
 @pytest.mark.cuda
@@ -174,6 +217,55 @@ def test_cuda_ssm_apply_ef_matches_plain(cuda_device, dtype, n,
                 assert_bitwise(x, y, f"score={score is not None}")
 
 
+def _apply_cases(device, dtype, n):
+    """(tau, x) pairs: aligned and misaligned views, tau 0 and an all-zero
+    leaf, with select_tau's tau otherwise."""
+    for offset in (0, 1):
+        x = _leaf(device, n, dtype, 12, offset=offset)
+        yield TM.select_tau(x, S.k_for(n, ALPHA))[0], x
+    x = _leaf(device, n, dtype, 13)
+    zero = torch.zeros((), dtype=torch.float32, device=device)
+    yield zero, x
+    yield TM.select_tau(torch.zeros_like(x), S.k_for(n, ALPHA))[0], \
+        torch.zeros_like(x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", LEAF_DTYPES)
+@pytest.mark.parametrize("n", LEAF_LENGTHS + [7])
+def test_cuda_apply_mask_matches_plain(cuda_device, dtype, n):
+    for tau, x in _apply_cases(cuda_device, dtype, n):
+        reset_launches()
+        mask = TM.apply_mask(tau, x)
+        assert LAUNCHES["apply_mask"] == 1
+        assert mask.dtype == torch.bool and mask.shape == x.shape
+        assert torch.equal(mask, TM.apply_mask_plain(tau, x))
+        assert set(mask.view(torch.uint8).unique().tolist()) <= {0, 1}
+    x = _leaf(cuda_device, n, dtype, 14)
+    k = S.k_for(n, ALPHA)
+    mask, tau, count = TM.topk_mask(x, k)
+    assert torch.equal(mask, tmref.topk_mask_ref(x, k))
+    assert int(mask.sum()) == int(count)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", LEAF_DTYPES)
+@pytest.mark.parametrize("n", LEAF_LENGTHS + [7])
+def test_cuda_ssm_apply_matches_plain(cuda_device, dtype, n):
+    for tau, dw in _apply_cases(cuda_device, dtype, n):
+        offset = dw.storage_offset()
+        dm, dv = (_leaf(cuda_device, n, dtype, s, offset=offset)
+                  for s in (15, 16))
+        reset_launches()
+        a = SSM.ssm_apply(tau, dw, dm, dv)
+        assert LAUNCHES["ssm_apply"] == 1 and LAUNCHES["ssm_apply_ef"] == 0
+        b = SSM.ssm_apply_plain(tau, dw, dm, dv)
+        assert len(a) == len(b) == 3
+        for x, y in zip(a, b):
+            assert x.dtype == dtype
+            assert_bitwise(x, y, f"offset={offset}")
+
+
 @pytest.mark.cuda
 def test_cuda_per_leaf_wrappers_reject_what_the_kernels_do_not_take(
         cuda_device):
@@ -188,3 +280,12 @@ def test_cuda_per_leaf_wrappers_reject_what_the_kernels_do_not_take(
     with pytest.raises(ValueError):
         SSM.ssm_apply_ef(torch.zeros((), device=cuda_device), y, y, y[:32],
                          None)
+    tau = torch.zeros((), device=cuda_device)
+    with pytest.raises(TypeError):
+        TM.apply_mask(tau, x)
+    with pytest.raises(ValueError):
+        TM.apply_mask(tau.cpu(), y)
+    with pytest.raises(TypeError, match="ROADMAP §3"):
+        SSM.ssm_apply(tau, y, y.to(torch.bfloat16), y)
+    with pytest.raises(ValueError):
+        SSM.ssm_apply(tau, y, y, y[:32])

@@ -6,9 +6,9 @@ the port's guards.
   The fused_adam path is tests/test_torch_perleaf_kernels.py's.
 * Vision models: the same weights (carried from JAX through numpy) and
   batch give the same loss and gradients up to float32 summation order.
-* The round: 3 rounds with error feedback, the port on the CPU with the
-  kernel backend (its kernels' plain versions) against the JAX jitted
-  round on its kernel backend (packed_topk kernels through their jnp
+* The round: 3 rounds with error feedback (FedAdam-SSM, and FedAdam-Top
+  on the CNN), the port on the CPU with the kernel backend (its kernels'
+  plain versions) against the JAX jitted round on its kernel backend (packed_topk kernels through their jnp
   oracles, see ``_torch_parity.jax_packed_oracles``).  ``uplink_bits``
   is exactly equal; losses and W/M/V agree within stated tolerances.
 """
@@ -205,7 +205,9 @@ def test_round_matches_jitted_jax_on_readme_loss(jax_packed_oracles):
         C * wire.mask_wire_bits(sizes, 0.05, exact_topk=False)
 
 
-def test_round_matches_jitted_jax_on_cnn(jax_packed_oracles):
+def _cnn_rounds_match_jitted_jax(algorithm):
+    """3 rounds of the width-0.25 CNN, 3 clients with Dirichlet 0.1 label
+    skew, error feedback, threshold masks, in both packages."""
     C, B = 3, 8
     jparams, _, jloss, _, ds = jvision.build_vision("cnn", width=0.25)
     params_np = {k: np.asarray(v) for k, v in jparams.items()}
@@ -217,7 +219,7 @@ def test_round_matches_jitted_jax_on_cnn(jax_packed_oracles):
         (bx, by), w = client_batches([imgs, labels], parts, B, seed=r)
         batches.append((bx, by))
         weights.append(w)
-    fed_kw = dict(algorithm="fedadam_ssm", alpha=0.05, n_clients=C,
+    fed_kw = dict(algorithm=algorithm, alpha=0.05, n_clients=C,
                   local_epochs=2, exact_topk=False, error_feedback=True,
                   adam=jadam.AdamHyper(lr=1e-3))
     out = _run_both(fed_kw, params_np, batches, jloss, tloss,
@@ -232,6 +234,23 @@ def test_round_matches_jitted_jax_on_cnn(jax_packed_oracles):
         kept_t = err_t[k].numpy() == 0
         kept_j = np.asarray(err_j[k]) == 0
         assert np.mean(kept_t != kept_j) <= 2e-3, k
+    return out
+
+
+def test_round_matches_jitted_jax_on_cnn(jax_packed_oracles):
+    _cnn_rounds_match_jitted_jax("fedadam_ssm")
+
+
+def test_top_round_matches_jitted_jax_on_cnn(jax_packed_oracles):
+    """FedAdam-Top: the packed independent compress (3L tau segments) and
+    the three-bitmap wire, to the FedAdam-SSM round's tolerances; its
+    uplink is the independent layout's (3 bitmaps, 3 streams)."""
+    out = _cnn_rounds_match_jitted_jax("fedadam_top")
+    from repro_torch.core import wire
+    sizes = tuple(x.numel() for x in out[0][2].W.values())
+    assert float(out[0][3]["uplink_bits"]) == float(np.float32(
+        3 * wire.mask_wire_bits(sizes, 0.05, exact_topk=False,
+                                shared=False)))
 
 
 # ---------------------------------------------------------------------------
@@ -262,6 +281,30 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert not bad, bad
 
 
+def test_tree_ops_leave_no_reference_cycles():
+    """Flattening a tree must not keep its tensors alive: with the cyclic
+    collector off, a tree_map's inputs are freed as soon as the caller
+    drops them (a self-recursive nested walk once held them until the
+    collector ran, so a round's peak memory moved with its timing)."""
+    import gc
+    import weakref
+    from repro_torch import tree as T
+    x = torch.zeros(1000)
+    alive = weakref.ref(x)
+    gc.collect()
+    gc.disable()
+    try:
+        out = T.tree_map(lambda a: a + 1,
+                         {"a": x, "b": (torch.ones(3), None)})
+        assert float(out["a"][0]) == 1.0 and out["b"][1] is None
+        leaves, td = T.flatten(out)
+        assert td.unflatten(leaves)["b"][1] is None
+        del x, out, leaves, td
+        assert alive() is None
+    finally:
+        gc.enable()
+
+
 def test_entry_points_need_a_card_or_device_cpu(monkeypatch):
     from repro_torch import quickstart
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -287,8 +330,11 @@ def test_round_outside_the_slice_raises(kw, what):
 
 
 def test_algorithms_outside_the_port_raise():
+    from repro_torch.core import compressors
     with pytest.raises(NotImplementedError, match="ROADMAP §1.8"):
         FedConfig(algorithm="fedadam")
+    assert "fedadam_top" not in compressors.NOT_PORTED
+    assert FedConfig(algorithm="fedadam_top").algorithm == "fedadam_top"
     with pytest.raises(KeyError):
         FedConfig(algorithm="no_such_algorithm")
 

@@ -1,5 +1,6 @@
 """The port's per-leaf kernels (fused_adam, absmax, count_ge, select_tau,
-ssm_apply_ef) and the per-leaf fused compress against the JAX package.
+apply_mask and topk_mask, ssm_apply_ef, ssm_apply), the per-leaf fused
+compress and FedAdam-Top's per-leaf masks against the JAX package.
 
 The port runs on the CPU, where each wrapper runs its kernel's plain
 version; the JAX side runs its Pallas kernels in interpret mode (leaves of
@@ -27,7 +28,8 @@ from repro.kernels.topk_mask import topk_mask as jtmk
 from repro.optim import adam as jadam
 from repro_torch.core import sparsify as S
 from repro_torch.core import wire as W
-from repro_torch.core.compressors import SharedTopKCompressor, tree_sub
+from repro_torch.core.compressors import (IndependentTopKCompressor,
+                                         SharedTopKCompressor, tree_sub)
 from repro_torch.kernels.fused_adam import ops as fused
 from repro_torch.kernels.ssm_apply import ops as ssm
 from repro_torch.kernels.topk_mask import ops as tm
@@ -225,9 +227,61 @@ def test_select_tau_matches_jax_kernel(dtype, n):
     assert k <= int(count) <= k + tmref.overselect_bound(k, n)
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n", LENGTHS)
+def test_topk_mask_matches_jax_kernel(dtype, n):
+    """``topk_mask`` (select_tau, then apply_mask) against JAX's
+    ``topk_mask_kernel``, whose apply_mask_2d runs in interpret mode:
+    mask, tau and count bitwise; ``apply_mask`` alone against
+    ``apply_mask_2d`` on the same tau (int8 0/1 there, bool here)."""
+    x = np.random.default_rng(n + 2).standard_normal(n).astype(np.float32)
+    x = x.reshape(-1, 7) if n % 7 == 0 else x
+    jx, tx = _pair(x, dtype)
+    k = S.k_for(n, ALPHA)
+    jmask, jtau, jcount = jtm.topk_mask_kernel(jx, k)
+    mask, tau, count = tm.topk_mask(tx, k)
+    assert mask.dtype == torch.bool and mask.shape == tx.shape
+    assert_bitwise(mask, np.asarray(jmask), "mask")
+    assert_bitwise(tau, jtau, "tau")
+    assert_bitwise(count, jcount, "count")
+    j8 = np.asarray(jtmk.apply_mask_2d(jtau, _padded_2d(jx)))
+    assert j8.dtype == np.int8
+    assert np.array_equal(tm.apply_mask(tau, tx).reshape(-1).numpy(),
+                          j8.reshape(-1)[:n].astype(bool))
+    assert int(mask.sum()) == int(count)
+
+
 # ---------------------------------------------------------------------------
-# ssm_apply_ef (row 9)
+# ssm_apply (row 10) and ssm_apply_ef (row 9)
 # ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("shape", [(8192,), (50_000,), (8, 4096)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ssm_apply_matches_jax(shape, dtype):
+    """The 3-in/3-out apply at the shapes and dtypes of the JAX package's
+    own ``test_ssm_apply_matches_ref``, against its Pallas kernel in
+    interpret mode: bitwise, tau 0.7."""
+    rng = np.random.default_rng(2)
+    pairs = [_pair(rng.standard_normal(shape).astype(np.float32), dtype)
+             for _ in range(3)]
+    tau = 0.7
+    ref = jssm.ssm_apply(jnp.float32(tau), *(j for j, _ in pairs))
+    out = ssm.ssm_apply(torch.tensor(tau, dtype=torch.float32),
+                        *(t for _, t in pairs))
+    assert len(out) == 3
+    for i, (a, b) in enumerate(zip(out, ref)):
+        assert a.dtype == getattr(torch, dtype) and a.shape == shape
+        assert_bitwise(a, b, f"output {i}")
+
+
+def test_ssm_apply_refuses_mixed_dtypes():
+    """The JAX kernel takes a dtype per stream; the port takes one dtype
+    for all three and says so (ROADMAP §3)."""
+    tau = torch.tensor(0.5)
+    x = torch.ones(16)
+    with pytest.raises(TypeError, match="ROADMAP §3"):
+        ssm.ssm_apply(tau, x, x.to(torch.bfloat16), x)
 
 
 def _ssm_case(n, dtype, seed):
@@ -369,4 +423,52 @@ def test_mixed_tree_compressor_and_wire_match_jax(monkeypatch):
     for a, b in zip(back, tp[:3]):
         for k in MIXED:
             assert a[k].dtype == b[k].dtype
+            assert_bitwise(a[k], b[k], k)
+
+
+@pytest.mark.parametrize("scope", ["per_tensor", "global"])
+def test_mixed_tree_fedadam_top_matches_jax(monkeypatch, scope):
+    """FedAdam-Top on the mixed tree: the packed layout does not take it,
+    so each delta gets its own threshold masks per leaf (topk_mask: the
+    selection passes and apply_mask).  Two rounds with error feedback on
+    the kernel backend: sparse triple, residual and the three-bitmap wire
+    payload bitwise against the JAX package's; the diagnostics within
+    float32 summation order (rtol 1e-5)."""
+    from repro.core.compressors import Deltas as JDeltas
+    from repro.core.compressors.topk import (
+        IndependentTopKCompressor as JIndependent)
+    from repro_torch.core.compressors import Deltas
+    monkeypatch.setenv("REPRO_SPARSIFY_BACKEND", "kernel")
+    monkeypatch.setenv(S.SPARSIFY_BACKEND_ENV, "kernel")
+    (jw, tw), (jm, tm_), (jv, tv) = (_both(t) for t in _mixed_deltas(7))
+    kw = dict(alpha=ALPHA, mask_scope=scope, exact_topk=False,
+              error_feedback=True)
+    jc, tc = JIndependent(**kw), IndependentTopKCompressor(**kw)
+    assert tc._fused_compress(tw, tm_, tv, True) is None
+    jst, tst = jc.init_state(jw), tc.init_state(tw)
+    for _ in range(2):                  # round 2 consumes the residual
+        jp, jst, jbits = jc.compress(JDeltas(jw, jm, jv), jst)
+        tp, tst, tbits = tc.compress(Deltas(tw, tm_, tv), tst)
+        assert tbits == jbits
+        for k in MIXED:
+            assert_bitwise(tst["err"][k], jst["err"][k], f"err[{k}]")
+            for a, b in zip(tp[:3], jp[:3]):
+                assert a[k].dtype == getattr(torch, MIXED[k][1])
+                assert_bitwise(a[k], b[k], k)
+        for name in tp.diag:
+            np.testing.assert_allclose(float(tp.diag[name]),
+                                       float(jp.diag[name]), rtol=1e-5,
+                                       err_msg=name)
+        assert len(tp.wire.words) == len(tp.wire.values) == 3
+        for i in range(3):
+            assert_bitwise(tp.wire.words[i], jp.wire.words[i], f"words {i}")
+            assert_bitwise(tp.wire.values[i], jp.wire.values[i],
+                           f"values {i}")
+    sizes = tuple(int(np.prod(s)) for s, _ in
+                  (MIXED[k] for k in sorted(MIXED)))
+    nbytes = W.payload_nbytes(tp.wire)
+    assert nbytes == JW.payload_nbytes(jp.wire)
+    assert 8 * nbytes == tc.wire_bits_per_client(sizes)
+    for a, b in zip(tc.unpack_wire(tp.wire, tw), tp[:3]):
+        for k in MIXED:
             assert_bitwise(a[k], b[k], k)

@@ -4,7 +4,8 @@ Bitwise: the packed layout, the packed shared-mask compress on the kernel
 backend (the port on the CPU runs its kernels' plain versions; the JAX
 side runs its kernel backend with the packed_topk kernels routed through
 their jnp oracles, see ``_torch_parity.jax_packed_oracles``), the
-reference-backend masks, and the shared-mask wire payload (words and
+reference- and kernel-backend masks, FedAdam-Top's packed independent
+compress, and the shared- and independent-mask wire payloads (words and
 value streams byte-identical, the JAX words packed by the wirepack kernel
 in interpret mode).  The byte accounting is exact integer arithmetic.
 """
@@ -119,19 +120,74 @@ def test_resolve_backend_precedence(monkeypatch):
 
 
 def test_per_leaf_kernel_paths_raise_until_ported():
-    """The per-leaf fused compress is ported (rows 6, 7 and 9: its parity
-    is tests/test_torch_perleaf_kernels.py's) and equals the packed path on
-    a uniform tree; threshold MASKS on the kernel backend still need the
-    apply_mask_2d kernel (row 8) and raise."""
-    dW, dM, dV = (to_torch(t) for t in _deltas(40))
-    per_leaf = S.tree_shared_compress_fused(None, dW, dM, dV, ALPHA,
+    """Every per-leaf kernel path is ported now (the name dates from when
+    one raised).  The per-leaf fused compress (rows 6, 7 and 9: its parity
+    is tests/test_torch_perleaf_kernels.py's) equals the packed path on a
+    uniform tree, and threshold MASKS on the kernel backend (row 8's
+    apply_mask after the selection passes) equal the JAX package's, whose
+    topk_mask kernels run in interpret mode: bitwise, per tensor and
+    global."""
+    dW, dM, dV = _deltas(40)
+    tW, tM, tV = (to_torch(t) for t in (dW, dM, dV))
+    per_leaf = S.tree_shared_compress_fused(None, tW, tM, tV, ALPHA,
                                             packed=False, with_residual=True)
-    packed = S.tree_shared_compress_fused(None, dW, dM, dV, ALPHA,
+    packed = S.tree_shared_compress_fused(None, tW, tM, tV, ALPHA,
                                           with_residual=True)
     for a, b in zip(per_leaf, packed):
         assert_tree_bitwise(a, b, "per-leaf vs packed")
-    with pytest.raises(NotImplementedError, match="ROADMAP §2 row 8"):
-        S.tree_topk_masks(dW, ALPHA, exact=False, backend="kernel")
+    for scope in ("per_tensor", "global"):
+        ref = JS.tree_topk_masks(to_jax(dW), ALPHA, scope, exact=False,
+                                 backend="kernel")
+        out = S.tree_topk_masks(tW, ALPHA, scope, exact=False,
+                                backend="kernel")
+        assert_tree_bitwise(out, ref, f"{scope} kernel-backend masks")
+
+
+@pytest.mark.parametrize("exact,backend", [
+    (True, "reference"), (False, "reference"), (False, "kernel")])
+def test_independent_masks_match_jax(exact, backend):
+    dW, dM, dV = _deltas(35)
+    ref = JM.independent_masks(to_jax(dW), to_jax(dM), to_jax(dV), ALPHA,
+                               exact=exact, backend=backend)
+    out = masks.independent_masks(to_torch(dW), to_torch(dM), to_torch(dV),
+                                  ALPHA, exact=exact, backend=backend)
+    assert len(out) == 3
+    for i, (a, b) in enumerate(zip(out, ref)):
+        assert_tree_bitwise(a, b, f"mask {i}")
+
+
+@pytest.mark.parametrize("scope,with_residual,value_dtype", [
+    ("per_tensor", True, None),
+    ("per_tensor", False, "bfloat16"),
+    ("global", True, None),
+    ("global", False, None),
+])
+def test_independent_compress_packed_matches_jax_kernel_backend(
+        jax_packed_oracles, scope, with_residual, value_dtype):
+    """FedAdam-Top's packed compress (3L segments per tensor, 3 global):
+    sparse triple, EF residual and the three masks, bitwise."""
+    dW, dM, dV = _deltas(15)
+    ref = JS.tree_independent_compress_packed(
+        to_jax(dW), to_jax(dM), to_jax(dV), ALPHA, scope,
+        value_dtype=value_dtype, with_residual=with_residual)
+    out = S.tree_independent_compress_packed(
+        to_torch(dW), to_torch(dM), to_torch(dV), ALPHA, scope,
+        value_dtype=value_dtype, with_residual=with_residual)
+    for name, a, b in zip(("sW", "sM", "sV", "err"), out[:4], ref[:4]):
+        if b is None:
+            assert a is None, name
+        else:
+            assert_tree_bitwise(a, b, name)
+    assert isinstance(out[4], tuple) and len(out[4]) == 3
+    for i, (a, b) in enumerate(zip(out[4], ref[4])):
+        assert_tree_bitwise(a, b, f"mask {i}")
+    # each stream's masks keep the over-selection contract of its own k
+    if scope == "per_tensor":
+        for m in out[4]:
+            for leaf in m.values():
+                n, got = leaf.numel(), int(leaf.sum())
+                k = S.k_for(n, ALPHA)
+                assert k <= got <= k + overselect_bound(k, n)
 
 
 def _sparse_carriers(seed):
@@ -159,6 +215,30 @@ def test_pack_shared_mask_matches_jax(monkeypatch):
     assert nbytes == JW.payload_nbytes(jpay)
     assert 8 * nbytes == W.mask_wire_bits(sizes, ALPHA, exact_topk=False)
     for a, b in zip(W.unpack_shared_mask(pay, sW), (sW, sM, sV)):
+        assert_tree_bitwise(a, b, "round trip")
+
+
+def test_pack_independent_mask_matches_jax(monkeypatch):
+    """FedAdam-Top's wire: three bitmaps (the JAX words from the wirepack
+    kernel in interpret mode) and three value streams, byte-identical."""
+    monkeypatch.setenv("REPRO_SPARSIFY_BACKEND", "kernel")
+    dW, dM, dV = (to_torch(t) for t in _deltas(55))
+    sW, sM, sV, _, _ = S.tree_independent_compress_packed(dW, dM, dV, ALPHA)
+    sizes = tuple(x.numel() for x in sW.values())
+    cap = W.mask_value_capacity(sizes, ALPHA, exact_topk=False)
+    pay = W.pack_independent_mask(sW, sM, sV, cap)
+    jpay = JW.pack_independent_mask(
+        *(to_jax({k: v.numpy() for k, v in t.items()})
+          for t in (sW, sM, sV)), cap)
+    assert len(pay.words) == len(pay.values) == 3 and not pay.scales
+    for i in range(3):
+        assert_bitwise(pay.words[i], jpay.words[i], f"bitmap words {i}")
+        assert_bitwise(pay.values[i], jpay.values[i], f"value stream {i}")
+    nbytes = W.payload_nbytes(pay)
+    assert nbytes == JW.payload_nbytes(jpay)
+    assert 8 * nbytes == W.mask_wire_bits(sizes, ALPHA, exact_topk=False,
+                                          shared=False)
+    for a, b in zip(W.unpack_independent_mask(pay, sW), (sW, sM, sV)):
         assert_tree_bitwise(a, b, "round trip")
 
 
@@ -197,4 +277,7 @@ def test_full_width_cnn_wire_numbers():
     assert W.aligned_total(sizes) == 458_752
     assert W.mask_value_capacity(sizes, 0.05, exact_topk=False) == 24_128
     assert W.mask_wire_bits(sizes, 0.05, exact_topk=False) // 8 == 346_880
+    # FedAdam-Top: three (bitmap, stream) pairs
+    assert W.mask_wire_bits(sizes, 0.05, exact_topk=False,
+                            shared=False) // 8 == 461_568
     assert W.dense_wire_bits(sizes) // 8 == 5_456_256
