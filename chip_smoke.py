@@ -39,12 +39,16 @@ Run from the root of a checkout (it imports ``src/repro_torch``).  Phases:
 6. the per-leaf kernels (fused_adam, absmax, count_ge, ssm_apply_ef, and
    ssm_apply, which no path calls, on ssm_apply_ef's inputs) against
    their plain versions on the card, on the inputs the first client of
-   that round gave them at the embed, w_up and norm leaf shapes, with
-   times; then phase 5 again for FedAdam-Top on the same configuration
-   (the per-leaf threshold masks of three deltas: absmax, two counts and
-   apply_mask per leaf and delta; three bitmaps), its trainer built
-   after phase 5's is freed, and apply_mask against its plain version on
-   that round's inputs;
+   that round gave them at the embed, w_up and norm leaf shapes (count_ge
+   on both passes' candidates), with times; the device time of a call
+   takes in every device operation the wrapper makes, and one absmax or
+   count_ge call must be one; pack_words and unpack_words on that
+   client's bitmap (493,895,680 slots); the host cost of the wrapper's
+   steps at the norm leaf; then phase 5 again for FedAdam-Top on the
+   same configuration (the per-leaf threshold masks of three deltas:
+   absmax, two counts and apply_mask per leaf and delta; three bitmaps),
+   its trainer built after phase 5's is freed, and apply_mask against its
+   plain version on that round's inputs;
 7. one round of the smoke starcoder2 on the card against the CPU, for
    FedAdam-SSM and for FedAdam-Top.
 
@@ -87,6 +91,9 @@ LM_ROUNDS = 2
 LM_LOCAL_EPOCHS = 3
 #: Leaf sizes whose first inputs phase 6 replays: embed, w_up, a norm.
 LM_SHAPES = {"embed": 150_994_944, "w_up": 75_497_472, "norm": 6_144}
+#: Slots of its support bitmap: the packed layout's rows of 128 elements,
+#: in whole blocks of 32 rows.
+LM_BITMAP_SLOTS = 493_895_680
 
 
 def per_client_round(**nonzero):
@@ -201,9 +208,11 @@ def phase_device_and_build(torch):
 
 class Capture:
     """Records (a clone of) the arguments, and the result, of the first
-    call of each wrapped entry point, then calls through unchanged.  With
-    ``arg`` and ``sizes``, the first call for each size in ``sizes`` of
-    argument ``arg`` instead: ``args[name][size]``."""
+    call of each wrapped entry point, then calls through unchanged:
+    ``args[name][None]`` is a list of ``(args, kwargs)``.  With ``arg`` and
+    ``sizes``, the first call for each size in ``sizes`` of argument
+    ``arg`` instead (``args[name][size]``); with ``calls``, the first that
+    many calls of each."""
 
     def __init__(self):
         self.args = collections.defaultdict(dict)
@@ -215,17 +224,19 @@ class Capture:
         for module, attr, fn in self.wrapped:
             setattr(module, attr, fn)
 
-    def wrap(self, module, attr, name, arg=None, sizes=(None,)):
+    def wrap(self, module, attr, name, arg=None, sizes=(None,), calls=1):
         fn = getattr(module, attr)
         self.wrapped.append((module, attr, fn))
 
         def rec(*args, **kw):
             key = None if arg is None else args[arg].numel()
-            first = key in sizes and key not in self.args[name]
+            seen = self.args[name].setdefault(key, []) \
+                if key in sizes else None
+            first = seen is not None and len(seen) < calls
             if first:
-                self.args[name][key] = ([_clone(a) for a in args], dict(kw))
+                seen.append(([_clone(a) for a in args], dict(kw)))
             out = fn(*args, **kw)
-            if first and arg is None:
+            if first and arg is None and name not in self.outs:
                 self.outs[name] = out
             return out
 
@@ -322,7 +333,7 @@ def phase_main_path(torch, seed):
     require(nbytes == CNN_WIRE_BYTES_PER_CLIENT,
             f"the card's payload holds {nbytes} bytes")
     cap.restore()
-    captured = {k: cap.args[k][None] for k in KERNELS}
+    captured = {k: cap.args[k][None][0] for k in KERNELS}
     prof = profile_round(torch, round_fn, state, batch, w)
     prof["syncs"] = count_syncs(torch, round_fn, state, batch, w)
     log(f"profiled round: {json.dumps(prof)}")
@@ -388,12 +399,12 @@ def phase_cnn_top(torch, seed):
     syncs = count_syncs(torch, round_fn, state, batch, w)
     log(f"cnn fedadam_top syncs: {json.dumps(syncs)}")
     # the apply is called without a score: make it explicit for the replay
-    args, kw = cap.args["packed_apply"][None]
+    args, kw = cap.args["packed_apply"][None][0]
     require(len(args[4]) == 1 and len(args) == 5,
             "FedAdam-Top's packed apply is not the single-stream call")
     require(args[2].numel() == 3 * len(params),
             f"{args[2].numel()} tau segments for {len(params)} leaves")
-    captured = {"packed_hist": cap.args["packed_hist"][None],
+    captured = {"packed_hist": cap.args["packed_hist"][None][0],
                 "packed_apply": (args + [None], kw)}
     return {"loss": loss, "wall_s": wall, "launches": launches,
             "payload_bytes": nbytes, "uplink_bits": uplink,
@@ -495,11 +506,15 @@ def time_ms(torch, fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(torch, fn, iters: int, kernel_names) -> float:
-    """Device time per call of the named CUDA kernels, from torch.profiler.
-    The profiler now and then drops a window's kernel records (one window
-    of 20 launches came back empty on the H100), so an empty window is
-    profiled again, at most three times in all."""
+def device_ms(torch, fn, iters: int, kernel_names=("",)):
+    """(device time per call, device operations per call) of the named
+    CUDA kernels (by default every device operation the call makes:
+    kernels, fills, copies), from torch.profiler over ``iters`` calls.
+    The profiler drops a record now and then (one of a window's 10 or 50
+    on the H100, sometimes all of them), so each operation counts
+    ``round(records / iters)`` times per call at its mean recorded time,
+    and a window that saw no device time is profiled again, at most three
+    times in all."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -509,11 +524,14 @@ def device_ms(torch, fn, iters: int, kernel_names) -> float:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        total = sum(e.self_device_time_total for e in prof.key_averages()
-                    if e.device_type == DeviceType.CUDA
-                    and any(k in e.key for k in kernel_names))
-        if total > 0:
-            return total / iters / 1e3
+        ev = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and e.count
+              and any(k in e.key for k in kernel_names)]
+        per_call = [(round(e.count / iters), e.self_device_time_total
+                     / e.count) for e in ev]
+        if sum(c for c, _ in per_call):
+            return (sum(c * us for c, us in per_call) / 1e3,
+                    sum(c for c, _ in per_call))
     raise RuntimeError(f"chip_smoke: the profiler saw no device time of "
                        f"{kernel_names} in three windows")
 
@@ -638,7 +656,7 @@ def measure(torch, name, args, kw, iters, plain_iters, cold=False):
     timed = lambda: next(nxt)()
     ms = time_ms(torch, timed, iters)
     plain = time_ms(torch, fp, plain_iters)
-    dev_ms = device_ms(torch, timed, 20, knames)
+    dev_ms = device_ms(torch, timed, 20, knames)[0]
     n = args[4][0].numel() if name == "packed_apply" else (
         args[0].numel() * 32 if name == "unpack_words" else args[0].numel())
     return {"max_abs_err": err, "ms": ms, "device_ms": dev_ms,
@@ -833,7 +851,11 @@ def phase_transformer(torch, seed, algorithm):
     entry = _lm_entry_points()
     for name in spec["replayed"]:
         cap.wrap(*entry[name], name, LM_KERNELS[name][2],
-                 tuple(LM_SHAPES.values()))
+                 tuple(LM_SHAPES.values()), len(LM_PASSES.get(name, ("",))))
+    if algorithm == "fedadam_ssm":
+        # the bitmap's support and words at the model's size
+        cap.wrap(wire, "pack_mask_bits", "pack_words")
+        cap.wrap(wire, "unpack_mask_bits", "unpack_words")
     prof["syncs"] = count_syncs(torch, round_fn, state, batch, None)
     cap.restore()
     log(f"lm {algorithm} profiled round: {json.dumps(prof)}")
@@ -860,9 +882,24 @@ def phase_transformer(torch, seed, algorithm):
 # ---------------------------------------------------------------------------
 
 
+def count_ge_ops(torch, taus, x):
+    """(operations of one count over x, by the path the kernel takes for
+    these candidates, and the same by the 32-compare path).  Non-increasing
+    NaN-free candidates take the rank path: per bfloat16 element the key's
+    mask and the counter's add (its rank is a load from the CTA's table),
+    per float32 element the abs, the search's 6 compares and the add; other
+    candidates the abs and 32 compares and adds per element.  The table and
+    the flush, a fixed cost per CTA, are not counted."""
+    n = x.numel()
+    every = 2 * 32 * n + n
+    if not bool((taus == taus).all() and (taus[:-1] >= taus[1:]).all()):
+        return every, every
+    return (2 if x.dtype == torch.bfloat16 else 8) * n, every
+
+
 def lm_kernel(torch, name, args, kw):
-    """(kernel call, plain call, CUDA kernel names, library call or None,
-    bytes, float32 operations) for one captured call."""
+    """(kernel call, plain call, library call or None, bytes, float32
+    operations) for one captured call."""
     from repro_torch.kernels.fused_adam import ops as FA
     from repro_torch.kernels.ssm_apply import ops as SSM
     from repro_torch.kernels.topk_mask import ops as TM
@@ -870,32 +907,31 @@ def lm_kernel(torch, name, args, kw):
         scalars, w, g, m, v = args
         n, e = w.numel(), w.element_size()
         return (lambda: FA.fused_adam_apply(*args)), \
-            (lambda: FA.fused_adam_plain(*args)), ["fused_adam_kernel"], \
+            (lambda: FA.fused_adam_plain(*args)), \
             None, 7 * n * e + 16, 12 * n
     if name == "absmax":
         (x,) = args
         n, e = x.numel(), x.element_size()
         inf = float("inf")
         return (lambda: TM.absmax(x)), (lambda: TM.absmax_plain(x)), \
-            ["absmax_kernel"], \
             (lambda: torch.linalg.vector_norm(x, inf)), n * e + 4, 2 * n
     if name == "count_ge":
-        taus, x = args
+        taus, x, pad = (list(args) + [0])[:3]
         n, e = x.numel(), x.element_size()
-        return (lambda: TM.count_ge(taus, x)), \
-            (lambda: TM.count_ge_plain(taus, x)), ["count_ge_kernel"], \
-            None, n * e + 2 * 4 * 32, 2 * 32 * n + n
+        return (lambda: TM.count_ge(taus, x, pad)), \
+            (lambda: TM.count_ge_plain(taus, x, pad)), \
+            None, n * e + 2 * 4 * 32, count_ge_ops(torch, taus, x)[0]
     if name == "apply_mask":
         tau, x = args
         n, e = x.numel(), x.element_size()
         return (lambda: TM.apply_mask(tau, x)), \
-            (lambda: TM.apply_mask_plain(tau, x)), ["apply_mask_kernel"], \
+            (lambda: TM.apply_mask_plain(tau, x)), \
             None, n * e + 4 + n, 2 * n
     if name == "ssm_apply":
         tau, dw, dm, dv = args
         n, e = dw.numel(), dw.element_size()
         return (lambda: SSM.ssm_apply(*args)), \
-            (lambda: SSM.ssm_apply_plain(*args)), ["ssm_apply_kernel"], \
+            (lambda: SSM.ssm_apply_plain(*args)), \
             None, 6 * n * e + 4, 5 * n
     tau, dw, dm, dv, score = (list(args) + [None])[:5]
     n, e = dw.numel(), dw.element_size()
@@ -903,7 +939,7 @@ def lm_kernel(torch, name, args, kw):
     n_in = 3 + (score is not None)
     return (lambda: SSM.ssm_apply_ef(*args, **kw)), \
         (lambda: SSM.ssm_apply_ef_plain(*args, **kw)), \
-        ["ssm_apply_ef_kernel"], None, (n_in + n_out) * n * e + 4, 6 * n
+        None, (n_in + n_out) * n * e + 4, 6 * n
 
 
 def fused_adam_w_check(torch, a, b, w):
@@ -924,49 +960,39 @@ def fused_adam_w_check(torch, a, b, w):
     return float((err / spacing).max())
 
 
+#: The passes phase 5 captures per leaf: count_ge's two (the log2 bracket,
+#: then the linear refine), one of every other kernel.
+LM_PASSES = {"count_ge": ("log2", "refine")}
+
+
 def phase_lm_kernels(torch, captured, launches, names):
     """The per-leaf kernels ``names`` against their plain versions on
     ``captured`` inputs, with times; ``launches``: the counts of the path
-    that gave the inputs."""
+    that gave the inputs.  ``device_ms`` takes in every device operation
+    of a wrapper's call, and absmax and count_ge must make one."""
     out = []
     n_cr = LM_ROUNDS * LM_CLIENTS
     for name in names:
         src, replaces, leaf_arg = LM_KERNELS[name]
         per_shape = {}
         for shape_name, n in LM_SHAPES.items():
-            args, kw = captured[name][n]
-            fk, fp, knames, lib, nbytes, ops = lm_kernel(torch, name, args,
-                                                         kw)
-            a, b = fk(), fp()
-            a = a if isinstance(a, tuple) else (a,)
-            b = b if isinstance(b, tuple) else (b,)
-            require(len(a) == len(b), f"{name}: output count")
-            ulps = 0.0
-            if name == "fused_adam":
-                ulps = fused_adam_w_check(torch, a[0], b[0], args[1])
-                a, b = a[1:], b[1:]
-            err = max(max_abs_err(torch, x, y) for x, y in zip(a, b))
-            big = n >= 1 << 20
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = ops / F32_OPS_PER_S * 1e3
-            rec = {"elements": n, "dtype": str(args[leaf_arg].dtype),
-                   "max_abs_err": err, "w_max_ulps": ulps,
-                   "ms": time_ms(torch, fk, 20 if big else 200),
-                   "device_ms": device_ms(torch, fk, 10 if big else 50,
-                                          knames),
-                   "plain_ms": time_ms(torch, fp, 3 if big else 20),
-                   "library_ms": None if lib is None else
-                   time_ms(torch, lib, 20 if big else 200),
-                   # every device kernel of the library call
-                   "library_device_ms": None if lib is None else
-                   device_ms(torch, lib, 10 if big else 50, [""]),
-                   "bound_ms": max(t_bytes, t_ops),
-                   "bound_by": "bytes" if t_bytes >= t_ops
-                   else "operations",
-                   "bytes": nbytes, "operations": ops}
-            per_shape[shape_name] = rec
-            log(f"{name} at {shape_name}: {json.dumps(rec)}")
-        head = per_shape["embed"]
+            passes = LM_PASSES.get(name, ("",))
+            calls = captured[name][n]
+            require(len(calls) == len(passes),
+                    f"{name}: {len(calls)} calls captured at {shape_name}")
+            for pass_name, (args, kw) in zip(passes, calls):
+                label = f"{shape_name}/{pass_name}" if pass_name \
+                    else shape_name
+                per_shape[label] = rec = lm_kernel_record(
+                    torch, name, args, kw, leaf_arg, n)
+                log(f"{name} at {label}: {json.dumps(rec)}")
+                if name in ("absmax", "count_ge"):
+                    require(rec["device_ops_per_call"] == 1,
+                            f"{name} at {label}: "
+                            f"{rec['device_ops_per_call']} device operations"
+                            f" per call")
+        head = per_shape["embed" if name not in LM_PASSES else
+                         f"embed/{LM_PASSES[name][0]}"]
         out.append({"name": name, "route": "cuda", "source": src,
                     "replaces": replaces, "launches": launches[name],
                     "max_abs_err": max(r["max_abs_err"]
@@ -980,6 +1006,121 @@ def phase_lm_kernels(torch, captured, launches, names):
                     "launches_per_client_round": launches[name] / n_cr,
                     "at": per_shape})
     return out
+
+
+def lm_kernel_record(torch, name, args, kw, leaf_arg, n):
+    """One captured call of a per-leaf kernel: bitwise against its plain
+    version, then times (CUDA events for the wrapper, the plain version and
+    the library call; torch.profiler for their device time) and the
+    bound."""
+    fk, fp, lib, nbytes, ops = lm_kernel(torch, name, args, kw)
+    a, b = fk(), fp()
+    a = a if isinstance(a, tuple) else (a,)
+    b = b if isinstance(b, tuple) else (b,)
+    require(len(a) == len(b), f"{name}: output count")
+    ulps = 0.0
+    if name == "fused_adam":
+        ulps = fused_adam_w_check(torch, a[0], b[0], args[1])
+        a, b = a[1:], b[1:]
+    err = max(max_abs_err(torch, x, y) for x, y in zip(a, b))
+    big = n >= 1 << 20
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    dev, dev_ops = device_ms(torch, fk, 10 if big else 50)
+    rec = {"elements": n, "dtype": str(args[leaf_arg].dtype),
+           "max_abs_err": err, "w_max_ulps": ulps,
+           "ms": time_ms(torch, fk, 20 if big else 2000),
+           "device_ms": dev, "device_ops_per_call": dev_ops,
+           "plain_ms": time_ms(torch, fp, 3 if big else 20),
+           "library_ms": None if lib is None else
+           time_ms(torch, lib, 20 if big else 2000),
+           "library_device_ms": None if lib is None else
+           device_ms(torch, lib, 10 if big else 50)[0],
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "bytes": nbytes, "operations": ops}
+    if name == "count_ge":
+        every = count_ge_ops(torch, args[0], args[1])[1]
+        rec["operations_compare_all"] = every
+        rec["bound_ms_compare_all"] = max(t_bytes,
+                                          every / F32_OPS_PER_S * 1e3)
+    return rec
+
+
+def phase_lm_wire_kernels(torch, captured, kernels):
+    """pack_words and unpack_words against their plain versions and their
+    bounds at the transformer's bitmap: the first client's support and
+    words from phase 5's FedAdam-SSM round.  Adds ``at_lm`` to their
+    records in ``kernels``."""
+    by_name = {k["name"]: k for k in kernels}
+    for name in ("pack_words", "unpack_words"):
+        ((args, kw),) = captured[name][None]
+        rec = measure(torch, name, args, kw, iters=10, plain_iters=1)
+        log(f"{name}: lm {json.dumps(rec)}")
+        require(rec["elements"] == LM_BITMAP_SLOTS,
+                f"{name}: {rec['elements']} bitmap slots")
+        k = by_name[name]
+        k["max_abs_err"] = max(k["max_abs_err"], rec["max_abs_err"])
+        k["at_lm"] = rec
+
+
+def phase_host_cost(torch, x, iters=5000):
+    """Host microseconds per call (host clock, calls enqueued back to back)
+    of each step a selection wrapper takes on its way to the card, in the
+    way it takes it ("used") beside the dearer way it avoids ("avoided":
+    a Stream object per call, a fill launch for the output, a cast launch
+    for the counts), at a norm leaf ``x``; then the whole absmax wrapper
+    beside ``vector_norm(x, inf)``."""
+    import ctypes
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels.topk_mask import ops as TM
+    require(x.dtype == torch.float32, f"the norm leaf is {x.dtype}")
+    dev = x.device
+    word = torch.zeros((1,), dtype=torch.int32, device=dev)
+    counts = torch.zeros((32,), dtype=torch.int32, device=dev)
+    out = torch.empty((), dtype=torch.float32, device=dev)
+    st = torch.cuda.current_stream(dev).cuda_stream
+    ws = TM._workspace(dev, st)
+    launch = _lib._fns["repro_absmax"]
+    steps = {
+        "stream: current_stream(dev).cuda_stream (avoided)":
+            lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "stream: _cuda_getCurrentRawStream (used)":
+            lambda: torch._C._cuda_getCurrentRawStream(dev.index),
+        "pointer: c_void_p(data_ptr()) (avoided)":
+            lambda: ctypes.c_void_p(x.data_ptr()),
+        "pointer: data_ptr() (used)": lambda: x.data_ptr(),
+        "function: getattr(library(), name) (avoided)":
+            lambda: getattr(_lib.library(), "repro_absmax"),
+        "function: cached (used)": lambda: _lib._fns["repro_absmax"],
+        "output: zeros((1,), int32), a fill launch (avoided)":
+            lambda: torch.zeros((1,), dtype=torch.int32, device=dev),
+        "output: empty((), float32) (used)":
+            lambda: torch.empty((), dtype=torch.float32, device=dev),
+        "result: view(float32)[0] of an int32 word (avoided)":
+            lambda: word.view(torch.float32)[0],
+        "result: to(float32) of int32 counts, a cast launch (avoided)":
+            lambda: counts.to(torch.float32),
+        "checks: dtype, device, contiguity": lambda: TM._leaf_arg(x),
+        "ctypes call and kernel launch":
+            lambda: launch(x.data_ptr(), ws, out.data_ptr(), x.numel(),
+                           0, st),
+        "absmax wrapper": lambda: TM.absmax(x),
+        "vector_norm(x, inf)":
+            lambda: torch.linalg.vector_norm(x, float("inf")),
+    }
+    res = {}
+    for name, fn in steps.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        res[name] = (time.perf_counter() - t0) / iters * 1e6
+        torch.cuda.synchronize()
+    log(f"host cost per call at {x.numel()} {x.dtype} elements (us): "
+        f"{json.dumps(res)}")
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -1071,11 +1212,14 @@ def main(argv=None):
     lm, captured = phase_transformer(torch, args.seed, "fedadam_ssm")
     # ssm_apply has no caller on any path: it replays ssm_apply_ef's
     # inputs, the transformer's deltas at the same leaves
-    captured["ssm_apply"] = {n: (a[:4], {}) for n, (a, _)
+    captured["ssm_apply"] = {n: [(calls[0][0][:4], {})] for n, calls
                              in captured["ssm_apply_ef"].items()}
     kernels += phase_lm_kernels(torch, captured, lm["launches"],
                                 LM_PATHS["fedadam_ssm"]["replayed"]
                                 + ("ssm_apply",))
+    phase_lm_wire_kernels(torch, captured, kernels)
+    host_cost = phase_host_cost(
+        torch, captured["absmax"][LM_SHAPES["norm"]][0][0][0])
     del captured
     lm_top, captured = phase_transformer(torch, args.seed, "fedadam_top")
     kernels += phase_lm_kernels(torch, captured, lm_top["launches"],
@@ -1098,6 +1242,7 @@ def main(argv=None):
               "round_profile": round_profile, "cnn_fedadam_top": cnn_top,
               "kernels": kernels, "card_vs_cpu": vs_cpu,
               "transformer": lm, "transformer_fedadam_top": lm_top,
+              "host_cost_us": host_cost,
               "transformer_card_vs_cpu": lm_vs_cpu,
               "transformer_fedadam_top_card_vs_cpu": lm_top_vs_cpu,
               "total_s": time.perf_counter() - t_start}

@@ -1,10 +1,11 @@
 // Device helpers shared by the port's kernels (sm_90a).
 //
 // * the 32-candidate ">= edge" count and its CTA flush, used by the packed
-//   cohort histogram (packed_topk.cu) and the per-leaf count (topk_mask.cu):
-//   counts are int32 in registers, reduced per warp, per CTA in shared
-//   memory, and added to global memory with one atomicAdd per bin, so they
-//   are exact and independent of the order in which CTAs run;
+//   cohort histogram (packed_topk.cu; the per-leaf count of topk_mask.cu
+//   takes the count alone, for candidates that are not sorted): counts are
+//   int32 in registers, reduced per warp, per CTA in shared memory, and
+//   added to global memory with one atomicAdd per bin, so they are exact
+//   and independent of the order in which CTAs run;
 // * the value_dtype round trip of the compress (cast_value), shared by the
 //   packed apply and the per-leaf apply (ssm_apply.cu);
 // * float32 / bfloat16 element access: every per-leaf kernel is a template
@@ -76,21 +77,25 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
 
-// 16 bytes of elements: one vector load or store per thread and step.
-template <typename T>
-struct alignas(16) Pack {
-  static constexpr int kN = 16 / sizeof(T);
-  T v[kN];
+// N elements moved as one vector: by default 16 bytes, one vector load or
+// store per thread and step.  A loop over streams of several element types
+// takes the smallest default N of them (ssm_apply.cu), so that every
+// stream moves the same elements per step.
+template <typename T, int N = 16 / sizeof(T)>
+struct alignas(sizeof(T) * N) Pack {
+  static constexpr int kN = N;
+  T v[N];
 };
 
-template <typename T>
-__device__ __forceinline__ Pack<T> load_pack(const T* p, int64_t i) {
-  return reinterpret_cast<const Pack<T>*>(p)[i];
+template <typename T, int N = 16 / sizeof(T)>
+__device__ __forceinline__ Pack<T, N> load_pack(const T* p, int64_t i) {
+  return reinterpret_cast<const Pack<T, N>*>(p)[i];
 }
 
-template <typename T>
-__device__ __forceinline__ void store_pack(T* p, int64_t i, const Pack<T>& x) {
-  reinterpret_cast<Pack<T>*>(p)[i] = x;
+template <typename T, int N>
+__device__ __forceinline__ void store_pack(T* p, int64_t i,
+                                           const Pack<T, N>& x) {
+  reinterpret_cast<Pack<T, N>*>(p)[i] = x;
 }
 
 __host__ __forceinline__ bool aligned16(const void* p) {

@@ -17,9 +17,11 @@
 //
 //     kept elements pass through as their bits.
 //
-// Both take one leaf of float32 or bfloat16 (every stream of the call in
-// that dtype).  tau is a float32 in device memory (select_tau's result),
-// so the compress never waits on the host.
+// ssm_apply_ef takes one leaf of float32 or bfloat16 (every stream of the
+// call in that dtype); ssm_apply takes dw, dm and dv each in float32 or
+// bfloat16 (8 instantiations), each output in its input's dtype and zero
+// in that dtype, as the JAX kernel does.  tau is a float32 in device
+// memory (select_tau's result), so the compress never waits on the host.
 //
 // What bounds them on the H100: device-memory bytes.  Three or four streams
 // in, three or four out, a compare and a select per element.
@@ -27,10 +29,11 @@
 // What the design does about it: one pass.  A single compare of the score
 // drives all three selects and the residual, the score defaults to the dw
 // stream already in registers (no second read), and a grid-stride loop
-// moves 16 bytes per stream, thread and step; the ragged tail and
-// misaligned leaves go element by element.  The TPU kernels' wrappers
-// padded every leaf to an (8, 1024) tile and sent smaller leaves to the
-// jnp oracle; these kernels take any length.
+// moves 16 bytes per stream, thread and step (with streams of two dtypes,
+// 4 elements: 16 bytes of each float32 stream, 8 of each bfloat16 one);
+// the ragged tail and misaligned leaves go element by element.  The TPU
+// kernels' wrappers padded every leaf to an (8, 1024) tile and sent
+// smaller leaves to the jnp oracle; these kernels take any length.
 
 #include "common.cuh"
 
@@ -47,46 +50,61 @@ constexpr int kThreads = 256;
 
 // One element.  kEF: the fused apply (value_dtype round trip, residual);
 // otherwise the plain apply, kept elements passing through as their bits.
-template <typename T, bool kEF>
-__device__ __forceinline__ void apply1(float tau, int vdt, T s, T w, T m, T v,
-                                       T& sw, T& sm, T& sv, T& err) {
+// The score has dw's type.
+template <typename Tw, typename Tm, typename Tv, bool kEF>
+__device__ __forceinline__ void apply1(float tau, int vdt, Tw s, Tw w, Tm m,
+                                       Tv v, Tw& sw, Tm& sm, Tv& sv,
+                                       Tw& err) {
   const bool keep = fabsf(to_f32(s)) >= tau;
-  const T zero = from_f32<T>(0.0f);
   if constexpr (kEF) {
-    sw = keep ? from_f32<T>(cast_value(to_f32(w), vdt)) : zero;
-    sm = keep ? from_f32<T>(cast_value(to_f32(m), vdt)) : zero;
-    sv = keep ? from_f32<T>(cast_value(to_f32(v), vdt)) : zero;
-    err = from_f32<T>(__fsub_rn(to_f32(w), to_f32(sw)));
+    sw = keep ? from_f32<Tw>(cast_value(to_f32(w), vdt)) : from_f32<Tw>(0.0f);
+    sm = keep ? from_f32<Tm>(cast_value(to_f32(m), vdt)) : from_f32<Tm>(0.0f);
+    sv = keep ? from_f32<Tv>(cast_value(to_f32(v), vdt)) : from_f32<Tv>(0.0f);
+    err = from_f32<Tw>(__fsub_rn(to_f32(w), to_f32(sw)));
   } else {
-    sw = keep ? w : zero;
-    sm = keep ? m : zero;
-    sv = keep ? v : zero;
+    sw = keep ? w : from_f32<Tw>(0.0f);
+    sm = keep ? m : from_f32<Tm>(0.0f);
+    sv = keep ? v : from_f32<Tv>(0.0f);
   }
 }
 
-// The grid-stride loop both kernels run: 16-byte packs while every pointer
-// is aligned, then element by element.  score and err may be null.
-template <typename T, bool kEF>
+template <int A, int B>
+__host__ __device__ constexpr int min_c() { return A < B ? A : B; }
+
+// Elements per vector step: 16 bytes of the widest stream's type.
+template <typename Tw, typename Tm, typename Tv>
+__host__ __device__ constexpr int vec_n() {
+  return min_c<Pack<Tw>::kN, min_c<Pack<Tm>::kN, Pack<Tv>::kN>()>();
+}
+
+// The grid-stride loop both kernels run: packs of vec_n elements while
+// every pointer is aligned, then element by element.  score and err may be
+// null.
+template <typename Tw, typename Tm, typename Tv, bool kEF>
 __device__ __forceinline__ void apply_loop(
-    float tau, const T* __restrict__ score, const T* __restrict__ w,
-    const T* __restrict__ m, const T* __restrict__ v, T* __restrict__ sw,
-    T* __restrict__ sm, T* __restrict__ sv, T* __restrict__ err, int64_t n,
+    float tau, const Tw* __restrict__ score, const Tw* __restrict__ w,
+    const Tm* __restrict__ m, const Tv* __restrict__ v, Tw* __restrict__ sw,
+    Tm* __restrict__ sm, Tv* __restrict__ sv, Tw* __restrict__ err, int64_t n,
     int vdt, int vectorized) {
   const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
   const int64_t tid = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   int64_t head = 0;
   if (vectorized) {
-    constexpr int N = Pack<T>::kN;
+    constexpr int N = vec_n<Tw, Tm, Tv>();
     const int64_t nv = n / N;
     for (int64_t i = tid; i < nv; i += stride) {
-      const Pack<T> pw = load_pack(w, i);
-      const Pack<T> ps = score != nullptr ? load_pack(score, i) : pw;
-      const Pack<T> pm = load_pack(m, i), pv = load_pack(v, i);
-      Pack<T> ow, om, ov, oe;
+      const Pack<Tw, N> pw = load_pack<Tw, N>(w, i);
+      const Pack<Tw, N> ps = score != nullptr ? load_pack<Tw, N>(score, i)
+                                              : pw;
+      const Pack<Tm, N> pm = load_pack<Tm, N>(m, i);
+      const Pack<Tv, N> pv = load_pack<Tv, N>(v, i);
+      Pack<Tw, N> ow, oe;
+      Pack<Tm, N> om;
+      Pack<Tv, N> ov;
 #pragma unroll
       for (int e = 0; e < N; ++e)
-        apply1<T, kEF>(tau, vdt, ps.v[e], pw.v[e], pm.v[e], pv.v[e], ow.v[e],
-                       om.v[e], ov.v[e], oe.v[e]);
+        apply1<Tw, Tm, Tv, kEF>(tau, vdt, ps.v[e], pw.v[e], pm.v[e], pv.v[e],
+                                ow.v[e], om.v[e], ov.v[e], oe.v[e]);
       store_pack(sw, i, ow);
       store_pack(sm, i, om);
       store_pack(sv, i, ov);
@@ -95,10 +113,12 @@ __device__ __forceinline__ void apply_loop(
     head = nv * N;
   }
   for (int64_t i = head + tid; i < n; i += stride) {
-    T ow, om, ov, oe;
-    const T wi = w[i];
-    apply1<T, kEF>(tau, vdt, score != nullptr ? score[i] : wi, wi, m[i], v[i],
-                   ow, om, ov, oe);
+    Tw ow, oe;
+    Tm om;
+    Tv ov;
+    const Tw wi = w[i];
+    apply1<Tw, Tm, Tv, kEF>(tau, vdt, score != nullptr ? score[i] : wi, wi,
+                            m[i], v[i], ow, om, ov, oe);
     sw[i] = ow;
     sm[i] = om;
     sv[i] = ov;
@@ -115,43 +135,62 @@ ssm_apply_ef_kernel(const float* __restrict__ tau_p,
                     T* __restrict__ sw, T* __restrict__ sm,
                     T* __restrict__ sv, T* __restrict__ err, int64_t n,
                     int vdt, int vectorized) {
-  apply_loop<T, true>(*tau_p, score, w, m, v, sw, sm, sv, err, n, vdt,
-                      vectorized);
+  apply_loop<T, T, T, true>(*tau_p, score, w, m, v, sw, sm, sv, err, n, vdt,
+                            vectorized);
 }
 
-template <typename T>
+template <typename Tw, typename Tm, typename Tv>
 __global__ void __launch_bounds__(kThreads)
-ssm_apply_kernel(const float* __restrict__ tau_p, const T* __restrict__ w,
-                 const T* __restrict__ m, const T* __restrict__ v,
-                 T* __restrict__ sw, T* __restrict__ sm, T* __restrict__ sv,
+ssm_apply_kernel(const float* __restrict__ tau_p, const Tw* __restrict__ w,
+                 const Tm* __restrict__ m, const Tv* __restrict__ v,
+                 Tw* __restrict__ sw, Tm* __restrict__ sm, Tv* __restrict__ sv,
                  int64_t n, int vectorized) {
-  apply_loop<T, false>(*tau_p, nullptr, w, m, v, sw, sm, sv, nullptr, n, 0,
-                       vectorized);
+  apply_loop<Tw, Tm, Tv, false>(*tau_p, nullptr, w, m, v, sw, sm, sv, nullptr,
+                                n, 0, vectorized);
 }
 
-template <typename T, bool kEF>
-int launch(const float* tau, const void* score, const void* w, const void* m,
-           const void* v, void* sw, void* sm, void* sv, void* err, int64_t n,
-           int vdt, cudaStream_t st) {
-  const bool vec = repro::aligned16(score) && repro::aligned16(w) &&
-                   repro::aligned16(m) && repro::aligned16(v) &&
-                   repro::aligned16(sw) && repro::aligned16(sm) &&
-                   repro::aligned16(sv) && repro::aligned16(err);
-  const int64_t work = vec ? n / Pack<T>::kN + Pack<T>::kN : n;
+// A launch's pointers and sizes (score and err null where not given).
+struct Args {
+  const float* tau;
+  const void *score, *w, *m, *v;
+  void *sw, *sm, *sv, *err;
+  int64_t n;
+  int vdt;
+  cudaStream_t st;
+};
+
+template <typename Tw, typename Tm, typename Tv, bool kEF>
+int launch(const Args& a) {
+  const bool vec = repro::aligned16(a.score) && repro::aligned16(a.w) &&
+                   repro::aligned16(a.m) && repro::aligned16(a.v) &&
+                   repro::aligned16(a.sw) && repro::aligned16(a.sm) &&
+                   repro::aligned16(a.sv) && repro::aligned16(a.err);
+  constexpr int N = vec_n<Tw, Tm, Tv>();
+  const int64_t work = vec ? a.n / N + N : a.n;
   const int grid = repro::stride_grid(work, kThreads);
-  const auto* tw = static_cast<const T*>(w);
-  const auto* tm = static_cast<const T*>(m);
-  const auto* tv = static_cast<const T*>(v);
+  const auto* tw = static_cast<const Tw*>(a.w);
+  const auto* tm = static_cast<const Tm*>(a.m);
+  const auto* tv = static_cast<const Tv*>(a.v);
   if constexpr (kEF)
-    ssm_apply_ef_kernel<T><<<grid, kThreads, 0, st>>>(
-        tau, static_cast<const T*>(score), tw, tm, tv, static_cast<T*>(sw),
-        static_cast<T*>(sm), static_cast<T*>(sv), static_cast<T*>(err), n,
-        vdt, vec ? 1 : 0);
+    ssm_apply_ef_kernel<Tw><<<grid, kThreads, 0, a.st>>>(
+        a.tau, static_cast<const Tw*>(a.score), tw, tm, tv,
+        static_cast<Tw*>(a.sw), static_cast<Tm*>(a.sm),
+        static_cast<Tv*>(a.sv), static_cast<Tw*>(a.err), a.n, a.vdt,
+        vec ? 1 : 0);
   else
-    ssm_apply_kernel<T><<<grid, kThreads, 0, st>>>(
-        tau, tw, tm, tv, static_cast<T*>(sw), static_cast<T*>(sm),
-        static_cast<T*>(sv), n, vec ? 1 : 0);
+    ssm_apply_kernel<Tw, Tm, Tv><<<grid, kThreads, 0, a.st>>>(
+        a.tau, tw, tm, tv, static_cast<Tw*>(a.sw), static_cast<Tm*>(a.sm),
+        static_cast<Tv*>(a.sv), a.n, vec ? 1 : 0);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Calls f with a value of the element type of dtype code 0 (float32) or 1
+// (bfloat16).
+template <typename F>
+int with_type(int dtype, F&& f) {
+  if (dtype == 0) return f(float{});
+  if (dtype == 1) return f(__nv_bfloat16{});
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -163,26 +202,27 @@ extern "C" int repro_ssm_apply_ef(const float* tau, const void* score,
                                   void* sw, void* sm, void* sv, void* err,
                                   int64_t n, int dtype, int vdt,
                                   void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch<float, true>(tau, score, w, m, v, sw, sm, sv, err, n, vdt,
-                               st);
-  if (dtype == 1)
-    return launch<__nv_bfloat16, true>(tau, score, w, m, v, sw, sm, sv, err,
-                                       n, vdt, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{tau, score, w, m, v, sw, sm, sv, err, n, vdt,
+               static_cast<cudaStream_t>(stream)};
+  return with_type(dtype, [&](auto t) {
+    using T = decltype(t);
+    return launch<T, T, T, true>(a);
+  });
 }
 
-// dtype: 0 float32, 1 bfloat16 (all six streams).
+// dtype_w, dtype_m, dtype_v: 0 float32, 1 bfloat16, one per stream (each
+// output in its input's dtype).
 extern "C" int repro_ssm_apply(const float* tau, const void* w, const void* m,
                                const void* v, void* sw, void* sm, void* sv,
-                               int64_t n, int dtype, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch<float, false>(tau, nullptr, w, m, v, sw, sm, sv, nullptr, n,
-                                0, st);
-  if (dtype == 1)
-    return launch<__nv_bfloat16, false>(tau, nullptr, w, m, v, sw, sm, sv,
-                                        nullptr, n, 0, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+                               int64_t n, int dtype_w, int dtype_m,
+                               int dtype_v, void* stream) {
+  const Args a{tau, nullptr, w, m, v, sw, sm, sv, nullptr, n, 0,
+               static_cast<cudaStream_t>(stream)};
+  return with_type(dtype_w, [&](auto tw) {
+    return with_type(dtype_m, [&](auto tm) {
+      return with_type(dtype_v, [&](auto tv) {
+        return launch<decltype(tw), decltype(tm), decltype(tv), false>(a);
+      });
+    });
+  });
 }

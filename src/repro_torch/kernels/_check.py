@@ -2,8 +2,6 @@
 reaches native code)."""
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 
@@ -48,9 +46,15 @@ def leaf_dtype_code(name: str, t: torch.Tensor) -> int:
     return LEAF_DTYPES[t.dtype]
 
 
-def ptr(t) -> ctypes.c_void_p:
-    return ctypes.c_void_p(None if t is None else t.data_ptr())
+def ptr(t):
+    """A tensor's address as a launcher argument (None for None)."""
+    return None if t is None else t.data_ptr()
 
 
-def stream(device: torch.device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+def stream(device: torch.device) -> int:
+    """The raw ``cudaStream_t`` of PyTorch's current stream on ``device``,
+    as PyTorch's own generated kernels take it: no Stream object is made
+    per call."""
+    index = device.index
+    return torch._C._cuda_getCurrentRawStream(
+        torch.cuda.current_device() if index is None else index)

@@ -32,22 +32,26 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _I64 = ctypes.c_int64
 
-#: C signature of every exported launcher: (argtypes), all return an int
-#: ``cudaError_t`` from ``cudaGetLastError()``.
+#: C signature of every exported function: (argtypes), all return an int,
+#: the launchers a ``cudaError_t`` from ``cudaGetLastError()``.  Pointer
+#: arguments take Python ints (``Tensor.data_ptr()``) or None.
 SIGNATURES = {
     "repro_packed_hist": (_P, _P, _P, _P, _I, _P),
     "repro_packed_apply": (_P,) * 15 + (_I, _I, _I, _P),
     "repro_pack_words": (_P, _P, _I64, _I, _P),
     "repro_unpack_words": (_P, _P, _I64, _I, _P),
     "repro_fused_adam": (_P,) * 8 + (_I64, _I, _P),
-    "repro_absmax": (_P, _P, _I64, _I, _P),
-    "repro_count_ge": (_P, _P, _P, _I64, _I, _P),
+    "repro_absmax": (_P, _P, _P, _I64, _I, _P),
+    "repro_count_ge": (_P, _P, _P, _P, _I64, _I, _I, _P),
+    "repro_topk_workspace_words": (),
     "repro_apply_mask": (_P, _P, _P, _I64, _I, _P),
     "repro_ssm_apply_ef": (_P,) * 9 + (_I64, _I, _I, _P),
-    "repro_ssm_apply": (_P,) * 7 + (_I64, _I, _P),
+    "repro_ssm_apply": (_P,) * 7 + (_I64, _I, _I, _I, _P),
 }
 
 _lib: Optional[ctypes.CDLL] = None
+#: The library's functions by name, once it is loaded.
+_fns: dict = {}
 #: Seconds the last build took (0.0 when the library was already built).
 build_seconds = 0.0
 
@@ -118,12 +122,22 @@ def library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = list(argtypes)
             fn.restype = ctypes.c_int
+            _fns[name] = fn
         _lib = lib
     return _lib
 
 
+def call(name: str, *args) -> int:
+    """Call the library's function ``name`` (loading the library first)."""
+    fn = _fns.get(name)
+    if fn is None:
+        library()
+        fn = _fns[name]
+    return fn(*args)
+
+
 def launch(name: str, *args) -> None:
     """Call launcher ``name`` and raise if the launch was refused."""
-    rc = getattr(library(), name)(*args)
+    rc = call(name, *args)
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")

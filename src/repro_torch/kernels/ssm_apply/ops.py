@@ -10,8 +10,9 @@ Counterpart of ``repro/kernels/ssm_apply/{ssm_apply,ops,ref}.py``.
 ``ssm_apply`` is the 3-in/3-out apply without cast, score or residual
 (``ssm_apply_2d``); like the JAX package's, it has no caller on the
 training paths.  On a CUDA tensor each launches its kernel of
-``csrc/ssm_apply.cu`` (float32 or bfloat16 leaves of any length, every
-stream of one call in one dtype); on a CPU tensor each runs its plain
+``csrc/ssm_apply.cu`` (float32 or bfloat16 leaves of any length: every
+stream of an ``ssm_apply_ef`` call in one dtype, each stream of an
+``ssm_apply`` call in its own); on a CPU tensor each runs its plain
 version, the composed arithmetic of the reference compress path.
 """
 from __future__ import annotations
@@ -75,32 +76,26 @@ def ssm_apply_ef(tau: torch.Tensor, dw, dm, dv,
     return tuple(outs) + ((err,) if with_residual else ())
 
 
-
 def ssm_apply_plain(tau, dw, dm, dv):
     """``keep = |dw| >= tau``; ``where(keep, x, 0)`` for dw, dm, dv."""
     return ssm_apply_ef_plain(tau, dw, dm, dv, with_residual=False)
 
 
 def ssm_apply(tau: torch.Tensor, dw, dm, dv):
-    """The 3-in/3-out shared-mask apply over same-shape leaves of one
-    dtype: ``(sw, sm, sv)``.  ONE launch on the card.  The JAX kernel also
-    takes a dtype per stream; the port does not (ROADMAP §3), and raises
-    for mixed dtypes on either device."""
-    if not dw.dtype == dm.dtype == dv.dtype:
-        raise TypeError(
-            f"ssm_apply takes three streams of one dtype, got {dw.dtype}, "
-            f"{dm.dtype}, {dv.dtype}: mixed dtypes are not ported "
-            "(ROADMAP §3, ssm_apply per-stream dtypes)")
+    """The 3-in/3-out shared-mask apply over same-shape leaves, each of
+    float32 or bfloat16: ``(sw, sm, sv)``, each in its input's dtype (as
+    the JAX kernel's per-stream dtypes).  ONE launch on the card."""
     if on_cpu(dw):
         return ssm_apply_plain(tau, dw, dm, dv)
-    code = leaf_dtype_code("dw", dw)
     dev = dw.device
     cuda_arg("tau", tau, _F32, (), dev, aligned=False)
+    codes = []
     for name, x in (("dw", dw), ("dm", dm), ("dv", dv)):
-        cuda_arg(name, x, dw.dtype, dw.shape, dev, aligned=False)
+        codes.append(leaf_dtype_code(name, x))
+        cuda_arg(name, x, x.dtype, dw.shape, dev, aligned=False)
     outs = [torch.empty_like(x) for x in (dw, dm, dv)]
     _lib.launch("repro_ssm_apply", ptr(tau), ptr(dw), ptr(dm), ptr(dv),
-                ptr(outs[0]), ptr(outs[1]), ptr(outs[2]), dw.numel(), code,
+                ptr(outs[0]), ptr(outs[1]), ptr(outs[2]), dw.numel(), *codes,
                 stream(dev))
     LAUNCHES["ssm_apply"] += 1
     return tuple(outs)

@@ -24,6 +24,9 @@ _F32 = torch.float32
 
 #: Elements per chunk of the plain count: bounds its (32, chunk) compare.
 _PLAIN_CHUNK = 1 << 20
+#: Elements of one TPU tile, (8, 1024): the JAX wrapper pads a leaf to a
+#: whole number of them.
+_TILE = 8 * 1024
 
 
 def absmax_plain(x: torch.Tensor) -> torch.Tensor:
@@ -31,13 +34,15 @@ def absmax_plain(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(-1).to(_F32).abs().max()
 
 
-def count_ge_plain(taus: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """float32[32] counts of ``|x| >= taus[j]``."""
+def count_ge_plain(taus: torch.Tensor, x: torch.Tensor,
+                   pad: int = 0) -> torch.Tensor:
+    """float32[32] counts of ``|x| >= taus[j]`` over x and ``pad`` zeros
+    after it."""
     a = x.reshape(-1).to(_F32).abs()
     out = torch.zeros((N_BINS,), dtype=torch.int64, device=x.device)
     for i in range(0, a.numel(), _PLAIN_CHUNK):
         out += (a[None, i:i + _PLAIN_CHUNK] >= taus[:, None]).sum(dim=1)
-    return out.to(_F32)
+    return (out + pad * (taus <= 0)).to(_F32)
 
 
 def apply_mask_plain(tau: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -51,30 +56,52 @@ def _leaf_arg(x: torch.Tensor) -> int:
     return code
 
 
+#: One int32 workspace per (device, stream) for absmax and count_ge,
+#: zeroed once when it is made: every launch leaves it zero again, and two
+#: streams never share one.
+_workspaces: dict = {}
+
+
+def _workspace(device: torch.device, st: int) -> int:
+    """The address of the workspace of ``device`` and stream ``st``."""
+    ws = _workspaces.get((device, st))
+    if ws is None:
+        ws = _workspaces[(device, st)] = torch.zeros(
+            (_lib.call("repro_topk_workspace_words"),), dtype=torch.int32,
+            device=device)
+    return ws.data_ptr()
+
+
 def absmax(x: torch.Tensor) -> torch.Tensor:
     """max |x| as a float32 scalar on x's device: ONE launch on the card."""
     if on_cpu(x):
         return absmax_plain(x)
     code = _leaf_arg(x)
-    out = torch.zeros((1,), dtype=torch.int32, device=x.device)
-    _lib.launch("repro_absmax", ptr(x), ptr(out), x.numel(), code,
-                stream(x.device))
+    dev = x.device
+    st = stream(dev)
+    out = torch.empty((), dtype=_F32, device=dev)
+    _lib.launch("repro_absmax", ptr(x), _workspace(dev, st), ptr(out),
+                x.numel(), code, st)
     LAUNCHES["absmax"] += 1
-    return out.view(_F32)[0]
+    return out
 
 
-def count_ge(taus: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """float32[32] counts of ``|x| >= taus[j]``: ONE launch on the card
-    (int32 counts, exact; converted to float32 as the TPU returns them)."""
+def count_ge(taus: torch.Tensor, x: torch.Tensor,
+             pad: int = 0) -> torch.Tensor:
+    """float32[32] counts of ``|x| >= taus[j]`` over x and ``pad`` zeros
+    after it (the zero padding of the TPU's tiles): ONE launch on the card
+    (int32 counts, exact; written as float32 as the TPU returns them)."""
     if on_cpu(x):
-        return count_ge_plain(taus, x)
+        return count_ge_plain(taus, x, pad)
     code = _leaf_arg(x)
-    cuda_arg("taus", taus, _F32, (N_BINS,), x.device)
-    out = torch.zeros((N_BINS,), dtype=torch.int32, device=x.device)
-    _lib.launch("repro_count_ge", ptr(taus), ptr(x), ptr(out), x.numel(),
-                code, stream(x.device))
+    dev = x.device
+    cuda_arg("taus", taus, _F32, (N_BINS,), dev)
+    st = stream(dev)
+    out = torch.empty((N_BINS,), dtype=_F32, device=dev)
+    _lib.launch("repro_count_ge", ptr(taus), ptr(x), _workspace(dev, st),
+                ptr(out), x.numel(), pad, code, st)
     LAUNCHES["count_ge"] += 1
-    return out.to(_F32)
+    return out
 
 
 def select_tau(x: torch.Tensor, k: int):
@@ -82,18 +109,23 @@ def select_tau(x: torch.Tensor, k: int):
     ``(tau, achieved_count)``, float32 scalars on x's device.  Three
     launches on the card (absmax, two counts), as ``select_tau_kernel``.
 
-    The achieved count covers x itself; the JAX wrapper counts its zero
-    padding too, which differs only where tau is 0 (an all-zero leaf)."""
+    The counts take in the zero padding the JAX wrapper adds up to a whole
+    8192-element tile, as its kernels count it: the padding counts at every
+    candidate <= 0 and nowhere else, so the picks are the leaf's own and
+    the achieved count equals JAX's, which includes the padding where tau
+    comes out 0 (an all-zero leaf, or a subnormal absmax whose candidates
+    underflow)."""
     n = x.numel()
+    pad = (-n) % _TILE
     am = absmax(x)
     taus1 = log2_taus(am)
-    counts1 = count_ge(taus1, x)
+    counts1 = count_ge(taus1, x, pad)
     idx = torch.argmax((counts1 >= k).to(torch.uint8))
     above = taus1.gather(0, (idx - 1).clamp(min=0).reshape(1))[0]
     hi = torch.where(idx > 0, above, am)
     lo = taus1.gather(0, idx.reshape(1))[0]
     taus2 = linear_taus(lo, hi)
-    counts2 = count_ge(taus2, x)
+    counts2 = count_ge(taus2, x, pad)
     idx2 = torch.argmax((counts2 >= k).to(torch.uint8)).reshape(1)
     tau = taus2.gather(0, idx2)[0]
     count = counts2.gather(0, idx2)[0]

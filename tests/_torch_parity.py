@@ -142,3 +142,68 @@ def jax_packed_oracles(monkeypatch):
     monkeypatch.setattr(JS, "packed_hist_kernel", jpref.packed_hist_ref)
     monkeypatch.setattr(JS, "packed_apply_ef", apply_ef)
     monkeypatch.setattr(JS, "packed_mask_apply", jpref.packed_mask_apply_ref)
+
+
+# ---------------------------------------------------------------------------
+# Edge cases of the 32-candidate count (count_ge)
+# ---------------------------------------------------------------------------
+
+#: Names of :func:`count_edge_cases`, for ``parametrize``.
+COUNT_CASES = ("log2", "equal", "zero", "nan_x", "nan_taus", "unsorted",
+               "signed_zero", "subnormal_x", "subnormal_taus", "ties")
+
+_TINY = float(np.finfo(np.float32).tiny)   # the smallest normal float32
+
+
+def count_edge_cases(n: int, dtype: torch.dtype, seed: int = 0) -> dict:
+    """name -> (taus, x, xla_exact): float32[32] candidates and a leaf of
+    ``dtype`` (float32 or bfloat16), both on the CPU.  ``xla_exact`` is
+    False where the candidates are subnormal: XLA (on the CPU, as on the
+    TPU) flushes subnormal operands to zero, so there the JAX package's
+    count is not the IEEE count that PyTorch and the card take."""
+    from repro_torch.kernels.topk_mask.ref import linear_taus, log2_taus
+    rng = np.random.default_rng(seed)
+    base = rng.standard_normal(n).astype(np.float32)
+    leaf = lambda v: torch.from_numpy(np.asarray(v, np.float32)).to(dtype)
+    x = leaf(base)
+    a = x.float().abs()
+    am = a.max()
+    log2 = log2_taus(am)
+    nan, inf = float("nan"), float("inf")
+
+    x_nan = x.clone()
+    x_nan[::97] = nan
+    x_nan[5], x_nan[6] = inf, -inf
+    t_nan = log2.clone()
+    t_nan[5] = nan
+    x_zero = x.clone()
+    x_zero[::3], x_zero[1::3] = 0.0, -0.0
+    t_zero = linear_taus(torch.tensor(0.0), am)
+    t_zero[-2:] = torch.tensor([0.0, -0.0])
+    # subnormal and small normal elements against normal candidates and 0
+    x_sub = leaf(base * np.where(np.arange(n) % 2, 0.5, 8.0) * _TINY)
+    t_sub = torch.tensor([_TINY * 2.0 ** ((31 - j) / 2) for j in range(31)]
+                         + [0.0], dtype=torch.float32)
+    # subnormal candidates (down to 0) over subnormal elements
+    x_subt = leaf(base * 0.25 * _TINY)
+    t_subt = log2_taus(x_subt.float().abs().max())
+    # candidates drawn from the leaf's own values: elements tie with them
+    vals = torch.unique(a)
+    t_ties = vals[torch.linspace(0, vals.numel() - 1, 32).long()].flip(0)
+    return {
+        "log2": (log2, x, True),
+        "equal": (torch.full((32,), float(a.median())), x, True),
+        "zero": (torch.zeros(32), x, True),
+        "nan_x": (log2, x_nan, True),
+        "nan_taus": (t_nan, x, True),
+        "unsorted": (log2[torch.from_numpy(rng.permutation(32))], x, True),
+        "signed_zero": (t_zero, x_zero, True),
+        "subnormal_x": (t_sub, x_sub, True),
+        "subnormal_taus": (t_subt, x_subt, False),
+        "ties": (t_ties.contiguous(), x, True),
+    }
+
+
+def taus_sorted(taus: torch.Tensor) -> bool:
+    """Non-increasing and NaN-free: the count kernel's rank path."""
+    return bool((taus == taus).all() and (taus[:-1] >= taus[1:]).all())

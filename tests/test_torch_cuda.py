@@ -19,7 +19,8 @@ import pytest
 import torch
 
 from _torch_parity import assert_bitwise, cuda_device  # noqa: F401
-from _torch_parity import rand_leaves
+from _torch_parity import (COUNT_CASES, count_edge_cases, rand_leaves,
+                           taus_sorted)
 from repro_torch.core import sparsify as S
 from repro_torch.kernels import LAUNCHES, reset_launches
 from repro_torch.kernels.packed_topk import ops as P
@@ -217,6 +218,79 @@ def test_cuda_ssm_apply_ef_matches_plain(cuda_device, dtype, n,
                 assert_bitwise(x, y, f"score={score is not None}")
 
 
+def _on_card(x, device, offset):
+    """x copied to the card, as a view ``offset`` elements into its
+    buffer (offset 1: not 16-byte aligned, the kernels' scalar path)."""
+    buf = torch.empty(x.numel() + offset, dtype=x.dtype, device=device)
+    buf[offset:] = x.to(device)
+    return buf[offset:]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", LEAF_DTYPES)
+@pytest.mark.parametrize("case", COUNT_CASES)
+def test_cuda_count_ge_edge_cases_match_plain(cuda_device, dtype, case):
+    """count_ge bitwise against its plain version on the count's edge
+    cases, aligned and misaligned, with the leaf's zero padding counted:
+    sorted candidates take the kernel's rank path, and the same
+    candidates out of order its 32-compare path; one launch per call."""
+    n = 20001
+    taus, x, _ = count_edge_cases(n, dtype)[case]
+    orders = [taus]
+    if taus_sorted(taus):
+        orders.append(taus[torch.randperm(32, generator=torch.Generator()
+                                          .manual_seed(1))])
+    for offset in (0, 1):
+        xd = _on_card(x, cuda_device, offset)
+        for t in orders:
+            td = t.to(cuda_device)
+            for pad in (0, (-n) % 8192):
+                reset_launches()
+                got = TM.count_ge(td, xd, pad)
+                assert LAUNCHES["count_ge"] == 1
+                assert_bitwise(got, TM.count_ge_plain(td, xd, pad),
+                               f"offset={offset} sorted={taus_sorted(t)} "
+                               f"pad={pad}")
+
+
+@pytest.mark.cuda
+def test_cuda_selection_workspace_is_zero_after_each_call(cuda_device):
+    """absmax and count_ge leave their stream's workspace zeroed, and give
+    the same results on a second stream (which gets its own workspace)."""
+    x = _leaf(cuda_device, 1 << 20, torch.bfloat16, 21)
+    want_am = TM.absmax_plain(x)
+    taus = tmref.log2_taus(want_am)
+    want_c = TM.count_ge_plain(taus, x)
+    side = torch.cuda.Stream(cuda_device)
+    for st in (torch.cuda.current_stream(cuda_device), side):
+        st.wait_stream(torch.cuda.current_stream(cuda_device))
+        with torch.cuda.stream(st):
+            for _ in range(3):
+                am, c = TM.absmax(x), TM.count_ge(taus, x)
+            ws = TM._workspaces[(x.device, st.cuda_stream)]
+        st.synchronize()
+        assert_bitwise(am, want_am, "absmax")
+        assert_bitwise(c, want_c, "count_ge")
+        assert int(ws.count_nonzero()) == 0
+    assert len({id(w) for w in TM._workspaces.values()}) >= 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["zero", "subnormal"])
+def test_cuda_select_tau_counts_the_padding(cuda_device, kind):
+    """tau 0 on the card as on the CPU, and the achieved count with the
+    JAX wrapper's zero padding: n + (-n mod 8192)."""
+    n = 20001
+    g = torch.Generator().manual_seed(22)
+    scale = 0.0 if kind == "zero" else 0.2 * 2.0 ** -149
+    x = torch.randn(n, generator=g, dtype=torch.float64) * scale
+    x = x.to(torch.float32)
+    k = S.k_for(n, ALPHA)
+    tau, count = TM.select_tau(x.to(cuda_device), k)
+    assert_bitwise(tau, TM.select_tau(x, k)[0])
+    assert float(tau) == 0.0 and int(count) == n + (-n) % 8192
+
+
 def _apply_cases(device, dtype, n):
     """(tau, x) pairs: aligned and misaligned views, tau 0 and an all-zero
     leaf, with select_tau's tau otherwise."""
@@ -267,6 +341,29 @@ def test_cuda_ssm_apply_matches_plain(cuda_device, dtype, n):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtypes", [
+    (torch.float32, torch.bfloat16, torch.float32),
+    (torch.bfloat16, torch.float32, torch.bfloat16),
+    (torch.float32, torch.float32, torch.bfloat16),
+    (torch.bfloat16, torch.bfloat16, torch.float32)])
+@pytest.mark.parametrize("n", LEAF_LENGTHS + [7])
+def test_cuda_ssm_apply_mixed_dtypes_match_plain(cuda_device, dtypes, n):
+    """dw, dm and dv each in its own dtype: each output in its input's
+    dtype, bitwise against the plain version, aligned and misaligned."""
+    for offset in (0, 1):
+        dw, dm, dv = (_leaf(cuda_device, n, dt, s, offset=offset)
+                      for dt, s in zip(dtypes, (17, 18, 19)))
+        tau = TM.select_tau(dw, S.k_for(n, ALPHA))[0]
+        reset_launches()
+        a = SSM.ssm_apply(tau, dw, dm, dv)
+        assert LAUNCHES["ssm_apply"] == 1
+        b = SSM.ssm_apply_plain(tau, dw, dm, dv)
+        for x, y, dt in zip(a, b, dtypes):
+            assert x.dtype == dt
+            assert_bitwise(x, y, f"offset={offset}")
+
+
+@pytest.mark.cuda
 def test_cuda_per_leaf_wrappers_reject_what_the_kernels_do_not_take(
         cuda_device):
     x = torch.zeros(64, dtype=torch.float16, device=cuda_device)
@@ -285,7 +382,7 @@ def test_cuda_per_leaf_wrappers_reject_what_the_kernels_do_not_take(
         TM.apply_mask(tau, x)
     with pytest.raises(ValueError):
         TM.apply_mask(tau.cpu(), y)
-    with pytest.raises(TypeError, match="ROADMAP §3"):
-        SSM.ssm_apply(tau, y, y.to(torch.bfloat16), y)
+    with pytest.raises(TypeError):
+        SSM.ssm_apply(tau, y, y, x)
     with pytest.raises(ValueError):
         SSM.ssm_apply(tau, y, y, y[:32])

@@ -16,8 +16,9 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import (as_dtype, assert_bitwise, bits, leaf_to_jax,
-                           leaf_to_torch)
+from _torch_parity import (COUNT_CASES, as_dtype, assert_bitwise, bits,
+                           count_edge_cases, leaf_to_jax, leaf_to_torch,
+                           taus_sorted)
 from repro.core import sparsify as JS
 from repro.core import wire as JW
 from repro.kernels.fused_adam import ops as jfused
@@ -227,6 +228,98 @@ def test_select_tau_matches_jax_kernel(dtype, n):
     assert k <= int(count) <= k + tmref.overselect_bound(k, n)
 
 
+@pytest.mark.parametrize("n", [1000, 20001])
+@pytest.mark.parametrize("dtype,kind", [("float32", "zero"),
+                                        ("bfloat16", "zero"),
+                                        ("float32", "subnormal")])
+def test_select_tau_counts_the_padding_like_jax(dtype, kind, n):
+    """Where tau comes out 0 the JAX wrapper's achieved count takes in its
+    zero padding up to a whole 8192-element tile: n + (-n mod 8192).  On
+    an all-zero leaf absmax is 0.  On the subnormal-scaled leaf it is not
+    (fewer than k elements are non-zero, all a few 2^-149), yet the log2
+    candidates underflow to 0 and tau comes out 0 all the same.  (XLA
+    flushes the subnormals to zero and reaches the same tau and count.  A
+    bfloat16 leaf cannot take this path: its smallest subnormal, 2^-133,
+    times the smallest log2 factor, 2^-15.5, is still above 0.)"""
+    rng = np.random.default_rng(n + 3)
+    scale = 0.0 if kind == "zero" else 0.2 * 2.0 ** -149
+    x = (rng.standard_normal(n) * scale).astype(np.float32)
+    jx, tx = _pair(x, dtype)
+    k = S.k_for(n, ALPHA)
+    if kind == "subnormal":             # the premise of the case
+        assert 0 < int((tx != 0).sum()) < k
+        assert 0 < float(tm.absmax(tx)) < float(np.finfo(np.float32).tiny)
+    jtau, jcount = jtm.select_tau_kernel(jx, k)
+    tau, count = tm.select_tau(tx, k)
+    assert_bitwise(tau, jtau, "tau")
+    assert_bitwise(count, jcount, "count")
+    assert float(tau) == 0.0 and int(count) == n + (-n) % 8192
+
+
+def count_ge_by_rank(taus: torch.Tensor, x: torch.Tensor,
+                     pad: int = 0) -> torch.Tensor:
+    """The count kernel's formulation in torch.  For non-increasing,
+    NaN-free candidates each element's rank (the first j with |x| >=
+    taus[j], 32 for none and for NaN) is found by ``searchsorted`` on the
+    ascending candidates, the ranks are counted (``bincount``) and
+    count[j] is the prefix sum over ranks <= j (``cumsum``).  Other
+    candidates take the 32-compare count, as the kernel's CTAs do.  The
+    ``pad`` zeros count where a candidate is <= 0."""
+    a = x.reshape(-1).to(torch.float32).abs()
+    if taus_sorted(taus):
+        at_or_below = torch.searchsorted(taus.flip(0).contiguous(), a,
+                                         right=True)
+        rank = torch.where(a.isnan(), 32, 32 - at_or_below)
+        counts = torch.bincount(rank, minlength=33)[:32].cumsum(0)
+    else:
+        counts = (a[None, :] >= taus[:, None]).sum(dim=1)
+    return (counts + pad * (taus <= 0)).to(torch.float32)
+
+
+def count_ge_by_key_table(taus: torch.Tensor, x: torch.Tensor,
+                          pad: int = 0) -> torch.Tensor:
+    """The kernel's ranks of a bfloat16 leaf (sorted NaN-free candidates),
+    in torch: the first |bfloat16| key (bits with the sign cleared) at or
+    above each candidate bounds it; a key's rank is the number of bounds
+    above it, 32 for the NaN keys above +inf (0x7f80); each element's rank
+    is the table's entry at its key, then ``bincount`` and ``cumsum``."""
+    u = taus.view(torch.int32).to(torch.int64)
+    bound = torch.where(taus > 0, (u >> 16) + ((u & 0xffff) != 0), 0)
+    keys = torch.arange(0x8000)
+    table = (bound[None, :] > keys[:, None]).sum(dim=1)
+    table[keys > 0x7f80] = 32
+    key = x.reshape(-1).view(torch.int16).to(torch.int64) & 0x7fff
+    counts = torch.bincount(table[key], minlength=33)[:32].cumsum(0)
+    return (counts + pad * (taus <= 0)).to(torch.float32)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", COUNT_CASES)
+def test_count_ge_rank_formulation_matches_plain_and_jax(dtype, case):
+    """The rank-and-prefix-sum count (and, for a bfloat16 leaf, its
+    key-table ranks) bitwise against ``count_ge_plain`` and JAX's
+    ``count_ge_2d`` (over the leaf and its zero padding, interpret mode),
+    on each edge case: all-equal and all-zero candidates, NaN and
+    infinities in x, a NaN candidate, unsorted candidates, +0 and -0 on
+    both sides, subnormal elements, subnormal candidates (not against
+    JAX: XLA flushes them to zero) and elements tied with candidates."""
+    n = 20001
+    taus, x, xla_exact = count_edge_cases(n, getattr(torch, dtype))[case]
+    assert taus_sorted(taus) == (case not in ("nan_taus", "unsorted"))
+    pad = (-n) % 8192
+    got = count_ge_by_rank(taus, x, pad)
+    assert_bitwise(got, tm.count_ge_plain(taus, x, pad), "plain")
+    assert_bitwise(got, tm.count_ge(taus, x, pad), "wrapper")
+    if dtype == "bfloat16" and taus_sorted(taus):
+        assert_bitwise(count_ge_by_key_table(taus, x, pad), got, "table")
+    if xla_exact:
+        xj = x.view(torch.int16).numpy().view(np.uint16) \
+            if dtype == "bfloat16" else x.numpy()
+        jc = jtmk.count_ge_2d(jnp.asarray(taus.numpy()),
+                              _padded_2d(leaf_to_jax(xj)))
+        assert_bitwise(got, jc, "jax")
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("n", LENGTHS)
 def test_topk_mask_matches_jax_kernel(dtype, n):
@@ -275,13 +368,34 @@ def test_ssm_apply_matches_jax(shape, dtype):
         assert_bitwise(a, b, f"output {i}")
 
 
-def test_ssm_apply_refuses_mixed_dtypes():
-    """The JAX kernel takes a dtype per stream; the port takes one dtype
-    for all three and says so (ROADMAP §3)."""
-    tau = torch.tensor(0.5)
-    x = torch.ones(16)
-    with pytest.raises(TypeError, match="ROADMAP §3"):
-        ssm.ssm_apply(tau, x, x.to(torch.bfloat16), x)
+#: dw, dm and dv dtypes of the mixed calls (one stream differs or all do).
+MIXED_DTYPES = [("float32", "bfloat16", "float32"),
+                ("bfloat16", "float32", "float32"),
+                ("float32", "float32", "bfloat16"),
+                ("bfloat16", "bfloat16", "float32"),
+                ("float32", "bfloat16", "bfloat16"),
+                ("bfloat16", "float32", "bfloat16")]
+
+
+@pytest.mark.parametrize("shape", [(8192,), (20001,), (100,)])
+@pytest.mark.parametrize("dtypes", MIXED_DTYPES, ids="-".join)
+def test_ssm_apply_mixed_dtypes_match_jax(shape, dtypes):
+    """dw, dm and dv each in its own dtype, as the JAX kernel takes them:
+    each output in its input's dtype, bitwise against ``ssm_apply_2d`` in
+    interpret mode (from one 8192-element tile on; below it, JAX's jnp
+    oracle), tau from the leaf's own selection."""
+    rng = np.random.default_rng(4)
+    pairs = [_pair(rng.standard_normal(shape).astype(np.float32) * s, dt)
+             for s, dt in zip((1e-2, 1e-3, 1e-5), dtypes)]
+    n = int(np.prod(shape))
+    jtau, _ = jtm.select_tau_kernel(pairs[0][0], S.k_for(n, ALPHA))
+    ref = jssm.ssm_apply(jtau, *(j for j, _ in pairs))
+    out = ssm.ssm_apply(torch.from_numpy(np.array(jtau)),
+                        *(t for _, t in pairs))
+    assert len(out) == 3
+    for i, (a, b, dt) in enumerate(zip(out, ref, dtypes)):
+        assert a.dtype == getattr(torch, dt) and a.shape == shape
+        assert_bitwise(a, b, f"output {i}")
 
 
 def _ssm_case(n, dtype, seed):
