@@ -4,7 +4,8 @@ its main path against the kernel's plain PyTorch version.
 
     python3 chip_smoke.py [--seed N]
 
-Run from the root of a checkout (it imports ``src/repro_torch``).  Phases:
+Run from the root of a checkout (it imports ``src/repro_torch``).
+Phases:
 
 1. device and build: the card's name and power limit, the kernels built
    from ``src/repro_torch/csrc`` (timed), cuDNN deterministic, no TF32;
@@ -17,13 +18,17 @@ Run from the root of a checkout (it imports ``src/repro_torch``).  Phases:
    that counts the stream synchronisations the host waits on; then one
    FedAdam-Top round of the same configuration (three independent masks
    through the packed compress, exact launches per client, the
-   three-bitmap payload measured on the card) and a sync-counting one;
+   three-bitmap payload measured on the card), a profiled one and a
+   sync-counting one;
 3. each kernel against its plain version on the card, bitwise, on the
    inputs the first client's compress gave it and at VGG-11 width-1.0
    packed shapes, with times from CUDA events and the memory bound; the
    packed histogram and apply also on the FedAdam-Top client's inputs
    (dW ++ dM ++ dV in 3L segments, the single-stream apply with its
-   residual over every row);
+   residual over every row); their device time takes in every device
+   operation of a call (one per histogram call, two per apply call, both
+   checked), beside the grid and blocks per CTA of their launches and the
+   device time of one empty launch (the card's floor);
 4. one round on the card against the same round on the CPU (4 clients,
    same weights and batch), within the CPU parity tests' tolerances, for
    FedAdam-SSM and for FedAdam-Top;
@@ -64,6 +69,7 @@ import collections
 import itertools
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -262,12 +268,22 @@ def round_batch(torch, imgs, labels, n_train, parts, r, device):
             torch.from_numpy(w).to(device))
 
 
+def cnn_fed(algorithm, **kw):
+    """The CNN rounds' configuration: alpha 0.05, threshold masks, error
+    feedback, 20 clients, 3 local epochs of Adam at lr 1e-3."""
+    from repro_torch.core import FedConfig
+    from repro_torch.optim import AdamHyper
+    return FedConfig(algorithm=algorithm, alpha=0.05, local_epochs=3,
+                     n_clients=kw.pop("n_clients", CLIENTS),
+                     adam=AdamHyper(lr=1e-3), exact_topk=False,
+                     error_feedback=True, **kw)
+
+
 def phase_main_path(torch, seed):
-    from repro_torch.core import FedConfig, fed_init, make_fl_round
+    from repro_torch.core import fed_init, make_fl_round
     from repro_torch.core import sparsify, wire
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.models.vision import build_vision
-    from repro_torch.optim import AdamHyper
 
     dev = torch.device("cuda")
     params, _, loss_fn, acc_fn, _ = build_vision("cnn", width=1.0,
@@ -277,9 +293,7 @@ def phase_main_path(torch, seed):
     imgs, labels, n_train, parts = make_data(seed, CLIENTS)
     test = (torch.from_numpy(imgs[n_train:]).to(dev),
             torch.from_numpy(labels[n_train:]).to(dev))
-    fed = FedConfig(algorithm="fedadam_ssm", alpha=0.05, local_epochs=3,
-                    n_clients=CLIENTS, adam=AdamHyper(lr=1e-3),
-                    exact_topk=False, error_feedback=True)
+    fed = cnn_fed("fedadam_ssm")
     round_fn = make_fl_round(fed, loss_fn)
     state = fed_init(fed, params)
 
@@ -347,19 +361,16 @@ def phase_cnn_top(torch, seed):
     stream synchronisations.  Also returns the first client's inputs to the
     packed kernels (one buffer of dW ++ dM ++ dV in 3L segments, the
     single-stream apply), which ``phase_cnn_top_kernels`` replays."""
-    from repro_torch.core import FedConfig, fed_init, make_fl_round
+    from repro_torch.core import fed_init, make_fl_round
     from repro_torch.core import sparsify, wire
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.models.vision import build_vision
-    from repro_torch.optim import AdamHyper
 
     dev = torch.device("cuda")
     params, _, loss_fn, _, _ = build_vision("cnn", width=1.0, seed=seed,
                                             device=dev)
     imgs, labels, n_train, parts = make_data(seed, CLIENTS)
-    fed = FedConfig(algorithm="fedadam_top", alpha=0.05, local_epochs=3,
-                    n_clients=CLIENTS, adam=AdamHyper(lr=1e-3),
-                    exact_topk=False, error_feedback=True)
+    fed = cnn_fed("fedadam_top")
     round_fn = make_fl_round(fed, loss_fn)
     state = fed_init(fed, params)
     batch, w = round_batch(torch, imgs, labels, n_train, parts, 0, dev)
@@ -396,6 +407,8 @@ def phase_cnn_top(torch, seed):
             f"the card's payload holds {nbytes} bytes")
     require(uplink == CLIENTS * 8 * CNN_TOP_WIRE_BYTES_PER_CLIENT,
             f"uplink bits {uplink}")
+    prof = profile_round(torch, round_fn, state, batch, w)
+    log(f"cnn fedadam_top profiled round: {json.dumps(prof)}")
     syncs = count_syncs(torch, round_fn, state, batch, w)
     log(f"cnn fedadam_top syncs: {json.dumps(syncs)}")
     # the apply is called without a score: make it explicit for the replay
@@ -408,7 +421,7 @@ def phase_cnn_top(torch, seed):
                 "packed_apply": (args + [None], kw)}
     return {"loss": loss, "wall_s": wall, "launches": launches,
             "payload_bytes": nbytes, "uplink_bits": uplink,
-            "syncs": syncs}, captured
+            "round_profile": prof, "syncs": syncs}, captured
 
 
 def phase_cnn_top_kernels(torch, captured, kernels):
@@ -460,6 +473,15 @@ def count_syncs(torch, round_fn, state, batch, w) -> dict:
     return {"per_round": sum(sites.values()), "sites": dict(sites)}
 
 
+def port_kernel_names() -> list:
+    """Every ``__global__`` function of the port's CUDA sources: a key of
+    the profiler that names one is the port's device time."""
+    decl = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)"
+                      r"\s+)?(\w+)")
+    return sorted({name for src in (ROOT / "src/repro_torch/csrc").glob("*.cu")
+                   for name in decl.findall(src.read_text())})
+
+
 def profile_round(torch, round_fn, state, batch, w):
     """One more round under torch.profiler, device activity only (the host
     pays no per-operator cost): its wall time, the device's busy share and
@@ -477,9 +499,9 @@ def profile_round(torch, round_fn, state, batch, w):
                   if e.device_type == DeviceType.CUDA), key=lambda r: -r[1])
     busy_ms = sum(ms for _, ms, _ in ops)
     require(busy_ms > 0, "the profiler saw no device time in the round")
-    port_ms = sum(ms for key, ms, _ in ops
-                  if any(f"{name}_kernel" in key
-                         for name in (*KERNELS, *LM_KERNELS)))
+    ours = re.compile(r"\b(%s)\b" % "|".join(port_kernel_names()))
+    port_ms = sum(ms for key, ms, _ in ops if ours.search(key))
+    require(port_ms > 0, "the profiler saw none of the port's kernels")
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_busy_share": busy_ms / wall_ms,
             "device_ops": sum(c for *_, c in ops),
@@ -583,6 +605,14 @@ def vgg11_inputs(torch, seed):
             "support_rows": -(-wp.shape[0] // 32) * 32}
 
 
+def packed_count_ops(xp) -> int:
+    """float32 operations of one packed count: per element the abs, the
+    rank search's 6 compares and the counter's add (every segment takes the
+    rank path; the sort of a segment's edges and the flushes, a fixed cost
+    per CTA, are not counted)."""
+    return 8 * xp.numel()
+
+
 def kernel_cost(torch, name, args, kw):
     """(bytes each input read once and each output written once, float32
     operations) of one call, from this call's shapes."""
@@ -590,7 +620,7 @@ def kernel_cost(torch, name, args, kw):
         xp, seg_ids, edges = args
         n = xp.numel()
         return (4 * n + 4 * seg_ids.numel() + 2 * 4 * edges.numel(),
-                2 * 32 * n)
+                packed_count_ops(xp))
     if name == "packed_apply":
         taus2, seg_ids, ks, ns, streams, score = args
         n = streams[0].numel()
@@ -598,7 +628,8 @@ def kernel_cost(torch, name, args, kw):
         n_out = len(streams) + bool(kw.get("with_residual", True))
         small = 4 * (taus2.numel() + seg_ids.numel() + ks.numel()
                      + ns.numel() + 2 * ks.numel())
-        return 4 * n * (n_in + n_out) + small, 2 * 32 * n + 3 * n * n_out
+        return (4 * n * (n_in + n_out) + small,
+                packed_count_ops(streams[0]) + 3 * n * n_out)
     if name == "pack_words":
         (codes,) = args[:1]
         n = codes.numel()
@@ -611,13 +642,13 @@ def kernel_cost(torch, name, args, kw):
 def run_kernel(torch, name, args, kw):
     from repro_torch.kernels.packed_topk import ops as P
     from repro_torch.kernels.wirepack import ops as W
+    # the packed wrappers are timed over every device operation they make
     if name == "packed_hist":
         return (lambda: P.packed_hist(*args)), \
-            (lambda: P.packed_hist_plain(*args)), ["packed_hist_kernel"]
+            (lambda: P.packed_hist_plain(*args)), ("",)
     if name == "packed_apply":
         return (lambda: P.packed_apply(*args, **kw)), \
-            (lambda: P.packed_apply_plain(*args, **kw)), \
-            ["packed_hist_kernel", "packed_apply_kernel"]
+            (lambda: P.packed_apply_plain(*args, **kw)), ("",)
     if name == "pack_words":
         codes = args[0].to(torch.int32)
         return (lambda: W.pack_words(codes, 1)), \
@@ -636,11 +667,18 @@ def _clone(a):
 #: inputs in device memory rather than in the 50 MB L2 cache.
 _COLD_BYTES = 2 * 50e6
 
+#: Device operations one call of a packed wrapper must make: the count
+#: (packed_hist); the count with the pick, then the apply (packed_apply).
+PACKED_DEVICE_OPS = {"packed_hist": 1, "packed_apply": 2}
+
 
 def measure(torch, name, args, kw, iters, plain_iters, cold=False):
     """Bitwise check against the plain version, then times.  ``cold``
     cycles the timed launches over enough copies of the inputs that none
-    is still in L2 (as a caller streaming a large model finds them)."""
+    is still in L2 (as a caller streaming a large model finds them).  A
+    packed wrapper's device time takes in every device operation of its
+    call, their number is checked, and the grid and blocks per CTA of its
+    launches are recorded."""
     fk, fp, knames = run_kernel(torch, name, args, kw)
     a, b = fk(), fp()
     a = a if isinstance(a, tuple) else (a,)
@@ -656,14 +694,68 @@ def measure(torch, name, args, kw, iters, plain_iters, cold=False):
     timed = lambda: next(nxt)()
     ms = time_ms(torch, timed, iters)
     plain = time_ms(torch, fp, plain_iters)
-    dev_ms = device_ms(torch, timed, 20, knames)[0]
+    dev_ms, dev_ops = device_ms(torch, timed, 20, knames)
     n = args[4][0].numel() if name == "packed_apply" else (
         args[0].numel() * 32 if name == "unpack_words" else args[0].numel())
-    return {"max_abs_err": err, "ms": ms, "device_ms": dev_ms,
-            "plain_ms": plain, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": nbytes, "operations": ops, "elements": int(n),
-            "input_copies": copies}
+    rec = {"max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+           "plain_ms": plain, "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "bytes": nbytes, "operations": ops, "elements": int(n),
+           "input_copies": copies}
+    if name in PACKED_DEVICE_OPS:
+        require(dev_ops == PACKED_DEVICE_OPS[name],
+                f"{name}: {dev_ops} device operations per call")
+        rec.update(device_ops_per_call=dev_ops,
+                   launch_shape=launch_shapes(torch, name, fk,
+                                              args[1].numel()))
+    return rec
+
+
+def launch_shapes(torch, name, fn, nb) -> dict:
+    """Grid, block and blocks per CTA of each kernel launch of one call of
+    a packed wrapper over ``nb`` blocks.  Grid and block are read from the
+    profiler's trace of the call and must equal the grid the launcher
+    computes (``ops.launch_shape``), which also gives the blocks per CTA
+    (a kernel argument, not in the trace)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.packed_topk import ops as P
+    kinds = ("count",) if name == "packed_hist" else ("pick", "apply")
+    want = P.launch_shape(nb)
+    trace = ROOT / "build" / "launch_trace.json"
+    trace.parent.mkdir(exist_ok=True)
+    for _ in range(3):  # the profiler drops a record now and then
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(str(trace))
+        launches = sorted((e for e in json.loads(trace.read_text())
+                           ["traceEvents"] if e.get("cat") == "kernel"),
+                          key=lambda e: e["ts"])
+        trace.unlink()
+        if len(launches) == len(kinds):
+            break
+    require(len(launches) == len(kinds),
+            f"{name}: {len(launches)} kernel launches in the trace")
+    out = {}
+    for kind, e in zip(kinds, launches):
+        grid, block = e["args"]["grid"], e["args"]["block"]
+        g, c = want[kind]
+        require(grid == [g, 1, 1] and block[1:] == [1, 1],
+                f"{name} {kind}: grid {grid} block {block}, the launcher "
+                f"says grid {g}")
+        out[kind] = {"grid": g, "block": block[0], "blocks_per_cta": c}
+    return out
+
+
+def launch_floor_ms(torch) -> float:
+    """Device time of one launch of an empty kernel: the card's floor for
+    any launch, set beside the packed kernels' times at the CNN's shapes."""
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels._check import stream
+    st = stream(torch.device("cuda"))
+    return device_ms(torch, lambda: _lib.launch("repro_empty_launch", st),
+                     200)[0]
 
 
 def phase_kernels(torch, captured, main_launches, n_client_rounds, seed):
@@ -677,6 +769,8 @@ def phase_kernels(torch, captured, main_launches, n_client_rounds, seed):
                < 0.05).to(torch.int32)
     vgg["pack_words"] = ([support], {})
     vgg["unpack_words"] = ([W.pack_words_plain(support, 1)], {})
+    floor = launch_floor_ms(torch)
+    log(f"launch floor (one empty kernel, device): {floor} ms")
     out = []
     for name, (src, replaces) in KERNELS.items():
         args, kw = captured[name]
@@ -685,17 +779,18 @@ def phase_kernels(torch, captured, main_launches, n_client_rounds, seed):
                       cold=True)
         log(f"{name}: cnn {json.dumps(cnn)}")
         log(f"{name}: vgg11 {json.dumps(big)}")
-        out.append({"name": name, "route": "cuda", "source": src,
-                    "replaces": replaces, "launches": main_launches[name],
-                    "max_abs_err": max(cnn["max_abs_err"],
-                                       big["max_abs_err"]),
-                    "ms": cnn["ms"], "plain_ms": cnn["plain_ms"],
-                    "bound_ms": cnn["bound_ms"],
-                    "bound_by": cnn["bound_by"], "library_ms": None,
-                    "device_ms": cnn["device_ms"],
-                    "launches_per_client_round":
-                        main_launches[name] / n_client_rounds,
-                    "at_vgg11": big})
+        rec = {"name": name, "route": "cuda", "source": src,
+               "replaces": replaces, "launches": main_launches[name],
+               "max_abs_err": max(cnn["max_abs_err"], big["max_abs_err"]),
+               "ms": cnn["ms"], "plain_ms": cnn["plain_ms"],
+               "bound_ms": cnn["bound_ms"], "bound_by": cnn["bound_by"],
+               "library_ms": None, "device_ms": cnn["device_ms"],
+               "launches_per_client_round":
+                   main_launches[name] / n_client_rounds,
+               "at_cnn": cnn, "at_vgg11": big}
+        if name in PACKED_DEVICE_OPS:
+            rec["launch_floor_ms"] = floor
+        out.append(rec)
     return out
 
 
@@ -707,9 +802,8 @@ def phase_kernels(torch, captured, main_launches, n_client_rounds, seed):
 def phase_card_vs_cpu(torch, np, seed, algorithm):
     """One CNN round of ``algorithm`` on the card and on the CPU (plain
     versions of the kernels), from the same weights and batch."""
-    from repro_torch.core import FedConfig, fed_init, make_fl_round
+    from repro_torch.core import fed_init, make_fl_round
     from repro_torch.models.vision import build_vision
-    from repro_torch.optim import AdamHyper
 
     C = 4
     params, _, loss_fn, _, _ = build_vision("cnn", width=1.0,
@@ -717,10 +811,7 @@ def phase_card_vs_cpu(torch, np, seed, algorithm):
     imgs, labels, n_train, parts = make_data(seed, C)
     results = {}
     for dev in ("cuda", "cpu"):
-        fed = FedConfig(algorithm=algorithm, alpha=0.05, local_epochs=3,
-                        n_clients=C, adam=AdamHyper(lr=1e-3),
-                        exact_topk=False, error_feedback=True,
-                        sparsify_backend="kernel")
+        fed = cnn_fed(algorithm, n_clients=C, sparsify_backend="kernel")
         p = {k: v.to(dev) for k, v in params.items()}
         batch, w = round_batch(torch, imgs, labels, n_train, parts, 0, dev)
         state, mets = make_fl_round(fed, loss_fn)(fed_init(fed, p), batch, w)

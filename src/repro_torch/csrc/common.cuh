@@ -1,11 +1,12 @@
 // Device helpers shared by the port's kernels (sm_90a).
 //
-// * the 32-candidate ">= edge" count and its CTA flush, used by the packed
-//   cohort histogram (packed_topk.cu; the per-leaf count of topk_mask.cu
-//   takes the count alone, for candidates that are not sorted): counts are
-//   int32 in registers, reduced per warp, per CTA in shared memory, and
-//   added to global memory with one atomicAdd per bin, so they are exact
-//   and independent of the order in which CTAs run;
+// * the selection counts of topk_mask.cu (count_ge) and packed_topk.cu
+//   (packed_hist): the rank of an element among 32 non-increasing,
+//   NaN-free candidates by a branchless 6-compare search (Ranker), the
+//   32-compare count for candidates that are not sorted (count_ge1), and
+//   the last-CTA ticket that lets one launch finish a reduction across
+//   CTAs (last_cta).  Counts are int32, added with atomics, so they are
+//   exact and independent of the order in which CTAs run;
 // * the value_dtype round trip of the compress (cast_value), shared by the
 //   packed apply and the per-leaf apply (ssm_apply.cu);
 // * float32 / bfloat16 element access: every per-leaf kernel is a template
@@ -22,6 +23,7 @@
 namespace repro {
 
 constexpr int kBins = 32;  // candidates per threshold count
+constexpr int kRanks = kBins + 1;  // rank 32: below every candidate, or NaN
 
 // cnt[j] += (a >= edges[j]) for the 32 candidates.
 __device__ __forceinline__ void count_ge1(int (&cnt)[kBins],
@@ -30,25 +32,43 @@ __device__ __forceinline__ void count_ge1(int (&cnt)[kBins],
   for (int j = 0; j < kBins; ++j) cnt[j] += (a >= s_edges[j]);
 }
 
-// Adds the CTA's per-thread counts into out[0..31] and zeroes them.  Every
-// thread of the CTA must call it; s_hist (32 ints of shared memory) must
-// be zero on entry and is zero again on exit.
-__device__ __forceinline__ void hist_flush(int (&cnt)[kBins], int* s_hist,
-                                           int* out) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int j = 0; j < kBins; ++j) {
-    const int s = __reduce_add_sync(0xffffffffu, cnt[j]);
-    if (lane == 0 && s != 0) atomicAdd(&s_hist[j], s);
-    cnt[j] = 0;
+// The rank of a among non-increasing, NaN-free candidates e: the number of
+// j with !(a >= e_j), i.e. the first j with a >= e_j, or 32 (a NaN a
+// ranks 32).  Ties among candidates only need the predicate to be
+// monotone, not strict.  A branchless binary search: the first level
+// compares with e_15 held in a register, the next four with the
+// candidates in shared memory (passed at each call, so that the compiler
+// addresses them as shared memory, by index), the last with e_31.
+struct Ranker {
+  float e15, e31;
+
+  Ranker() = default;
+  __device__ __forceinline__ explicit Ranker(const float* e)
+      : e15(e[15]), e31(e[31]) {}
+
+  __device__ __forceinline__ int operator()(float a, const float* e) const {
+    int p = a >= e15 ? 0 : 16;
+    p += a >= e[p + 7] ? 0 : 8;
+    p += a >= e[p + 3] ? 0 : 4;
+    p += a >= e[p + 1] ? 0 : 2;
+    p += a >= e[p] ? 0 : 1;  // p = min(rank, 31)
+    return p + !(a >= e31);
+  }
+};
+
+// True, in every thread of the CTA, for the CTA that arrives last at
+// `ticket`; that CTA also puts the ticket back to zero.  Every atomic a
+// thread of any CTA made before the call is visible to the last CTA.
+__device__ __forceinline__ bool last_cta(unsigned* ticket) {
+  __shared__ bool s_last;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    s_last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+    if (s_last) atomicExch(ticket, 0u);
   }
   __syncthreads();
-  if (threadIdx.x < kBins) {
-    const int h = s_hist[threadIdx.x];
-    if (h != 0) atomicAdd(&out[threadIdx.x], h);
-    s_hist[threadIdx.x] = 0;
-  }
-  __syncthreads();
+  return s_last;
 }
 
 // x.astype(value_dtype).astype(float32): 0 none, 1 bfloat16, 2 float16,

@@ -48,9 +48,9 @@
 //     CTA first ranks all 32768 |bfloat16| bit patterns (keys) into 32 KB
 //     of shared memory, so the element costs a mask, one byte load and
 //     the counter's add.  A float32 element finds its rank by a branchless
-//     binary search in 6 compares: the first three levels against
-//     candidates held in registers (a uniform compare, then selects), the
-//     next two from shared memory, the last against tau_31.  Each step
+//     binary search in 6 compares (common.cuh): the first against tau_15
+//     in a register, the next four from shared memory by index, the last
+//     against tau_31.  Each step
 //     tests !(a >= e), so a NaN element ranks 32 and counts nowhere, as in
 //     the plain version; the table gives NaN keys rank 32.  Ties among
 //     candidates only need the predicate to be monotone, not strict.  One
@@ -70,32 +70,19 @@ namespace {
 
 using repro::count_ge1;
 using repro::kBins;
+using repro::kRanks;
+using repro::last_cta;
 using repro::load_pack;
 using repro::Pack;
+using repro::Ranker;
 using repro::to_f32;
 
 constexpr int kThreads = 256;
-constexpr int kRanks = kBins + 1;  // rank 32: below every candidate, or NaN
 
 // The workspace (int32 words, all zero between calls): count_ge's 32
 // partial counts and its ticket, then absmax's bits and its ticket.
 constexpr int kWsCount = 0;
 constexpr int kWsAbsmax = kBins + 1;
-
-// True, in every thread of the CTA, for the CTA that arrives last at
-// `ticket`; that CTA also puts the ticket back to zero.  Every atomic a
-// thread of any CTA made before the call is visible to the last CTA.
-__device__ __forceinline__ bool last_cta(unsigned* ticket) {
-  __shared__ bool s_last;
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    s_last = atomicAdd(ticket, 1u) == gridDim.x - 1;
-    if (s_last) atomicExch(ticket, 0u);
-  }
-  __syncthreads();
-  return s_last;
-}
 
 template <typename T>
 __device__ __forceinline__ unsigned abs_bits(T x) {
@@ -134,29 +121,6 @@ absmax_kernel(const T* __restrict__ x, unsigned* __restrict__ ws,
   if (last_cta(&ws[1]) && threadIdx.x == 0)
     *out = __uint_as_float(atomicExch(&ws[0], 0u));
 }
-
-// The rank of a among non-increasing, NaN-free candidates e: the number of
-// j with !(a >= e_j), i.e. the first j with a >= e_j, or 32.  The first
-// three levels of the search compare with candidates held in registers,
-// the next two with shared memory, the last with e_31.
-struct Ranker {
-  const float* e;  // shared memory
-  float e15, e7, e23, e3, e11, e19, e27, e31;
-
-  __device__ __forceinline__ explicit Ranker(const float* s)
-      : e(s), e15(s[15]), e7(s[7]), e23(s[23]), e3(s[3]), e11(s[11]),
-        e19(s[19]), e27(s[27]), e31(s[31]) {}
-
-  __device__ __forceinline__ int operator()(float a) const {
-    int p = !(a >= e15) ? 16 : 0;
-    p += !(a >= (p ? e23 : e7)) ? 8 : 0;
-    const float e4 = (p & 16) ? ((p & 8) ? e27 : e19) : ((p & 8) ? e11 : e3);
-    p += !(a >= e4) ? 4 : 0;
-    p += !(a >= e[p + 1]) ? 2 : 0;
-    p += !(a >= e[p]) ? 1 : 0;  // p = min(rank, 31)
-    return p + !(a >= e31);
-  }
-};
 
 // The |bfloat16| bit patterns (sign cleared): keys 0 .. 0x7f80 are the
 // values +0 .. +inf in increasing order, larger keys are NaN.
@@ -265,10 +229,10 @@ count_ge_kernel(const float* __restrict__ taus, const T* __restrict__ x,
         const Pack<T> p = load_pack(x, i);
 #pragma unroll
         for (int e = 0; e < N; ++e)
-          hist[rank(fabsf(to_f32(p.v[e]))) * kThreads] += 1;
+          hist[rank(fabsf(to_f32(p.v[e])), s_edges) * kThreads] += 1;
       }
       for (int64_t i = head + tid; i < n; i += stride)
-        hist[rank(fabsf(to_f32(x[i]))) * kThreads] += 1;
+        hist[rank(fabsf(to_f32(x[i])), s_edges) * kThreads] += 1;
     }
   } else {
     int cnt[kBins];

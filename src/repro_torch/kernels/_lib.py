@@ -36,8 +36,10 @@ _I64 = ctypes.c_int64
 #: the launchers a ``cudaError_t`` from ``cudaGetLastError()``.  Pointer
 #: arguments take Python ints (``Tensor.data_ptr()``) or None.
 SIGNATURES = {
-    "repro_packed_hist": (_P, _P, _P, _P, _I, _P),
-    "repro_packed_apply": (_P,) * 15 + (_I, _I, _I, _P),
+    "repro_packed_hist": (_P,) * 9 + (_I, _I, _P),
+    "repro_packed_apply": (_P,) * 10 + (_I, _I, _I, _P),
+    "repro_packed_launch_shape": (_I, _I, _P),
+    "repro_empty_launch": (_P,),
     "repro_pack_words": (_P, _P, _I64, _I, _P),
     "repro_unpack_words": (_P, _P, _I64, _I, _P),
     "repro_fused_adam": (_P,) * 8 + (_I64, _I, _P),

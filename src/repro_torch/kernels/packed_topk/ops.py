@@ -9,11 +9,14 @@ Counterpart of ``repro/kernels/packed_topk/{packed_topk,ops}.py``.  The
 buffers are (R, 128) packed cohorts built by
 ``repro_torch.core.sparsify.PackedLayout``; ``seg_ids`` maps each (8, 128)
 block to its tau segment.  On a CUDA tensor the wrappers launch the
-kernels of ``csrc/packed_topk.cu``: ``packed_apply`` runs the histogram
-kernel once more with the refine candidates as edges (the TPU's count
-sweep), then the pick/apply kernel.  On a CPU tensor they run the plain
-versions below, which compute the same function and are what the CPU
-tests hold against the JAX package.
+kernels of ``csrc/packed_topk.cu``: ``packed_hist`` is one device
+operation, the count kernel, whose last CTA writes the float32 counts;
+``packed_apply`` is two, the same count over the refine candidates (the
+TPU's count sweep), whose last CTA picks each segment's tau, then the
+apply.  Both counts add into a workspace kept per device and stream
+(zeroed once, left zero by every launch).  On a CPU tensor the wrappers
+run the plain versions below, which compute the same function and are
+what the CPU tests hold against the JAX package.
 """
 from __future__ import annotations
 
@@ -112,8 +115,28 @@ def packed_apply_plain(taus2, seg_ids, ks, ns, streams: Sequence,
 # ---------------------------------------------------------------------------
 
 
-def _hist_counts(xp, seg_ids, edges) -> torch.Tensor:
-    """Launch the histogram kernel; (L, 32) int32 counts on the card."""
+#: One int32 workspace per (device, stream) for the counts: a ticket and
+#: L * 32 partial counts.  Zeroed when it is made and made anew (zeroed)
+#: only when a call has more segments than it holds: every launch leaves
+#: it zero, and two streams never share one.
+_workspaces: dict = {}
+
+
+def _workspace(device: torch.device, st: int, n_seg: int) -> int:
+    """The address of the workspace of ``device`` and stream ``st``, with
+    room for ``n_seg`` segments."""
+    words = n_seg * N_BINS + 1
+    ws = _workspaces.get((device, st))
+    if ws is None or ws.numel() < words:
+        ws = _workspaces[(device, st)] = torch.zeros(
+            (words,), dtype=torch.int32, device=device)
+    return ws.data_ptr()
+
+
+def _count(xp, seg_ids, edges, out=None, pick=None) -> None:
+    """Launch the count kernel over xp: the (L, 32) float32 counts into
+    ``out``, or with ``pick = (ks, ns, taus, counts)`` each segment's
+    picked tau and count."""
     dev = xp.device
     R = xp.shape[0]
     if xp.dim() != 2 or xp.shape[1] != LANES or R % SUBLANES or R == 0:
@@ -124,20 +147,25 @@ def _hist_counts(xp, seg_ids, edges) -> torch.Tensor:
     cuda_arg("xp", xp, torch.float32)
     cuda_arg("seg_ids", seg_ids, torch.int32, (nb,), dev)
     cuda_arg("edges", edges, torch.float32, (L, N_BINS), dev)
-    out = torch.zeros((L, N_BINS), dtype=torch.int32, device=dev)
+    ks, ns, taus, counts = pick or (None,) * 4
+    st = stream(dev)
     _lib.launch("repro_packed_hist", ptr(xp), ptr(seg_ids), ptr(edges),
-                ptr(out), nb, stream(dev))
+                _workspace(dev, st, L), ptr(out), ptr(ks), ptr(ns),
+                ptr(taus), ptr(counts), nb, L, st)
     LAUNCHES["packed_hist"] += 1
-    return out
 
 
 def packed_hist(xp: torch.Tensor, seg_ids: torch.Tensor,
                 edges: torch.Tensor) -> torch.Tensor:
     """Segmented 32-bin histogram over a packed (R, 128) buffer: (L, 32)
-    float32 counts of ``|x| >= edges[seg, j]``.  ONE launch on the card."""
+    float32 counts of ``|x| >= edges[seg, j]``.  ONE device operation on
+    the card."""
     if on_cpu(xp):
         return packed_hist_plain(xp, seg_ids, edges)
-    return _hist_counts(xp, seg_ids, edges).to(torch.float32)
+    out = torch.empty((edges.shape[0], N_BINS), dtype=torch.float32,
+                      device=xp.device)
+    _count(xp, seg_ids, edges, out=out)
+    return out
 
 
 def packed_apply(taus2, seg_ids, ks, ns, streams: Sequence,
@@ -146,7 +174,8 @@ def packed_apply(taus2, seg_ids, ks, ns, streams: Sequence,
     """Refine count + tau pick + shared-mask apply over 1 or 3 packed
     streams (``score=None``: the score is stream 0, the ssm_w rule).
     Returns ``(*sparse_streams, [err], taus (L, 1), counts (L, 1))``.
-    TWO launches on the card: the count, then the pick/apply."""
+    TWO device operations on the card: the count with the pick, then the
+    apply."""
     streams = tuple(streams)
     if len(streams) not in (1, 3):
         raise ValueError(f"expected 1 or 3 streams, got {len(streams)}")
@@ -164,17 +193,29 @@ def packed_apply(taus2, seg_ids, ks, ns, streams: Sequence,
     L = taus2.shape[0]
     cuda_arg("ks", ks, torch.float32, (L,), dev)
     cuda_arg("ns", ns, torch.float32, (L,), dev)
-    c2 = _hist_counts(streams[0] if score is None else score, seg_ids, taus2)
-    outs = [torch.empty_like(x) for x in streams]
-    err = torch.empty_like(streams[0]) if with_residual else None
     taus = torch.empty((L, 1), dtype=torch.float32, device=dev)
     counts = torch.empty((L, 1), dtype=torch.float32, device=dev)
+    _count(streams[0] if score is None else score, seg_ids, taus2,
+           pick=(ks, ns, taus, counts))
+    outs = [torch.empty_like(x) for x in streams]
+    err = torch.empty_like(streams[0]) if with_residual else None
     x1, x2 = (streams[1], streams[2]) if len(streams) == 3 else (None, None)
     s1, s2 = (outs[1], outs[2]) if len(streams) == 3 else (None, None)
-    _lib.launch("repro_packed_apply", ptr(taus2), ptr(c2), ptr(seg_ids),
-                ptr(ks), ptr(ns), ptr(score), ptr(streams[0]), ptr(x1),
-                ptr(x2), ptr(outs[0]), ptr(s1), ptr(s2), ptr(err), ptr(taus),
-                ptr(counts), shape[0] // SUBLANES, len(streams), vdt,
+    _lib.launch("repro_packed_apply", ptr(taus), ptr(seg_ids), ptr(score),
+                ptr(streams[0]), ptr(x1), ptr(x2), ptr(outs[0]), ptr(s1),
+                ptr(s2), ptr(err), shape[0] // SUBLANES, len(streams), vdt,
                 stream(dev))
     LAUNCHES["packed_apply"] += 1
     return tuple(outs) + ((err,) if with_residual else ()) + (taus, counts)
+
+
+def launch_shape(nb: int) -> dict:
+    """(grid, blocks per CTA) of the card's launches over ``nb`` packed
+    blocks: ``count`` (packed_hist), ``pick`` (packed_apply's count) and
+    ``apply`` (its most blocks per CTA).  Needs the card."""
+    shape = torch.zeros(2, dtype=torch.int32)
+    out = {}
+    for kind, name in enumerate(("count", "pick", "apply")):
+        _lib.launch("repro_packed_launch_shape", nb, kind, shape.data_ptr())
+        out[name] = tuple(shape.tolist())
+    return out

@@ -207,3 +207,51 @@ def count_edge_cases(n: int, dtype: torch.dtype, seed: int = 0) -> dict:
 def taus_sorted(taus: torch.Tensor) -> bool:
     """Non-increasing and NaN-free: the count kernel's rank path."""
     return bool((taus == taus).all() and (taus[:-1] >= taus[1:]).all())
+
+
+# ---------------------------------------------------------------------------
+# The same edge cases as one packed cohort (packed_hist, packed_apply)
+# ---------------------------------------------------------------------------
+
+
+def packed_edge_cases(n: int = 5000):
+    """One packed cohort on the CPU with a segment for each edge case of
+    :func:`count_edge_cases` (its float32 leaf as the segment's data, its
+    candidates as the segment's edges), a refine row on the log2 case's
+    leaf, a single-element and an all-zero segment.  Returns ``(xp,
+    seg_ids, edges, xla_exact)``, ``xla_exact`` a numpy bool per segment
+    (False where XLA flushes the subnormal edges)."""
+    from repro_torch.core import sparsify as S
+    from repro_torch.kernels.packed_topk import ops as P
+    from repro_torch.kernels.packed_topk.ref import refine_taus
+    from repro_torch.kernels.topk_mask.ref import log2_taus
+    cases = count_edge_cases(n, torch.float32)
+    leaves, rows, exact = [], [], []
+    for name in COUNT_CASES:
+        taus, x, ok = cases[name]
+        leaves.append(x)
+        rows.append(taus)
+        exact.append(ok)
+    log2, x, _ = cases["log2"]
+    xp1 = S.plan_packed_layout([x]).pack([x])
+    c1 = P.packed_hist_plain(
+        xp1, torch.zeros(xp1.shape[0] // 8, dtype=torch.int32), log2[None])
+    k = torch.tensor([float(S.k_for(n, 0.05))])
+    leaves.append(x)
+    rows.append(refine_taus(c1, log2[None], x.abs().max()[None], k)[0])
+    one, zero = torch.tensor([0.7]), torch.zeros(50)
+    leaves += [one, zero]
+    rows += [log2_taus(one.abs().max()), log2_taus(zero.abs().max())]
+    exact += [True] * 3
+    layout = S.plan_packed_layout(leaves)
+    return (layout.pack(leaves), layout.seg_ids, torch.stack(rows),
+            np.array(exact))
+
+
+def shuffle_blocks(xp, seg_ids, seed):
+    """The same (8, 128) blocks in a shuffled order: segments change at
+    almost every block, and one segment's blocks fall into many chunks."""
+    perm = torch.from_numpy(np.random.default_rng(seed).permutation(
+        seg_ids.numel())).to(xp.device)
+    blocks = xp.reshape(-1, 1024)[perm]
+    return blocks.reshape(-1, 128).contiguous(), seg_ids[perm].contiguous()

@@ -19,8 +19,8 @@ import pytest
 import torch
 
 from _torch_parity import assert_bitwise, cuda_device  # noqa: F401
-from _torch_parity import (COUNT_CASES, count_edge_cases, rand_leaves,
-                           taus_sorted)
+from _torch_parity import (COUNT_CASES, count_edge_cases, packed_edge_cases,
+                           rand_leaves, shuffle_blocks, taus_sorted)
 from repro_torch.core import sparsify as S
 from repro_torch.kernels import LAUNCHES, reset_launches
 from repro_torch.kernels.packed_topk import ops as P
@@ -144,6 +144,145 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
     layout, xp, edges, *_ = _cuda_case(cuda_device)
     with pytest.raises(ValueError):
         P.packed_hist(xp, layout.seg_ids.cpu(), edges)
+
+
+def _device_ops(fn, iters=10):
+    """Device operations (kernels, fills, copies) per call of ``fn``, from
+    torch.profiler.  The profiler drops a record now and then, so the
+    count is rounded, and a window that saw none is taken again."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        n = sum(e.count for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA)
+        if n:
+            return round(n / iters)
+    return 0
+
+
+def _ks_ns(seg_ids, L):
+    """ks/ns of ALPHA over each segment's blocks (padding included)."""
+    ns = torch.bincount(seg_ids.long().cpu(), minlength=L).to(
+        torch.float32) * P.BLOCK_ELEMS
+    ks = torch.tensor([float(S.k_for(int(n), ALPHA)) for n in ns])
+    return ks.to(seg_ids.device), ns.to(seg_ids.device)
+
+
+def _check_packed(xp, seg_ids, edges, what):
+    """packed_hist, and packed_apply with ``edges`` as its candidates over
+    three streams (with a score, a cast and the residual) and over one,
+    bitwise against the plain versions."""
+    assert_bitwise(P.packed_hist(xp, seg_ids, edges),
+                   P.packed_hist_plain(xp, seg_ids, edges), f"{what} hist")
+    ks, ns = _ks_ns(seg_ids, edges.shape[0])
+    streams = (xp, xp * 0.5, xp.abs())
+    for args, kw in (((streams, xp.flip(0)), {"value_dtype": "bfloat16"}),
+                     (((xp,),), {})):
+        a = P.packed_apply(edges, seg_ids, ks, ns, *args, **kw)
+        b = P.packed_apply_plain(edges, seg_ids, ks, ns, *args, **kw)
+        assert len(a) == len(b)
+        for i, (x, y) in enumerate(zip(a, b)):
+            assert_bitwise(x, y, f"{what} apply output {i}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", ["packed", "interleaved"])
+def test_cuda_packed_edge_cases_match_plain(cuda_device, order):
+    """The count's edge cases as segments of one cohort (ties among edges,
+    all-zero and single-element segments, infinities and NaN elements, NaN
+    and unsorted edges, signed zeros, subnormals, the log2 and a refine
+    row): both kernels bitwise against their plain versions, with the
+    blocks in order and shuffled (a segment change at almost every
+    block)."""
+    xp, seg_ids, edges, _ = packed_edge_cases()
+    if order == "interleaved":
+        xp, seg_ids = shuffle_blocks(xp, seg_ids, 3)
+    _check_packed(xp.to(cuda_device), seg_ids.to(cuda_device),
+                  edges.to(cuda_device), order)
+
+
+def _cohort(device, L, nb=4000, seed=30):
+    """About ``nb`` blocks in L segments of uneven lengths (L = 1: one
+    global segment over 12 leaves), with log2 edges per segment and their
+    refine rows."""
+    rng = np.random.default_rng(seed)
+    n_leaves = 12 if L == 1 else L
+    sizes = rng.integers(1, 2 * nb // n_leaves, size=n_leaves) * 1024 - \
+        rng.integers(0, 1000, size=n_leaves)
+    leaves = [torch.from_numpy(rng.standard_normal(int(n)).astype(
+        np.float32) * 10.0 ** rng.uniform(-4, 0)).to(device) for n in sizes]
+    layout = S.plan_packed_layout(leaves, [0] * n_leaves if L == 1 else None)
+    xp = layout.pack(leaves)
+    ks, _ = layout.ks_ns(ALPHA)
+    absmax = S._segment_absmax(layout, leaves)
+    edges = tmref.log2_taus(absmax)
+    taus2 = pref.refine_taus(P.packed_hist_plain(xp, layout.seg_ids, edges),
+                             edges, absmax, ks)
+    return xp, layout.seg_ids, edges, taus2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [1, 4, 12, 300])
+def test_cuda_packed_chunks_split_segments(cuda_device, L):
+    """Cohorts of more blocks than the card keeps CTAs, so each count CTA
+    walks a chunk of several blocks and segments change inside chunks and
+    span several; L = 300 grows the workspace past every earlier call's."""
+    xp, seg_ids, edges, taus2 = _cohort(cuda_device, L)
+    nb = seg_ids.numel()
+    shape = P.launch_shape(nb)
+    assert shape["count"][1] > 1 and shape["pick"][1] > 1, shape
+    assert shape["apply"][1] > 1, shape
+    starts = torch.arange(0, nb, shape["count"][1], device=cuda_device)
+    if L > 1:  # some chunk starts inside a segment's run of blocks
+        assert bool((seg_ids[starts[1:]] == seg_ids[starts[1:] - 1]).any())
+    for e, what in ((edges, "log2"), (taus2, "refine")):
+        _check_packed(xp, seg_ids, e, f"L={L} {what}")
+
+
+@pytest.mark.cuda
+def test_cuda_packed_workspace_is_zero_after_each_call(cuda_device):
+    """Each launch leaves its stream's workspace zero: on the current
+    stream and on a second one (its own workspace), and across a call
+    with more segments than the workspace held (it grows, zeroed)."""
+    small = _cohort(cuda_device, 4, nb=600, seed=31)
+    big = _cohort(cuda_device, 300, nb=900, seed=32)
+    side = torch.cuda.Stream(cuda_device)
+    for st in (torch.cuda.current_stream(cuda_device), side):
+        st.wait_stream(torch.cuda.current_stream(cuda_device))
+        for xp, seg_ids, edges, taus2 in (small, big, small):
+            ks, ns = _ks_ns(seg_ids, edges.shape[0])
+            with torch.cuda.stream(st):
+                c = P.packed_hist(xp, seg_ids, edges)
+                a = P.packed_apply(taus2, seg_ids, ks, ns, (xp,))
+                ws = P._workspaces[(xp.device, st.cuda_stream)]
+            st.synchronize()
+            assert int(ws.count_nonzero()) == 0
+            assert_bitwise(c, P.packed_hist_plain(xp, seg_ids, edges))
+            b = P.packed_apply_plain(taus2, seg_ids, ks, ns, (xp,))
+            for x, y in zip(a, b):
+                assert_bitwise(x, y)
+        assert ws.numel() >= 300 * 32 + 1
+    assert len({id(w) for w in P._workspaces.values()}) >= 2
+
+
+@pytest.mark.cuda
+def test_cuda_packed_device_operations_per_call(cuda_device):
+    """One device operation per packed_hist call (no fill, no cast) and
+    two per packed_apply call (the count with the pick, the apply)."""
+    xp, seg_ids, edges, taus2 = _cohort(cuda_device, 12, nb=445, seed=33)
+    ks, ns = _ks_ns(seg_ids, 12)
+    streams = (xp, xp * 0.5, xp.abs())
+    assert _device_ops(lambda: P.packed_hist(xp, seg_ids, edges)) == 1
+    assert _device_ops(lambda: P.packed_apply(taus2, seg_ids, ks, ns,
+                                              streams)) == 2
+    assert _device_ops(lambda: P.packed_apply(taus2, seg_ids, ks, ns,
+                                              (xp,))) == 2
 
 
 # ---------------------------------------------------------------------------
