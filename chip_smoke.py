@@ -55,7 +55,34 @@ Phases:
    its trainer built after phase 5's is freed, and apply_mask against its
    plain version on that round's inputs;
 7. one round of the smoke starcoder2 on the card against the CPU, for
-   FedAdam-SSM and for FedAdam-Top.
+   FedAdam-SSM and for FedAdam-Top;
+8. (run after phase 4) the CNN's dense and quantized baselines at full
+   width, alpha 1.0: 3 rounds each of FedAdam, FedSGD and Efficient-Adam
+   (8-bit codes, error feedback), and 1-bit Adam as the paper's runner
+   drives it (2 dense FedAdam warm-up rounds, then 2 compressed rounds
+   from their W, M and V); per round exact launches per client (one
+   pack_words and one unpack_words a client for the quantized rounds, none
+   for the dense ones), the first client's payload built on the card
+   (``8 * bytes`` equal to the layout's wire bits; the dense round builds
+   none, so ``pack_wire`` builds it from that client's deltas, and the
+   round must not have called ``pack_dense``), wall time, peak memory,
+   a profiled round and 0 stream syncs; then one round card vs CPU for
+   Efficient-Adam and 1-bit Adam, each after a first round (1-bit Adam's
+   a dense FedAdam warm-up on each side; Efficient-Adam's its own, on the
+   CPU, its state handed to both sides), with Efficient-Adam's per-client
+   moments compared beside W, M and V;
+9. (after 8) the exact top-k masks on ties, card against CPU bitwise
+   (float32 and bfloat16; a blocked leaf with a mostly zero, padded last
+   block; three rows of a tied leaf of the embed's size, whose sort's
+   wall time and peak memory are recorded), and one FedAdam-SSM CNN round
+   with exact masks card vs CPU;
+10. (after 6) starcoder2-3b at phase 5's configuration under
+   Efficient-Adam (2 rounds, the fused local Adam on persistent moments)
+   and 1-bit Adam (1 dense FedAdam warm-up round, then 1 compressed
+   round): exact launches per client, 0 syncs, payload bytes, wall times
+   and peaks; pack_words and unpack_words against their plain versions on
+   the client's 8-bit codes and sign plane; ``pack_dense`` timed on the
+   warm-up client's deltas.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.  Any failure
@@ -66,6 +93,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import itertools
 import json
 import math
@@ -136,6 +164,37 @@ LM_PATHS = {
             pack_words=3, unpack_words=3, fused_adam=11 * LM_LOCAL_EPOCHS,
             absmax=33, count_ge=66, apply_mask=33),
         "replayed": ("apply_mask",)},
+}
+
+#: The CNN's dense and quantized baselines: payload bytes per client, the
+#: payload's encoder, word-kernel launches per client and round (one
+#: pack_words and one unpack_words of 8-bit codes or of a sign plane).
+CNN_BASELINES = {
+    "fedadam": {"wire_bytes": 5_456_256, "encoder": "pack_dense",
+                "words": 0},
+    "fedsgd": {"wire_bytes": 1_818_752, "encoder": "pack_dense",
+               "words": 0},
+    "efficient_adam": {"wire_bytes": 460_532, "encoder": "pack_bbit_codes",
+                       "words": 1},
+    "onebit_adam": {"wire_bytes": 59_136, "encoder": "pack_sign",
+                    "words": 1},
+}
+
+#: The same on the transformer (fused local Adam: 11 leaves x 3 epochs;
+#: 1-bit Adam's compressed round takes one momentum step, no Adam), with
+#: the word kernels' code width.
+LM_BASELINES = {
+    "efficient_adam": {
+        "wire_bytes": 495_824_956, "encoder": "pack_bbit_codes", "words": 1,
+        "bits": 8, "launches": per_client_round(
+            pack_words=1, unpack_words=1, fused_adam=11 * LM_LOCAL_EPOCHS)},
+    "fedadam": {
+        "wire_bytes": 5_926_735_872, "encoder": "pack_dense", "words": 0,
+        "launches": per_client_round(fused_adam=11 * LM_LOCAL_EPOCHS)},
+    "onebit_adam": {
+        "wire_bytes": 63_666_240, "encoder": "pack_sign", "words": 1,
+        "bits": 1, "launches": per_client_round(pack_words=1,
+                                                unpack_words=1)},
 }
 
 KERNELS = {
@@ -227,10 +286,13 @@ class Capture:
 
     def restore(self):
         """Put every wrapped entry point back."""
-        for module, attr, fn in self.wrapped:
+        for module, attr, fn in reversed(self.wrapped):
             setattr(module, attr, fn)
 
-    def wrap(self, module, attr, name, arg=None, sizes=(None,), calls=1):
+    def wrap(self, module, attr, name, arg=None, sizes=(None,), calls=1,
+             keep=None):
+        """``keep``: record ``keep(out)`` instead of the output (what a
+        phase needs of a large payload without holding it)."""
         fn = getattr(module, attr)
         self.wrapped.append((module, attr, fn))
 
@@ -243,7 +305,7 @@ class Capture:
                 seen.append(([_clone(a) for a in args], dict(kw)))
             out = fn(*args, **kw)
             if first and arg is None and name not in self.outs:
-                self.outs[name] = out
+                self.outs[name] = out if keep is None else keep(out)
             return out
 
         setattr(module, attr, rec)
@@ -270,13 +332,15 @@ def round_batch(torch, imgs, labels, n_train, parts, r, device):
 
 def cnn_fed(algorithm, **kw):
     """The CNN rounds' configuration: alpha 0.05, threshold masks, error
-    feedback, 20 clients, 3 local epochs of Adam at lr 1e-3."""
+    feedback, 20 clients, 3 local epochs of Adam at lr 1e-3 (``kw``
+    overrides any of them)."""
     from repro_torch.core import FedConfig
     from repro_torch.optim import AdamHyper
-    return FedConfig(algorithm=algorithm, alpha=0.05, local_epochs=3,
-                     n_clients=kw.pop("n_clients", CLIENTS),
-                     adam=AdamHyper(lr=1e-3), exact_topk=False,
-                     error_feedback=True, **kw)
+    fields = dict(alpha=0.05, local_epochs=3, n_clients=CLIENTS,
+                  adam=AdamHyper(lr=1e-3), exact_topk=False,
+                  error_feedback=True)
+    fields.update(kw)
+    return FedConfig(algorithm=algorithm, **fields)
 
 
 def phase_main_path(torch, seed):
@@ -482,10 +546,11 @@ def port_kernel_names() -> list:
                    for name in decl.findall(src.read_text())})
 
 
-def profile_round(torch, round_fn, state, batch, w):
+def profile_round(torch, round_fn, state, batch, w, port_kernels=True):
     """One more round under torch.profiler, device activity only (the host
     pays no per-operator cost): its wall time, the device's busy share and
-    the kernels that took the most device time."""
+    the kernels that took the most device time.  ``port_kernels``: the
+    round must run some of the port's kernels (a dense round runs none)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -501,7 +566,8 @@ def profile_round(torch, round_fn, state, batch, w):
     require(busy_ms > 0, "the profiler saw no device time in the round")
     ours = re.compile(r"\b(%s)\b" % "|".join(port_kernel_names()))
     port_ms = sum(ms for key, ms, _ in ops if ours.search(key))
-    require(port_ms > 0, "the profiler saw none of the port's kernels")
+    require((port_ms > 0) == port_kernels,
+            f"the profiler saw {port_ms} ms of the port's kernels")
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_busy_share": busy_ms / wall_ms,
             "device_ops": sum(c for *_, c in ops),
@@ -630,13 +696,19 @@ def kernel_cost(torch, name, args, kw):
                      + ns.numel() + 2 * ks.numel())
         return (4 * n * (n_in + n_out) + small,
                 packed_count_ops(streams[0]) + 3 * n * n_out)
+    bits = word_bits(args)
     if name == "pack_words":
-        (codes,) = args[:1]
-        n = codes.numel()
-        return 4 * n + n // 8, 2 * n
-    (words,) = args[:1]
-    n = words.numel() * 32
-    return n // 8 + 4 * n, 2 * n
+        n = args[0].numel()
+        return 4 * n + n * bits // 8, 2 * n
+    n = args[0].numel() * 32 // bits
+    return n * bits // 8 + 4 * n, 2 * n
+
+
+def word_bits(args) -> int:
+    """Code width of a captured word-kernel call: ``(codes, bits)`` when
+    captured at ``pack_words``/``unpack_words``, the support bitmap (b=1)
+    when captured at ``pack_mask_bits``/``unpack_mask_bits``."""
+    return args[1] if len(args) > 1 else 1
 
 
 def run_kernel(torch, name, args, kw):
@@ -649,12 +721,14 @@ def run_kernel(torch, name, args, kw):
     if name == "packed_apply":
         return (lambda: P.packed_apply(*args, **kw)), \
             (lambda: P.packed_apply_plain(*args, **kw)), ("",)
+    bits = word_bits(args)
     if name == "pack_words":
         codes = args[0].to(torch.int32)
-        return (lambda: W.pack_words(codes, 1)), \
-            (lambda: W.pack_words_plain(codes, 1)), ["pack_words_kernel"]
-    return (lambda: W.unpack_words(args[0], 1)), \
-        (lambda: W.unpack_words_plain(args[0], 1)), ["unpack_words_kernel"]
+        return (lambda: W.pack_words(codes, bits)), \
+            (lambda: W.pack_words_plain(codes, bits)), ["pack_words_kernel"]
+    return (lambda: W.unpack_words(args[0], bits)), \
+        (lambda: W.unpack_words_plain(args[0], bits)), \
+        ["unpack_words_kernel"]
 
 
 def _clone(a):
@@ -696,12 +770,15 @@ def measure(torch, name, args, kw, iters, plain_iters, cold=False):
     plain = time_ms(torch, fp, plain_iters)
     dev_ms, dev_ops = device_ms(torch, timed, 20, knames)
     n = args[4][0].numel() if name == "packed_apply" else (
-        args[0].numel() * 32 if name == "unpack_words" else args[0].numel())
+        args[0].numel() * 32 // word_bits(args) if name == "unpack_words"
+        else args[0].numel())
     rec = {"max_abs_err": err, "ms": ms, "device_ms": dev_ms,
            "plain_ms": plain, "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
            "bytes": nbytes, "operations": ops, "elements": int(n),
            "input_copies": copies}
+    if name in ("pack_words", "unpack_words"):
+        rec["bits"] = word_bits(args)
     if name in PACKED_DEVICE_OPS:
         require(dev_ops == PACKED_DEVICE_OPS[name],
                 f"{name}: {dev_ops} device operations per call")
@@ -799,9 +876,72 @@ def phase_kernels(torch, captured, main_launches, n_client_rounds, seed):
 # ---------------------------------------------------------------------------
 
 
-def phase_card_vs_cpu(torch, np, seed, algorithm):
+def cpu_reference(torch, dev):
+    """The context a card-vs-CPU round runs in on ``dev``: on the CPU, the
+    native convolution instead of oneDNN's, whose float32 weight gradients
+    can sit far from float64 where the card's do not
+    (:func:`conv1_float64_gap` measures it)."""
+    if dev == "cpu":
+        return torch.backends.mkldnn.flags(enabled=False)
+    return contextlib.nullcontext()
+
+
+def conv1_float64_gap(torch, loss_fn, W, batch, h) -> dict:
+    """How far float32 runs of the CNN's conv1 sit from float64 at ``W`` on
+    ``batch`` (CPU tensors), on the card, on the CPU with the native
+    convolution and on the CPU through oneDNN: the median relative error
+    of client 0's weight gradient, and per client the share of conv1's
+    first moment, after 3 local Adam epochs from zero moments (the
+    round's Adam, ``h``), beyond the card-vs-CPU tolerance."""
+    def local(c, dev, dtype, onednn, epochs):
+        w = {k: v.to(dev, dtype).clone() for k, v in W.items()}
+        m = {k: torch.zeros_like(v) for k, v in w.items()}
+        v_ = {k: torch.zeros_like(x) for k, x in w.items()}
+        xy = (batch[0][c].to(dev, dtype), batch[1][c].to(dev))
+        with torch.backends.mkldnn.flags(enabled=onednn):
+            for e in range(epochs):
+                p = {k: x.requires_grad_(True) for k, x in w.items()}
+                g = dict(zip(p, torch.autograd.grad(loss_fn(p, xy),
+                                                    list(p.values()))))
+                if e == 0:
+                    g0 = g["conv1"].cpu().double()
+                for k, x in w.items():
+                    m[k] = h.beta1 * m[k] + (1 - h.beta1) * g[k]
+                    v_[k] = h.beta2 * v_[k] + (1 - h.beta2) * g[k] * g[k]
+                    root = torch.sqrt((v_[k] + h.eps).double()).to(dtype)
+                    w[k] = (x - h.lr * (m[k] / root)).detach()
+        return g0, m["conv1"].cpu().double()
+    runs = {"card": ("cuda", torch.float32, True),
+            "cpu_native": ("cpu", torch.float32, False),
+            "cpu_onednn": ("cpu", torch.float32, True)}
+    out = {"grad_rel_median": {}, "adam_m_beyond": {n: [] for n in runs}}
+    for c in range(batch[1].shape[0]):
+        g64, m64 = local(c, "cpu", torch.float64, False, 3)
+        for name, run in runs.items():
+            g, m = local(c, *run, 3)
+            if c == 0:
+                out["grad_rel_median"][name] = float(
+                    ((g - g64).abs() / g64.abs().clamp_min(1e-30)).median())
+            out["adam_m_beyond"][name].append(float((~torch.isclose(
+                m, m64, rtol=1e-4, atol=1e-5 * float(m64.abs().max())))
+                .double().mean()))
+    return out
+
+
+def phase_card_vs_cpu(torch, np, seed, algorithm, **fed_kw):
     """One CNN round of ``algorithm`` on the card and on the CPU (plain
-    versions of the kernels), from the same weights and batch."""
+    versions of the kernels, the native convolution: :func:`cpu_reference`),
+    from the same weights and batch.  The quantized algorithms' compared
+    round starts from one state computed on the CPU and handed to both
+    sides: for 1-bit Adam a dense FedAdam warm-up round, for Efficient-Adam
+    a first round of its own (its server moves W alone, so the clients'
+    persistent moments are what the compared round adds; they are compared
+    too).  Each side running that first round itself would compare states
+    that already differ: a few elements of a round of local Adam from zero
+    moments sit beyond tolerance of float64 on either side (measured here
+    by :func:`conv1_float64_gap`), and a code flipped on a half step moves
+    W by a whole step."""
+    from repro_torch import tree as T
     from repro_torch.core import fed_init, make_fl_round
     from repro_torch.models.vision import build_vision
 
@@ -809,13 +949,42 @@ def phase_card_vs_cpu(torch, np, seed, algorithm):
     params, _, loss_fn, _, _ = build_vision("cnn", width=1.0,
                                             seed=seed + 1, device="cpu")
     imgs, labels, n_train, parts = make_data(seed, C)
+    mk_fed = lambda: cnn_fed(algorithm, n_clients=C,
+                             sparsify_backend="kernel", **fed_kw)
+    first, gap = None, None
+    if algorithm in ("onebit_adam", "efficient_adam"):
+        b0, w0 = round_batch(torch, imgs, labels, n_train, parts, 0, "cpu")
+        with cpu_reference(torch, "cpu"):
+            if algorithm == "onebit_adam":
+                warm = cnn_fed("fedadam", n_clients=C, alpha=1.0)
+                st, _ = make_fl_round(warm, loss_fn)(fed_init(warm, params),
+                                                     b0, w0)
+                first = fed_init(mk_fed(), st.W)._replace(M=st.M, V=st.V)
+            else:
+                first, _ = make_fl_round(mk_fed(), loss_fn)(
+                    fed_init(mk_fed(), params), b0, w0)
+        b1 = round_batch(torch, imgs, labels, n_train, parts, 1, "cpu")[0]
+        gap = {"first_round": conv1_float64_gap(torch, loss_fn, params, b0,
+                                                mk_fed().adam),
+               "compared_round": conv1_float64_gap(torch, loss_fn, first.W,
+                                                   b1, mk_fed().adam)}
+        log(f"cnn {algorithm}: conv1 against float64 at the start of the "
+            f"first and the compared round {json.dumps(gap)}")
     results = {}
     for dev in ("cuda", "cpu"):
-        fed = cnn_fed(algorithm, n_clients=C, sparsify_backend="kernel")
-        p = {k: v.to(dev) for k, v in params.items()}
-        batch, w = round_batch(torch, imgs, labels, n_train, parts, 0, dev)
-        state, mets = make_fl_round(fed, loss_fn)(fed_init(fed, p), batch, w)
-        results[dev] = (state, mets)
+        on = lambda t: T.tree_map(lambda x: x.to(dev), t)
+        if first is None:
+            state = fed_init(mk_fed(), on(params))
+            batch, w = round_batch(torch, imgs, labels, n_train, parts, 0,
+                                   dev)
+        else:
+            state = first._replace(W=on(first.W), M=on(first.M),
+                                   V=on(first.V),
+                                   client_state=on(first.client_state))
+            batch, w = round_batch(torch, imgs, labels, n_train, parts, 1,
+                                   dev)
+        with cpu_reference(torch, dev):
+            results[dev] = make_fl_round(mk_fed(), loss_fn)(state, batch, w)
     (gs, gm), (cs, cm) = results["cuda"], results["cpu"]
     require(float(gm["uplink_bits"]) == float(cm["uplink_bits"]),
             "uplink bits differ between the card and the CPU")
@@ -823,29 +992,48 @@ def phase_card_vs_cpu(torch, np, seed, algorithm):
     # and the CPU sum the convolutions in other orders), W/M/V within
     # rtol 1e-4 / atol 1e-5 * max except at most 0.2% of the elements,
     # which sit on a segment's tau and may be kept on one side only (for
-    # FedAdam-Top, on any of the three streams' taus)
+    # FedAdam-Top, on any of the three streams' taus; for the quantizers,
+    # on a half step of a code or at a sign)
     np.testing.assert_allclose(gm["loss"].cpu().numpy(),
                                cm["loss"].numpy(), rtol=1e-4)
     worst = 0.0
-    for name in "WMV":
-        for k, a in getattr(gs, name).items():
-            b = getattr(cs, name)[k].numpy()
+    compared = [(name, getattr(gs, name), getattr(cs, name))
+                for name in "WMV"]
+    if algorithm == "efficient_adam":
+        compared += [(f"client {part}", gs.client_state[part],
+                      cs.client_state[part]) for part in ("m", "v")]
+    for name, tg, tc in compared:
+        for k, a in tg.items():
+            b = tc[k].numpy()
             bad = ~np.isclose(a.cpu().numpy(), b, rtol=1e-4,
                               atol=1e-5 * float(np.abs(b).max()))
             worst = max(worst, float(bad.mean()))
             require(bad.mean() <= 2e-3, f"{name}[{k}]: {bad.sum()} of "
                     f"{bad.size} elements differ beyond tolerance")
     err_g, err_c = gs.client_state["comp"]["err"], cs.client_state["comp"]["err"]
-    support = max(float(np.mean((err_g[k].cpu().numpy() == 0)
-                                != (err_c[k].numpy() == 0))) for k in err_g)
-    require(support <= 2e-3, f"EF supports differ on {support:.2e}")
-    log(f"cnn {algorithm} card vs CPU: loss "
+    if algorithm in ("efficient_adam", "onebit_adam"):
+        # a residual carries its delta's absolute error: held to the
+        # absolute tolerance of W (Efficient-Adam) or M (1-bit Adam)
+        ref = cs.W if algorithm == "efficient_adam" else cs.M
+        support = max(float(np.mean(~np.isclose(
+            err_g[k].cpu().numpy(), err_c[k].numpy(), rtol=1e-4,
+            atol=1e-5 * float(ref[k].abs().max())))) for k in err_g)
+        what = "EF residuals beyond tolerance"
+    else:
+        support = max(float(np.mean((err_g[k].cpu().numpy() == 0)
+                                    != (err_c[k].numpy() == 0)))
+                      for k in err_g)
+        what = "EF support mismatch"
+    require(support <= 2e-3, f"{what}: {support:.2e}")
+    log(f"cnn {algorithm}{''.join(f' {k}={v}' for k, v in fed_kw.items())}"
+        f" card vs CPU: loss "
         f"{gm['loss'].cpu().numpy().tolist()} vs "
         f"{cm['loss'].numpy().tolist()}; share of W/M/V elements beyond "
-        f"tolerance {worst:.2e}; EF support mismatch {support:.2e}")
+        f"tolerance {worst:.2e}; {what} {support:.2e}")
     return {"loss_cuda": gm["loss"].cpu().numpy().tolist(),
             "loss_cpu": cm["loss"].numpy().tolist(),
-            "wmv_beyond_tolerance": worst, "support_mismatch": support}
+            "wmv_beyond_tolerance": worst, "support_mismatch": support,
+            "conv1_float64_gap": gap}
 
 # ---------------------------------------------------------------------------
 # Phase 5: the transformer path
@@ -1281,6 +1469,413 @@ def phase_lm_card_vs_cpu(torch, np, seed, algorithm):
 
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the dense and quantized baselines on the CNN
+# ---------------------------------------------------------------------------
+
+
+def _payload_facts(payload):
+    """(bytes, every array on the card) of a wire payload: what a phase
+    keeps of it, so that a large payload is not held."""
+    from repro_torch.core import wire
+    return (wire.payload_nbytes(payload),
+            all(a.is_cuda for part in payload for a in part))
+
+
+def wrap_payload(cap, comp, encoder):
+    """Wrap what builds a client's payload in a round: the wire encoder
+    (its first payload's facts kept) and, for the dense transport, whose
+    round builds no payload, the compressor's ``compress`` (the first
+    client's deltas kept by reference)."""
+    from repro_torch.core import wire
+    cap.wrap(wire, encoder, "payload", keep=_payload_facts)
+    if comp.transport == "dense":
+        cap.wrap(type(comp), "compress", "deltas", keep=lambda _: None)
+
+
+def payload_of(cap, comp, what):
+    """``((bytes, every array on the card), deltas)`` of the first client's
+    payload: the one the round built, or for the dense transport the one
+    ``pack_wire`` builds from the first client's deltas (and ``deltas``
+    those deltas), the round having built none."""
+    from repro_torch.core.compressors import Deltas
+    if comp.transport != "dense":
+        return cap.outs["payload"], None
+    require("payload" not in cap.outs,
+            f"{what}: the dense round built a wire payload")
+    deltas = Deltas(*cap.args["deltas"][None][0][0][1])
+    return _payload_facts(comp.pack_wire(deltas)), deltas
+
+
+def _finite_state(torch, state, what):
+    from repro_torch import tree as T
+    for name in "WMV":
+        for x in T.leaves(getattr(state, name)):
+            require(bool(torch.isfinite(x).all()), f"{what}: {name} not "
+                    f"finite")
+
+
+def _f32(torch, x: int) -> float:
+    """``x`` as the round's float32 ``uplink_bits`` holds it."""
+    return float(torch.tensor(float(x), dtype=torch.float32))
+
+
+def _next_state(fed, params, state):
+    """The first stage's state from ``params``; a later stage's from the
+    last one's W, M and V."""
+    from repro_torch.core import fed_init
+    if state is None:
+        return fed_init(fed, params)
+    return fed_init(fed, state.W)._replace(M=state.M, V=state.V)
+
+
+def phase_cnn_baseline(torch, seed, algorithm):
+    """Rounds of a dense or quantized baseline on the CNN at full width (20
+    clients, Dirichlet 0.1, batch 32, 3 local epochs; alpha 1.0 as the
+    paper's runner sets it for these): per round the launch counters zeroed
+    just before and read just after (exact per client), uplink bits and
+    wall time; the first client's payload built on the card; peak memory;
+    then a profiled round and one that counts stream syncs."""
+    from repro_torch.core import make_fl_round
+    from repro_torch.core.compressors import make_compressor
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models.vision import build_vision
+
+    dev = torch.device("cuda")
+    params, _, loss_fn, acc_fn, _ = build_vision("cnn", width=1.0,
+                                                 seed=seed, device=dev)
+    sizes = tuple(x.numel() for x in params.values())
+    imgs, labels, n_train, parts = make_data(seed, CLIENTS)
+    test = (torch.from_numpy(imgs[n_train:]).to(dev),
+            torch.from_numpy(labels[n_train:]).to(dev))
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    rounds, stages, state, r = [], {}, None, 0
+    # 1-bit Adam as the paper's runner drives it (benchmarks/fl_vision.py):
+    # dense FedAdam warm-up rounds, then compressed rounds from their W, M
+    # and V
+    schedule = [("fedadam", 2), ("onebit_adam", 2)] \
+        if algorithm == "onebit_adam" else [(algorithm, ROUNDS)]
+    for algo, n in schedule:
+        spec = CNN_BASELINES[algo]
+        fed = cnn_fed(algo, alpha=1.0)
+        comp = make_compressor(fed)
+        require(comp.wire_bits_per_client(sizes) == 8 * spec["wire_bytes"],
+                f"{algo}: accounted wire bits")
+        round_fn = make_fl_round(fed, loss_fn)
+        state = _next_state(fed, params, state)
+        cap = Capture()
+        wrap_payload(cap, comp, spec["encoder"])
+        want = {k: v * CLIENTS for k, v in per_client_round(
+            pack_words=spec["words"], unpack_words=spec["words"]).items()}
+        for _ in range(n):
+            batch, w = round_batch(torch, imgs, labels, n_train, parts, r,
+                                   dev)
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            state, mets = round_fn(state, batch, w)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(LAUNCHES)
+            with torch.no_grad():
+                acc = float(acc_fn(state.W, test))
+            loss = float(mets["loss"].mean())
+            uplink = float(mets["uplink_bits"])
+            rounds.append({"round": r, "algorithm": algo, "loss": loss,
+                           "test_acc": acc, "wall_s": wall,
+                           "uplink_bits": uplink, "launches": launches})
+            log(f"cnn {algorithm} round {r} ({algo}): loss={loss:.6f} "
+                f"test_acc={acc:.4f} wall={wall:.4f} s launches="
+                f"{ {k: v for k, v in launches.items() if v} }")
+            require(math.isfinite(loss), f"{algo} round {r} loss is {loss}")
+            require(launches == want, f"{algo} launches {launches}, "
+                    f"expected {want}")
+            require(uplink == _f32(torch, CLIENTS * 8 * spec["wire_bytes"]),
+                    f"{algo} uplink bits {uplink}")
+            r += 1
+        cap.restore()
+        (nbytes, on_card), _ = payload_of(cap, comp, algo)
+        del cap
+        require(on_card, f"{algo}: the payload was not built on the card")
+        require(nbytes == spec["wire_bytes"],
+                f"{algo}: the card's payload holds {nbytes} bytes")
+        stages[algo] = {"payload_bytes": nbytes,
+                        "launches_per_client_round":
+                            {k: v // CLIENTS for k, v in want.items() if v}}
+    peak = torch.cuda.max_memory_allocated()
+    _finite_state(torch, state, f"cnn {algorithm}")
+    prof = profile_round(torch, round_fn, state, batch, w,
+                         port_kernels=bool(spec["words"]))
+    prof["syncs"] = count_syncs(torch, round_fn, state, batch, w)
+    require(prof["syncs"]["per_round"] == 0,
+            f"cnn {algorithm} synchronised the stream: {prof['syncs']}")
+    walls = [x["wall_s"] for x in rounds]
+    log(f"cnn {algorithm}: payload bytes {stages}; peak "
+        f"{peak / 2**30:.3f} GiB; profiled round {json.dumps(prof)}")
+    return {"rounds": rounds, "stages": stages, "peak_bytes": peak,
+            "held_bytes_at_start": held,
+            "wall_s_after_first": walls[1:], "round_profile": prof}
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: exact top-k on ties, the card against the CPU
+# ---------------------------------------------------------------------------
+
+
+def exact_mask_designs(torch, S, k):
+    """Three designs of the exact blocked mask over an (nb, BLOCK) tile of
+    magnitudes, timed beside each other: ``torch.topk``'s indices
+    scattered (ties kept in an unstated order), the first k of a full
+    stable sort (the lower index kept among ties), and the one the port
+    ships, the k-th value and a running count of its ties (the same set
+    as the sort's)."""
+    def scatter(a, idx):
+        m = torch.zeros(a.shape, dtype=torch.bool, device=a.device)
+        return m.scatter_(1, idx, True)
+    return {
+        "topk_indices": lambda a: scatter(a, torch.topk(a, k, dim=1)
+                                          .indices),
+        "stable_sort": lambda a: scatter(a, torch.sort(
+            a, dim=1, descending=True, stable=True).indices[:, :k]),
+        "kth_value_tie_count": lambda a: S._topk_rows(a, k),
+    }
+
+
+def phase_exact_topk(torch, np, seed):
+    """The exact masks' tie order on the card: ``topk_mask_exact`` and
+    ``blocked_topk_mask`` on tied float32 and bfloat16 leaves, the blocked
+    one with a mostly zero, padded last block, bitwise against the CPU;
+    then the blocked mask of a tied bfloat16 leaf of starcoder2-3b's embed
+    size (144 blocks of 2^20), its wall time and peak memory, with three
+    of its rows against the CPU; then the three designs of
+    :func:`exact_mask_designs` on that leaf's magnitudes, each timed with
+    CUDA events and its peak memory above its input read."""
+    from repro_torch.core import sparsify as S
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed)
+    tied = lambda n: np.round(rng.standard_normal(n), 1).astype(np.float32)
+    checked = []
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.from_numpy(tied(65_536)).to(dtype)
+        k = S.k_for(x.numel(), 0.05)
+        require(torch.equal(S.topk_mask_exact(x.to(dev), k).cpu(),
+                            S.topk_mask_exact(x, k)),
+                f"topk_mask_exact on ties differs from the CPU ({dtype})")
+        y = tied((1 << 20) + 3000)
+        y[(1 << 20) + 100:] = 0.0
+        y = torch.from_numpy(y).to(dtype)
+        require(torch.equal(S.blocked_topk_mask(y.to(dev), 0.05).cpu(),
+                            S.blocked_topk_mask(y, 0.05)),
+                f"blocked_topk_mask on ties differs from the CPU ({dtype})")
+        checked += [f"exact 65536 {dtype}", f"blocked 2^20+3000 {dtype}"]
+    n, B = LM_SHAPES["embed"], S.BLOCK
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = (torch.randint(-64, 65, (n,), generator=gen, device=dev)
+         .to(torch.float32) * 2.0 ** -10).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mask = S.blocked_topk_mask(x, 0.05)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - held
+    kept = int(mask.sum())
+    require(kept == n // B * S.k_for(B, 0.05), f"embed mask keeps {kept}")
+    for row in (0, 1, n // B - 1):
+        sl = slice(row * B, (row + 1) * B)
+        require(torch.equal(mask[sl].cpu(),
+                            S.blocked_topk_mask(x[sl].cpu(), 0.05)),
+                f"embed-size blocked mask row {row} differs from the CPU")
+    checked.append("blocked embed rows 0, 1, 143 bfloat16")
+    a = x.abs().reshape(n // B, B)
+    designs = {}
+    for name, fn in exact_mask_designs(torch, S, S.k_for(B, 0.05)).items():
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        m = fn(a)
+        torch.cuda.synchronize()
+        rec = {"peak_bytes_above_input":
+                   torch.cuda.max_memory_allocated() - base,
+               "ms": time_ms(torch, lambda: fn(a), 5),
+               "positions_differing_from_shipped":
+                   int((m.reshape(-1) != mask).sum())}
+        del m
+        designs[name] = rec
+    require(designs["stable_sort"]["positions_differing_from_shipped"] == 0,
+            "the stable sort's embed mask differs from the shipped one")
+    log(f"exact top-k ties: {checked} equal on the card and the CPU; embed "
+        f"({n} bfloat16, {n // B} blocks) in {wall * 1e3:.3f} ms, peak "
+        f"{peak / 2**30:.3f} GiB above its input; designs "
+        f"{json.dumps(designs)}")
+    return {"checked": checked, "embed_ms": wall * 1e3,
+            "embed_peak_bytes_above_input": peak, "embed_kept": kept,
+            "embed_designs": designs}
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: the quantized baselines on starcoder2-3b
+# ---------------------------------------------------------------------------
+
+
+def lm_loss(cfg):
+    from repro_torch.models.model import loss_fn
+    return lambda p, batch: loss_fn(cfg, p, batch["tokens"], remat="none")
+
+
+def phase_lm_baseline(torch, seed, algorithm):
+    """Efficient-Adam (2 rounds, the persistent local Adam through the
+    fused kernel) or 1-bit Adam (1 dense FedAdam warm-up round, then 1
+    compressed round from its W, M and V) on starcoder2-3b at full width,
+    2 repeats, 4 clients, batch 2, sequence 128: per round the launch
+    counters zeroed just before and read just after (exact per client),
+    uplink bits, wall time and peak memory; then per stage a round that
+    counts stream syncs, in which the payload is measured and the word
+    kernels' inputs (or the dense stage's first client deltas, from which
+    ``pack_wire`` builds the payload the dense round does not) are
+    captured, and a profiled round of the compressed stage."""
+    import dataclasses
+    from repro_torch import tree as T
+    from repro_torch.configs import get_config
+    from repro_torch.core import make_fl_round
+    from repro_torch.core.compressors import make_compressor
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.wirepack import ops as WO
+    from repro_torch.launch import train
+    from repro_torch.models.model import init_params
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(get_config("starcoder2-3b"),
+                              pattern_repeats=LM_REPEATS)
+    loss = lm_loss(cfg)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, seed=seed, device=dev)
+    sizes = tuple(x.numel() for x in T.leaves(params))
+    require(sum(sizes) == LM_PARAMS, f"{sum(sizes)} parameters")
+    schedule = [("fedadam", 1), ("onebit_adam", 1)] \
+        if algorithm == "onebit_adam" else [(algorithm, LM_ROUNDS)]
+    batches = [train.build_client_batches(cfg, LM_CLIENTS, 2, 128, seed=r,
+                                          device=dev)
+               for r in range(sum(n for _, n in schedule))]
+    out = {"rounds": [], "stages": {}, "held_bytes_at_start": held}
+    captured, state, r = {}, None, 0
+    for algo, n in schedule:
+        spec = LM_BASELINES[algo]
+        fed = lm_fed(LM_CLIENTS, algo)
+        comp = make_compressor(fed)
+        require(comp.wire_bits_per_client(sizes) == 8 * spec["wire_bytes"],
+                f"{algo}: accounted wire bits")
+        round_fn = make_fl_round(fed, loss)
+        state, params = _next_state(fed, params, state), None
+        want = {k: v * LM_CLIENTS for k, v in spec["launches"].items()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(n):
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            state, mets = round_fn(state, batches[r])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(LAUNCHES)
+            losses = mets["loss"].cpu().tolist()
+            uplink = float(mets["uplink_bits"])
+            out["rounds"].append({"round": r, "algorithm": algo,
+                                  "loss": losses, "wall_s": wall,
+                                  "uplink_bits": uplink,
+                                  "launches": launches})
+            log(f"lm {algorithm} round {r} ({algo}): loss={losses} "
+                f"wall={wall:.3f} s launches="
+                f"{ {k: v for k, v in launches.items() if v} }")
+            require(all(math.isfinite(v) for v in losses),
+                    f"lm {algo} round {r} loss is {losses}")
+            require(launches == want, f"lm {algo} launches {launches}, "
+                    f"expected {want}")
+            require(uplink == _f32(torch, LM_CLIENTS * 8
+                                   * spec["wire_bytes"]),
+                    f"lm {algo} uplink bits {uplink}")
+            r += 1
+        peak = torch.cuda.max_memory_allocated()
+        _finite_state(torch, state, f"lm {algo}")
+        batch = batches[r - 1]
+        stage = {"peak_bytes": peak,
+                 "launches_per_client_round":
+                     {k: v for k, v in spec["launches"].items() if v}}
+        if spec["words"]:
+            stage["round_profile"] = profile_round(torch, round_fn, state,
+                                                   batch, None)
+        # the captures ride the sync-counting round, out of the peak
+        cap = Capture()
+        wrap_payload(cap, comp, spec["encoder"])
+        if spec["words"]:
+            cap.wrap(WO, "pack_words", "pack_words")
+            cap.wrap(WO, "unpack_words", "unpack_words")
+        syncs = count_syncs(torch, round_fn, state, batch, None)
+        cap.restore()
+        require(syncs["per_round"] == 0,
+                f"lm {algo} synchronised the stream: {syncs}")
+        (nbytes, on_card), deltas = payload_of(cap, comp, f"lm {algo}")
+        require(on_card, f"lm {algo}: the payload was not built on the card")
+        require(nbytes == spec["wire_bytes"],
+                f"lm {algo}: the card's payload holds {nbytes} bytes")
+        stage.update(payload_bytes=nbytes, syncs=syncs)
+        if spec["words"]:
+            captured[algo] = {k: cap.args[k][None][0]
+                              for k in ("pack_words", "unpack_words")}
+        else:
+            stage["pack_dense"] = time_pack_dense(torch, tuple(deltas))
+        out["stages"][algo] = stage
+        del cap, deltas  # the dense deltas stay out of the next stage
+        log(f"lm {algorithm} stage {algo}: peak {peak / 2**30:.2f} GiB "
+            f"({held / 2**30:.2f} GiB held before the phase); payload "
+            f"{nbytes} bytes; syncs {syncs['per_round']}; "
+            f"{json.dumps(stage.get('round_profile', {}))}")
+    return out, captured
+
+
+def time_pack_dense(torch, trees):
+    """``wire.pack_dense`` on a client's dense deltas at the model's size
+    (the dense payload, one float32 plane per tensor), timed with CUDA
+    events, beside the bytes it must move over the card's rate."""
+    from repro_torch import tree as T
+    from repro_torch.core import wire
+    leaves = [x for t in trees for x in T.leaves(t)]
+    n = sum(x.numel() for x in leaves)
+    nbytes = sum(x.numel() * x.element_size() for x in leaves) + 4 * n
+    ms = time_ms(torch, lambda: wire.pack_dense(trees), 5)
+    rec = {"ms": ms, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+           "bound_by": "bytes", "bytes": nbytes, "elements": n}
+    log(f"pack_dense at the model's size: {json.dumps(rec)}")
+    return rec
+
+
+def phase_lm_baseline_kernels(torch, captured, kernels):
+    """pack_words and unpack_words against their plain versions on the
+    transformer client's own inputs: Efficient-Adam's 8-bit codes and 1-bit
+    Adam's sign plane (493,895,680 slots each).  Adds ``at_lm_<algo>`` to
+    their records in ``kernels``."""
+    by_name = {k["name"]: k for k in kernels}
+    for algo, calls in captured.items():
+        for name in ("pack_words", "unpack_words"):
+            args, kw = calls[name]
+            want = LM_BASELINES[algo]["bits"]
+            require(word_bits(args) == want,
+                    f"lm {algo} {name}: b={word_bits(args)}, not {want}")
+            rec = measure(torch, name, args, kw, iters=10, plain_iters=1)
+            log(f"{name}: lm {algo} {json.dumps(rec)}")
+            require(rec["elements"] == LM_BITMAP_SLOTS,
+                    f"{name}: {rec['elements']} slots")
+            k = by_name[name]
+            k["max_abs_err"] = max(k["max_abs_err"], rec["max_abs_err"])
+            k[f"at_lm_{algo}"] = rec
+
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1300,6 +1895,13 @@ def main(argv=None):
     del captured
     vs_cpu = {a: phase_card_vs_cpu(torch, np, args.seed, a)
               for a in ("fedadam_ssm", "fedadam_top")}
+    cnn_base = {a: phase_cnn_baseline(torch, args.seed, a)
+                for a in CNN_BASELINES}
+    exact = phase_exact_topk(torch, np, args.seed)
+    vs_cpu["fedadam_ssm_exact_topk"] = phase_card_vs_cpu(
+        torch, np, args.seed, "fedadam_ssm", exact_topk=True)
+    for a in ("efficient_adam", "onebit_adam"):
+        vs_cpu[a] = phase_card_vs_cpu(torch, np, args.seed, a)
     lm, captured = phase_transformer(torch, args.seed, "fedadam_ssm")
     # ssm_apply has no caller on any path: it replays ssm_apply_ef's
     # inputs, the transformer's deltas at the same leaves
@@ -1316,11 +1918,22 @@ def main(argv=None):
     kernels += phase_lm_kernels(torch, captured, lm_top["launches"],
                                 LM_PATHS["fedadam_top"]["replayed"])
     del captured
+    lm_base, captured = {}, {}
+    for a in ("efficient_adam", "onebit_adam"):
+        lm_base[a], cap = phase_lm_baseline(torch, args.seed, a)
+        captured.update(cap)
+    phase_lm_baseline_kernels(torch, captured, kernels)
+    del captured, cap
     for k in kernels:
         k["launches_fedadam_top"] = {"cnn": cnn_top["launches"][k["name"]],
                                      "lm": lm_top["launches"][k["name"]]}
         if k["name"] in ("pack_words", "unpack_words"):
             k["launches_transformer"] = lm["launches"][k["name"]]
+        for a in ("efficient_adam", "onebit_adam"):
+            k[f"launches_{a}"] = {
+                run: sum(x["launches"][k["name"]] for x in res[a]["rounds"]
+                         if x["algorithm"] == a)
+                for run, res in (("cnn", cnn_base), ("lm", lm_base))}
     require(sorted(k["name"] for k in kernels)
             == sorted((*KERNELS, *LM_KERNELS)), "a kernel was not measured")
     lm_vs_cpu = phase_lm_card_vs_cpu(torch, np, args.seed, "fedadam_ssm")
@@ -1336,6 +1949,8 @@ def main(argv=None):
               "host_cost_us": host_cost,
               "transformer_card_vs_cpu": lm_vs_cpu,
               "transformer_fedadam_top_card_vs_cpu": lm_top_vs_cpu,
+              "cnn_baselines": cnn_base, "exact_topk_ties": exact,
+              "transformer_baselines": lm_base,
               "total_s": time.perf_counter() - t_start}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -18,6 +18,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch import tree as T
+from repro_torch.core import sparsify as S
 
 _F32 = torch.float32
 
@@ -53,8 +54,27 @@ def tree_add(a, b):
                       a, b)
 
 
+def tree_zeros_like(t):
+    return T.tree_map(torch.zeros_like, t)
+
+
 def tree_size(t) -> int:
     return sum(x.numel() for x in T.leaves(t))
+
+
+def diag_metrics(deltas: Deltas, recon: Deltas) -> Dict[str, torch.Tensor]:
+    """Default diagnostics: per-tensor compression error ``||d - C(d)||_2``
+    (the Theorem-1 divergence terms) and the input norms; ``deltas`` is
+    the error-feedback adjusted encoder input."""
+    nd = lambda d, r: S.tree_norm(tree_sub(d, r))
+    return {
+        "err_w": nd(deltas.W, recon.W),
+        "err_m": nd(deltas.M, recon.M),
+        "err_v": nd(deltas.V, recon.V),
+        "norm_dw": S.tree_norm(deltas.W),
+        "norm_dm": S.tree_norm(deltas.M),
+        "norm_dv": S.tree_norm(deltas.V),
+    }
 
 
 class Compressor:
@@ -96,15 +116,6 @@ class Compressor:
 
 _REGISTRY: Dict[str, Callable[..., Compressor]] = {}
 
-#: Algorithms the JAX package registers that the port does not have yet,
-#: with the ROADMAP item that brings each.
-NOT_PORTED = {
-    "fedadam": "ROADMAP §1.8 (dense and quantized compressors)",
-    "fedsgd": "ROADMAP §1.8 (dense and quantized compressors)",
-    "onebit_adam": "ROADMAP §1.8 (dense and quantized compressors)",
-    "efficient_adam": "ROADMAP §1.8 (dense and quantized compressors)",
-}
-
 
 def register(name: str):
     """Decorator: register ``factory(fed_config) -> Compressor``."""
@@ -120,16 +131,18 @@ def available() -> Tuple[str, ...]:
 
 
 def check_algorithm(name: str) -> None:
-    if name in _REGISTRY:
-        return
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"algorithm {name!r} is not ported yet: {NOT_PORTED[name]}")
-    raise KeyError(f"no compressor registered for {name!r}; "
-                   f"known: {sorted(_REGISTRY)}")
+    if name not in _REGISTRY:
+        raise KeyError(f"no compressor registered for {name!r}; "
+                       f"known: {sorted(_REGISTRY)}")
 
 
 def make_compressor(fed) -> Compressor:
     """Build the compressor for ``fed.algorithm`` from its config."""
     check_algorithm(fed.algorithm)
     return _REGISTRY[fed.algorithm](fed)
+
+
+def transport_of(algorithm: str) -> str:
+    """Transport tag of an algorithm's compressor, without a round."""
+    from repro_torch.core.fed import FedConfig
+    return make_compressor(FedConfig(algorithm=algorithm)).transport

@@ -3,8 +3,11 @@
 Counterpart of ``repro/core/fed.py`` with the scan driver.  One round:
 
 1. every client starts from the global (W, M, V);
-2. L local Adam epochs (no bias correction) on the client's batch;
-3. the deltas dW, dM, dV;
+2. the compressor's ``local_update``: L local Adam epochs (no bias
+   correction) on the client's batch (the FedAdam family), L SGD epochs
+   (FedSGD), one momentum step with V frozen (1-bit Adam), or L Adam
+   epochs from the client's own persistent moments (Efficient-Adam);
+3. the deltas dW, dM, dV (zeros where the algorithm sends nothing);
 4. the round's compressor encodes them (FedAdam-SSM: one shared mask,
    Top_k(|dW|)), carrying any per-client error-feedback residual, and
    the server sees what its wire payload decodes to;
@@ -30,7 +33,8 @@ from repro_torch.core import compressors
 from repro_torch.core.compressors import Deltas
 from repro_torch.core.compressors.base import tree_add as _tree_add
 from repro_torch.core.compressors.base import tree_sub as _tree_sub
-from repro_torch.optim.adam import AdamHyper, AdamState, adam_step
+from repro_torch.optim.adam import (AdamHyper, AdamState, sqrt_rn,
+                                    adam_step, sgd_step)
 
 _F32 = torch.float32
 
@@ -48,6 +52,7 @@ class FedConfig:
     # CUDA tensors to the kernels; REPRO_TORCH_SPARSIFY_BACKEND overrides)
     sparsify_backend: str = "auto"
     error_feedback: bool = False
+    quant_bits: int = 8                   # efficient_adam
     q_bits: int = 32                      # accounting float precision
     client_mode: str = "scan"             # only scan is ported
     use_kernel_adam: bool = False         # fused_adam kernel per leaf
@@ -69,7 +74,8 @@ class FedState(NamedTuple):
     M: Any                                # global first moments
     V: Any                                # global second moments
     round: int
-    client_state: Any                     # {"comp": (C, ...) EF state} or None
+    client_state: Any                     # per-client (C, ...) state or None:
+    #   {"comp": EF state, "m"/"v": persistent local moments (local_adam)}
 
 
 def fed_init(fed: FedConfig, params) -> FedState:
@@ -79,6 +85,11 @@ def fed_init(fed: FedConfig, params) -> FedState:
     cs1 = comp.init_state(params)
     if cs1 is not None:
         parts["comp"] = T.tree_map(lambda x: torch.stack([x] * C), cs1)
+    if comp.local_update == "local_adam":
+        # persistent local Adam moments (Efficient-Adam: never aggregated)
+        stack0 = lambda: T.tree_map(lambda x: torch.zeros(
+            (C,) + tuple(x.shape), dtype=x.dtype, device=x.device), params)
+        parts["m"], parts["v"] = stack0(), stack0()
     zeros = lambda: T.tree_map(torch.zeros_like, params)
     return FedState(W=params, M=zeros(), V=zeros(), round=0,
                     client_state=parts or None)
@@ -122,6 +133,54 @@ def _local_adam(loss_fn, W, M, V, batch, fed: FedConfig):
     return w, st.m, st.v, torch.stack(losses).mean()
 
 
+def _local_sgd(loss_fn, W, batch, fed: FedConfig):
+    w, losses = W, []
+    for _ in range(fed.local_epochs):
+        loss, g = _value_and_grad(loss_fn, w, batch)
+        w = sgd_step(w, g, fed.adam.lr)
+        losses.append(loss)
+    return w, torch.stack(losses).mean()
+
+
+def _local_momentum(loss_fn, W, M, batch, fed: FedConfig):
+    """One momentum step (1-bit Adam's compressed phase: V frozen)."""
+    loss, g = _value_and_grad(loss_fn, W, batch)
+    h = fed.adam
+    m_new = T.tree_map(
+        lambda m, gg: (h.beta1 * m.to(_F32)
+                       + (1 - h.beta1) * gg.to(_F32)).to(m.dtype), M, g)
+    return m_new, loss
+
+
+def _local_deltas(local_update: str, loss_fn, W, M, V, batch, cstate,
+                  fed: FedConfig):
+    """``(deltas, loss, extras)`` of one client's local update;
+    ``extras`` is the client state it writes back (Efficient-Adam's
+    moments)."""
+    if local_update == "sgd":
+        w, loss = _local_sgd(loss_fn, W, batch, fed)
+        dW = _tree_sub(w, W)
+        z = T.tree_map(torch.zeros_like, dW)
+        return Deltas(dW, z, z), loss, {}
+    if local_update == "momentum":
+        m, loss = _local_momentum(loss_fn, W, M, batch, fed)
+        dM = _tree_sub(m, M)
+        z = T.tree_map(torch.zeros_like, dM)
+        return Deltas(z, dM, z), loss, {}
+    if local_update == "local_adam":
+        # the client's own moments, never aggregated (the staleness the
+        # paper criticizes)
+        w, m, v, loss = _local_adam(loss_fn, W, cstate["m"], cstate["v"],
+                                    batch, fed)
+        dW = _tree_sub(w, W)
+        z = T.tree_map(torch.zeros_like, dW)
+        return Deltas(dW, z, z), loss, {"m": m, "v": v}
+    # "adam": the FedAdam family
+    w, m, v, loss = _local_adam(loss_fn, W, M, V, batch, fed)
+    return Deltas(_tree_sub(w, W), _tree_sub(m, M), _tree_sub(v, V)), \
+        loss, {}
+
+
 # ---------------------------------------------------------------------------
 # The round
 # ---------------------------------------------------------------------------
@@ -138,18 +197,21 @@ def make_client_step(fed: FedConfig, loss_fn: Callable,
 
     def client_step(W, M, V, batch, cstate):
         comp_state = cstate.get("comp") if cstate is not None else None
-        w, m, v, loss = _local_adam(loss_fn, W, M, V, batch, fed)
-        deltas = Deltas(_tree_sub(w, W), _tree_sub(m, M), _tree_sub(v, V))
-        # the deltas carry the local state from here: freeing it keeps a
-        # model's worth of three trees out of the compress's peak memory
-        del w, m, v
+        # the local state lives only inside _local_deltas: the deltas carry
+        # it from there, which keeps a model's worth of trees out of the
+        # compress's peak memory
+        deltas, loss, extras = _local_deltas(comp.local_update, loss_fn,
+                                             W, M, V, batch, cstate, fed)
         packed, new_comp_state, _bits = comp.compress(deltas, comp_state)
         new_cstate = None
         if cstate is not None:
             new_cstate = dict(cstate)
             if "comp" in cstate:
                 new_cstate["comp"] = new_comp_state
+            new_cstate.update(extras)
         mets = dict(packed.diag, loss=loss)
+        # dense transport skips the wire round trip, as in the JAX round:
+        # decoding is the identity, and FedSGD's payload holds W alone
         if packed.wire is not None and comp.transport != "dense":
             sW, sM, sV = comp.unpack_wire(packed.wire, deltas.W)
         else:
@@ -172,10 +234,14 @@ def make_server_apply(fed: FedConfig,
         mean = lambda t: T.tree_map(lambda x: x / wsum, t)
         aW, aM, aV = mean(aW), mean(aM), mean(aV)
         if comp.server_update == "precond_m":
+            # 1-bit Adam: M advances by the aggregated momentum delta, W by
+            # the step preconditioned with the frozen V (the root correctly
+            # rounded, as XLA's; the warm-up rounds are a dense FedAdam
+            # FedConfig of their own)
             M_new = _tree_add(M, aM)
             W_new = T.tree_map(
                 lambda w, mm, vv: (w.to(_F32) - h.lr * mm.to(_F32)
-                                   / torch.sqrt(vv.to(_F32) + h.eps)
+                                   / sqrt_rn(vv.to(_F32) + h.eps)
                                    ).to(w.dtype), W, M_new, V)
             return W_new, M_new, V
         if comp.server_update == "w_only":

@@ -2,8 +2,11 @@
 
 Counterpart of ``repro/core/sparsify.py``.  Two mask constructions:
 
-* ``topk_mask_exact``: the exact top-k indices (``torch.topk``; the order
-  in which ties are broken is not checked against ``lax.top_k``);
+* ``topk_mask_exact``: the exact top-k indices.  Among equal magnitudes the
+  lower index is kept, as ``lax.top_k`` keeps it: everything above the
+  k-th magnitude, then the first of the elements equal to it by index
+  (``torch.topk`` gives the k-th magnitude but does not say which of tied
+  elements it keeps);
 * ``topk_mask_threshold``: ``|x| >= tau`` with tau found by bisection, the
   plain reference of the threshold path.
 
@@ -87,26 +90,38 @@ def k_for(n: int, alpha: float) -> int:
 BLOCK = 1 << 20
 
 
+def _topk_rows(a: torch.Tensor, k: int) -> torch.Tensor:
+    """Boolean mask of the k largest entries of each row of ``a`` (last
+    dim), the lower index first among equal values: ``lax.top_k``'s set.
+    Everything above the k-th value t, then the first ``k - count(a > t)``
+    elements equal to t by index (a running count of the ties).  The
+    comparisons are made again rather than held, so that beside ``a`` at
+    most one int32 plane and one bool plane are alive."""
+    t = torch.topk(a, k, dim=-1, sorted=False).values.amin(dim=-1,
+                                                            keepdim=True)
+    need = k - (a > t).sum(dim=-1, keepdim=True, dtype=torch.int32)
+    first = (a == t).to(torch.int32).cumsum_(dim=-1) <= need
+    return (a > t) | ((a == t) & first)
+
+
 def blocked_topk_mask(x: torch.Tensor, alpha: float,
                       block: int = BLOCK) -> torch.Tensor:
-    """Exact top-k within each BLOCK-sized tile of flat x."""
+    """Exact top-k within each BLOCK-sized tile of flat x.  The last tile
+    is zero-padded, as JAX pads it, so padding slots tie with the leaf's
+    zeros and lose to them by index."""
     flat = x.reshape(-1)
     n = flat.numel()
     nb = -(-n // block)
     a = torch.nn.functional.pad(flat, (0, nb * block - n)).abs() \
         .reshape(nb, block)
-    idx = torch.topk(a, k_for(block, alpha), dim=1).indices
-    mask = torch.zeros((nb, block), dtype=torch.bool, device=x.device)
-    mask.scatter_(1, idx, True)
+    mask = _topk_rows(a, k_for(block, alpha))
     return mask.reshape(-1)[:n].reshape(x.shape)
 
 
 def topk_mask_exact(x: torch.Tensor, k: int) -> torch.Tensor:
-    """Boolean mask of the k largest-|.| elements of x."""
-    flat = x.reshape(-1).abs()
-    mask = torch.zeros(flat.shape, dtype=torch.bool, device=x.device)
-    mask[torch.topk(flat, k).indices] = True
-    return mask.reshape(x.shape)
+    """Boolean mask of the k largest-|.| elements of x (ties: lower index
+    kept)."""
+    return _topk_rows(x.reshape(-1).abs(), k).reshape(x.shape)
 
 
 def topk_mask_threshold(x: torch.Tensor, k: int,

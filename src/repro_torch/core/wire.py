@@ -1,10 +1,10 @@
 """The uplink wire format: what a client's payload actually ships.
 
-Counterpart of ``repro/core/wire.py`` (the static layout math and the
-shared- and independent-mask codecs; the others are ROADMAP §1.5 and
-§1.8).  A :class:`WirePayload` holds the transported arrays, uint32
-bit-packed words plus float32 value streams, and :func:`payload_nbytes`
-is measured from them, so ``uplink_bits == 8 * nbytes`` holds by
+Counterpart of ``repro/core/wire.py`` (the static layout math and every
+scheme codec; ``pack_bits_1d``, for the multi-GPU round, is ROADMAP §1.5).  A
+:class:`WirePayload` holds the transported arrays, uint32 bit-packed words
+plus float32 value and scale streams, and :func:`payload_nbytes` is
+measured from them, so ``uplink_bits == 8 * nbytes`` holds by
 construction.
 
 ``mask_shared`` (FedAdam-SSM): ONE support bitmap (1 bit per aligned
@@ -16,8 +16,19 @@ group of the word packer).
 ``mask_independent`` (FedAdam-Top): three (bitmap, value stream) pairs,
 each tensor's own support, each stream of the shared layout's capacity.
 
-The words and values are byte-identical to the JAX package's for the same
-carriers.
+``sign`` (1-bit Adam): the plane ``x >= 0`` of the aligned carrier at b=1
+and one float32 ``max|x|`` per 1024-slot block; exact for ``sign_quant``
+carriers, which are two-valued per block.
+
+``bbit`` (Efficient-Adam): the quantizer's codes packed at b in {2, 4, 8}
+as ``code + qmax`` (layout padding encodes code 0) and its per-leaf
+block scales.
+
+``dense`` (FedAdam, FedSGD): one raveled float32 plane per tensor, no
+padding.
+
+The words, values and scales are byte-identical to the JAX package's for
+the same carriers.
 """
 from __future__ import annotations
 
@@ -25,16 +36,17 @@ from typing import NamedTuple, Sequence, Tuple
 
 import torch
 
+from repro_torch.core import quantize
 from repro_torch.core import sparsify as S
 from repro_torch import tree as T
 from repro_torch.kernels.topk_mask.ref import overselect_bound
 from repro_torch.kernels.wirepack.ops import (
-    CODE_SUBLANES, LANES, pack_mask_bits, unpack_mask_bits)
+    CODE_SUBLANES, LANES, SCALE_BLOCK, pack_bbit, pack_mask_bits,
+    pack_sign_scale, unpack_bbit, unpack_mask_bits, unpack_sign_scale)
 
 _F32 = torch.float32
 
 #: Elements per float32 scale block == the packed layout's padding quantum.
-SCALE_BLOCK = 1024
 assert SCALE_BLOCK == S.PACK_BLOCK_ELEMS
 
 #: Word-packer row-group granularity (32 rows x 128 lanes).
@@ -253,3 +265,79 @@ def unpack_independent_mask(payload: WirePayload, like):
     layout = S.plan_packed_layout(leaves)
     return tuple(_unpack_own_support(w, v, layout, leaves, td)
                  for w, v in zip(payload.words, payload.values))
+
+
+# ---------------------------------------------------------------------------
+# Sign, b-bit and dense codecs
+# ---------------------------------------------------------------------------
+
+
+def pack_sign(carrier) -> WirePayload:
+    """1-bit Adam wire: the sign plane and per-block ``max|x|`` scales of
+    the aligned carrier buffer (padding zeros never raise a max)."""
+    leaves = [x.to(_F32) for x in T.leaves(carrier)]
+    xp = _pack_aligned(S.plan_packed_layout(leaves), leaves)
+    words, scales = pack_sign_scale(xp)
+    return WirePayload(words=(words,), values=(), scales=(scales,))
+
+
+def unpack_sign(payload: WirePayload, like):
+    leaves, td = T.flatten(like)
+    layout = S.plan_packed_layout(leaves)
+    buf = unpack_sign_scale(payload.words[0], payload.scales[0])
+    return td.unflatten(_unpack_aligned(layout, buf, leaves))
+
+
+def pack_bbit_codes(codes_leaves, scales_leaves, bits: int) -> WirePayload:
+    """Efficient-Adam wire: the int32 codes of every leaf word-packed at b
+    bits in one launch, and the leaves' float32 scale streams."""
+    layout = S.plan_packed_layout(codes_leaves)
+    cp = _pack_aligned(layout, [c.to(torch.int32) for c in codes_leaves])
+    return WirePayload(words=(pack_bbit(cp, bits),), values=(),
+                       scales=tuple(s.to(_F32) for s in scales_leaves))
+
+
+def unpack_bbit_codes(payload: WirePayload, like, bits: int):
+    """Decode to the dequantized carrier tree (``uniform_decode`` of each
+    leaf's codes with its shipped scales, cast to the leaf's dtype)."""
+    leaves, td = T.flatten(like)
+    layout = S.plan_packed_layout(leaves)
+    cbuf = unpack_bbit(payload.words[0], bits)
+    codes = layout.unpack(cbuf[:layout.total // S.PACK_LANES])
+    return td.unflatten([
+        quantize.uniform_decode(c, s, SCALE_BLOCK).to(t.dtype)
+        for c, s, t in zip(codes, payload.scales, leaves)])
+
+
+def _f32_plane(tree) -> torch.Tensor:
+    """A tree's leaves raveled into one float32 plane, each leaf cast as
+    it is copied into its slice (no float32 copy of a leaf is staged)."""
+    leaves = T.leaves(tree)
+    plane = torch.empty((sum(x.numel() for x in leaves),), dtype=_F32,
+                        device=leaves[0].device)
+    off = 0
+    for x in leaves:
+        plane[off:off + x.numel()].copy_(x.reshape(-1))
+        off += x.numel()
+    return plane
+
+
+def pack_dense(trees: Sequence) -> WirePayload:
+    """FedAdam/FedSGD wire: one raveled float32 plane per communicated
+    tensor; its bytes equal the analytic count exactly."""
+    return WirePayload(words=(), values=tuple(_f32_plane(t) for t in trees),
+                       scales=())
+
+
+def unpack_dense(payload: WirePayload, like):
+    """Each plane back onto the ``like`` tree's structure and dtypes."""
+    leaves, td = T.flatten(like)
+    outs = []
+    for plane in payload.values:
+        rebuilt, off = [], 0
+        for t in leaves:
+            n = t.numel()
+            rebuilt.append(plane[off:off + n].reshape(t.shape).to(t.dtype))
+            off += n
+        outs.append(td.unflatten(rebuilt))
+    return tuple(outs)

@@ -6,7 +6,19 @@ every (32, 128) block becomes b word rows,
 ``word[i*b + q, c] = sum_t code[i*32 + q*T + t, c] << (t*b)`` with
 T = 32 / b, wrapping in uint32.  On a CUDA tensor the wrappers launch the
 kernels of ``csrc/wirepack.cu``; on a CPU tensor they run the plain
-versions below.  Only the b=1 mask bitmap is on the FedAdam-SSM path.
+versions below.
+
+Scheme wrappers over the one word kernel pair, each ONE launch (the sign,
+offset and scale arithmetic around it is elementwise PyTorch, as it is
+jnp in the JAX package), with plain versions beside them as
+``repro/kernels/wirepack/ref.py`` has:
+
+* ``pack_mask_bits`` / ``unpack_mask_bits``: the b=1 support bitmap
+  (FedAdam-SSM, FedAdam-Top);
+* ``pack_sign_scale`` / ``unpack_sign_scale``: a b=1 plane of ``x >= 0``
+  plus ``max|x|`` per 1024-slot block (1-bit Adam);
+* ``pack_bbit`` / ``unpack_bbit``: codes in [-qmax, qmax] shipped as
+  ``code + qmax`` at b in {2, 4, 8} (Efficient-Adam).
 """
 from __future__ import annotations
 
@@ -102,3 +114,64 @@ def pack_mask_bits(support: torch.Tensor) -> torch.Tensor:
 def unpack_mask_bits(words: torch.Tensor) -> torch.Tensor:
     """Bitmap words back to the (R, 128) int32 0/1 support."""
     return unpack_words(words, 1)
+
+
+#: Slots per float32 scale of the sign plane (the quantizers' block).
+SCALE_BLOCK = 1024
+
+
+def _sign_scale(xp, pack):
+    x = xp.to(torch.float32)
+    scales = x.abs().reshape(-1, SCALE_BLOCK).amax(dim=1)
+    return pack((x >= 0).to(torch.int32), 1), scales
+
+
+def _from_sign_scale(bits, scales):
+    # per (block, slot): the block's scale broadcasts, never materialised
+    s = scales[:, None]
+    return torch.where(bits.reshape(-1, SCALE_BLOCK) == 1, s, -s) \
+        .reshape(bits.shape)
+
+
+def pack_sign_scale(xp: torch.Tensor):
+    """(R, 128) carrier -> ``(words, scales)``: (R/32, 128) uint32 words of
+    the plane ``x >= 0`` and (R*128/1024,) float32 per-block ``max|x|``.
+    ONE launch on the card."""
+    return _sign_scale(xp, pack_words)
+
+
+def pack_sign_scale_plain(xp: torch.Tensor):
+    return _sign_scale(xp, pack_words_plain)
+
+
+def unpack_sign_scale(words: torch.Tensor, scales: torch.Tensor):
+    """Inverse of :func:`pack_sign_scale`: the two-valued float32 carrier
+    ``where(bit, +scale, -scale)`` of shape (R, 128).  ONE launch."""
+    return _from_sign_scale(unpack_words(words, 1), scales)
+
+
+def unpack_sign_scale_plain(words: torch.Tensor, scales: torch.Tensor):
+    return _from_sign_scale(unpack_words_plain(words, 1), scales)
+
+
+def _qmax(bits: int) -> int:
+    return (1 << (bits - 1)) - 1
+
+
+def pack_bbit(codes: torch.Tensor, bits: int) -> torch.Tensor:
+    """(R, 128) int32 codes in [-qmax, qmax] -> (R*b/32, 128) uint32 words
+    of the offset codes ``code + qmax``.  ONE launch on the card."""
+    return pack_words(codes + _qmax(bits), bits)
+
+
+def pack_bbit_plain(codes: torch.Tensor, bits: int) -> torch.Tensor:
+    return pack_words_plain(codes + _qmax(bits), bits)
+
+
+def unpack_bbit(words: torch.Tensor, bits: int) -> torch.Tensor:
+    """Inverse of :func:`pack_bbit`: int32 signed codes.  ONE launch."""
+    return unpack_words(words, bits) - _qmax(bits)
+
+
+def unpack_bbit_plain(words: torch.Tensor, bits: int) -> torch.Tensor:
+    return unpack_words_plain(words, bits) - _qmax(bits)

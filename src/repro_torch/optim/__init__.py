@@ -3,4 +3,5 @@ from repro_torch.optim.adam import (  # noqa: F401
     AdamState,
     adam_init,
     adam_step,
+    sgd_step,
 )

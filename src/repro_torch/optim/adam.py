@@ -49,7 +49,7 @@ def adam_init(params) -> AdamState:
                      v=T.tree_map(torch.zeros_like, params), count=0)
 
 
-def _sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
     """Correctly rounded float32 square root on every device."""
     return torch.sqrt(x.to(torch.float64)).to(_F32)
 
@@ -67,7 +67,7 @@ def _adam_leaf(w, g, m, v, h: AdamHyper, count: int):
         v_hat = vf / (1.0 - b2 ** t)
     else:
         m_hat, v_hat = mf, vf
-    upd = m_hat / _sqrt_rn(v_hat + h.eps)     # paper: eps inside the sqrt
+    upd = m_hat / sqrt_rn(v_hat + h.eps)     # paper: eps inside the sqrt
     if h.weight_decay:
         upd = upd + h.weight_decay * w.to(_F32)
     w_new = w.to(_F32) - h.lr * upd
@@ -97,3 +97,10 @@ def adam_step(params, grads, state: AdamState, h: AdamHyper,
     return (td.unflatten([o[0] for o in outs]),
             AdamState(td.unflatten([o[1] for o in outs]),
                       td.unflatten([o[2] for o in outs]), state.count + 1))
+
+
+def sgd_step(params, grads, lr: float):
+    """One vanilla SGD step (the FedSGD baseline's local update)."""
+    return T.tree_map(
+        lambda w, g: (w.to(_F32) - lr * g.to(_F32)).to(w.dtype),
+        params, grads)

@@ -1,8 +1,9 @@
-"""Quickstart: FedAdam-SSM on a federated image task, through the port.
+"""Quickstart: FedAdam-SSM against dense FedAdam on a federated image task,
+through the port.
 
-Counterpart of ``examples/quickstart.py`` for the FedAdam-SSM half (dense
-FedAdam is ROADMAP §1.8).  Runs on the CUDA card, where the compress goes
-through the hand-written kernels, or on the CPU with ``--device cpu``:
+Counterpart of ``examples/quickstart.py``.  Runs on the CUDA card, where
+FedAdam-SSM's compress goes through the hand-written kernels, or on the
+CPU with ``--device cpu``:
 
     PYTHONPATH=src python -m repro_torch.quickstart [--device cpu]
 """
@@ -43,23 +44,27 @@ def main(argv=None):
     test = (torch.from_numpy(imgs[1536:]).to(dev),
             torch.from_numpy(labels[1536:]).to(dev))
 
-    fed = FedConfig(algorithm="fedadam_ssm", alpha=0.05, local_epochs=3,
-                    n_clients=args.clients, adam=AdamHyper(lr=1e-3),
-                    exact_topk=False, error_feedback=True)
-    round_fn = make_fl_round(fed, loss_fn)
-    state = fed_init(fed, params)
-    total_mb = 0.0
-    for r in range(args.rounds):
-        (bx, by), w = client_batches([imgs[:1536], labels[:1536]], parts,
-                                     32, seed=r)
-        batch = (torch.from_numpy(bx).to(dev), torch.from_numpy(by).to(dev))
-        state, mets = round_fn(state, batch, torch.from_numpy(w).to(dev))
-        total_mb += float(mets["uplink_bits"]) / 8e6
-        with torch.no_grad():
-            acc = float(acc_fn(state.W, test))
-        print(f" round {r:2d} loss={float(mets['loss'].mean()):.4f} "
-              f"test_acc={acc:.3f} cum_uplink={total_mb:7.2f} MB")
-
+    # the paper's FedAdam-SSM (threshold masks, error feedback), then dense
+    # FedAdam (alpha = 1: the whole triple crosses the uplink)
+    for algo, alpha in (("fedadam_ssm", 0.05), ("fedadam", 1.0)):
+        fed = FedConfig(algorithm=algo, alpha=alpha, local_epochs=3,
+                        n_clients=args.clients, adam=AdamHyper(lr=1e-3),
+                        exact_topk=False, error_feedback=True)
+        round_fn = make_fl_round(fed, loss_fn)
+        state = fed_init(fed, params)
+        print(f"\n== {algo} (alpha={alpha}) ==")
+        total_mb = 0.0
+        for r in range(args.rounds):
+            (bx, by), w = client_batches([imgs[:1536], labels[:1536]], parts,
+                                         32, seed=r)
+            batch = (torch.from_numpy(bx).to(dev),
+                     torch.from_numpy(by).to(dev))
+            state, mets = round_fn(state, batch, torch.from_numpy(w).to(dev))
+            total_mb += float(mets["uplink_bits"]) / 8e6
+            with torch.no_grad():
+                acc = float(acc_fn(state.W, test))
+            print(f" round {r:2d} loss={float(mets['loss'].mean()):.4f} "
+                  f"test_acc={acc:.3f} cum_uplink={total_mb:7.2f} MB")
 
 if __name__ == "__main__":
     main()

@@ -525,3 +525,110 @@ def test_cuda_per_leaf_wrappers_reject_what_the_kernels_do_not_take(
         SSM.ssm_apply(tau, y, y, x)
     with pytest.raises(ValueError):
         SSM.ssm_apply(tau, y, y, y[:32])
+
+
+# ---------------------------------------------------------------------------
+# Exact top-k on ties; the sign and b-bit wire; the quantizing compressors
+# ---------------------------------------------------------------------------
+
+
+def _tied_leaf(n, dtype, seed, zero_from=None):
+    """One-decimal values (many equal magnitudes), zero from ``zero_from``
+    on, in ``dtype``, on the CPU."""
+    rng = np.random.default_rng(seed)
+    x = np.round(rng.standard_normal(n), 1).astype(np.float32)
+    if zero_from is not None:
+        x[zero_from:] = 0.0
+    return torch.from_numpy(x).to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", LEAF_DTYPES)
+def test_cuda_exact_topk_ties_match_cpu(cuda_device, dtype):
+    """The stable sort keeps the lower index among ties on the card as on
+    the CPU (which the CPU tests hold to ``lax.top_k``): an exact mask on a
+    leaf below the block size, and blocked masks on a leaf with a mostly
+    zero, padded last block and on one of three full blocks."""
+    x = _tied_leaf(20_001, dtype, 1)
+    k = S.k_for(x.numel(), ALPHA)
+    assert torch.equal(S.topk_mask_exact(x.to(cuda_device), k).cpu(),
+                       S.topk_mask_exact(x, k))
+    for n, zero_from in (((1 << 20) + 3000, (1 << 20) + 100),
+                         (3 << 20, None)):
+        x = _tied_leaf(n, dtype, 2, zero_from)
+        assert torch.equal(S.blocked_topk_mask(x.to(cuda_device),
+                                               ALPHA).cpu(),
+                           S.blocked_topk_mask(x, ALPHA))
+
+
+@pytest.mark.cuda
+def test_cuda_sign_and_bbit_wrappers_match_plain(cuda_device):
+    """Each scheme wrapper is one word-kernel launch, bitwise against its
+    plain version on the card."""
+    from repro_torch.kernels.wirepack import ops as WO
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    xp = torch.randn((256, 128), generator=g, device=cuda_device)
+    xp[0, :9] = 0.0
+    xp[1, :3] = -0.0
+    reset_launches()
+    words, scales = WO.pack_sign_scale(xp)
+    back = WO.unpack_sign_scale(words, scales)
+    assert LAUNCHES["pack_words"] == 1 and LAUNCHES["unpack_words"] == 1
+    pw, ps = WO.pack_sign_scale_plain(xp)
+    assert_bitwise(words, pw)
+    assert_bitwise(scales, ps)
+    assert_bitwise(back, WO.unpack_sign_scale_plain(pw, ps))
+    for b in (2, 4, 8):
+        qmax = 2 ** (b - 1) - 1
+        codes = torch.randint(-qmax, qmax + 1, (256, 128), generator=g,
+                              dtype=torch.int32, device=cuda_device)
+        w = WO.pack_bbit(codes, b)
+        assert_bitwise(w, WO.pack_bbit_plain(codes, b))
+        assert_bitwise(WO.unpack_bbit(w, b), codes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algorithm", ["efficient_adam", "onebit_adam"])
+def test_cuda_quantized_compress_matches_cpu(cuda_device, algorithm):
+    """Efficient-Adam's compress on the card equals the CPU's bitwise (max,
+    a division by a device scalar, round: each correctly rounded); 1-bit
+    Adam's signs and words equal the CPU's, its scales (a block's mean,
+    summed in another order) within 8 float32 ulps."""
+    from types import SimpleNamespace
+    from repro_torch.core import compressors, wire
+    from repro_torch.core.compressors import Deltas
+    comp = compressors.make_compressor(SimpleNamespace(
+        algorithm=algorithm, q_bits=32, quant_bits=8))
+    shapes = [(9001,), (37,), (8, 1024)]
+    tree = {f"l{i}": x * 1e-3 for i, x in
+            enumerate(map(torch.from_numpy, rand_leaves(4, shapes)))}
+    tree["l1"] = tree["l1"].to(torch.bfloat16)
+    err = {k: (v * 1e-2).to(v.dtype) for k, v in tree.items()}
+    z = {k: torch.zeros_like(v) for k, v in tree.items()}
+    on = lambda t, dev: {k: v.to(dev) for k, v in t.items()}
+    if algorithm == "efficient_adam":
+        deltas = lambda dev: Deltas(on(tree, dev), on(z, dev), on(z, dev))
+    else:
+        deltas = lambda dev: Deltas(on(z, dev), on(tree, dev), on(z, dev))
+    reset_launches()
+    pc, sc, _ = comp.compress(deltas(cuda_device),
+                              {"err": on(err, cuda_device)})
+    back = comp.unpack_wire(pc.wire, on(tree, cuda_device))
+    assert LAUNCHES["pack_words"] == 1 and LAUNCHES["unpack_words"] == 1
+    pp, sp, _ = comp.compress(deltas("cpu"), {"err": err})
+    assert wire.payload_nbytes(pc.wire) == wire.payload_nbytes(pp.wire)
+    assert_bitwise(pc.wire.words[0], pp.wire.words[0], "words")
+    carrier = "W" if algorithm == "efficient_adam" else "M"
+    for k in tree:
+        assert_bitwise(getattr(back, carrier)[k], getattr(pc, carrier)[k],
+                       f"round trip [{k}]")
+    if algorithm == "efficient_adam":
+        for a, b in zip(pc.wire.scales, pp.wire.scales):
+            assert_bitwise(a, b, "scales")
+        for k in tree:
+            assert_bitwise(pc.W[k], pp.W[k], f"carrier [{k}]")
+            assert_bitwise(sc["err"][k], sp["err"][k], f"residual [{k}]")
+        return
+    a, b = pc.wire.scales[0].cpu().double(), pp.wire.scales[0].double()
+    eps = torch.finfo(torch.float32).eps
+    assert bool(((a - b).abs() <= 8 * eps * b.abs()).all())

@@ -6,11 +6,15 @@ the port's guards.
   The fused_adam path is tests/test_torch_perleaf_kernels.py's.
 * Vision models: the same weights (carried from JAX through numpy) and
   batch give the same loss and gradients up to float32 summation order.
-* The round: 3 rounds with error feedback (FedAdam-SSM, and FedAdam-Top
-  on the CNN), the port on the CPU with the kernel backend (its kernels'
-  plain versions) against the JAX jitted round on its kernel backend (packed_topk kernels through their jnp
-  oracles, see ``_torch_parity.jax_packed_oracles``).  ``uplink_bits``
-  is exactly equal; losses and W/M/V agree within stated tolerances.
+* The round: 3 rounds of the CNN (FedAdam-SSM with threshold and with
+  exact masks, FedAdam-Top, dense FedAdam and FedSGD, Efficient-Adam; 1-bit
+  Adam after two dense warm-up rounds), the port on the CPU with the kernel
+  backend (its kernels' plain versions) against the JAX jitted round on
+  its kernel backend (packed_topk kernels through their jnp oracles, see
+  ``_torch_parity.jax_packed_oracles``).  ``uplink_bits`` is exactly
+  equal; losses, W/M/V and the client state agree within stated
+  tolerances.
+* The server's ``precond_m`` rule and ``sgd_step`` against eager JAX.
 """
 import ast
 from pathlib import Path
@@ -26,7 +30,8 @@ from _torch_parity import (assert_bitwise, jax_packed_oracles,  # noqa: F401
 from repro.core import fed as jfed
 from repro.models import vision as jvision
 from repro.optim import adam as jadam
-from repro_torch.core import FedConfig, fed_init, make_fl_round
+from repro_torch.core import (FedConfig, fed_init, make_fl_round,
+                              make_server_apply)
 from repro_torch.data import (client_batches, dirichlet_partition,
                               synthetic_image_dataset)
 from repro_torch.models import vision
@@ -142,10 +147,12 @@ def test_vision_keeps_the_jax_layout():
 
 
 def _run_both(fed_kw, params_np, batches_np, loss_j, loss_t, rounds=3,
-              weights=None):
+              weights=None, start=None):
     """Run ``rounds`` rounds in both packages from the same weights and
     batches; returns per-round (jax_state, jax_mets, port_state,
-    port_mets)."""
+    port_mets).  ``start``: a (jax_state, port_state) pair whose W, M and
+    V the rounds start from (1-bit Adam after its warm-up), with the
+    batches of rounds ``len(batches_np) - rounds`` on."""
     jf = jfed.FedConfig(**fed_kw, sparsify_backend="kernel")
     tf = FedConfig(**{k: (adam.AdamHyper(lr=v.lr) if k == "adam" else v)
                       for k, v in fed_kw.items()},
@@ -154,8 +161,14 @@ def _run_both(fed_kw, params_np, batches_np, loss_j, loss_t, rounds=3,
     tround = make_fl_round(tf, loss_t)
     js = jfed.fed_init(jf, to_jax(params_np))
     ts = fed_init(tf, to_torch(params_np))
+    first = 0
+    if start is not None:
+        js0, ts0 = start
+        js = jfed.fed_init(jf, js0.W)._replace(M=js0.M, V=js0.V)
+        ts = fed_init(tf, ts0.W)._replace(M=ts0.M, V=ts0.V)
+        first = len(batches_np) - rounds
     out = []
-    for r in range(rounds):
+    for r in range(first, first + rounds):
         jb, tb = to_jax(batches_np[r]), to_torch(batches_np[r])
         jw = None if weights is None else jnp.asarray(weights[r])
         tw = None if weights is None else torch.from_numpy(weights[r])
@@ -163,6 +176,14 @@ def _run_both(fed_kw, params_np, batches_np, loss_j, loss_t, rounds=3,
         ts, tm = tround(ts, tb, tw)
         out.append((js, jm, ts, tm))
     return out
+
+
+def _assert_close(a, b, rtol, atol, max_mismatch, what):
+    """At most ``max_mismatch`` of the elements of ``a`` outside ``rtol``
+    and the absolute ``atol``."""
+    a, b = np.asarray(a), np.asarray(b)
+    bad = ~np.isclose(a, b, rtol=rtol, atol=atol)
+    assert bad.mean() <= max_mismatch, (what, int(bad.sum()), bad.size)
 
 
 def _assert_round_close(out, rtol, atol, max_mismatch):
@@ -205,9 +226,9 @@ def test_round_matches_jitted_jax_on_readme_loss(jax_packed_oracles):
         C * wire.mask_wire_bits(sizes, 0.05, exact_topk=False)
 
 
-def _cnn_rounds_match_jitted_jax(algorithm):
-    """3 rounds of the width-0.25 CNN, 3 clients with Dirichlet 0.1 label
-    skew, error feedback, threshold masks, in both packages."""
+def _cnn_setup(rounds=3):
+    """The width-0.25 CNN in both packages, 3 clients with Dirichlet 0.1
+    label skew, ``rounds`` rounds of batches and FedAvg weights."""
     C, B = 3, 8
     jparams, _, jloss, _, ds = jvision.build_vision("cnn", width=0.25)
     params_np = {k: np.asarray(v) for k, v in jparams.items()}
@@ -215,17 +236,28 @@ def _cnn_rounds_match_jitted_jax(algorithm):
     imgs, labels = synthetic_image_dataset(ds, 256, seed=1)
     parts = dirichlet_partition(labels, n_clients=C, theta=0.1, seed=1)
     batches, weights = [], []
-    for r in range(3):
+    for r in range(rounds):
         (bx, by), w = client_batches([imgs, labels], parts, B, seed=r)
         batches.append((bx, by))
         weights.append(w)
+    return C, params_np, batches, weights, jloss, tloss
+
+
+def _cnn_rounds_match_jitted_jax(algorithm, **fed_over):
+    """3 rounds of the width-0.25 CNN, 3 clients with Dirichlet 0.1 label
+    skew, error feedback, threshold masks (unless ``fed_over`` says
+    otherwise), in both packages."""
+    C, params_np, batches, weights, jloss, tloss = _cnn_setup()
     fed_kw = dict(algorithm=algorithm, alpha=0.05, n_clients=C,
                   local_epochs=2, exact_topk=False, error_feedback=True,
                   adam=jadam.AdamHyper(lr=1e-3))
+    fed_kw.update(fed_over)
     out = _run_both(fed_kw, params_np, batches, jloss, tloss,
                     weights=weights)
     _assert_round_close(out, rtol=1e-4, atol=1e-5, max_mismatch=2e-3)
     js, _, ts, _ = out[-1]
+    if ts.client_state is None or algorithm == "efficient_adam":
+        return out
     err_t = ts.client_state["comp"]["err"]
     err_j = js.client_state["comp"]["err"]
     for k in err_t:
@@ -251,6 +283,141 @@ def test_top_round_matches_jitted_jax_on_cnn(jax_packed_oracles):
     assert float(out[0][3]["uplink_bits"]) == float(np.float32(
         3 * wire.mask_wire_bits(sizes, 0.05, exact_topk=False,
                                 shared=False)))
+
+
+def test_exact_topk_round_matches_jitted_jax_on_cnn():
+    """FedAdam-SSM with exact masks (``FedConfig``'s default): the
+    per-tensor top-k by a stable sort, ties kept at the lower index as
+    ``lax.top_k`` keeps them."""
+    out = _cnn_rounds_match_jitted_jax("fedadam_ssm", exact_topk=True)
+    from repro_torch.core import wire
+    sizes = tuple(x.numel() for x in out[0][2].W.values())
+    assert float(out[0][3]["uplink_bits"]) == float(np.float32(
+        3 * wire.mask_wire_bits(sizes, 0.05, exact_topk=True)))
+
+
+@pytest.mark.parametrize("algorithm,n_tensors", [("fedadam", 3),
+                                                 ("fedsgd", 1)])
+def test_dense_rounds_match_jitted_jax_on_cnn(algorithm, n_tensors):
+    """Dense FedAdam (the whole triple) and FedSGD (W only, local SGD,
+    the server advances W alone): no wire round trip, uplink the dense
+    planes' bytes."""
+    out = _cnn_rounds_match_jitted_jax(algorithm, alpha=1.0)
+    from repro_torch.core import wire
+    js, _, ts, tm = out[-1]
+    sizes = tuple(x.numel() for x in ts.W.values())
+    assert float(tm["uplink_bits"]) == float(np.float32(
+        3 * wire.dense_wire_bits(sizes, n_tensors)))
+    assert ts.client_state is None
+    if algorithm == "fedsgd":
+        for name in "MV":
+            assert not any(bool(x.any()) for x in getattr(ts, name).values())
+
+
+def test_efficient_adam_rounds_match_jitted_jax_on_cnn():
+    """Efficient-Adam (8-bit codes of dW with error feedback, each
+    client's persistent local moments): the EF residuals and the moments
+    agree within the round's tolerances.  A residual and the quantized dW
+    sum to dW, so the residual carries dW's absolute error (a few ulps of
+    W): it is held to W's absolute tolerance, 1e-5 of the leaf's largest
+    |W|; a code that flips where those ulps cross a half step moves it by
+    a whole step, and such elements count against the 0.2%."""
+    out = _cnn_rounds_match_jitted_jax("efficient_adam", alpha=1.0)
+    from repro_torch.core import wire
+    js, _, ts, tm = out[-1]
+    sizes = tuple(x.numel() for x in ts.W.values())
+    assert float(tm["uplink_bits"]) == float(np.float32(
+        3 * wire.bbit_wire_bits(sizes, 8)))
+    assert sorted(ts.client_state) == sorted(js.client_state) == \
+        ["comp", "m", "v"]
+    for k in ts.W:
+        for part in ("m", "v"):
+            b = np.asarray(js.client_state[part][k])
+            _assert_close(ts.client_state[part][k].numpy(), b, 1e-4,
+                          1e-5 * float(np.abs(b).max()), 2e-3,
+                          f"{part}[{k}]")
+        _assert_close(ts.client_state["comp"]["err"][k].numpy(),
+                      js.client_state["comp"]["err"][k], 1e-4,
+                      1e-5 * float(np.abs(np.asarray(js.W[k])).max()),
+                      2e-3, f"err[{k}]")
+
+
+def test_onebit_adam_two_phase_matches_jitted_jax_on_cnn():
+    """1-bit Adam as the paper's runner drives it: 2 dense FedAdam warm-up
+    rounds fill V, then 2 compressed rounds (one momentum step, the sign
+    plane of dM with error feedback, W by the step preconditioned with the
+    frozen V) start from the warm-up's W, M and V.  The residual of dM is
+    held to M's absolute tolerance, as Efficient-Adam's is to W's."""
+    C, params_np, batches, weights, jloss, tloss = _cnn_setup(rounds=4)
+    kw = dict(alpha=1.0, n_clients=C, local_epochs=2,
+              adam=jadam.AdamHyper(lr=1e-3))
+    warm = _run_both(dict(kw, algorithm="fedadam"), params_np, batches[:2],
+                     jloss, tloss, rounds=2, weights=weights[:2])
+    _assert_round_close(warm, rtol=1e-4, atol=1e-5, max_mismatch=2e-3)
+    js, _, ts, _ = warm[-1]
+    out = _run_both(dict(kw, algorithm="onebit_adam"), params_np, batches,
+                    jloss, tloss, rounds=2, weights=weights,
+                    start=(js, ts))
+    _assert_round_close(out, rtol=1e-4, atol=1e-5, max_mismatch=2e-3)
+    from repro_torch.core import wire
+    js, _, ts, tm = out[-1]
+    sizes = tuple(x.numel() for x in ts.W.values())
+    assert float(tm["uplink_bits"]) == float(np.float32(
+        3 * wire.sign_wire_bits(sizes)))
+    for k in ts.W:
+        # V stays frozen at the warm-up's, bitwise in each package
+        assert torch.equal(ts.V[k], warm[-1][2].V[k])
+        _assert_close(ts.client_state["comp"]["err"][k].numpy(),
+                      js.client_state["comp"]["err"][k], 1e-4,
+                      1e-5 * float(np.abs(np.asarray(js.M[k])).max()),
+                      2e-3, f"err[{k}]")
+
+
+# ---------------------------------------------------------------------------
+# The server's precond_m rule and SGD against eager JAX
+# ---------------------------------------------------------------------------
+
+
+def test_precond_m_bitwise_vs_eager_jax():
+    """1-bit Adam's server step ``W - lr * M' / sqrt(V + eps)`` with the
+    root correctly rounded (PyTorch's vectorised CPU sqrt is not)."""
+    rng = np.random.default_rng(11)
+    shapes = {"a": (65_536,), "b": (37, 5)}
+    mk = lambda scale, pos=False: {
+        k: (np.abs(x) if pos else x) for k, x in
+        ((k, (rng.standard_normal(s) * scale).astype(np.float32))
+         for k, s in shapes.items())}
+    # W far below the step, so that an ulp of the root shows in W'
+    W, M, aM = mk(1e-6), mk(1e-3), mk(1e-3)
+    V = mk(1e-4, pos=True)
+    zero = {k: np.zeros(s, np.float32) for k, s in shapes.items()}
+    wsum = np.float32(3.0)
+    jf = jfed.FedConfig(algorithm="onebit_adam",
+                        adam=jadam.AdamHyper(lr=1e-2))
+    tf = FedConfig(algorithm="onebit_adam", adam=adam.AdamHyper(lr=1e-2))
+    args = (W, M, V, zero, aM, zero)
+    ref = jfed.make_server_apply(jf)(*map(to_jax, args), jnp.asarray(wsum))
+    out = make_server_apply(tf)(*map(to_torch, args), torch.tensor(wsum))
+    for name, a, b in zip("WMV", out, ref):
+        for k in shapes:
+            assert_bitwise(a[k], np.asarray(b[k]), f"{name}[{k}]")
+
+
+def test_sgd_step_bitwise_vs_eager_jax():
+    """FedSGD's local step, on a float32 and a bfloat16 leaf."""
+    rng = np.random.default_rng(12)
+    p, g = ({"w": rng.standard_normal(10_000).astype(np.float32)}
+            for _ in range(2))
+    ref, _ = jadam.sgd_step(to_jax(p), to_jax(g), 0.05)
+    out = adam.sgd_step(to_torch(p), to_torch(g), 0.05)
+    assert_bitwise(out["w"], np.asarray(ref["w"]), "params")
+    pb = {"w": to_torch(p)["w"].to(torch.bfloat16)}
+    ref, _ = jadam.sgd_step({"w": jnp.asarray(p["w"], jnp.bfloat16)},
+                            to_jax(g), 0.05)
+    out = adam.sgd_step(pb, to_torch(g), 0.05)
+    assert out["w"].dtype == torch.bfloat16
+    assert torch.equal(out["w"].view(torch.int16), torch.from_numpy(
+        np.asarray(ref["w"]).view(np.int16)))
 
 
 # ---------------------------------------------------------------------------
@@ -329,12 +496,16 @@ def test_round_outside_the_slice_raises(kw, what):
         make_fl_round(fed, lambda p, b: p["w"].sum())
 
 
-def test_algorithms_outside_the_port_raise():
+def test_port_registers_every_jax_algorithm():
+    """Every algorithm the JAX package registers, in its order; an unknown
+    name raises KeyError."""
+    from repro.core import compressors as jcompressors
     from repro_torch.core import compressors
-    with pytest.raises(NotImplementedError, match="ROADMAP §1.8"):
-        FedConfig(algorithm="fedadam")
-    assert "fedadam_top" not in compressors.NOT_PORTED
-    assert FedConfig(algorithm="fedadam_top").algorithm == "fedadam_top"
+    assert compressors.available() == jcompressors.available()
+    for name in compressors.available():
+        assert FedConfig(algorithm=name).algorithm == name
+        assert compressors.transport_of(name) == \
+            jcompressors.transport_of(name)
     with pytest.raises(KeyError):
         FedConfig(algorithm="no_such_algorithm")
 
@@ -345,3 +516,6 @@ def test_quickstart_runs_on_cpu(capsys):
                      "--width", "0.125"])
     out = capsys.readouterr().out
     assert "round  0 loss=" in out and "device: cpu" in out
+    # both halves: FedAdam-SSM, then dense FedAdam
+    ssm, dense = out.split("== fedadam_ssm")[1].split("== fedadam (")
+    assert "round  0 loss=" in ssm and "round  0 loss=" in dense
