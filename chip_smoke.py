@@ -82,7 +82,29 @@ Phases:
    round): exact launches per client, 0 syncs, payload bytes, wall times
    and peaks; pack_words and unpack_words against their plain versions on
    the client's 8-bit codes and sign plane; ``pack_dense`` timed on the
-   warm-up client's deltas.
+   warm-up client's deltas;
+11. (after 9) the round's drivers on phase 2's CNN configuration: a round
+   with participation 0.5 (the JAX round's client draw; 10 clients
+   billed), a vmap round with the wire transport bitwise the scan round,
+   a vmap round with the dense transport within the summation bound, the
+   buffered-async driver with zero churn and K = 20 bitwise the scan
+   round, then under churn (K 5, jitter 3, stragglers 0.1, drops 0.2, max
+   staleness 2, 4 server steps): the landed payloads billed exactly,
+   dropped and discarded clients' residuals as their last accepted update
+   left them, a bitwise replay from the seed, and its state through the
+   checkpoint, loaded on the CPU, bitwise; walls, peaks, launches per
+   client or dispatch and stream syncs (0 for a round, exactly 1 for an
+   async run); the four kernels against their plain versions, bitwise,
+   on the first inputs the churned run gave them;
+12. (after 10) starcoder2-3b at phase 5's width and cut: a vmap round with
+   the wire transport bitwise the scan round from the same state, with
+   its peak memory; then the async trainer's command line (``--async-
+   buffer 2 --churn-jitter 2 --churn-drop-prob 0.25 --rounds 2
+   --checkpoint``) in process: server steps, landed, dropped and
+   discarded updates, uplink exactly the landed payloads, wall time and
+   peak memory; the per-leaf kernels of the vmap round (fused_adam,
+   absmax, count_ge's two passes, ssm_apply_ef) against their plain
+   versions on its first inputs at w_up and a norm leaf.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.  Any failure
@@ -235,6 +257,15 @@ def log(msg: str) -> None:
     print(f"[chip_smoke] {msg}", flush=True)
 
 
+def host_cpu() -> str:
+    """The host's CPU model (the CPU side of the card-vs-CPU phases)."""
+    info = Path("/proc/cpuinfo")
+    names = [line.split(":", 1)[1].strip()
+             for line in (info.read_text().splitlines() if info.exists()
+                          else []) if line.startswith("model name")]
+    return f"{names[0]} x {len(names)}" if names else "unknown"
+
+
 def smi_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -256,7 +287,8 @@ def phase_device_and_build(torch):
     from repro_torch.kernels import _lib
 
     smi = smi_line()
-    log(f"card: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
+    log(f"card: {smi}; torch {torch.__version__} cuda {torch.version.cuda};"
+        f" host CPU: {host_cpu()}")
     t0 = time.perf_counter()
     _lib.library()
     log(f"kernel library: {len(_lib.sources())} sources built in "
@@ -594,6 +626,12 @@ def time_ms(torch, fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+#: Profiler windows a measurement tries before it gives up: the profiler
+#: on the H100 drops a record now and then, sometimes a whole window, and
+#: once three windows in a row.
+PROFILER_WINDOWS = 10
+
+
 def device_ms(torch, fn, iters: int, kernel_names=("",)):
     """(device time per call, device operations per call) of the named
     CUDA kernels (by default every device operation the call makes:
@@ -601,13 +639,13 @@ def device_ms(torch, fn, iters: int, kernel_names=("",)):
     The profiler drops a record now and then (one of a window's 10 or 50
     on the H100, sometimes all of them), so each operation counts
     ``round(records / iters)`` times per call at its mean recorded time,
-    and a window that saw no device time is profiled again, at most three
-    times in all."""
+    and a window that saw no device time is profiled again, at most
+    ``PROFILER_WINDOWS`` times in all."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for _ in range(PROFILER_WINDOWS):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
@@ -621,7 +659,7 @@ def device_ms(torch, fn, iters: int, kernel_names=("",)):
             return (sum(c * us for c, us in per_call) / 1e3,
                     sum(c for c, _ in per_call))
     raise RuntimeError(f"chip_smoke: the profiler saw no device time of "
-                       f"{kernel_names} in three windows")
+                       f"{kernel_names} in {PROFILER_WINDOWS} windows")
 
 
 def max_abs_err(torch, a, b) -> float:
@@ -800,7 +838,7 @@ def launch_shapes(torch, name, fn, nb) -> dict:
     want = P.launch_shape(nb)
     trace = ROOT / "build" / "launch_trace.json"
     trace.parent.mkdir(exist_ok=True)
-    for _ in range(3):  # the profiler drops a record now and then
+    for _ in range(PROFILER_WINDOWS):  # it drops a record now and then
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
@@ -876,29 +914,38 @@ def phase_kernels(torch, captured, main_launches, n_client_rounds, seed):
 # ---------------------------------------------------------------------------
 
 
-def cpu_reference(torch, dev):
-    """The context a card-vs-CPU round runs in on ``dev``: on the CPU, the
-    native convolution instead of oneDNN's, whose float32 weight gradients
-    can sit far from float64 where the card's do not
-    (:func:`conv1_float64_gap` measures it)."""
-    if dev == "cpu":
-        return torch.backends.mkldnn.flags(enabled=False)
-    return contextlib.nullcontext()
+@contextlib.contextmanager
+def onednn_conv(torch, enabled: bool):
+    """The CNN's CPU convolutions through oneDNN (``enabled``) or the native
+    kernels, which the port's models take (``models/vision.py``); on the
+    card, cuDNN either way."""
+    from repro_torch.models import vision
+    own = vision._conv2d
+    if enabled:
+        F = torch.nn.functional
+        vision._conv2d = lambda x, w, s: (F.conv2d(x, w, stride=s)
+                                          if x.device.type == "cpu"
+                                          else own(x, w, s))
+    try:
+        with torch.backends.mkldnn.flags(enabled=enabled):
+            yield
+    finally:
+        vision._conv2d = own
 
 
 def conv1_float64_gap(torch, loss_fn, W, batch, h) -> dict:
     """How far float32 runs of the CNN's conv1 sit from float64 at ``W`` on
     ``batch`` (CPU tensors), on the card, on the CPU with the native
-    convolution and on the CPU through oneDNN: the median relative error
-    of client 0's weight gradient, and per client the share of conv1's
-    first moment, after 3 local Adam epochs from zero moments (the
-    round's Adam, ``h``), beyond the card-vs-CPU tolerance."""
+    convolution (the port's) and on the CPU through oneDNN: the median
+    relative error of client 0's weight gradient, and per client the share
+    of conv1's first moment, after 3 local Adam epochs from zero moments
+    (the round's Adam, ``h``), beyond the card-vs-CPU tolerance."""
     def local(c, dev, dtype, onednn, epochs):
         w = {k: v.to(dev, dtype).clone() for k, v in W.items()}
         m = {k: torch.zeros_like(v) for k, v in w.items()}
         v_ = {k: torch.zeros_like(x) for k, x in w.items()}
         xy = (batch[0][c].to(dev, dtype), batch[1][c].to(dev))
-        with torch.backends.mkldnn.flags(enabled=onednn):
+        with onednn_conv(torch, onednn):
             for e in range(epochs):
                 p = {k: x.requires_grad_(True) for k, x in w.items()}
                 g = dict(zip(p, torch.autograd.grad(loss_fn(p, xy),
@@ -930,7 +977,7 @@ def conv1_float64_gap(torch, loss_fn, W, batch, h) -> dict:
 
 def phase_card_vs_cpu(torch, np, seed, algorithm, **fed_kw):
     """One CNN round of ``algorithm`` on the card and on the CPU (plain
-    versions of the kernels, the native convolution: :func:`cpu_reference`),
+    versions of the kernels, the native convolution of the port's models),
     from the same weights and batch.  The quantized algorithms' compared
     round starts from one state computed on the CPU and handed to both
     sides: for 1-bit Adam a dense FedAdam warm-up round, for Efficient-Adam
@@ -954,15 +1001,14 @@ def phase_card_vs_cpu(torch, np, seed, algorithm, **fed_kw):
     first, gap = None, None
     if algorithm in ("onebit_adam", "efficient_adam"):
         b0, w0 = round_batch(torch, imgs, labels, n_train, parts, 0, "cpu")
-        with cpu_reference(torch, "cpu"):
-            if algorithm == "onebit_adam":
-                warm = cnn_fed("fedadam", n_clients=C, alpha=1.0)
-                st, _ = make_fl_round(warm, loss_fn)(fed_init(warm, params),
-                                                     b0, w0)
-                first = fed_init(mk_fed(), st.W)._replace(M=st.M, V=st.V)
-            else:
-                first, _ = make_fl_round(mk_fed(), loss_fn)(
-                    fed_init(mk_fed(), params), b0, w0)
+        if algorithm == "onebit_adam":
+            warm = cnn_fed("fedadam", n_clients=C, alpha=1.0)
+            st, _ = make_fl_round(warm, loss_fn)(fed_init(warm, params),
+                                                 b0, w0)
+            first = fed_init(mk_fed(), st.W)._replace(M=st.M, V=st.V)
+        else:
+            first, _ = make_fl_round(mk_fed(), loss_fn)(
+                fed_init(mk_fed(), params), b0, w0)
         b1 = round_batch(torch, imgs, labels, n_train, parts, 1, "cpu")[0]
         gap = {"first_round": conv1_float64_gap(torch, loss_fn, params, b0,
                                                 mk_fed().adam),
@@ -983,8 +1029,7 @@ def phase_card_vs_cpu(torch, np, seed, algorithm, **fed_kw):
                                    client_state=on(first.client_state))
             batch, w = round_batch(torch, imgs, labels, n_train, parts, 1,
                                    dev)
-        with cpu_reference(torch, dev):
-            results[dev] = make_fl_round(mk_fed(), loss_fn)(state, batch, w)
+        results[dev] = make_fl_round(mk_fed(), loss_fn)(state, batch, w)
     (gs, gm), (cs, cm) = results["cuda"], results["cpu"]
     require(float(gm["uplink_bits"]) == float(cm["uplink_bits"]),
             "uplink bits differ between the card and the CPU")
@@ -1876,6 +1921,479 @@ def phase_lm_baseline_kernels(torch, captured, kernels):
 
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the CNN's round drivers (participation, vmap, async, checkpoint)
+# ---------------------------------------------------------------------------
+
+
+def _states_bitwise(torch, a, b, what, parts=("W", "M", "V",
+                                             "client_state")):
+    """Raise unless FedStates ``a`` and ``b`` agree bit for bit."""
+    from repro_torch import tree as T
+    for name in parts:
+        la, lb = T.leaves(getattr(a, name)), T.leaves(getattr(b, name))
+        require(len(la) == len(lb), f"{what}: {name} has another structure")
+        for x, y in zip(la, lb):
+            require(x.shape == y.shape and x.dtype == y.dtype and
+                    torch.equal(_bits(torch, x), _bits(torch, y.to(x.device))),
+                    f"{what}: {name} differs")
+    require(int(a.round) == int(b.round), f"{what}: round differs")
+
+
+def _timed(torch, fn):
+    """``(out, wall seconds, peak bytes, launches)`` of ``fn()``: the peak
+    memory statistic and the launch counters reset just before it."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, time.perf_counter() - t0, torch.cuda.max_memory_allocated(),
+            dict(LAUNCHES))
+
+
+def _per(launches, n):
+    return {k: v / n for k, v in launches.items() if v}
+
+
+def _dispatch_launches(per_client, dispatches, landed, decoded):
+    """An async run's launches: each dispatch a scan client's, each landed
+    update one more ``pack_words`` (its repack), each payload a server
+    step folds one more ``unpack_words``; the kernels that launch."""
+    want = collections.Counter({k: v * dispatches
+                                for k, v in per_client.items()})
+    want["pack_words"] += landed
+    want["unpack_words"] += decoded
+    return {k: v for k, v in want.items() if v}
+
+
+def phase_cnn_drivers(torch, np, seed):
+    """The FL round's drivers on the CNN at full width, phase 2's
+    configuration and data: (a) one round with participation 0.5 (the
+    JAX round's draw, 10 clients billed, the other 10 weighted 0.0); (b)
+    one vmap round with the wire transport, bitwise the scan round from
+    the same state; (c) one vmap round with the dense transport, within
+    the summation bound of the scan round; (d) the buffered-async driver
+    with zero churn and K = 20, one server step: bitwise the scan round;
+    (e) the async driver under churn (K 5, jitter 3, stragglers 0.1, drops
+    0.2, max staleness 2, 4 server steps): bills exactly the landed
+    payloads, leaves each dropped or discarded client's residual as its
+    last accepted update left it, and replays bitwise from its seed; (f)
+    (e)'s state through the port's checkpoint, loaded on the CPU, bitwise.
+    Walls, peaks, launches per client or dispatch and stream syncs of
+    each (one for an async run: its step losses, read once at the end).
+    Also returns the first inputs (e)'s run gave each kernel, which
+    ``phase_driver_kernels`` holds against the plain versions."""
+    import tempfile
+    from repro_torch import tree as T
+    from repro_torch.checkpoint import load_fed_state, save_fed_state
+    from repro_torch.core import (AsyncConfig, _threefry, aggregate,
+                                  async_fed, fed_init, make_async_round,
+                                  make_fl_round)
+    from repro_torch.core import sparsify, wire
+    from repro_torch.core.fed import participation_weights
+    from repro_torch.data import ChurnConfig, ChurnModel
+    from repro_torch.models.vision import build_vision
+
+    dev = torch.device("cuda")
+    params, _, loss_fn, _, _ = build_vision("cnn", width=1.0, seed=seed,
+                                            device=dev)
+    imgs, labels, n_train, parts = make_data(seed, CLIENTS)
+    batch, w = round_batch(torch, imgs, labels, n_train, parts, 0, dev)
+    w_host = w.cpu().numpy()
+    out = {}
+
+    # the scan round every driver is held against
+    fed = cnn_fed("fedadam_ssm")
+    state0 = fed_init(fed, params)
+    scan_fn = make_fl_round(fed, loss_fn)
+    (scan, smets), wall, peak, launches = _timed(
+        torch, lambda: scan_fn(state0, batch, w))
+    per_client = _per(launches, CLIENTS)
+    out["scan"] = {"wall_s": wall, "peak_bytes": peak,
+                   "launches_per_client": per_client}
+    log(f"cnn drivers: scan round wall={wall:.4f} s peak="
+        f"{peak / 2**30:.3f} GiB launches/client={per_client}")
+
+    # (a) participation 0.5
+    fed_p = cnn_fed("fedadam_ssm", participation=0.5)
+    part_fn = make_fl_round(fed_p, loss_fn)
+    (st, mets), wall, peak, launches = _timed(
+        torch, lambda: part_fn(state0, batch, w))
+    masked = participation_weights(fed_p, w, 0).cpu().numpy()
+    active = sorted(int(c) for c in _threefry.client_permutation(0, CLIENTS)
+                    [:CLIENTS // 2])
+    uplink = float(mets["uplink_bits"])
+    syncs = count_syncs(torch, part_fn, state0, batch, w)
+    log(f"cnn participation 0.5: active clients {active}; wall={wall:.4f} s "
+        f"uplink bits {uplink}; syncs {syncs['per_round']}")
+    require(np.flatnonzero(masked).tolist() ==
+            [c for c in active if w_host[c] > 0],
+            f"weighted clients {np.flatnonzero(masked).tolist()}")
+    require(all(masked[c] == 0.0 for c in range(CLIENTS) if c not in active),
+            "an undrawn client kept its weight")
+    require(uplink == CLIENTS // 2 * 8 * CNN_WIRE_BYTES_PER_CLIENT,
+            f"uplink bits {uplink}")
+    require(_per(launches, CLIENTS) == per_client,
+            f"participation launches {launches}")
+    require(syncs["per_round"] == 0, f"participation syncs {syncs}")
+    _finite_state(torch, st, "cnn participation")
+    out["participation"] = {"active": active, "wall_s": wall,
+                            "peak_bytes": peak, "uplink_bits": uplink,
+                            "launches_per_client": _per(launches, CLIENTS),
+                            "syncs": syncs}
+    del st, mets
+
+    # (b) vmap, the wire transport: bitwise the scan round
+    fed_v = cnn_fed("fedadam_ssm", client_mode="vmap",
+                    aggregate="sparse_gather")
+    vmap_fn = make_fl_round(fed_v, loss_fn)
+    (st, mets), wall, peak, launches = _timed(
+        torch, lambda: vmap_fn(state0, batch, w))
+    _states_bitwise(torch, st, scan, "cnn vmap wire round vs scan")
+    require(float(mets["uplink_bits"]) == float(smets["uplink_bits"]),
+            "vmap uplink bits")
+    require(_per(launches, CLIENTS) == per_client,
+            f"vmap launches {launches}")
+    syncs = count_syncs(torch, vmap_fn, state0, batch, w)
+    require(syncs["per_round"] == 0, f"vmap syncs {syncs}")
+    out["vmap_wire"] = {"wall_s": wall, "peak_bytes": peak,
+                        "launches_per_client": _per(launches, CLIENTS),
+                        "syncs": syncs, "bitwise_scan": True}
+    log(f"cnn vmap wire round: bitwise the scan round; wall={wall:.4f} s "
+        f"peak={peak / 2**30:.3f} GiB")
+    del st, mets
+
+    # (c) vmap, the dense transport: the weighted sum in the library's
+    # order, within C * eps * sum |w x| of the scan's fold
+    fed_d = cnn_fed("fedadam_ssm", client_mode="vmap", aggregate="dense")
+    cap = Capture()
+    cap.wrap(aggregate, "dense_weighted_sum", "dense", calls=3)
+    (st, _), wall, peak, launches = _timed(
+        torch, lambda: make_fl_round(fed_d, loss_fn)(state0, batch, w))
+    cap.restore()
+    eps = float(np.finfo(np.float32).eps)
+    worst, wsum = 0.0, float(w.sum())
+    require(len(cap.args["dense"][None]) == 3, "dense sums of W, M, V")
+    for name, ((trees, weights), _) in zip("WMV", cap.args["dense"][None]):
+        dense = aggregate.dense_weighted_sum(trees, weights)
+        fold = aggregate.ordered_weighted_sum(trees, weights)
+        for k, x in trees.items():
+            mag = (weights.double()[:, None] * x.double().reshape(
+                x.shape[0], -1)).abs().sum(0).reshape(x.shape[1:])
+            err = (dense[k].double() - fold[k].double()).abs()
+            worst = max(worst, float((err / (CLIENTS * eps * mag)
+                                      ).nan_to_num(0.0).max()))
+            require(bool((err <= CLIENTS * eps * mag).all()),
+                    f"dense sum of {k} beyond C * eps * sum |w x|")
+            # the server adds sum / wsum to the global: the sums' bound,
+            # a rounding of each quotient and of each sum
+            a, b = getattr(st, name)[k], getattr(scan, name)[k]
+            bound = (CLIENTS + 1) * eps * mag / wsum + 2 * eps * \
+                torch.maximum(a.abs(), b.abs()).double()
+            require(bool(((a.double() - b.double()).abs() <= bound).all()),
+                    f"dense vmap {name}[{k}] beyond the bound of the scan "
+                    f"round's")
+    syncs = count_syncs(torch, make_fl_round(fed_d, loss_fn), state0,
+                        batch, w)
+    require(syncs["per_round"] == 0, f"dense vmap syncs {syncs}")
+    out["vmap_dense"] = {"wall_s": wall, "peak_bytes": peak,
+                         "launches_per_client": _per(launches, CLIENTS),
+                         "worst_err_over_bound": worst, "syncs": syncs}
+    log(f"cnn vmap dense round: the sums within {worst:.3f} of C * eps * "
+        f"sum |w x|; wall={wall:.4f} s")
+    del st, cap
+
+    # (d) async, zero churn, K = 20, one server step: the scan round
+    deg = make_async_round(fed, loss_fn, AsyncConfig(buffer_size=CLIENTS),
+                           churn=ChurnModel(ChurnConfig(), CLIENTS))
+    (st, mets), wall, peak, launches = _timed(
+        torch, lambda: deg(state0, batch, w_host, rounds=1))
+    _states_bitwise(torch, st, scan, "cnn async degenerate vs scan")
+    require(mets["landed"] == CLIENTS and mets["server_steps"] == 1,
+            f"degenerate async: {mets['landed']} landed")
+    require(float(mets["uplink_bits"]) == float(smets["uplink_bits"]),
+            "degenerate async uplink bits")
+    # a dispatch is a scan client; each landed update is repacked once,
+    # and decoded once by the server step
+    want = _dispatch_launches(per_client, CLIENTS, CLIENTS, CLIENTS)
+    require({k: v for k, v in launches.items() if v} == want,
+            f"degenerate async launches {launches}, expected {want}")
+    syncs = count_syncs(torch, lambda s, b, w_: deg(s, b, w_, rounds=1),
+                        state0, batch, w_host)
+    # its one sync: the step losses read to the host after the simulation
+    require(syncs["per_round"] == 1, f"degenerate async syncs {syncs}")
+    out["async_degenerate"] = {"wall_s": wall, "peak_bytes": peak,
+                               "launches_per_dispatch":
+                                   _per(launches, CLIENTS),
+                               "bitwise_scan": True, "syncs": syncs}
+    log(f"cnn async degenerate (K=20, no churn): bitwise the scan round; "
+        f"wall={wall:.4f} s")
+    del st, mets
+
+    # (e) async under churn, twice from the same seed
+    churn_cfg = ChurnConfig(seed=seed, jitter=3, straggler_prob=0.1,
+                            drop_prob=0.2)
+    acfg = AsyncConfig(buffer_size=5, max_staleness=2)
+    committed = {}
+    make_commit = async_fed.make_commit_client
+
+    def recording_commit(has_cs):
+        commit = make_commit(has_cs)
+
+        def rec(cs, new_c, c):
+            committed[c] = T.tree_map(torch.clone, new_c["comp"]["err"])
+            return commit(cs, new_c, c)
+        return rec
+
+    def churned():
+        run = make_async_round(fed, loss_fn, acfg,
+                               churn=ChurnModel(churn_cfg, CLIENTS))
+        return run(state0, batch, w_host, rounds=4)
+
+    async_fed.make_commit_client = recording_commit
+    try:
+        (st, mets), wall, peak, launches = _timed(torch, churned)
+    finally:
+        async_fed.make_commit_client = make_commit
+    ev = mets["events"]
+    dispatches = sum(e[1] == "dispatch" for e in ev)
+    landed, steps = mets["landed"], mets["server_steps"]
+    require(steps == 4, f"{steps} server steps")
+    require(mets["dropped"] + mets["discarded"] > 0,
+            "the churn dropped and discarded nothing")
+    require(sum(mets["bits_per_step"]) == 8 * CNN_WIRE_BYTES_PER_CLIENT
+            * landed, f"billed {mets['bits_per_step']} for {landed} landed")
+    require(float(mets["uplink_bits"]) == _f32(
+        torch, landed * 8 * CNN_WIRE_BYTES_PER_CLIENT),
+        f"uplink bits {float(mets['uplink_bits'])} for {landed} landed")
+    # a dispatch is a scan client; a landed update is repacked once and
+    # every buffered payload decoded once by its server step
+    want = _dispatch_launches(per_client, dispatches, landed,
+                              acfg.buffer_size * steps)
+    require({k: v for k, v in launches.items() if v} == want,
+            f"churn async launches {launches}, expected {want}")
+    err = st.client_state["comp"]["err"]
+    for c in range(CLIENTS):
+        for k, x in err.items():
+            last = committed[c][k] if c in committed else \
+                state0.client_state["comp"]["err"][k][c]
+            require(torch.equal(_bits(torch, x[c]), _bits(torch, last)),
+                    f"client {c}'s residual is not its last accepted one")
+    # the sync-counting run also keeps one dispatch's kernel inputs (the
+    # first call of each), which main() holds against the plain versions
+    cap = Capture()
+    cap.wrap(sparsify, "packed_hist", "packed_hist")
+    cap.wrap(sparsify, "packed_apply", "packed_apply")
+    cap.wrap(wire, "pack_mask_bits", "pack_words")
+    cap.wrap(wire, "unpack_mask_bits", "unpack_words")
+    try:
+        syncs = count_syncs(torch, lambda s, b, w_: make_async_round(
+            fed, loss_fn, acfg, churn=ChurnModel(churn_cfg, CLIENTS))(
+                s, b, w_, rounds=4), state0, batch, w_host)
+    finally:
+        cap.restore()
+    require(syncs["per_round"] == 1, f"churn async syncs {syncs}")
+    captured = {k: cap.args[k][None] for k in KERNELS}
+    (st2, mets2), wall2, _, _ = _timed(torch, churned)
+    require(mets2["events"] == ev, "the replay's event log differs")
+    _states_bitwise(torch, st2, st, "cnn async replay")
+    del st2, mets2
+    counts = {k: mets[k] for k in ("server_steps", "landed", "dropped",
+                                   "discarded", "buffer_pending")}
+    out["async_churn"] = dict(counts, wall_s=wall, replay_wall_s=wall2,
+                              peak_bytes=peak, dispatches=dispatches,
+                              launches=launches,
+                              launches_per_dispatch=_per(launches,
+                                                         dispatches),
+                              uplink_bits=float(mets["uplink_bits"]),
+                              bits_per_step=mets["bits_per_step"],
+                              syncs=syncs, replay_bitwise=True)
+    log(f"cnn async churn (K=5): {json.dumps(counts)}; {dispatches} "
+        f"dispatches; wall={wall:.3f} s (replay {wall2:.3f} s); launches "
+        f"{launches}; syncs {syncs['per_round']} at {syncs['sites']}")
+
+    # (f) the checkpoint, loaded on the CPU
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        save_fed_state(st, Path(tmp) / "ck", meta={"phase": 11})
+        on_cpu = st._replace(**{k: T.tree_map(
+            lambda x: torch.zeros(x.shape, dtype=x.dtype), getattr(st, k))
+            for k in ("W", "M", "V", "client_state")}, round=0)
+        back = load_fed_state(on_cpu, Path(tmp) / "ck")
+        ck_s = time.perf_counter() - t0
+        size = (Path(tmp) / "ck.npz").stat().st_size
+    require(all(x.device.type == "cpu" for x in T.leaves(back.W)),
+            "the checkpoint did not load on the CPU")
+    _states_bitwise(torch, back, st, "cnn checkpoint round trip")
+    out["checkpoint"] = {"bytes": size, "save_load_s": ck_s,
+                         "bitwise": True}
+    log(f"cnn checkpoint: {size} bytes, saved and loaded on the CPU in "
+        f"{ck_s:.3f} s, bitwise")
+    return out, captured
+
+
+def phase_driver_kernels(torch, captured, kernels, label):
+    """Each kernel against its plain version, bitwise, on the inputs a
+    driver's run gave it (``captured``: name -> list of ``(args, kw)``;
+    fused_adam's w' within its root's bound, as in phase 6).  Adds
+    ``at_<label>`` to the kernels' records and folds the error into their
+    ``max_abs_err``."""
+    by_name = {k["name"]: k for k in kernels}
+    for name, calls in captured.items():
+        require(len(calls) > 0, f"{label}: no input of {name} captured")
+        errs = []
+        for args, kw in calls:
+            if name in KERNELS:
+                fk, fp, _ = run_kernel(torch, name, args, kw)
+            else:
+                fk, fp = lm_kernel(torch, name, args, kw)[:2]
+            a, b = fk(), fp()
+            a = a if isinstance(a, tuple) else (a,)
+            b = b if isinstance(b, tuple) else (b,)
+            require(len(a) == len(b), f"{name}: output count")
+            if name == "fused_adam":
+                fused_adam_w_check(torch, a[0], b[0], args[1])
+                a, b = a[1:], b[1:]
+            errs.append(max(max_abs_err(torch, x, y) for x, y in zip(a, b)))
+        rec = {"calls": len(calls), "max_abs_err": max(errs)}
+        log(f"{name} at {label}: bitwise its plain version {json.dumps(rec)}")
+        k = by_name[name]
+        k["max_abs_err"] = max(k["max_abs_err"], rec["max_abs_err"])
+        k[f"at_{label}"] = rec
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: the transformer's vmap round and the async trainer
+# ---------------------------------------------------------------------------
+
+
+def phase_lm_drivers(torch, seed):
+    """starcoder2-3b at phase 5's width and cut: (a) one vmap round with
+    the wire transport (FedAdam-SSM, fused Adam, threshold masks, error
+    feedback, 4 clients), bitwise the scan round from the same state (the
+    scan round's result is held on the host meanwhile), with its peak
+    memory; (b) the async trainer as its command line runs it (``--async-
+    buffer 2 --churn-jitter 2 --churn-drop-prob 0.25 --rounds 2
+    --checkpoint``, 4 clients), in process: server steps, landed, dropped
+    and discarded updates, uplink (exactly the landed payloads), wall time
+    and peak memory.  Also returns the first inputs (a)'s round gave the
+    per-leaf kernels at w_up and a norm leaf, which
+    ``phase_driver_kernels`` holds against the plain versions."""
+    import dataclasses
+    import io
+    import tempfile
+    from repro_torch import tree as T
+    from repro_torch.configs import get_config
+    from repro_torch.core import fed_init, make_fl_round
+    from repro_torch.launch import train
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(get_config("starcoder2-3b"),
+                              pattern_repeats=LM_REPEATS)
+    spec = LM_PATHS["fedadam_ssm"]
+    loss = lm_loss(cfg)
+    out = {}
+    fed = lm_fed(LM_CLIENTS, "fedadam_ssm")
+    round_fn, state0 = train.make_trainer(cfg, fed, seed=seed, device=dev)
+    batch = train.build_client_batches(cfg, LM_CLIENTS, 2, 128, seed=0,
+                                       device=dev)
+    (scan, smets), wall, peak, launches = _timed(
+        torch, lambda: round_fn(state0, batch))
+    want = {k: v * LM_CLIENTS for k, v in spec["launches"].items()}
+    require(launches == want, f"lm scan launches {launches}")
+    scan = scan._replace(**{k: T.tree_map(lambda x: x.cpu(),
+                                          getattr(scan, k))
+                            for k in ("W", "M", "V", "client_state")})
+    out["scan"] = {"wall_s": wall, "peak_bytes": peak}
+    log(f"lm scan round: wall={wall:.3f} s peak={peak / 2**30:.2f} GiB")
+    del round_fn
+
+    fed_v = dataclasses.replace(fed, client_mode="vmap",
+                                aggregate="sparse_gather")
+    vmap_fn = make_fl_round(fed_v, loss)
+    (st, mets), wall, peak, launches = _timed(
+        torch, lambda: vmap_fn(state0, batch))
+    require(launches == want, f"lm vmap launches {launches}, "
+            f"expected {want}")
+    require(float(mets["uplink_bits"]) == float(smets["uplink_bits"]),
+            "lm vmap uplink bits")
+    _states_bitwise(torch, st, scan, "lm vmap wire round vs scan")
+    stacked = LM_CLIENTS * spec["wire_bytes"]
+    del st, mets
+    # the sync-counting round also keeps the per-leaf kernels' first
+    # inputs at w_up and a norm leaf (count_ge's two passes), which main()
+    # holds against the plain versions
+    cap = Capture()
+    entry = _lm_entry_points()
+    for name in spec["replayed"]:
+        cap.wrap(*entry[name], name, LM_KERNELS[name][2],
+                 (LM_SHAPES["w_up"], LM_SHAPES["norm"]),
+                 len(LM_PASSES.get(name, ("",))))
+    try:
+        syncs = count_syncs(torch, vmap_fn, state0, batch, None)
+    finally:
+        cap.restore()
+    require(syncs["per_round"] == 0, f"lm vmap syncs {syncs}")
+    captured = {k: [c for calls in cap.args[k].values() for c in calls]
+                for k in spec["replayed"]}
+    out["vmap_wire"] = {"wall_s": wall, "peak_bytes": peak,
+                        "stacked_payload_bytes": stacked,
+                        "launches_per_client": _per(launches, LM_CLIENTS),
+                        "bitwise_scan": True, "syncs": syncs}
+    log(f"lm vmap wire round: bitwise the scan round; wall={wall:.3f} s "
+        f"peak={peak / 2**30:.2f} GiB (stacked payloads "
+        f"{stacked / 2**30:.2f} GiB)")
+    del scan, state0, vmap_fn
+
+    # (b) the async trainer's command line, in process, at the 2-repeat
+    # cut (the command's config is the full 30 repeats)
+    own = train.get_config
+    train.get_config = lambda name: dataclasses.replace(
+        own(name), pattern_repeats=LM_REPEATS)
+    argv = ["--arch", "starcoder2-3b", "--kernel-adam", "--threshold-topk",
+            "--async-buffer", "2", "--churn-jitter", "2",
+            "--churn-drop-prob", "0.25", "--rounds", "2"]
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            ck = str(Path(tmp) / "ck")
+            printed = io.StringIO()
+            with contextlib.redirect_stdout(printed):
+                (st, mets), wall, peak, launches = _timed(
+                    torch, lambda: train.main(argv + ["--checkpoint", ck]))
+            ck_bytes = (Path(tmp) / "ck.npz").stat().st_size
+    finally:
+        train.get_config = own
+    lines = printed.getvalue().splitlines()
+    for line in lines:
+        log(f"lm async trainer: {line}")
+    landed = mets["landed"]
+    counts = {k: mets[k] for k in ("server_steps", "landed", "dropped",
+                                   "discarded", "buffer_pending")}
+    require(mets["server_steps"] == 2, f"{mets['server_steps']} steps")
+    require(sum(mets["bits_per_step"]) == 8 * spec["wire_bytes"] * landed,
+            f"billed {mets['bits_per_step']} for {landed} landed")
+    require(float(mets["uplink_bits"]) == _f32(
+        torch, landed * 8 * spec["wire_bytes"]), "lm async uplink bits")
+    require(any(x.startswith("[train] async: 2 server steps") for x in lines)
+            and lines[-1] == f"[train] saved {ck}", "the trainer's lines")
+    _finite_state(torch, st, "lm async")
+    dispatches = sum(e[1] == "dispatch" for e in mets["events"])
+    out["async_trainer"] = dict(
+        counts, argv=argv, wall_s=wall, peak_bytes=peak,
+        dispatches=dispatches, launches=launches,
+        launches_per_dispatch=_per(launches, dispatches),
+        uplink_bytes=sum(mets["bits_per_step"]) // 8,
+        checkpoint_bytes=ck_bytes)
+    log(f"lm async trainer: {json.dumps(counts)}; {dispatches} dispatches; "
+        f"uplink {sum(mets['bits_per_step']) // 8} bytes; wall={wall:.2f} s "
+        f"peak={peak / 2**30:.2f} GiB; checkpoint {ck_bytes} bytes")
+    return out, captured
+
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1902,6 +2420,9 @@ def main(argv=None):
         torch, np, args.seed, "fedadam_ssm", exact_topk=True)
     for a in ("efficient_adam", "onebit_adam"):
         vs_cpu[a] = phase_card_vs_cpu(torch, np, args.seed, a)
+    cnn_drivers, captured = phase_cnn_drivers(torch, np, args.seed)
+    phase_driver_kernels(torch, captured, kernels, "cnn_async_churn")
+    del captured
     lm, captured = phase_transformer(torch, args.seed, "fedadam_ssm")
     # ssm_apply has no caller on any path: it replays ssm_apply_ef's
     # inputs, the transformer's deltas at the same leaves
@@ -1924,6 +2445,9 @@ def main(argv=None):
         captured.update(cap)
     phase_lm_baseline_kernels(torch, captured, kernels)
     del captured, cap
+    lm_drivers, captured = phase_lm_drivers(torch, args.seed)
+    phase_driver_kernels(torch, captured, kernels, "lm_vmap_wire")
+    del captured
     for k in kernels:
         k["launches_fedadam_top"] = {"cnn": cnn_top["launches"][k["name"]],
                                      "lm": lm_top["launches"][k["name"]]}
@@ -1934,13 +2458,26 @@ def main(argv=None):
                 run: sum(x["launches"][k["name"]] for x in res[a]["rounds"]
                          if x["algorithm"] == a)
                 for run, res in (("cnn", cnn_base), ("lm", lm_base))}
+        # the drivers' launches: per client of a vmap round, per dispatch
+        # of an async run (its repacks and server decodes included)
+        k["launches_drivers"] = {
+            "cnn_vmap_wire_per_client":
+                cnn_drivers["vmap_wire"]["launches_per_client"].get(
+                    k["name"], 0),
+            "cnn_async_churn": cnn_drivers["async_churn"]["launches"].get(
+                k["name"], 0),
+            "lm_vmap_wire_per_client":
+                lm_drivers["vmap_wire"]["launches_per_client"].get(
+                    k["name"], 0),
+            "lm_async_trainer": lm_drivers["async_trainer"]["launches"].get(
+                k["name"], 0)}
     require(sorted(k["name"] for k in kernels)
             == sorted((*KERNELS, *LM_KERNELS)), "a kernel was not measured")
     lm_vs_cpu = phase_lm_card_vs_cpu(torch, np, args.seed, "fedadam_ssm")
     lm_top_vs_cpu = phase_lm_card_vs_cpu(torch, np, args.seed,
                                          "fedadam_top")
 
-    record = {"card": smi, "torch": torch.__version__,
+    record = {"card": smi, "host_cpu": host_cpu(), "torch": torch.__version__,
               "cuda": torch.version.cuda, "build_s": build_s,
               "rounds": rounds, "card_payload_bytes": payload_bytes,
               "round_profile": round_profile, "cnn_fedadam_top": cnn_top,
@@ -1951,6 +2488,7 @@ def main(argv=None):
               "transformer_fedadam_top_card_vs_cpu": lm_top_vs_cpu,
               "cnn_baselines": cnn_base, "exact_topk_ties": exact,
               "transformer_baselines": lm_base,
+              "cnn_drivers": cnn_drivers, "transformer_drivers": lm_drivers,
               "total_s": time.perf_counter() - t_start}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

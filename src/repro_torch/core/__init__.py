@@ -7,3 +7,24 @@ from repro_torch.core.fed import (  # noqa: F401
     make_fl_round,
     make_server_apply,
 )
+from repro_torch.core.async_fed import (  # noqa: F401
+    AsyncConfig,
+    make_async_round,
+    staleness_scale,
+    staleness_weights,
+)
+from repro_torch.core import (  # noqa: F401
+    aggregate,
+    comm,
+    compressors,
+    masks,
+    quantize,
+    sparsify,
+    wire,
+)
+from repro_torch.core.compressors import (  # noqa: F401
+    Compressor,
+    Deltas,
+    Packed,
+    make_compressor,
+)

@@ -1,0 +1,236 @@
+"""Server-side aggregation of client-stacked deltas on one card.
+
+Counterpart of the single-device half of ``repro/core/aggregate.py``:
+
+``dense``          a weighted sum over the client axis of the dense
+                   (masked) carriers;
+``sparse_gather``  each client's packed representation, folded by the
+                   server: the clients' wire payloads
+                   (:func:`wire_gather_sum`, the bit-packed bytes the
+                   round bills), or, for a configuration with no wire
+                   realization, a fixed-capacity COO pack per block of
+                   ``BLOCK`` elements (values and block-local indices)
+                   that the server scatter-adds.
+
+The scan round's FedAvg fold (:func:`weighted_fold`, client 0 first)
+is the one every order-exact sum here shares: :func:`ordered_weighted_sum`
+is its stacked form and :func:`wire_gather_sum` folds each decoded
+payload with it.  The multi-GPU transport
+(``make_shardmap_sparse_aggregate``: per-shard bitmaps and an all-gather
+of the value streams, with its replication constraint) is ROADMAP §1.10.
+
+:func:`packed_gather_sum` dispatches on the compressor's ``transport``
+tag, as in the JAX package.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch import tree as T
+from repro_torch.core import sparsify as S
+from repro_torch.core import wire
+from repro_torch.kernels.topk_mask.ref import overselect_bound
+
+_F32 = torch.float32
+_VALUE_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
+                 "float32": torch.float32}
+
+
+def dense_weighted_sum(tree_c, weights):
+    """``tree_c``: leaves ``(C, ...)``; the weighted sum over C, in float32
+    (one ``tensordot``, whose summation order is the library's)."""
+    w = weights.to(_F32)
+    return T.tree_map(lambda x: torch.tensordot(w, x.to(_F32),
+                                                dims=([0], [0])), tree_c)
+
+
+def weighted_fold(acc, w, tree):
+    """One client's step of the scan round's FedAvg fold: ``acc + w *
+    x.to(float32)`` leaf by leaf; ``acc=None`` starts from float32 zeros
+    (the first client).  Folding clients 0, 1, ... in turn is the order
+    and arithmetic every bitwise claim against the scan round rests on."""
+    if acc is None:
+        acc = T.tree_map(lambda x: torch.zeros(x.shape, dtype=_F32,
+                                               device=x.device), tree)
+    return T.tree_map(lambda a, x: a + w * x.to(_F32), acc, tree)
+
+
+def ordered_weighted_sum(tree_c, weights):
+    """The stacked form of :func:`weighted_fold`: the weighted sum over
+    the leading client axis, client 0 first, bitwise the scan round's
+    FedAvg sums."""
+    w = weights.to(_F32)
+    acc = None
+    for c in range(w.shape[0]):
+        acc = weighted_fold(acc, w[c], T.tree_map(lambda x: x[c], tree_c))
+    return acc
+
+
+def weight_total(weights):
+    """The FedAvg weight total as the scan round folds it, client 0
+    first."""
+    return ordered_weighted_sum(torch.ones_like(weights, dtype=_F32),
+                                weights)
+
+
+def _to_blocks(x_c, n):
+    """(C, n) -> ((C, nb, B) zero-padded, nb, B); B is ``sparsify.BLOCK``."""
+    B = S.BLOCK
+    C = x_c.shape[0]
+    nb = -(-n // B)
+    pad = nb * B - n
+    xb = torch.nn.functional.pad(x_c, (0, pad)) if pad else x_c
+    return xb.reshape(C, nb, B), nb, B
+
+
+def _capacity(n, B, alpha):
+    """Per-block packed capacity: threshold masks over-select by ties and
+    bin width, so the pack is sized for the selection's contracted worst
+    case, ``k + overselect_bound(k)``."""
+    size = B if n > B else n
+    base = S.k_for(size, alpha)
+    return min(size, base + overselect_bound(base))
+
+
+def _pack(x_c, n, alpha, *, sort_free: bool = True):
+    """The nonzeros of masked dense deltas in a fixed-capacity COO.
+
+    ``x_c``: (C, n) -> (vals (C, nb, kb), idx (C, nb, kb) int32 block-local,
+    valid (C, nb, kb) bool).  ``sort_free=True``: each nonzero goes to its
+    prefix-sum position, and those past the capacity ``kb`` to a drop slot
+    that is cut off.  ``sort_free=False``: the exact top ``kb`` of |x| per
+    block, largest first and ties to the lower index (``lax.top_k``'s
+    slots; a stable sort)."""
+    xb, nb, B = _to_blocks(x_c, n)
+    C = xb.shape[0]
+    if not sort_free:
+        kb = S.k_for(B, alpha) if n > B else S.k_for(n, alpha)
+        idx = torch.sort(xb.to(_F32).abs(), dim=-1, descending=True,
+                         stable=True).indices[..., :kb]
+        vals = torch.gather(xb, 2, idx)
+        return vals, idx.to(torch.int32), torch.ones(vals.shape,
+                                                     dtype=torch.bool,
+                                                     device=vals.device)
+    kb = _capacity(n, B, alpha)
+    m = xb != 0
+    pos = torch.cumsum(m.to(torch.int32), dim=-1, dtype=torch.int32) - 1
+    keep = m & (pos < kb)
+    dst = torch.where(keep, pos, kb).to(torch.int64)          # kb: drop slot
+    src_idx = torch.arange(1, B + 1, dtype=torch.int32,
+                           device=xb.device).expand(xb.shape)
+    vals = torch.zeros((C, nb, kb + 1), dtype=xb.dtype, device=xb.device) \
+        .scatter_(2, dst, xb)[..., :kb]
+    # index + 1, so that an empty slot reads 0
+    idx_plus = torch.zeros((C, nb, kb + 1), dtype=torch.int32,
+                           device=xb.device) \
+        .scatter_(2, dst, src_idx)[..., :kb]
+    valid = idx_plus > 0
+    idx = (idx_plus - 1).clamp_min(0)
+    return vals, idx, valid
+
+
+def _scatter_weighted(vals, idx, valid, weights, n):
+    """``vals``/``idx``/``valid``: (C, nb, kb); the dense (n,) weighted sum,
+    scatter-added client after client (client 0 first, as the scan round
+    folds)."""
+    C, nb, kb = vals.shape
+    B = S.BLOCK if n > S.BLOCK else -(-n // nb)
+    wv = vals.to(_F32) * weights.to(_F32)[:, None, None]
+    wv = torch.where(valid, wv, torch.zeros((), dtype=_F32,
+                                            device=wv.device))
+    rows = torch.arange(nb, device=idx.device)[:, None] * B
+    out = torch.zeros(nb * B, dtype=_F32, device=vals.device)
+    for c in range(C):
+        flat = (rows + idx[c].to(torch.int64)).reshape(-1)
+        out.index_put_((flat,), wv[c].reshape(-1), accumulate=True)
+    return out[:n]
+
+
+def _value_cast(t, value_dtype):
+    return t if value_dtype is None else t.to(_VALUE_DTYPES[value_dtype])
+
+
+def sparse_shared_gather_sum(sW_c, sM_c, sV_c, alpha, weights,
+                             value_dtype=None, sort_free=True):
+    """FedAdam-SSM's COO transport: ONE index set per client and leaf
+    (from the shared mask, read off dW), three value sets."""
+
+    def leaf(w_c, m_c, v_c):
+        C = w_c.shape[0]
+        n = int(math.prod(w_c.shape[1:])) if w_c.dim() > 1 else 1
+        vw, idx, valid = _pack(w_c.reshape(C, n), n, alpha,
+                               sort_free=sort_free)
+        take = lambda t: torch.gather(_to_blocks(t.reshape(C, n), n)[0], 2,
+                                      idx.to(torch.int64))
+        vm, vv = take(m_c), take(v_c)
+        vw, vm, vv = (_value_cast(t, value_dtype) for t in (vw, vm, vv))
+        shape = w_c.shape[1:]
+        return tuple(_scatter_weighted(t, idx, valid, weights, n)
+                     .reshape(shape) for t in (vw, vm, vv))
+
+    lw, td = T.flatten(sW_c)
+    outs = [leaf(w, m, v) for w, m, v in zip(lw, T.leaves(sM_c),
+                                             T.leaves(sV_c))]
+    return tuple(td.unflatten([o[i] for o in outs]) for i in range(3))
+
+
+def sparse_independent_gather_sum(tree_c, alpha, weights, value_dtype=None,
+                                  sort_free=True):
+    """FedAdam-Top's COO transport: each tensor its own (values, indices)."""
+
+    def leaf(x_c):
+        C = x_c.shape[0]
+        n = int(math.prod(x_c.shape[1:])) if x_c.dim() > 1 else 1
+        vals, idx, valid = _pack(x_c.reshape(C, n), n, alpha,
+                                 sort_free=sort_free)
+        return _scatter_weighted(_value_cast(vals, value_dtype), idx, valid,
+                                 weights, n).reshape(x_c.shape[1:])
+
+    return T.tree_map(leaf, tree_c)
+
+
+def _client_payload(payload_c: wire.WirePayload, c: int) -> wire.WirePayload:
+    """Client ``c``'s payload out of a client-stacked one."""
+    return wire.WirePayload(*(tuple(a[c] for a in part)
+                              for part in payload_c))
+
+
+def wire_gather_sum(compressor, payload_c, like, weights):
+    """Aggregate client-stacked :class:`~repro_torch.core.wire.WirePayload`
+    s: decode each client's bytes against the params template ``like`` and
+    fold them in client order (:func:`weighted_fold`), so the wire
+    transport is bitwise the scan round."""
+    w = weights.to(_F32)
+    acc = None
+    for c in range(w.shape[0]):
+        acc = weighted_fold(acc, w[c], tuple(compressor.unpack_wire(
+            _client_payload(payload_c, c), like)))
+    return acc
+
+
+def packed_gather_sum(compressor, sW_c, sM_c, sV_c, weights, *, alpha,
+                      value_dtype=None, sort_free=True,
+                      payload_c=None, like=None):
+    """Aggregate any compressor's packed representation.
+
+    With ``payload_c`` (client-stacked payloads of ``make_client_step(...,
+    emit="wire")``) the transport is the wire format itself
+    (:func:`wire_gather_sum`).  Otherwise the COO paths, keyed on the
+    ``transport`` tag: ``shared_sparse`` (one index set, three value
+    sets), ``independent_sparse`` (three packs), and anything else the
+    dense weighted sum."""
+    if payload_c is not None:
+        return wire_gather_sum(compressor, payload_c, like, weights)
+    t = getattr(compressor, "transport", "dense")
+    if t == "shared_sparse":
+        return sparse_shared_gather_sum(sW_c, sM_c, sV_c, alpha, weights,
+                                        value_dtype, sort_free)
+    if t == "independent_sparse":
+        agg = lambda tr: sparse_independent_gather_sum(
+            tr, alpha, weights, value_dtype, sort_free)
+        return agg(sW_c), agg(sM_c), agg(sV_c)
+    return (dense_weighted_sum(sW_c, weights),
+            dense_weighted_sum(sM_c, weights),
+            dense_weighted_sum(sV_c, weights))

@@ -18,18 +18,33 @@ The JAX ``lax.scan`` over clients is a Python loop here, and per-client
 state is stacked ``(C, ...)`` tensors.  Parameters are trees of tensors
 (dicts, flattened in sorted key order); ``loss_fn(params, batch)``
 returns a scalar tensor and gradients come from ``torch.autograd``.
-What the port does not have yet raises ``NotImplementedError`` naming its
-ROADMAP item.
+
+Client execution modes, as in the JAX package:
+
+* ``scan``: the clients one after another, each folded into the running
+  FedAvg sums as it finishes (memory: one client).
+* ``vmap``: every client's output stacked ``(C, ...)``, then the
+  ``aggregate`` transport of :mod:`repro_torch.core.aggregate` folds the
+  stack: ``dense`` (a weighted sum over the client axis) or
+  ``sparse_gather`` (the clients' wire payloads, or a COO pack where the
+  compressor has no wire realization).
+
+Partial participation draws the round's clients as the JAX round does,
+``jax.random.permutation(fold_in(PRNGKey(17), round), C)`` (reproduced
+in numpy by :mod:`repro_torch.core._threefry`), and masks the FedAvg
+weights of the others.  The multi-GPU driver (``client_axes``) is not
+ported yet and raises ``NotImplementedError`` naming ROADMAP §1.10.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, NamedTuple, Optional
+from typing import Any, Callable, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch import tree as T
-from repro_torch.core import compressors
+from repro_torch.core import _threefry, aggregate, compressors, wire
 from repro_torch.core.compressors import Deltas
 from repro_torch.core.compressors.base import tree_add as _tree_add
 from repro_torch.core.compressors.base import tree_sub as _tree_sub
@@ -54,9 +69,12 @@ class FedConfig:
     error_feedback: bool = False
     quant_bits: int = 8                   # efficient_adam
     q_bits: int = 32                      # accounting float precision
-    client_mode: str = "scan"             # only scan is ported
+    client_mode: str = "scan"             # scan | vmap
+    aggregate: str = "dense"              # dense | sparse_gather (vmap only)
+    client_axes: Optional[Tuple[str, ...]] = None  # multi-GPU: §1.10
     use_kernel_adam: bool = False         # fused_adam kernel per leaf
     value_dtype: Optional[str] = None     # None | bfloat16 | float16
+    # fraction of clients sampled per round, by masking FedAvg weights
     participation: float = 1.0
 
     def __post_init__(self):
@@ -95,15 +113,16 @@ def fed_init(fed: FedConfig, params) -> FedState:
                     client_state=parts or None)
 
 
-def _check_ported(fed: FedConfig) -> None:
-    if fed.client_mode != "scan":
+def check_ported(fed: FedConfig) -> None:
+    """Raise for the parts of a configuration the port does not run yet:
+    the multi-GPU driver (``client_axes``, or any client mode but scan
+    and vmap)."""
+    if fed.client_axes is not None or fed.client_mode not in ("scan",
+                                                              "vmap"):
         raise NotImplementedError(
-            f"client_mode={fed.client_mode!r} is not ported yet: ROADMAP "
-            "§1.9 (round_vmap) and §1.10 (multi-GPU driver)")
-    if fed.participation < 1.0:
-        raise NotImplementedError(
-            "participation < 1 (client sampling) is not ported yet: "
-            "ROADMAP §1.6 (participation)")
+            f"client_axes={fed.client_axes!r}, client_mode="
+            f"{fed.client_mode!r}: the multi-GPU driver is not ported "
+            "yet: ROADMAP §1.10")
 
 
 # ---------------------------------------------------------------------------
@@ -187,13 +206,23 @@ def _local_deltas(local_update: str, loss_fn, W, M, V, batch, cstate,
 
 
 def make_client_step(fed: FedConfig, loss_fn: Callable,
-                     comp: Optional[compressors.Compressor] = None):
+                     comp: Optional[compressors.Compressor] = None,
+                     *, emit: str = "dense"):
     """ONE client's round: local epochs + compression.
 
     ``client_step(W, M, V, batch, cstate) -> (sW, sM, sV, new_cstate,
-    metrics)``; the carriers are the ones the wire payload decodes to."""
+    metrics)``; the carriers are the ones the wire payload decodes to
+    (dense transport skips the round trip, as in the JAX round: decoding
+    is the identity, and FedSGD's payload holds W alone).  ``emit="wire"``
+    (the vmap sparse-gather transport) returns ``(payload, new_cstate,
+    metrics)``: the client's :class:`~repro_torch.core.wire.WirePayload`
+    is its output, and the server decodes it.  (The JAX package's
+    ``wire_roundtrip=False``, the encoder's carriers without the round
+    trip, serves only its multi-GPU driver: ROADMAP §1.10.)"""
     if comp is None:
         comp = compressors.make_compressor(fed)
+    if emit not in ("dense", "wire"):
+        raise ValueError(f"emit={emit!r}")
 
     def client_step(W, M, V, batch, cstate):
         comp_state = cstate.get("comp") if cstate is not None else None
@@ -210,8 +239,11 @@ def make_client_step(fed: FedConfig, loss_fn: Callable,
                 new_cstate["comp"] = new_comp_state
             new_cstate.update(extras)
         mets = dict(packed.diag, loss=loss)
-        # dense transport skips the wire round trip, as in the JAX round:
-        # decoding is the identity, and FedSGD's payload holds W alone
+        if emit == "wire":
+            if packed.wire is None:
+                raise ValueError(f"{comp.name}: emit='wire' but compress "
+                                 "built no payload")
+            return packed.wire, new_cstate, mets
         if packed.wire is not None and comp.transport != "dense":
             sW, sM, sV = comp.unpack_wire(packed.wire, deltas.W)
         else:
@@ -251,52 +283,166 @@ def make_server_apply(fed: FedConfig,
     return server_apply
 
 
+class _Stack:
+    """Client outputs stacked ``(C, ...)`` as they arrive: the first
+    client's tree allocates the stack, every client's is copied into its
+    slot, so a round holds the stack and one client's output, never a
+    list of all of them beside the stack."""
+
+    def __init__(self, n: int):
+        self.n, self.leaves, self.treedef = n, None, None
+
+    def put(self, c: int, tree) -> None:
+        leaves, td = T.flatten(tree)
+        if self.leaves is None:
+            self.treedef = td
+            self.leaves = [torch.empty((self.n,) + tuple(x.shape),
+                                       dtype=x.dtype, device=x.device)
+                           for x in leaves]
+        for buf, x in zip(self.leaves, leaves):
+            buf[c].copy_(x)
+
+    def tree(self):
+        return self.treedef.unflatten(self.leaves)
+
+
+def stack_payloads(payloads) -> wire.WirePayload:
+    """Client payloads of one layout as one ``WirePayload`` of ``(C,
+    ...)`` tensors."""
+    return wire.WirePayload(*(
+        tuple(torch.stack(xs) for xs in zip(*parts))
+        for parts in zip(*payloads)))
+
+
+def run_clients_stacked(step, W, M, V, batches, cs, n: int):
+    """Clients ``0 .. n-1`` one after another through ``step(W, M, V,
+    batch, cstate)`` (client ``c`` on slice ``c`` of ``batches`` and of
+    the stacked client state ``cs``), each output of the tuple it returns
+    stacked ``(n, ...)`` slot by slot as it arrives (:class:`_Stack`; an
+    output that is ``None`` stays ``None``)."""
+    stacks = None
+    for c in range(n):
+        batch = T.tree_map(lambda x: x[c], batches)
+        cstate = None if cs is None else T.tree_map(lambda x: x[c], cs)
+        out = step(W, M, V, batch, cstate)
+        if stacks is None:
+            stacks = [None if o is None else _Stack(n) for o in out]
+        for s, o in zip(stacks, out):
+            if s is not None:
+                s.put(c, o)
+        del out
+    return tuple(None if s is None else s.tree() for s in stacks)
+
+
+def participation_weights(fed: FedConfig, weights: torch.Tensor,
+                          round_: int, rng=None) -> torch.Tensor:
+    """``weights`` with every client outside the round's draw set to 0.0:
+    the first ``active_client_count`` of ``permutation(fold_in(
+    PRNGKey(17), round), C)``, or of ``permutation(rng, C)`` for an
+    explicit uint32 key pair, exactly the JAX round's clients."""
+    key = None if rng is None else np.asarray(
+        rng.cpu() if isinstance(rng, torch.Tensor) else rng, np.uint32)
+    perm = _threefry.client_permutation(int(round_), fed.n_clients, key)
+    active = np.zeros(fed.n_clients, np.float32)
+    active[perm[:active_client_count(fed)]] = 1.0
+    host = torch.from_numpy(active)
+    if weights.is_cuda:
+        # pinned and asynchronous: the copy does not stall the stream
+        host = host.pin_memory()
+    return weights * host.to(weights.device, non_blocking=True)
+
+
 def make_fl_round(fed: FedConfig, loss_fn: Callable):
-    """Build ``round_fn(state, batches, weights=None) -> (state, metrics)``.
+    """Build ``round_fn(state, batches, weights=None, rng=None) -> (state,
+    metrics)``.
 
     ``batches``: a tree whose leaves have leading dims (C, [L,] ...), on
     the device of the parameters.  ``weights``: optional (C,) FedAvg
-    weights |D_n| (uniform by default)."""
-    _check_ported(fed)
+    weights |D_n| (uniform by default).  ``rng``: with ``participation <
+    1``, an optional uint32 key pair for the client draw (by default the
+    round counter's)."""
+    check_ported(fed)
     comp = compressors.make_compressor(fed)
     n_active = active_client_count(fed)
     client_step = make_client_step(fed, loss_fn, comp)
     server_apply = make_server_apply(fed, comp)
 
+    def stack(items):
+        return T.tree_map(lambda *xs: torch.stack(xs), *items)
+
     def round_scan(state: FedState, batches, weights):
         W, M, V = state.W, state.M, state.V
-        zero = lambda: T.tree_map(lambda x: torch.zeros(
-            x.shape, dtype=_F32, device=x.device), W)
-        aW, aM, aV = zero(), zero(), zero()
-        wsum = torch.zeros((), dtype=_F32, device=weights.device)
+        w = weights.to(_F32)
         cs = state.client_state
-        new_cs, mets = [], []
+        acc, new_cs, mets = None, [], []
         for c in range(fed.n_clients):
             batch = T.tree_map(lambda x: x[c], batches)
             cstate = None if cs is None else T.tree_map(lambda x: x[c], cs)
-            wgt = weights[c]
             sW, sM, sV, ncs, m = client_step(W, M, V, batch, cstate)
-            add = lambda a, s: T.tree_map(
-                lambda x, y: x + wgt * y.to(_F32), a, s)
-            aW, aM, aV = add(aW, sW), add(aM, sM), add(aV, sV)
-            wsum = wsum + wgt
+            acc = aggregate.weighted_fold(acc, w[c], (sW, sM, sV))
             new_cs.append(ncs)
             mets.append(m)
-        stack = lambda items: T.tree_map(lambda *xs: torch.stack(xs),
-                                         *items)
-        return (aW, aM, aV), wsum, \
+        return acc, aggregate.weight_total(w), \
             (None if cs is None else stack(new_cs)), stack(mets)
 
-    def round_fn(state: FedState, batches, weights=None):
+    def round_vmap(state: FedState, batches, weights):
+        """Every client's output stacked ``(C, ...)``, then the
+        ``aggregate`` transport.  JAX batches the clients with
+        ``jax.vmap``; ``torch.func.vmap`` cannot batch
+        ``torch.autograd.grad`` through the kernels' ctypes bindings, so
+        the clients run one after another here and each client's
+        numbers are bitwise the scan driver's (the same launches per
+        client too).  Only the aggregation differs: the wire transport
+        decodes and folds in client order (bitwise ``round_scan``), the
+        dense one is a weighted sum over the stack, and the COO pack
+        scatter-adds."""
+        W, M, V = state.W, state.M, state.V
+        wsum = torch.sum(weights.to(_F32))
+        sizes = tuple(x.numel() for x in T.leaves(W))
+        if (fed.aggregate == "sparse_gather" and comp.transport != "dense"
+                and comp.wire_bits_per_client(sizes) is not None):
+            emit_wire = make_client_step(fed, loss_fn, comp, emit="wire")
+
+            def wire_step(*args):
+                payload, ncs, m = emit_wire(*args)
+                # the payload's parts as a tree: three tuples of tensors
+                return tuple(payload), ncs, m
+
+            payload, new_cs, mets = run_clients_stacked(
+                wire_step, W, M, V, batches, state.client_state,
+                fed.n_clients)
+            aW, aM, aV = aggregate.packed_gather_sum(
+                comp, None, None, None, weights, alpha=fed.alpha,
+                value_dtype=fed.value_dtype, sort_free=not fed.exact_topk,
+                payload_c=wire.WirePayload(*payload), like=W)
+            return (aW, aM, aV), wsum, new_cs, mets
+        sW, sM, sV, new_cs, mets = run_clients_stacked(
+            client_step, W, M, V, batches, state.client_state, fed.n_clients)
+        if fed.aggregate == "sparse_gather":
+            aW, aM, aV = aggregate.packed_gather_sum(
+                comp, sW, sM, sV, weights, alpha=fed.alpha,
+                value_dtype=fed.value_dtype, sort_free=not fed.exact_topk)
+        else:
+            aW, aM, aV = (aggregate.dense_weighted_sum(t, weights)
+                          for t in (sW, sM, sV))
+        return (aW, aM, aV), wsum, new_cs, mets
+
+    driver = round_scan if fed.client_mode == "scan" else round_vmap
+
+    def round_fn(state: FedState, batches, weights=None, rng=None):
         device = T.leaves(state.W)[0].device
         if weights is None:
             weights = torch.ones((fed.n_clients,), dtype=_F32, device=device)
-        (aW, aM, aV), wsum, new_cs, mets = round_scan(state, batches,
-                                                      weights)
+        if fed.participation < 1.0:
+            # inactive clients still run (static work, as in the JAX
+            # round): their weight is 0.0 and their client state advances
+            weights = participation_weights(fed, weights, state.round, rng)
+        (aW, aM, aV), wsum, new_cs, mets = driver(state, batches, weights)
         W_new, M_new, V_new = server_apply(state.W, state.M, state.V,
                                            aW, aM, aV, wsum)
         # uplink accounting: the measured wire bytes when the compressor
-        # ships a payload, else the paper-analytic count
+        # ships a payload, else the paper-analytic count, times the
+        # participating clients
         sizes = tuple(x.numel() for x in T.leaves(state.W))
         per_client = comp.wire_bits_per_client(sizes)
         if per_client is None:
@@ -304,7 +450,8 @@ def make_fl_round(fed: FedConfig, loss_fn: Callable):
         mets = dict(mets)
         mets["uplink_bits"] = torch.full((), float(n_active * per_client),
                                          dtype=_F32, device=device)
-        return FedState(W=W_new, M=M_new, V=V_new, round=state.round + 1,
+        return FedState(W=W_new, M=M_new, V=V_new,
+                        round=int(state.round) + 1,
                         client_state=new_cs), mets
 
     return round_fn

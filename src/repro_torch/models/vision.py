@@ -10,6 +10,17 @@ NCHW/OIHW inside, and back to NHWC before flattening, so ``fc1``'s rows
 line up with the JAX model's.  Convolutions and matrix products are
 ``torch.nn.functional.conv2d`` and ``matmul`` (the JAX package leaves
 them to XLA, not to a Pallas kernel).
+
+On CPU tensors the convolutions call PyTorch's own im2col-and-matmul
+kernel by name (``aten._slow_conv2d_forward``, whose autograd backward is
+``_slow_conv2d_backward``), so neither oneDNN nor NNPACK is chosen and
+no process-wide backend flag is touched.  How close oneDNN's float32
+weight gradient comes to float64 depends on the host: on the CPU host of
+an H100 machine (torch 2.11) conv1's gradient of the width-1.0 CNN after
+one Efficient-Adam round sat 2.27e-3 from it (median relative error; the
+native kernel 1.5e-7, the card 1.2e-7), far beyond the tolerance that
+holds the port to the JAX package (tests/test_torch_onednn.py;
+``chip_smoke.py``'s ``conv1_float64_gap`` measures it).
 """
 from __future__ import annotations
 
@@ -40,13 +51,25 @@ def _same_pad(size: int, k: int, stride: int):
     return total // 2, total - total // 2
 
 
+def _conv2d(x, w, stride: int):
+    """``conv2d`` with no padding; on CPU tensors through the native
+    kernel (see the module docstring)."""
+    if x.device.type == "cpu":
+        # NCHW-contiguous operands: the kernel's backward refuses the
+        # channels-last weight gradient a permuted input would give it
+        return torch.ops.aten._slow_conv2d_forward(
+            x.contiguous(), w.contiguous(), list(w.shape[2:]), None,
+            [stride, stride], [0, 0])
+    return F.conv2d(x, w, stride=stride)
+
+
 def _conv(x, w, stride: int = 1):
     """x: NCHW, w: HWIO -> NCHW with XLA "SAME" padding."""
     kh, kw = w.shape[0], w.shape[1]
     ph = _same_pad(x.shape[2], kh, stride)
     pw = _same_pad(x.shape[3], kw, stride)
     x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
-    return F.conv2d(x, w.permute(3, 2, 0, 1), stride=stride)
+    return _conv2d(x, w.permute(3, 2, 0, 1), stride)
 
 
 def _nchw(x):

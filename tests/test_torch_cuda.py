@@ -632,3 +632,88 @@ def test_cuda_quantized_compress_matches_cpu(cuda_device, algorithm):
     a, b = pc.wire.scales[0].cpu().double(), pp.wire.scales[0].double()
     eps = torch.finfo(torch.float32).eps
     assert bool(((a - b).abs() <= 8 * eps * b.abs()).all())
+
+
+def _cnn_round_setup(device, C=4, **fed_kw):
+    """The width-0.25 CNN on ``device``, FedAdam-SSM with threshold masks
+    and error feedback, ``C`` clients and one round of batches."""
+    from repro_torch.core import FedConfig
+    from repro_torch.data import (client_batches, dirichlet_partition,
+                                  synthetic_image_dataset)
+    from repro_torch.models import vision
+    params, _, loss, _, ds = vision.build_vision("cnn", width=0.25, seed=3,
+                                                 device=device)
+    imgs, labels = synthetic_image_dataset(ds, 256, seed=1)
+    parts = dirichlet_partition(labels, n_clients=C, theta=0.1, seed=1)
+    (bx, by), w = client_batches([imgs, labels], parts, 8, seed=0)
+    batch = (torch.from_numpy(bx).to(device), torch.from_numpy(by).to(device))
+    kw = dict(algorithm="fedadam_ssm", alpha=0.05, n_clients=C,
+              local_epochs=2, exact_topk=False, error_feedback=True)
+    kw.update(fed_kw)
+    return params, loss, batch, torch.from_numpy(w).to(device), \
+        (lambda **over: FedConfig(**{**kw, **over}))
+
+
+def _assert_states_bitwise(a, b):
+    from repro_torch import tree as T
+    for name in ("W", "M", "V", "client_state"):
+        for x, y in zip(T.leaves(getattr(a, name)),
+                        T.leaves(getattr(b, name))):
+            assert_bitwise(x, y, name)
+    assert a.round == b.round
+
+
+@pytest.mark.cuda
+def test_cuda_vmap_wire_round_equals_scan(cuda_device):
+    """The vmap round with the wire transport is the scan round bit for
+    bit on the card, with the same launches per client."""
+    from repro_torch.core import fed_init, make_fl_round
+    torch.backends.cudnn.deterministic = True
+    params, loss, batch, w, fed = _cnn_round_setup(cuda_device)
+    out = {}
+    for mode in ("scan", "vmap"):
+        f = fed(client_mode=mode, aggregate="sparse_gather")
+        reset_launches()
+        st, mets = make_fl_round(f, loss)(fed_init(f, params), batch, w)
+        out[mode] = (st, float(mets["uplink_bits"]), dict(LAUNCHES))
+    _assert_states_bitwise(out["scan"][0], out["vmap"][0])
+    assert out["scan"][1:] == out["vmap"][1:]
+    assert out["vmap"][2]["packed_hist"] == 2 * 4
+
+
+@pytest.mark.cuda
+def test_cuda_async_degenerate_equals_scan(cuda_device):
+    """Zero churn, K = cohort: one server step is the scan round."""
+    from repro_torch.core import (AsyncConfig, fed_init, make_async_round,
+                                  make_fl_round)
+    from repro_torch.data import ChurnConfig, ChurnModel
+    torch.backends.cudnn.deterministic = True
+    params, loss, batch, w, fed = _cnn_round_setup(cuda_device)
+    f = fed()
+    st, mets = make_fl_round(f, loss)(fed_init(f, params), batch, w)
+    run = make_async_round(f, loss, AsyncConfig(buffer_size=4),
+                           churn=ChurnModel(ChurnConfig(), 4))
+    ast, amets = run(fed_init(f, params), batch, w.cpu(), rounds=1)
+    assert amets["server_steps"] == 1 and amets["landed"] == 4
+    assert float(amets["uplink_bits"]) == float(mets["uplink_bits"])
+    _assert_states_bitwise(st, ast)
+
+
+@pytest.mark.cuda
+def test_cuda_client_draw_equals_cpu(cuda_device):
+    """The participation draw masks the same clients' weights on a state
+    built on the card as on the CPU, and the round bills them."""
+    from repro_torch.core import fed_init, make_fl_round
+    from repro_torch.core.fed import participation_weights
+    params, loss, batch, w, fed = _cnn_round_setup(cuda_device, C=6)
+    f = fed(participation=0.5)
+    for r in range(5):
+        got = participation_weights(f, w, r)
+        assert got.is_cuda
+        assert_bitwise(got, participation_weights(f, w.cpu(), r), f"round {r}")
+    st, mets = make_fl_round(f, loss)(fed_init(f, params)._replace(round=3),
+                                      batch, w)
+    assert st.round == 4
+    assert float(mets["uplink_bits"]) == 3 * float(
+        make_fl_round(fed(), loss)(fed_init(fed(), params), batch,
+                                   w)[1]["uplink_bits"]) / 6

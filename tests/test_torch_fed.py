@@ -30,8 +30,8 @@ from _torch_parity import (assert_bitwise, jax_packed_oracles,  # noqa: F401
 from repro.core import fed as jfed
 from repro.models import vision as jvision
 from repro.optim import adam as jadam
-from repro_torch.core import (FedConfig, fed_init, make_fl_round,
-                              make_server_apply)
+from repro_torch.core import (FedConfig, fed_init, make_async_round,
+                              make_fl_round, make_server_apply)
 from repro_torch.data import (client_batches, dirichlet_partition,
                               synthetic_image_dataset)
 from repro_torch.models import vision
@@ -485,15 +485,19 @@ def test_entry_points_need_a_card_or_device_cpu(monkeypatch):
     assert all(x.device.type == "cpu" for x in params.values())
 
 
-@pytest.mark.parametrize("kw,what", [
-    (dict(client_mode="vmap"), "§1.9"),
-    (dict(participation=0.5), "§1.6"),
-    (dict(client_mode="shard_map"), "§1.10"),
+@pytest.mark.parametrize("build,what", [
+    (lambda loss: make_fl_round(FedConfig(client_axes=("data",)), loss),
+     "§1.10"),
+    (lambda loss: make_async_round(FedConfig(), loss,
+                                   client_exec="shardmap"), "§1.10"),
+    (lambda loss: make_fl_round(FedConfig(client_mode="shard_map"), loss),
+     "§1.10"),
 ])
-def test_round_outside_the_slice_raises(kw, what):
-    fed = FedConfig(**kw)
+def test_round_outside_the_slice_raises(build, what):
+    """Only the multi-GPU drivers are left to port: the round over mesh
+    client axes and the async driver's shard_map cohort."""
     with pytest.raises(NotImplementedError, match=what):
-        make_fl_round(fed, lambda p, b: p["w"].sum())
+        build(lambda p, b: p["w"].sum())
 
 
 def test_port_registers_every_jax_algorithm():
