@@ -104,7 +104,30 @@ Phases:
    discarded updates, uplink exactly the landed payloads, wall time and
    peak memory; the per-leaf kernels of the vmap round (fused_adam,
    absmax, count_ge's two passes, ssm_apply_ef) against their plain
-   versions on its first inputs at w_up and a norm leaf.
+   versions on its first inputs at w_up and a norm leaf;
+13. (after 12) the MoE, MLA and Mamba-2 (SSD) layers at full width, each
+   model built after the previous one is freed: deepseek-v2-lite-16b (MLA,
+   64 routed experts top-6 and 2 shared; cut to 1 of 27 pattern repeats,
+   the whole period, with its whole 102,400-row vocabulary: 1,002,051,584
+   parameters in 17 leaves) and mamba2-1-3b (SSD, d_state 128, chunk 256,
+   tied embeddings; cut to 8 of 48 repeats: 310,081,024 parameters in 11
+   leaves), no width cut, each under phase 5's FedAdam-SSM at sequence 512
+   (deepseek as vmap rounds with the wire transport, after one scan round
+   tried on its own, whose peak or failed allocation is recorded) through
+   ``train.make_trainer``: 2 rounds with finite losses, exact launches per
+   client (fused_adam 3L, absmax L, count_ge 2L, ssm_apply_ef L,
+   pack_words and unpack_words 1, L the leaves), the bill ``8 *
+   payload_nbytes`` equal to the layout's wire bits, wall times, peak
+   memory (reset before the model is built), a profiled round, 0 stream
+   syncs, and a round from one state run twice bit for bit (else the
+   leaves and gradients that differ are named); the per-leaf kernels
+   against their plain versions on that round's first inputs at the new
+   leaf kinds (deepseek's w_gate expert stack, 184,549,376 bfloat16
+   elements, and its float32 router; mamba's in_proj and its float32
+   a_log), pack_words and unpack_words on its bitmap; then one block of
+   each (MLA + MoE; SSD) forward and backward in float32 at b = 1, s =
+   512 on the card against the host's CPU, routing identical, outputs and
+   gradients within ``ZOO_BLOCK_TOL``.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.  Any failure
@@ -119,6 +142,7 @@ import contextlib
 import itertools
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -152,6 +176,37 @@ LM_SHAPES = {"embed": 150_994_944, "w_up": 75_497_472, "norm": 6_144}
 LM_BITMAP_SLOTS = 493_895_680
 
 
+#: Phase 13, the MoE, MLA and Mamba-2 (SSD) layers at full width: each
+#: configuration's cut (deepseek-v2-lite-16b: 1 of 27 pattern repeats, the
+#: whole period; mamba2-1-3b: 8 of 48 repeats; no width and no vocabulary
+#: is cut), its parameters, leaves and FedAdam-SSM payload bytes per
+#: client, the round's driver, and the leaves whose first inputs the phase
+#: replays through the per-leaf kernels: name -> (elements, leaves of that
+#: size before it in leaf order).  deepseek's scan round does not fit the
+#: card (``scan_round_probe`` measures it), so it runs the vmap round with
+#: the wire transport, whose numbers are bitwise the scan round's (phase
+#: 12).
+ZOO = {
+    "deepseek-v2-lite-16b": {
+        "cut": {"pattern_repeats": 1},
+        "params": 1_002_051_584, "leaves": 17, "wire_bytes": 762_563_036,
+        "driver": {"client_mode": "vmap", "aggregate": "sparse_gather"},
+        "replayed": {"w_gate": (184_549_376, 1), "router": (131_072, 0)}},
+    "mamba2-1-3b": {
+        "cut": {"pattern_repeats": 8},
+        "params": 310_081_024, "leaves": 11, "wire_bytes": 235_972_972,
+        "driver": {},
+        "replayed": {"in_proj": (139_460_608, 0), "a_log": (512, 0)}},
+}
+#: Phase 13's sequence (two SSD chunks of 256; 64 slots per deepseek
+#: expert and row); otherwise phase 5's traffic.
+ZOO_SEQ = 512
+#: Phase 13's card-vs-CPU block: outputs and gradients within this share
+#: of their largest element (float32 on both sides, TF32 off; the two
+#: sum contractions of up to 8,512 terms in other orders).
+ZOO_BLOCK_TOL = 1e-4
+
+
 def per_client_round(**nonzero):
     """Expected launches of every kernel per client and round: those
     named, and 0 for the others."""
@@ -167,18 +222,24 @@ def per_client_round(**nonzero):
 CNN_TOP_LAUNCHES = per_client_round(packed_hist=2, packed_apply=1,
                                     pack_words=3, unpack_words=3)
 
+def ssm_launches(n_leaves: int) -> dict:
+    """Expected launches per client and round of a FedAdam-SSM round of a
+    mixed-dtype model with ``n_leaves`` leaves (the per-leaf compress):
+    fused_adam once per leaf and local epoch; per leaf one absmax, two
+    counts and one fused apply; one bitmap."""
+    return per_client_round(
+        pack_words=1, unpack_words=1, fused_adam=n_leaves * LM_LOCAL_EPOCHS,
+        absmax=n_leaves, count_ge=2 * n_leaves, ssm_apply_ef=n_leaves)
+
+
 #: The transformer's two algorithms: payload bytes per client, the
 #: payload's encoder, expected launches per client and round, and the
-#: per-leaf kernels whose inputs phase 6 replays.  FedAdam-SSM: fused_adam
-#: once per leaf and local epoch; per leaf one absmax, two counts and one
-#: fused apply; one bitmap.  FedAdam-Top: per leaf and delta one absmax,
-#: two counts and one mask apply; three bitmaps.
+#: per-leaf kernels whose inputs phase 6 replays.  FedAdam-Top: per leaf
+#: and delta one absmax, two counts and one mask apply; three bitmaps.
 LM_PATHS = {
     "fedadam_ssm": {
         "wire_bytes": 375_854_948, "encoder": "pack_shared_mask",
-        "launches": per_client_round(
-            pack_words=1, unpack_words=1, fused_adam=11 * LM_LOCAL_EPOCHS,
-            absmax=11, count_ge=22, ssm_apply_ef=11),
+        "launches": ssm_launches(11),
         "replayed": ("fused_adam", "absmax", "count_ge", "ssm_apply_ef")},
     "fedadam_top": {
         "wire_bytes": 499_328_868, "encoder": "pack_independent_mask",
@@ -311,30 +372,43 @@ class Capture:
     ``arg`` instead (``args[name][size]``); with ``calls``, the first that
     many calls of each."""
 
-    def __init__(self):
+    def __init__(self, host=False):
+        """``host``: keep the copies in pinned host memory (``_clone``)."""
         self.args = collections.defaultdict(dict)
         self.outs = {}
         self.wrapped = []
+        self.host = host
 
     def restore(self):
-        """Put every wrapped entry point back."""
+        """Put every wrapped entry point back.  An entry point wrapped twice
+        holds the first wrapper, which holds this object: the list is
+        emptied, or that cycle would keep the captured tensors alive until
+        Python's cyclic collector ran."""
         for module, attr, fn in reversed(self.wrapped):
             setattr(module, attr, fn)
+        self.wrapped.clear()
 
     def wrap(self, module, attr, name, arg=None, sizes=(None,), calls=1,
-             keep=None):
+             keep=None, skip=0):
         """``keep``: record ``keep(out)`` instead of the output (what a
-        phase needs of a large payload without holding it)."""
+        phase needs of a large payload without holding it); ``skip``: pass
+        over the first that many calls of each size (another leaf of the
+        same size ahead of the one wanted)."""
         fn = getattr(module, attr)
         self.wrapped.append((module, attr, fn))
+        passed = collections.Counter()
 
         def rec(*args, **kw):
             key = None if arg is None else args[arg].numel()
-            seen = self.args[name].setdefault(key, []) \
-                if key in sizes else None
+            seen = None
+            if key in sizes:
+                passed[key] += 1
+                if passed[key] > skip:
+                    seen = self.args[name].setdefault(key, [])
             first = seen is not None and len(seen) < calls
             if first:
-                seen.append(([_clone(a) for a in args], dict(kw)))
+                seen.append(([_clone(a, self.host) for a in args],
+                             dict(kw)))
             out = fn(*args, **kw)
             if first and arg is None and name not in self.outs:
                 self.outs[name] = out if keep is None else keep(out)
@@ -769,10 +843,25 @@ def run_kernel(torch, name, args, kw):
         ["unpack_words_kernel"]
 
 
-def _clone(a):
+def _clone(a, host=False):
+    """A copy of ``a`` (a tensor or a tuple of them); with ``host``, a
+    card tensor's copy goes to pinned host memory without waiting for the
+    stream (``_on_card`` brings it back, in stream order)."""
     if isinstance(a, tuple):
-        return tuple(_clone(x) for x in a)
-    return a.clone() if hasattr(a, "clone") else a
+        return tuple(_clone(x, host) for x in a)
+    if not hasattr(a, "clone"):
+        return a
+    if host and a.is_cuda:
+        import torch
+        out = torch.empty(a.shape, dtype=a.dtype, pin_memory=True)
+        return out.copy_(a, non_blocking=True)
+    return a.clone()
+
+
+def _on_card(a):
+    if isinstance(a, (tuple, list)):
+        return type(a)(_on_card(x) for x in a)
+    return a.to("cuda") if hasattr(a, "is_cuda") and not a.is_cuda else a
 
 
 #: Bytes a timing loop must cycle through so that every launch finds its
@@ -1106,35 +1195,25 @@ def _lm_entry_points():
             "ssm_apply_ef": (sparsify, "ssm_apply_ef")}
 
 
-def phase_transformer(torch, seed, algorithm):
-    import dataclasses
-    from repro_torch import tree as T
-    from repro_torch.configs import get_config
-    from repro_torch.core import wire
+def lm_rounds(torch, cfg, fed, seed, seq, per_client, label):
+    """``cfg``'s trainer under ``fed`` built on the card (the peak memory
+    statistic reset just before), then LM_ROUNDS rounds of batch 2 at
+    sequence ``seq`` with the launch counters zeroed just before and read
+    just after: finite losses and states, and exactly ``per_client``
+    launches per client and round.  Returns ``(round_fn, state, batches,
+    the last round's metrics, record)``."""
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.launch import train
 
-    spec = LM_PATHS[algorithm]
     dev = torch.device("cuda")
-    cfg = dataclasses.replace(get_config("starcoder2-3b"),
-                              pattern_repeats=LM_REPEATS)
-    fed = lm_fed(LM_CLIENTS, algorithm)
     torch.cuda.synchronize()
     held = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     round_fn, state = train.make_trainer(cfg, fed, seed=seed, device=dev)
-    sizes = tuple(x.numel() for x in T.leaves(state.W))
-    require(sum(sizes) == LM_PARAMS and len(sizes) == 11,
-            f"starcoder2-3b at 2 repeats has {sum(sizes)} parameters in "
-            f"{len(sizes)} leaves")
-    dtypes = sorted({str(x.dtype) for x in T.leaves(state.W)})
-    require(dtypes == ["torch.bfloat16", "torch.float32"],
-            f"leaf dtypes {dtypes}")
-
-    rounds = []
-    batches = [train.build_client_batches(cfg, LM_CLIENTS, 2, 128, seed=r,
-                                          device=dev)
+    batches = [train.build_client_batches(cfg, fed.n_clients, 2, seq,
+                                          seed=r, device=dev)
                for r in range(LM_ROUNDS)]
+    rounds = []
     torch.cuda.synchronize()
     reset_launches()
     for r in range(LM_ROUNDS):
@@ -1144,20 +1223,43 @@ def phase_transformer(torch, seed, algorithm):
         wall = time.perf_counter() - t0
         losses = mets["loss"].cpu().tolist()
         rounds.append({"round": r, "loss": losses, "wall_s": wall})
-        log(f"lm {algorithm} round {r}: loss={losses} wall={wall:.3f} s")
+        log(f"{label} round {r}: loss={losses} wall={wall:.3f} s")
         require(all(math.isfinite(x) for x in losses),
-                f"lm round {r} loss is {losses}")
+                f"{label} round {r} loss is {losses}")
     launches = dict(LAUNCHES)
-    n_cr = LM_ROUNDS * LM_CLIENTS
-    want = {k: v * n_cr for k, v in spec["launches"].items()}
-    log(f"lm {algorithm} launches: {launches}")
-    require(launches == want, f"launches {launches}, expected {want}")
+    n_cr = LM_ROUNDS * fed.n_clients
+    want = {k: v * n_cr for k, v in per_client.items()}
+    log(f"{label} launches: {launches}")
+    require(launches == want, f"{label} launches {launches}, expected "
+            f"{want}")
     peak = torch.cuda.max_memory_allocated()
-    log(f"lm {algorithm} peak device memory: {peak / 2**30:.2f} GiB "
+    log(f"{label} peak device memory: {peak / 2**30:.2f} GiB "
         f"({held / 2**30:.2f} GiB held before the phase began)")
-    for name in "WMV":
-        for x in T.leaves(getattr(state, name)):
-            require(bool(torch.isfinite(x).all()), f"{name} not finite")
+    _finite_state(torch, state, label)
+    return round_fn, state, batches, mets, {
+        "rounds": rounds, "launches": launches, "peak_bytes": peak,
+        "held_bytes_at_start": held}
+
+
+def phase_transformer(torch, seed, algorithm):
+    import dataclasses
+    from repro_torch import tree as T
+    from repro_torch.configs import get_config
+    from repro_torch.core import wire
+
+    spec = LM_PATHS[algorithm]
+    cfg = dataclasses.replace(get_config("starcoder2-3b"),
+                              pattern_repeats=LM_REPEATS)
+    round_fn, state, batches, mets, out = lm_rounds(
+        torch, cfg, lm_fed(LM_CLIENTS, algorithm), seed, 128,
+        spec["launches"], f"lm {algorithm}")
+    sizes = tuple(x.numel() for x in T.leaves(state.W))
+    require(sum(sizes) == LM_PARAMS and len(sizes) == 11,
+            f"starcoder2-3b at 2 repeats has {sum(sizes)} parameters in "
+            f"{len(sizes)} leaves")
+    dtypes = sorted({str(x.dtype) for x in T.leaves(state.W)})
+    require(dtypes == ["torch.bfloat16", "torch.float32"],
+            f"leaf dtypes {dtypes}")
     uplink = float(mets["uplink_bits"])
     wire_bytes = spec["wire_bytes"]
     require(wire.mask_wire_bits(sizes, 0.05, exact_topk=False,
@@ -1196,9 +1298,8 @@ def phase_transformer(torch, seed, algorithm):
             f"captured {({k: sorted(v) for k, v in cap.args.items()})}")
     require(prof["syncs"]["per_round"] == 0,
             f"the transformer round synchronised the stream: {prof['syncs']}")
-    return {"rounds": rounds, "launches": launches, "peak_bytes": peak,
-            "held_bytes_at_start": held, "payload_bytes": nbytes,
-            "uplink_bits": uplink, "round_profile": prof}, dict(cap.args)
+    return dict(out, payload_bytes=nbytes, uplink_bits=uplink,
+                round_profile=prof), dict(cap.args)
 
 
 # ---------------------------------------------------------------------------
@@ -2394,11 +2495,287 @@ def phase_lm_drivers(torch, seed):
 
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the MoE, MLA and Mamba-2 (SSD) layers at full width
+# ---------------------------------------------------------------------------
+
+
+def _nondeterministic(torch, round_fn, state, batch, first, loss):
+    """Why two rounds from one state differ: the leaves of W, M, V and the
+    client state that differ, and the parameters whose gradient (one
+    client's first local step, taken twice) differs, named by their path:
+    the backward operation that writes that gradient is the one to fix."""
+    from repro_torch import tree as T
+    from repro_torch.checkpoint.io import _paths
+    from repro_torch.core.fed import _value_and_grad
+    second = round_fn(state, batch)[0]
+    names = [n for n, _ in _paths(state.W, ())]
+    out = {}
+    for part in ("W", "M", "V"):
+        out[part] = [n for n, x, y in zip(names, T.leaves(getattr(second,
+                                                                part)),
+                                          T.leaves(getattr(first, part)))
+                     if not torch.equal(_bits(torch, x),
+                                        _bits(torch, y.to(x.device)))]
+    del second
+    one = T.tree_map(lambda x: x[0], batch)
+    grads = [_value_and_grad(loss, state.W, one)[1] for _ in range(2)]
+    out["gradient"] = [n for n, a, b in zip(names, T.leaves(grads[0]),
+                                            T.leaves(grads[1]))
+                       if not torch.equal(_bits(torch, a), _bits(torch, b))]
+    return out
+
+
+def scan_round_probe(torch, cfg, fed, seed, name):
+    """One scan round of ``cfg`` under ``fed`` from a trainer of its own
+    (the peak memory statistic reset just before it is built): its peak,
+    or, where the card runs out, the peak allocated when an allocation
+    failed and the allocator's message.  Everything it made is freed and
+    the cache emptied before it returns."""
+    import gc
+    from repro_torch.launch import train
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = {"fits": True, "error": None}
+    try:
+        round_fn, state = train.make_trainer(cfg, fed, seed=seed,
+                                             device="cuda")
+        batch = train.build_client_batches(cfg, fed.n_clients, 2, ZOO_SEQ,
+                                           seed=0, device="cuda")
+        t0 = time.perf_counter()
+        state = round_fn(state, batch)
+        torch.cuda.synchronize()
+        out["wall_s"] = time.perf_counter() - t0
+    except torch.OutOfMemoryError as e:
+        out = {"fits": False, "error": str(e)[:400]}
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    round_fn = state = batch = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"{name} scan round tried alone: {json.dumps(out)}")
+    return out
+
+
+def phase_zoo(torch, seed, name):
+    """``name`` at ZOO's cut under FedAdam-SSM (alpha 0.05, threshold
+    masks, error feedback, the fused Adam; 4 clients, 3 local epochs,
+    batch 2, sequence 512), through ``train.make_trainer`` with ZOO's
+    driver (where that is not the scan round, ``scan_round_probe`` first):
+    2 rounds with the launch counters zeroed just before and read just
+    after (exact per client), wall times and the peak memory (reset just
+    before the model is built); the bill against the layout's wire bits;
+    a profiled round; a round that counts stream syncs, in which the first
+    client's payload is measured and the per-leaf kernels' inputs at the
+    replayed leaves (and the bitmap's) are kept for
+    ``phase_zoo_kernels``; then one more round from the state the rounds
+    left, twice, bitwise (else the phase fails naming the leaves and
+    gradients that differ)."""
+    import dataclasses
+    from repro_torch import tree as T
+    from repro_torch.configs import get_config
+    from repro_torch.core import wire
+
+    spec = ZOO[name]
+    cfg = dataclasses.replace(get_config(name), **spec["cut"])
+    fed = lm_fed(LM_CLIENTS, "fedadam_ssm")
+    probe = None
+    if spec["driver"]:
+        probe = scan_round_probe(torch, cfg, fed, seed, name)
+        fed = dataclasses.replace(fed, **spec["driver"])
+    round_fn, state, batches, mets, out = lm_rounds(
+        torch, cfg, fed, seed, ZOO_SEQ, ssm_launches(spec["leaves"]), name)
+    sizes = tuple(x.numel() for x in T.leaves(state.W))
+    require(sum(sizes) == spec["params"] and len(sizes) == spec["leaves"],
+            f"{name} at its cut has {sum(sizes)} parameters in "
+            f"{len(sizes)} leaves")
+    wire_bits = wire.mask_wire_bits(sizes, 0.05, exact_topk=False)
+    require(wire_bits == 8 * spec["wire_bytes"], f"{name}: wire bits "
+            f"{wire_bits}")
+    uplink = float(mets["uplink_bits"])
+    require(uplink == _f32(torch, LM_CLIENTS * wire_bits),
+            f"{name} uplink bits {uplink}")
+    batch = batches[-1]
+    prof = profile_round(torch, round_fn, state, batch, None)
+    # the kernels' inputs are captured in the sync-counting round, so that
+    # the copies kept stay out of the measured peak, and kept on the host:
+    # deepseek's round leaves no room for them on the card
+    cap = Capture(host=True)
+    cap.wrap(wire, "pack_shared_mask", "payload", keep=_payload_facts)
+    entry = _lm_entry_points()
+    for kname in LM_PATHS["fedadam_ssm"]["replayed"]:
+        passes = len(LM_PASSES.get(kname, ("",)))
+        for n, before in spec["replayed"].values():
+            cap.wrap(*entry[kname], kname, LM_KERNELS[kname][2], (n,),
+                     passes, skip=before * passes)
+    # nor are the codec's outputs held (deepseek's bitmap unpacks to
+    # 3.73 GiB of int32)
+    cap.wrap(wire, "pack_mask_bits", "pack_words", keep=lambda _: None)
+    cap.wrap(wire, "unpack_mask_bits", "unpack_words", keep=lambda _: None)
+    try:
+        prof["syncs"] = count_syncs(torch, round_fn, state, batch, None)
+    finally:
+        cap.restore()
+    log(f"{name} profiled round: {json.dumps(prof)}")
+    nbytes, on_card = cap.outs["payload"]
+    log(f"{name} first client's payload built on the card: {nbytes} bytes")
+    require(on_card and 8 * nbytes == wire_bits,
+            f"{name}: the card's payload holds {nbytes} bytes")
+    require(prof["syncs"]["per_round"] == 0,
+            f"{name} round synchronised the stream: {prof['syncs']}")
+    captured = dict(cap.args)
+    del cap
+    # the repeat: one round from this state, twice, the first result held
+    # on the host
+    t0 = time.perf_counter()
+    first = round_fn(state, batches[0])[0]
+    first = first._replace(**{k: T.tree_map(lambda x: x.cpu(),
+                                            getattr(first, k))
+                              for k in ("W", "M", "V", "client_state")})
+    second = round_fn(state, batches[0])[0]
+    try:
+        _states_bitwise(torch, second, first, f"{name} repeated round")
+    except RuntimeError:
+        del second
+        why = _nondeterministic(torch, round_fn, state, batches[0], first,
+                                lm_loss(cfg))
+        raise RuntimeError(f"chip_smoke: {name}: a round from one state "
+                           f"does not repeat bit for bit: {why}")
+    repeat_s = time.perf_counter() - t0
+    log(f"{name}: a round from one state repeats bit for bit "
+        f"({repeat_s:.2f} s for both and the host copy)")
+    return dict(out, cut=spec["cut"], params=sum(sizes),
+                leaves=len(sizes), leaf_sizes=list(sizes),
+                payload_bytes=nbytes,
+                uplink_bits=uplink, round_profile=prof,
+                launches_per_client_round=_per(
+                    out["launches"], LM_ROUNDS * LM_CLIENTS),
+                repeat_bitwise=True, client_mode=fed.client_mode,
+                aggregate=fed.aggregate, scan_round_probe=probe), captured
+
+
+def phase_zoo_kernels(torch, name, captured, launches, kernels):
+    """The per-leaf kernels against their plain versions, bitwise, on the
+    inputs ``name``'s first client gave them at the replayed leaves
+    (count_ge on both passes; fused_adam's w' within its root's bound),
+    with times and bounds; one absmax or count_ge call must be one device
+    operation.  Then pack_words and unpack_words on that client's bitmap.
+    Adds ``at_<name>`` and the phase's launches to the kernels' records."""
+    by_name = {k["name"]: k for k in kernels}
+    for kname in LM_PATHS["fedadam_ssm"]["replayed"]:
+        leaf_arg = LM_KERNELS[kname][2]
+        passes = LM_PASSES.get(kname, ("",))
+        per_leaf = {}
+        for leaf, (n, _) in ZOO[name]["replayed"].items():
+            calls = captured[kname].get(n, [])
+            require(len(calls) == len(passes),
+                    f"{kname}: {len(calls)} calls captured at {leaf}")
+            for pass_name, (args, kw) in zip(passes, calls):
+                args = _on_card(args)
+                label = f"{leaf}/{pass_name}" if pass_name else leaf
+                per_leaf[label] = rec = lm_kernel_record(
+                    torch, kname, args, kw, leaf_arg, n)
+                rec["shape"] = list(args[leaf_arg].shape)
+                log(f"{kname} at {name} {label}: {json.dumps(rec)}")
+                if kname in ("absmax", "count_ge"):
+                    require(rec["device_ops_per_call"] == 1,
+                            f"{kname} at {name} {label}: "
+                            f"{rec['device_ops_per_call']} device "
+                            f"operations per call")
+        k = by_name[kname]
+        k["max_abs_err"] = max(k["max_abs_err"],
+                               *(r["max_abs_err"] for r in per_leaf.values()))
+        k[f"at_{name}"] = per_leaf
+    for kname in ("pack_words", "unpack_words"):
+        ((args, kw),) = captured[kname][None]
+        rec = measure(torch, kname, _on_card(args), kw, iters=10,
+                      plain_iters=1)
+        log(f"{kname} at {name}'s bitmap: {json.dumps(rec)}")
+        k = by_name[kname]
+        k["max_abs_err"] = max(k["max_abs_err"], rec["max_abs_err"])
+        k[f"at_{name}"] = rec
+    for k in kernels:
+        k.setdefault("launches_zoo", {})[name] = launches[k["name"]]
+
+
+def phase_zoo_block_vs_cpu(torch, seed, name):
+    """One block of ``name`` (deepseek: MLA and the MoE FFN; mamba2: the
+    SSD mixer) at full width in float32, forward and backward of ``sum(y *
+    cot) + aux`` with b = 1 and s = 512, on the card and on the host's CPU
+    from the same weights and input: the MoE routing (experts, keep, dst)
+    identical, outputs and gradients within ``ZOO_BLOCK_TOL`` of their
+    largest element."""
+    import dataclasses
+    from repro_torch import tree as T
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as TM
+    from repro_torch.models.params import materialize
+
+    cfg = dataclasses.replace(get_config(name), dtype="float32")
+    spec = cfg.layer_pattern[0]
+    params = materialize(TM._block_params(cfg, spec), seed, "float32",
+                         "cpu")
+    gen = torch.Generator().manual_seed(seed + 1)
+    x = torch.randn((1, ZOO_SEQ, cfg.d_model), generator=gen)
+    cot = torch.randn(x.shape, generator=gen)
+    side = {}
+    for dev in ("cuda", "cpu"):
+        cap = Capture()
+        cap.wrap(L, "moe_route", "route",
+                 keep=lambda r: (r.eidx.cpu(), r.keep.cpu(), r.dst.cpu()))
+        try:
+            p = T.tree_map(lambda t: t.to(dev).requires_grad_(True), params)
+            xd = x.to(dev).requires_grad_(True)
+            pos = torch.arange(ZOO_SEQ, device=dev)[None]
+            t0 = time.perf_counter()
+            y, aux = TM._block_fwd(cfg, spec, p, xd, positions=pos)
+            loss = (y * cot.to(dev)).sum()
+            if aux is not None:
+                loss = loss + aux
+            loss.backward()
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            cap.restore()
+        side[dev] = {"y": y.detach().cpu(), "route": cap.outs.get("route"),
+                     "grads": [t.grad.cpu() for t in T.leaves(p)]
+                     + [xd.grad.cpu()], "wall_s": wall}
+        del p, xd, y, loss
+    gpu, cpu = side["cuda"], side["cpu"]
+    moe = spec.moe is not None
+    require(moe == (gpu["route"] is not None), f"{name}: routing capture")
+    if moe:
+        for what, a, b in zip(("eidx", "keep", "dst"), gpu["route"],
+                              cpu["route"]):
+            require(torch.equal(a, b), f"{name}: routing {what} differs "
+                    f"between the card and the CPU")
+    rel = lambda a, b: float((a.double() - b.double()).abs().max()
+                             / b.double().abs().max().clamp_min(1e-30))
+    y_err = rel(gpu["y"], cpu["y"])
+    g_err = max(rel(a, b) for a, b in zip(gpu["grads"], cpu["grads"]))
+    out = {"routing_identical": moe or None, "y_rel_err": y_err,
+           "grad_rel_err": g_err, "tolerance": ZOO_BLOCK_TOL,
+           "wall_s_cuda": gpu["wall_s"], "wall_s_cpu": cpu["wall_s"],
+           "host_cpu": host_cpu()}
+    log(f"{name} block card vs CPU: {json.dumps(out)}")
+    require(y_err <= ZOO_BLOCK_TOL and g_err <= ZOO_BLOCK_TOL,
+            f"{name} block: card vs CPU {y_err:.2e} / {g_err:.2e}")
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
+    # deepseek's vmap round at its whole vocabulary fits the card only
+    # without the caching allocator's fixed segments, which strand free
+    # memory between them (on an H100 80GB: 13.49 GiB reserved but
+    # unallocated when a 7.47 GiB request failed)
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
     import numpy as np
     import torch
 
@@ -2448,6 +2825,19 @@ def main(argv=None):
     lm_drivers, captured = phase_lm_drivers(torch, args.seed)
     phase_driver_kernels(torch, captured, kernels, "lm_vmap_wire")
     del captured
+    # phase 13: each model built after the previous one is freed
+    zoo = {}
+    for name in ZOO:
+        zoo[name], captured = phase_zoo(torch, args.seed, name)
+        # the model's rounds leave the allocator holding nearly the whole
+        # card, and there the profiler recorded no device activity in ten
+        # windows (on an H100 80GB): the cache goes back to the driver
+        torch.cuda.empty_cache()
+        phase_zoo_kernels(torch, name, captured, zoo[name]["launches"],
+                          kernels)
+        del captured
+        zoo[name]["block_card_vs_cpu"] = phase_zoo_block_vs_cpu(
+            torch, args.seed, name)
     for k in kernels:
         k["launches_fedadam_top"] = {"cnn": cnn_top["launches"][k["name"]],
                                      "lm": lm_top["launches"][k["name"]]}
@@ -2489,7 +2879,7 @@ def main(argv=None):
               "cnn_baselines": cnn_base, "exact_topk_ties": exact,
               "transformer_baselines": lm_base,
               "cnn_drivers": cnn_drivers, "transformer_drivers": lm_drivers,
-              "total_s": time.perf_counter() - t_start}
+              "zoo": zoo, "total_s": time.perf_counter() - t_start}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))

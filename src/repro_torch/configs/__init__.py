@@ -1,8 +1,9 @@
 """Architecture configs of the port (one module per architecture).
 
-Importing this package registers every config the port has: the dense GQA
-family's ``starcoder2-3b``.  The rest of the JAX package's zoo is ROADMAP
-§1.13; ``get_config`` of such a name raises ``NotImplementedError``.
+Importing this package registers every config the port has: the JAX
+package's zoo but for the two whose encoder or stub frontend is not ported
+yet (``whisper-base``, ``llava-next-mistral-7b``: ROADMAP §1.13), for which
+``get_config`` raises ``NotImplementedError``.
 """
 from repro_torch.configs.base import (  # noqa: F401
     ArchConfig,
@@ -17,4 +18,13 @@ from repro_torch.configs.base import (  # noqa: F401
     register,
 )
 
-from repro_torch.configs import starcoder2_3b  # noqa: F401,E402
+from repro_torch.configs import (  # noqa: F401,E402
+    deepseek_v2_lite_16b,
+    gemma3_27b,
+    jamba_1_5_large_398b,
+    kimi_k2_1t_a32b,
+    mamba2_1_3b,
+    mistral_large_123b,
+    starcoder2_3b,
+    starcoder2_7b,
+)

@@ -7,9 +7,10 @@ a declarative description of a (possibly heterogeneous) decoder stack that
 function.  Layer heterogeneity is a repeating ``layer_pattern`` of
 :class:`LayerSpec` entries; parameters are stacked over pattern repeats.
 
-The registry holds only the architectures the port has (see
-``repro_torch/configs/__init__.py``); :func:`get_config` of another name of
-the JAX package's zoo raises ``NotImplementedError`` naming ROADMAP §1.13.
+The registry holds the architectures the port has (see
+``repro_torch/configs/__init__.py``); :func:`get_config` of a name of the
+JAX package's zoo that it lacks (an encoder or a stub frontend) raises
+``NotImplementedError`` naming ROADMAP §1.13.
 """
 from __future__ import annotations
 
@@ -239,8 +240,8 @@ def register(fn):
     return fn
 
 
-#: The JAX package's zoo; the names the port has not ported yet raise
-#: NotImplementedError instead of KeyError.
+#: The JAX package's zoo; the names the port has not ported yet (not in
+#: the registry) raise NotImplementedError instead of KeyError.
 ZOO = ("kimi-k2-1t-a32b", "deepseek-v2-lite-16b", "gemma3-27b",
        "starcoder2-7b", "llava-next-mistral-7b", "jamba-1-5-large-398b",
        "mamba2-1-3b", "whisper-base", "mistral-large-123b", "starcoder2-3b")

@@ -1,5 +1,7 @@
-"""FL training driver of the port: a transformer of the zoo under a FedAdam
-algorithm, in synchronous rounds or buffered-async under client churn.
+"""FL training driver of the port: a model of the zoo (dense, MoE, MLA or
+Mamba-2 decoders; ``--arch`` any name the port's registry has) under a
+FedAdam algorithm, in synchronous rounds or buffered-async under client
+churn.
 
 Counterpart of ``repro/launch/train.py``.  Runs on the CUDA card (the
 default; the compress, the wire and, with ``--kernel-adam``, the local
@@ -10,6 +12,9 @@ cpu``, where each kernel wrapper runs its plain version:
         --arch starcoder2-3b --smoke --rounds 2 --device cpu \\
         --kernel-adam --threshold-topk [--algorithm fedadam_top] \\
         [--client-mode vmap --aggregate sparse_gather]
+
+(``--arch deepseek-v2-lite-16b`` or ``mamba2-1-3b`` runs the MoE + MLA or
+the SSD model the same way.)
 
 ``--algorithm`` takes any registered compressor: ``fedadam_ssm`` (the
 default; one shared mask) or ``fedadam_top`` (three independent masks,

@@ -1,23 +1,24 @@
-"""Model layers of the dense GQA family: RMSNorm, RoPE, chunked
-online-softmax attention, the MLP.
+"""Model layers: RMSNorm, RoPE, chunked online-softmax attention (GQA,
+windowed, and MLA's training form), the MLP, the MoE and the Mamba-2 (SSD)
+mixer.
 
-Counterpart of ``repro/models/layers.py`` for what a dense GQA decoder
-(starcoder2) uses.  Conventions as there: activations are (batch, seq,
-d_model) in the model dtype, normalisation and softmax statistics in
-float32, weights in the JAX package's layout (``wq`` is (d, heads,
-head_dim), ``wo`` (heads, head_dim, d)).  The matrix products are plain
-PyTorch (the JAX package leaves them to XLA, not to a Pallas kernel).
-MLA, MoE, Mamba-2 and the decode path are ROADMAP §1.13.
+Counterpart of ``repro/models/layers.py``'s training path.  Conventions as
+there: activations are (batch, seq, d_model) in the model dtype,
+normalisation and softmax statistics in float32, weights in the JAX
+package's layout (``wq`` is (d, heads, head_dim), ``wo`` (heads, head_dim,
+d)).  The matrix products are plain PyTorch (the JAX package leaves them
+to XLA, not to a Pallas kernel).  The decode path (``mla_decode``,
+``ssm_decode``, the caches) is ROADMAP §1.14.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.configs.base import AttentionSpec
+from repro_torch.configs.base import AttentionSpec, MoESpec, SSMSpec
 from repro_torch.models.params import P
 
 NEG_INF = -1e9          # finite mask value, as in the JAX package
@@ -126,8 +127,7 @@ def chunked_attention(q, k, v, *, causal=True, window=None, q_offset=0,
 
 def attention_params(d: int, a: AttentionSpec):
     if a.is_mla:
-        raise NotImplementedError(
-            "multi-head latent attention is not ported yet: ROADMAP §1.13")
+        return mla_params(d, a)
     return {
         "wq": P((d, a.num_heads, a.head_dim), ("embed", "heads", "head_dim"),
                 init="scaled", fan_in=d),
@@ -143,7 +143,9 @@ def attention_params(d: int, a: AttentionSpec):
 def attention_fwd(p, a: AttentionSpec, x, *, positions, window_override=None,
                   chunk=1024):
     """Causal self-attention forward.  x: (b, s, d).  Returns (out, (k,
-    v))."""
+    v)), or MLA's (out, (ckv,))."""
+    if a.is_mla:
+        return mla_fwd(p, a, x, positions=positions, chunk=chunk)
     b, s, _ = x.shape
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
     k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
@@ -158,6 +160,46 @@ def attention_fwd(p, a: AttentionSpec, x, *, positions, window_override=None,
     out = out.reshape(b, s, a.num_heads * a.head_dim)
     wo = p["wo"].reshape(a.num_heads * a.head_dim, -1)
     return torch.einsum("bsk,kd->bsd", out, wo), (k, v)
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek multi-head latent attention), training form
+# ---------------------------------------------------------------------------
+
+
+def mla_params(d: int, a: AttentionSpec):
+    r = a.kv_lora_rank
+    return {
+        "wq": P((d, a.num_heads, a.head_dim), ("embed", "heads", "head_dim"),
+                init="scaled", fan_in=d),
+        "w_dkv": P((d, r), ("embed", "kv_lora"), init="scaled", fan_in=d),
+        "w_uk": P((r, a.num_heads, a.head_dim),
+                  ("kv_lora", "heads", "head_dim"), init="scaled", fan_in=r),
+        "w_uv": P((r, a.num_heads, a.head_dim),
+                  ("kv_lora", "heads", "head_dim"), init="scaled", fan_in=r),
+        "wo": P((a.num_heads, a.head_dim, d), ("heads", "head_dim", "embed"),
+                init="scaled", fan_in=a.num_heads * a.head_dim),
+    }
+
+
+def mla_fwd(p, a: AttentionSpec, x, *, positions, chunk=1024):
+    """Training: the latent expanded to full K/V, with no rotary (the JAX
+    package's NoPE convention, so that training matches its absorbed
+    decode form).  Returns (out, (ckv,)), ckv: (b, s, kv_lora_rank): the
+    (out, cache) signature of every mixer here and in the JAX package,
+    whose cache the training path drops, decode (ROADMAP §1.14) will read
+    and the parity tests hold against JAX's."""
+    del positions                       # NoPE: no position enters
+    b, s, _ = x.shape
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    ckv = torch.einsum("bsd,dr->bsr", x, p["w_dkv"])
+    k = torch.einsum("bsr,rhk->bshk", ckv, p["w_uk"])
+    v = torch.einsum("bsr,rhk->bshk", ckv, p["w_uv"])
+    qg = q.reshape(b, s, a.num_heads, 1, a.head_dim)      # g = 1 per head
+    out = chunked_attention(qg, k, v, causal=True, chunk=chunk)
+    out = out.reshape(b, s, a.num_heads * a.head_dim)
+    wo = p["wo"].reshape(a.num_heads * a.head_dim, -1)
+    return torch.einsum("bsk,kd->bsd", out, wo), (ckv,)
 
 
 # ---------------------------------------------------------------------------
@@ -188,3 +230,291 @@ def mlp_fwd(p, x):
         # jax.nn.gelu defaults to the tanh approximation
         h = F.gelu(h, approximate="tanh")
     return torch.einsum("bsf,fd->bsd", h, p["w_down"])
+
+
+# ---------------------------------------------------------------------------
+# MoE: token-choice top-k with capacity, sort-free cumsum dispatch
+# ---------------------------------------------------------------------------
+
+
+def moe_params(d: int, m: MoESpec):
+    p = {
+        "router": P((d, m.num_experts), ("embed", "experts"),
+                    init="scaled", fan_in=d, dtype="float32"),
+        "w_gate": P((m.num_experts, d, m.d_ff), ("experts", "embed", "mlp"),
+                    init="scaled", fan_in=d),
+        "w_up": P((m.num_experts, d, m.d_ff), ("experts", "embed", "mlp"),
+                  init="scaled", fan_in=d),
+        "w_down": P((m.num_experts, m.d_ff, d), ("experts", "mlp", "embed"),
+                    init="scaled", fan_in=m.d_ff),
+    }
+    if m.num_shared_experts:
+        p["shared"] = mlp_params(d, m.num_shared_experts * m.shared_d_ff)
+    return p
+
+
+def moe_capacity(m: MoESpec, tokens: int) -> int:
+    """Slots per expert and batch row: tokens * top_k / E * the capacity
+    factor, rounded up to a multiple of 8 (at least 8)."""
+    c = int(math.ceil(tokens * m.top_k / m.num_experts * m.capacity_factor))
+    return max(8, -(-c // 8) * 8)
+
+
+class Routing(NamedTuple):
+    """One MoE layer's routing, per batch row (capacity C per row).
+
+    probs (b, s, E) float32; gates (b, s, k) float32, renormalised;
+    eidx (b, s, k) int64, each token's experts in descending probability
+    (ties: lower expert first); keep (b, s*k) bool, the slot fits in its
+    expert's capacity; dst (b, s*k) int64, the slot ``e * C + pos`` in the
+    flat (E*C) buffer, ``E * C`` where dropped; slot_tok (b, E*C) int32,
+    1 + the token in each buffer slot, 0 where empty."""
+
+    probs: torch.Tensor
+    gates: torch.Tensor
+    eidx: torch.Tensor
+    keep: torch.Tensor
+    dst: torch.Tensor
+    slot_tok: torch.Tensor
+
+
+def moe_route(p, m: MoESpec, x) -> Routing:
+    """The routing of ``repro/models/layers.py:moe_fwd``, integer for
+    integer: routing is discrete, so a difference moves whole tokens.
+
+    ``lax.top_k`` returns the k largest in descending order, the lower
+    index first among ties; ``torch.topk`` promises neither, so the
+    experts are the first k of a stable descending sort.  A slot's
+    position in its expert is the int32 count of earlier slots (token
+    major, then slot) routed to the same expert; a slot at position >= C
+    is dropped."""
+    b, s, _ = x.shape
+    E, k = m.num_experts, m.top_k
+    logits = torch.einsum("bsd,de->bse", x.to(_F32), p["router"].to(_F32))
+    probs = torch.softmax(logits, dim=-1)
+    eidx = torch.sort(probs.detach(), dim=-1, descending=True,
+                      stable=True).indices[..., :k]
+    gates = probs.gather(-1, eidx)
+    gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
+    C = moe_capacity(m, s)
+    e_flat = eidx.reshape(b, s * k)
+    onehot = _one_hot(e_flat, E, torch.int32)
+    pos = torch.cumsum(onehot, dim=1, dtype=torch.int32) - onehot
+    pos_flat = pos.gather(2, e_flat[..., None])[..., 0].long()
+    keep = pos_flat < C
+    dst = torch.where(keep, e_flat * C + pos_flat, E * C)
+    # 1 + the token of each slot (token major): no host-side count needed
+    src = torch.arange(s * k, device=x.device, dtype=torch.int32) // k + 1
+    # kept slots are unique; every dropped one lands in the extra column
+    slot_tok = torch.zeros((b, E * C + 1), dtype=torch.int32,
+                           device=x.device)
+    slot_tok.scatter_(1, dst, src.expand(b, s * k))
+    return Routing(probs, gates, eidx, keep, dst, slot_tok[:, :-1])
+
+
+def _one_hot(idx, n: int, dtype):
+    """One-hot by comparison: ``F.one_hot`` checks its classes' range on
+    some devices, which reads the indices back to the host."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).to(dtype)
+
+
+class _Dispatch(torch.autograd.Function):
+    """The expert buffer ``buf[b, q] = x[b, slot_tok[b, q] - 1]`` (zero in
+    an empty slot), whose backward sums each token's k slot gradients in
+    buffer order (ascending ``dst``), in the gradient's dtype, rounding
+    after each add: the order and roundings of JAX's transpose of the
+    gather, a scatter-add over the buffer's slots, so that the sum is
+    bitwise JAX's in float32 and in bfloat16.
+
+    Autograd's backward of the gather is a ``scatter_add`` over tokens that
+    appear up to k times, whose float sums on CUDA land in atomic order:
+    a round would not repeat bit for bit.  The combine's gathers need no
+    such care: each kept slot is read by one (token, j) alone, and the
+    dropped reads (clamped to the last slot) carry exact zeros."""
+
+    @staticmethod
+    def forward(ctx, x, slot_tok, dst, k: int):
+        d = x.shape[-1]
+        idx = (slot_tok.long() - 1).clamp_min(0)[..., None].expand(-1, -1, d)
+        buf = torch.gather(x, 1, idx)
+        ctx.save_for_backward(dst)
+        ctx.k = k
+        return torch.where((slot_tok > 0)[..., None], buf,
+                           torch.zeros((), dtype=x.dtype, device=x.device))
+
+    @staticmethod
+    def backward(ctx, g):
+        (dst,) = ctx.saved_tensors
+        k, (b, EC, d) = ctx.k, g.shape
+        # a token's slots in buffer order; dropped ones (dst = E*C) last
+        at = torch.sort(dst.reshape(b, -1, k), dim=-1).values
+        acc = torch.zeros((b, at.shape[1], d), dtype=g.dtype,
+                          device=g.device)
+        for j in range(k):
+            aj = at[..., j]
+            gj = torch.gather(g, 1, aj.clamp_max(EC - 1)[..., None]
+                              .expand(-1, -1, d))
+            acc = acc + torch.where((aj < EC)[..., None], gj, 0.0)
+        return acc, None, None, None
+
+
+def moe_fwd(p, m: MoESpec, x):
+    """x: (b, s, d) -> (y, aux), aux the load-balance loss
+    ``E * sum(frac_tokens * frac_probs)``.
+
+    Dispatch is per batch row (capacity C per sequence), as in the JAX
+    package: each kept slot gathers its token into an (E, C) buffer, the
+    gated expert FFNs run on the buffer, and each token sums its top-k
+    outputs in slot order, weighted by its gates, in float32."""
+    b, s, d = x.shape
+    E, k = m.num_experts, m.top_k
+    r = moe_route(p, m, x)
+    C = moe_capacity(m, s)
+    buf = _Dispatch.apply(x, r.slot_tok, r.dst, k)
+    buf = buf.reshape(b, E, C, d)
+    h = torch.einsum("becd,edf->becf", buf, p["w_up"])
+    g = torch.einsum("becd,edf->becf", buf, p["w_gate"])
+    y = torch.einsum("becf,efd->becd", F.silu(g) * h, p["w_down"])
+    y_flat = y.reshape(b, E * C, d)
+    out = torch.zeros((b, s, d), dtype=_F32, device=x.device)
+    for j in range(k):
+        at = r.dst[:, j::k].clamp_max(E * C - 1)
+        gath = torch.gather(y_flat, 1, at[..., None].expand(-1, -1, d))
+        gath = torch.where(r.keep[:, j::k, None], gath.to(_F32), 0.0)
+        out = out + gath * r.gates[:, :, j, None]
+    out = out.to(x.dtype)
+    if "shared" in p:
+        out = out + mlp_fwd(p["shared"], x)
+    frac_tokens = _one_hot(r.eidx, E, _F32).mean(dim=(0, 1, 2))
+    frac_probs = r.probs.mean(dim=(0, 1))
+    aux = E * (frac_tokens * frac_probs).sum()
+    return out, aux
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2 (SSD)
+# ---------------------------------------------------------------------------
+
+
+def ssm_params(d: int, s: SSMSpec):
+    d_inner = s.expand * d
+    h = s.num_heads(d)
+    conv_ch = d_inner + 2 * s.d_state
+    return {
+        "in_proj": P((d, 2 * d_inner + 2 * s.d_state + h),
+                     ("embed", "ssm_inner"), init="scaled", fan_in=d),
+        "conv_w": P((s.d_conv, conv_ch), ("conv", "ssm_inner"),
+                    init="scaled", fan_in=s.d_conv),
+        "conv_b": P((conv_ch,), ("ssm_inner",), init="zeros"),
+        "a_log": P((h,), ("ssm_heads",), init="ones", dtype="float32"),
+        "dt_bias": P((h,), ("ssm_heads",), init="zeros", dtype="float32"),
+        "d_skip": P((h,), ("ssm_heads",), init="ones", dtype="float32"),
+        "norm": rmsnorm_params(d_inner)["scale"],
+        "out_proj": P((d_inner, d), ("ssm_inner", "embed"),
+                      init="scaled", fan_in=d_inner),
+    }
+
+
+def _segsum(x):
+    """x: (..., T) -> (..., T, T), out[i, j] = sum of x_k for j < k <= i
+    (i >= j), -inf above the diagonal (so that exp gives 0 there, and its
+    gradient 0: the where passes none to the masked sums)."""
+    T_ = x.shape[-1]
+    xx = x[..., None].expand(*x.shape, T_)                 # [..., i, j] = x_i
+    ones = torch.ones((T_, T_), dtype=torch.bool, device=x.device)
+    xx = torch.where(torch.tril(ones, -1), xx, 0.0)
+    seg = torch.cumsum(xx, dim=-2)
+    return torch.where(torch.tril(ones), seg, -math.inf)
+
+
+def ssd_chunked(xh, dt, A, B, C, chunk: int):
+    """SSD (state-space duality) chunked scan.
+
+    xh: (b, s, h, p); dt: (b, s, h) float32 (after softplus); A: (h,)
+    float32 < 0; B, C: (b, s, n) (one group).  Returns (y, final_state),
+    y: (b, s, h, p) float32, final_state: (b, h, p, n) float32.  One chunk
+    of s when s is not a multiple of ``chunk``.
+
+    The JAX package's three-operand einsums are pairwise contractions here,
+    in the order written beside each, so that no intermediate depends on
+    an einsum path search (a bad path for the first materialises a (b, c,
+    h, l, m, p) tensor)."""
+    b, s, h, pdim = xh.shape
+    n = B.shape[-1]
+    if s % chunk:
+        chunk = s
+    nc = s // chunk
+    xc = xh.to(_F32).reshape(b, nc, chunk, h, pdim)
+    dtc = dt.reshape(b, nc, chunk, h)
+    Bc = B.to(_F32).reshape(b, nc, chunk, n)
+    Cc = C.to(_F32).reshape(b, nc, chunk, n)
+    dA = dtc * A                                           # (b, c, l, h)
+    dA_cum = torch.cumsum(dA, dim=2)
+    xdt = xc * dtc[..., None]                              # (b, c, l, h, p)
+
+    # intra-chunk (diagonal blocks), "bclm,bchlm,bcmhp->bclhp":
+    # (scores * L) over (b, c, h, l, m), then contract m with xdt
+    L = torch.exp(_segsum(dA.transpose(-1, -2)))           # (b, c, h, l, m)
+    scores = torch.einsum("bcln,bcmn->bclm", Cc, Bc)
+    y_diag = torch.matmul(scores[:, :, None] * L, xdt.transpose(2, 3))
+    y_diag = y_diag.transpose(2, 3)                        # (b, c, l, h, p)
+
+    # states carried out of each chunk, "bcln,bclh,bclhp->bchpn":
+    # decay * xdt over (b, c, l, h, p), then contract l with B
+    decay_states = torch.exp(dA_cum[:, :, -1:, :] - dA_cum)
+    states = torch.einsum("bclhp,bcln->bchpn",
+                          decay_states[..., None] * xdt, Bc)
+
+    # inter-chunk recurrence (the JAX scan over chunks)
+    chunk_decay = torch.exp(dA_cum[:, :, -1, :])           # (b, c, h)
+    state = torch.zeros((b, h, pdim, n), dtype=_F32, device=xh.device)
+    prev = []
+    for c in range(nc):
+        prev.append(state)
+        state = state * chunk_decay[:, c, :, None, None] + states[:, c]
+    prev_states = torch.stack(prev, dim=1)                 # (b, c, h, p, n)
+
+    # "bcln,bchpn,bclh->bclhp": contract n of C with the carried states,
+    # then the decay into each position
+    y_off = torch.einsum("bcln,bchpn->bclhp", Cc, prev_states) \
+        * torch.exp(dA_cum)[..., None]
+    return (y_diag + y_off).reshape(b, s, h, pdim), state
+
+
+def causal_conv(x, w, bias):
+    """Depthwise causal conv.  x: (b, s, ch); w: (width, ch)."""
+    width = w.shape[0]
+    xp = F.pad(x, (0, 0, width - 1, 0))
+    out = 0
+    for i in range(width):
+        out = out + xp[:, i:i + x.shape[1]] * w[i]
+    return out + bias
+
+
+def ssm_fwd(p, spec: SSMSpec, x, *, norm_eps=1e-6):
+    """Mamba-2 block forward (training).  x: (b, s, d) -> (y, {"state":
+    final SSM state, "conv": the last d_conv - 1 raw conv inputs}): the
+    mixers' (out, cache) signature (:func:`mla_fwd`)."""
+    b, s, d = x.shape
+    d_inner = spec.expand * d
+    n = spec.d_state
+    h = spec.num_heads(d)
+    zxbcdt = torch.einsum("bsd,de->bse", x, p["in_proj"])
+    z, xin, Braw, Craw, dtraw = torch.split(
+        zxbcdt, [d_inner, d_inner, n, n, h], dim=-1)
+    xbc_raw = torch.cat([xin, Braw, Craw], dim=-1)         # (b, s, ch)
+    xbc = F.silu(causal_conv(xbc_raw, p["conv_w"], p["conv_b"]))
+    xin, Braw, Craw = torch.split(xbc, [d_inner, n, n], dim=-1)
+    A = -torch.exp(p["a_log"].to(_F32))
+    # jax.nn.softplus is logaddexp(x, 0); F.softplus returns x past 20
+    u = dtraw.to(_F32) + p["dt_bias"].to(_F32)
+    dt = torch.logaddexp(u, torch.zeros((), dtype=_F32, device=x.device))
+    xh = xin.reshape(b, s, h, spec.head_dim)
+    y, final_state = ssd_chunked(xh, dt, A, Braw, Craw, spec.chunk_size)
+    y = y + xh.to(_F32) * p["d_skip"].to(_F32)[:, None]
+    y = y.reshape(b, s, d_inner).to(x.dtype)
+    y = y * F.silu(z)
+    y = rmsnorm({"scale": p["norm"]}, y, norm_eps)
+    out = torch.einsum("bse,ed->bsd", y, p["out_proj"])
+    return out, {"state": final_state,
+                 "conv": xbc_raw[:, -(spec.d_conv - 1):, :]}

@@ -1,7 +1,9 @@
 """Stack builder: ArchConfig -> parameters + the training forward and loss.
 
-Counterpart of ``repro/models/model.py`` for the dense GQA family.  The
-parameter tree is the JAX package's, leaf for leaf:
+Counterpart of ``repro/models/model.py``'s training path, for every
+decoder of the zoo: attention (GQA, windowed or MLA) and Mamba-2 (SSD)
+mixers, dense or MoE FFNs.  The parameter tree is the JAX package's, leaf
+for leaf:
 
     {"embed": (V, d), "blocks": (group, ...), "final_norm": {"scale"},
      "lm_head": (d, V)}
@@ -11,7 +13,8 @@ where ``blocks`` is a tuple with one dict per run of identical layer specs
 ...)``.  The per-leaf compress, the packed wire layout and so the wire
 bytes follow this leaf order and these shapes.  The JAX scans over repeats
 and over a group's layers are loops here.  Only ``remat="none"`` (what the
-trainer uses) is offered; recomputation is ROADMAP §1.14.
+trainer uses) is offered; recomputation is ROADMAP §1.14, as are prefill
+and decode.  Encoders and stub frontends raise (ROADMAP §1.13).
 """
 from __future__ import annotations
 
@@ -28,6 +31,9 @@ from repro_torch.models.params import (DTYPES, P, leaf_dtype, materialize,
                                        stack_tree)
 
 _F32 = torch.float32
+# Weight of the MoE load-balance loss in the training loss (the JAX
+# package's ``loss_fn`` default, which no caller there changes).
+MOE_AUX_WEIGHT = 0.01
 
 
 def pattern_groups(cfg: ArchConfig) -> List[Tuple[LayerSpec, int]]:
@@ -42,13 +48,10 @@ def pattern_groups(cfg: ArchConfig) -> List[Tuple[LayerSpec, int]]:
 
 
 def _check_ported(cfg: ArchConfig) -> None:
-    bad = [s.kind for s in cfg.layer_pattern
-           if s.kind != "attn" or s.moe is not None or not s.d_ff
-           or s.attention.is_mla]
-    if bad or cfg.encoder is not None or cfg.stub_frontend:
+    if cfg.encoder is not None or cfg.stub_frontend:
         raise NotImplementedError(
-            f"{cfg.name}: only dense GQA decoders are ported (MoE, MLA, "
-            "Mamba-2, encoders and stub frontends are ROADMAP §1.13)")
+            f"{cfg.name}: encoders and stub frontends are not ported yet: "
+            "ROADMAP §1.13")
 
 
 # ---------------------------------------------------------------------------
@@ -58,10 +61,18 @@ def _check_ported(cfg: ArchConfig) -> None:
 
 def _block_params(cfg: ArchConfig, spec: LayerSpec) -> Dict[str, Any]:
     d = cfg.d_model
-    return {"norm_mixer": L.rmsnorm_params(d),
-            "mixer": L.attention_params(d, spec.attention),
-            "norm_ffn": L.rmsnorm_params(d),
-            "ffn": L.mlp_params(d, spec.d_ff, spec.gated_mlp)}
+    p: Dict[str, Any] = {"norm_mixer": L.rmsnorm_params(d)}
+    if spec.kind == "attn":
+        p["mixer"] = L.attention_params(d, spec.attention)
+    else:
+        p["mixer"] = L.ssm_params(d, spec.ssm)
+    if spec.d_ff:
+        p["norm_ffn"] = L.rmsnorm_params(d)
+        p["ffn"] = L.mlp_params(d, spec.d_ff, spec.gated_mlp)
+    elif spec.moe:
+        p["norm_ffn"] = L.rmsnorm_params(d)
+        p["ffn"] = L.moe_params(d, spec.moe)
+    return p
 
 
 def abstract_params(cfg: ArchConfig):
@@ -119,42 +130,60 @@ def params_from_jax(np_params, cfg: ArchConfig, device: DeviceLike = None):
 
 def _block_fwd(cfg: ArchConfig, spec: LayerSpec, p, x, *, positions,
                chunk=1024):
+    """Returns (x, aux): aux the MoE load-balance loss, None without an
+    MoE."""
     h = L.rmsnorm(p["norm_mixer"], x, cfg.norm_eps)
-    out, _ = L.attention_fwd(p["mixer"], spec.attention, h,
-                             positions=positions, chunk=chunk)
+    if spec.kind == "attn":
+        out, _ = L.attention_fwd(p["mixer"], spec.attention, h,
+                                 positions=positions, chunk=chunk)
+    else:
+        out, _ = L.ssm_fwd(p["mixer"], spec.ssm, h, norm_eps=cfg.norm_eps)
     x = x + out
-    h = L.rmsnorm(p["norm_ffn"], x, cfg.norm_eps)
-    return x + L.mlp_fwd(p["ffn"], h)
+    aux = None
+    if spec.d_ff:
+        h = L.rmsnorm(p["norm_ffn"], x, cfg.norm_eps)
+        x = x + L.mlp_fwd(p["ffn"], h)
+    elif spec.moe:
+        h = L.rmsnorm(p["norm_ffn"], x, cfg.norm_eps)
+        out, aux = L.moe_fwd(p["ffn"], spec.moe, h)
+        x = x + out
+    return x, aux
 
 
 def forward(cfg: ArchConfig, params, tokens, *, remat: str = "none",
             chunk: int = 1024):
-    """tokens: (b, s) integers.  Returns the logits (b, s, V)."""
+    """tokens: (b, s) integers.  Returns (logits (b, s, V), aux): aux the
+    float32 sum of the MoE layers' load-balance losses, in layer order (0
+    without an MoE layer)."""
     if remat != "none":
         raise NotImplementedError(
             f"remat={remat!r} is not ported yet: ROADMAP §1.14")
     x = params["embed"][tokens.long()].to(DTYPES[cfg.dtype])
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
+    aux = torch.zeros((), dtype=_F32, device=x.device)
     groups = pattern_groups(cfg)
     for r in range(cfg.pattern_repeats):
         for (spec, count), gp in zip(groups, params["blocks"]):
             for c in range(count):
                 p_one = T.tree_map(lambda a: a[r, c], gp)
-                x = _block_fwd(cfg, spec, p_one, x, positions=positions,
-                               chunk=chunk)
+                x, a = _block_fwd(cfg, spec, p_one, x, positions=positions,
+                                  chunk=chunk)
+                if a is not None:
+                    aux = aux + a
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if cfg.tie_embeddings:
-        return torch.einsum("bsd,vd->bsv", x, params["embed"])
-    return torch.einsum("bsd,dv->bsv", x, params["lm_head"])
+        return torch.einsum("bsd,vd->bsv", x, params["embed"]), aux
+    return torch.einsum("bsd,dv->bsv", x, params["lm_head"]), aux
 
 
 def loss_fn(cfg: ArchConfig, params, tokens, *, remat: str = "none",
             chunk: int = 1024):
-    """Next-token cross-entropy (the dense family has no MoE aux term)."""
-    logits = forward(cfg, params, tokens, remat=remat, chunk=chunk)
+    """Next-token cross-entropy plus ``MOE_AUX_WEIGHT`` times the MoE
+    load-balance loss (0 for a model without MoE layers)."""
+    logits, aux = forward(cfg, params, tokens, remat=remat, chunk=chunk)
     lg = logits[:, :-1].to(_F32)
     tgt = tokens[:, 1:].long()
     lse = torch.logsumexp(lg, dim=-1)
     picked = lg.gather(-1, tgt[..., None])[..., 0]
-    return (lse - picked).mean()
+    return (lse - picked).mean() + MOE_AUX_WEIGHT * aux

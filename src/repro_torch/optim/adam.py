@@ -87,7 +87,9 @@ def adam_step(params, grads, state: AdamState, h: AdamHyper,
         scalars = fused.effective_scalars(h, state.count, pw[0].device)
 
         def leaf(w, g, m, v):
-            return fused.fused_adam_apply(scalars, w, g, m, v)
+            # a tied weight's gradient (the embedding, read by the lookup
+            # and by the head) can come back transposed
+            return fused.fused_adam_apply(scalars, w, g.contiguous(), m, v)
     else:
         def leaf(w, g, m, v):
             return _adam_leaf(w, g, m, v, h, state.count)

@@ -717,3 +717,136 @@ def test_cuda_client_draw_equals_cpu(cuda_device):
     assert float(mets["uplink_bits"]) == 3 * float(
         make_fl_round(fed(), loss)(fed_init(fed(), params), batch,
                                    w)[1]["uplink_bits"]) / 6
+
+
+# ---------------------------------------------------------------------------
+# The MoE, MLA and Mamba-2 (SSD) layers on the card
+# ---------------------------------------------------------------------------
+
+
+def _zoo_block(name, device, seed=5):
+    """One float32 block of a smoke config (deepseek: MLA + MoE at 64
+    experts top-6, the full config's routing, so that tokens share slots
+    and experts drop; mamba2: the SSD mixer over two chunks), its weights
+    and input on the CPU, and a function of (params, x) on ``device``."""
+    import dataclasses
+    from repro_torch.configs import get_config, reduce_for_smoke
+    from repro_torch.models import model as TM
+    from repro_torch.models.params import materialize
+    cfg = dataclasses.replace(reduce_for_smoke(get_config(name)),
+                              dtype="float32")
+    spec = cfg.layer_pattern[0]
+    if spec.moe is not None:
+        full = get_config(name).layer_pattern[0].moe
+        spec = dataclasses.replace(spec, moe=dataclasses.replace(
+            spec.moe, num_experts=full.num_experts, top_k=full.top_k))
+    params = materialize(TM._block_params(cfg, spec), seed, "float32", "cpu")
+    s = 2 * (spec.ssm.chunk_size if spec.ssm else 32)
+    x = torch.randn((2, s, cfg.d_model),
+                    generator=torch.Generator().manual_seed(seed))
+    pos = torch.arange(s)[None].expand(2, s)
+
+    def fwd(p, xx):
+        y, aux = TM._block_fwd(cfg, spec, p, xx, positions=pos.to(xx.device))
+        return y, (torch.zeros((), device=xx.device) if aux is None else aux)
+
+    return spec, params, x, fwd
+
+
+def _block_grads(fwd, params, x, device):
+    from repro_torch import tree as T
+    leaves, td = T.flatten(params)
+    req = [t.to(device).requires_grad_(True) for t in leaves]
+    xd = x.to(device).requires_grad_(True)
+    y, aux = fwd(td.unflatten(req), xd)
+    ((y * y.detach()).sum() + aux).backward()
+    return y.detach().cpu(), [t.grad.cpu() for t in req] + [xd.grad.cpu()]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["deepseek-v2-lite-16b", "mamba2-1-3b"])
+def test_cuda_zoo_block_matches_cpu(cuda_device, name):
+    """A smoke block in float32 (TF32 off) on the card against the CPU:
+    the MoE's routing identical (experts, keep, dst, slot_tok), output and
+    gradients within 1e-5 of their largest (summation orders differ), and
+    the card's backward bitwise the same when run again (the MoE's
+    dispatch sums a token's slot gradients in buffer order, not in atomic
+    order)."""
+    from repro_torch.device import exact_float32
+    from repro_torch.models import layers as L
+    exact_float32()
+    spec, params, x, fwd = _zoo_block(name, cuda_device)
+    if spec.moe is not None:
+        h = torch.randn((2, 64, x.shape[-1]),
+                        generator=torch.Generator().manual_seed(1))
+        p = params["ffn"]
+        on = lambda t, dev: {k: v.to(dev) for k, v in t.items()
+                             if k != "shared"}
+        a = L.moe_route(on(p, cuda_device), spec.moe, h.to(cuda_device))
+        b = L.moe_route(on(p, "cpu"), spec.moe, h)
+        for f in ("eidx", "keep", "dst", "slot_tok"):
+            assert torch.equal(getattr(a, f).cpu(), getattr(b, f)), f
+        assert not bool(a.keep.all()), "no slot was dropped"
+    y, g = _block_grads(fwd, params, x, cuda_device)
+    y2, g2 = _block_grads(fwd, params, x, cuda_device)
+    yc, gc = _block_grads(fwd, params, x, "cpu")
+    assert_bitwise(y, y2, "output")
+    for i, (a, b, c) in enumerate(zip(g, g2, gc)):
+        assert_bitwise(a, b, f"gradient {i} run twice")
+        tol = 1e-5 * float(c.abs().max())
+        assert float((a - c).abs().max()) <= tol, f"gradient {i}"
+    assert float((y - yc).abs().max()) <= 1e-5 * float(yc.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_moe_dispatch_backward_is_the_cpus(cuda_device, dtype):
+    """The MoE dispatch's backward at the full config's routing (64
+    experts, top-6, tokens dropped) on the card: bitwise the CPU's, in
+    float32 and in bfloat16 (the same gathers, added in the same order and
+    dtype)."""
+    from repro_torch.models import layers as L
+    spec, params, x, _ = _zoo_block("deepseek-v2-lite-16b", cuda_device)
+    gen = torch.Generator().manual_seed(2)
+    h = torch.randn((2, 64, x.shape[-1]), generator=gen)
+    r = L.moe_route({"router": params["ffn"]["router"]}, spec.moe, h)
+    assert not bool(r.keep.all())
+    g = torch.randn((2, r.slot_tok.shape[1], x.shape[-1]), generator=gen)
+    grads = []
+    for dev in (cuda_device, "cpu"):
+        hd = h.to(dev, dtype).requires_grad_(True)
+        buf = L._Dispatch.apply(hd, r.slot_tok.to(dev), r.dst.to(dev),
+                                spec.moe.top_k)
+        (buf * g.to(dev, dtype)).sum().backward()
+        grads.append(hd.grad.cpu())
+    assert_bitwise(grads[0], grads[1], "dispatch backward")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["deepseek-v2-lite-16b", "mamba2-1-3b"])
+def test_cuda_zoo_round_repeats_bitwise(cuda_device, name):
+    """A smoke FedAdam-SSM round (bfloat16, threshold masks, error
+    feedback, the fused Adam) on the card twice from one state: bit for
+    bit, with one pack/unpack a client and every per-leaf kernel
+    launched."""
+    from repro_torch import tree as T
+    from repro_torch.configs import get_config, reduce_for_smoke
+    from repro_torch.core import FedConfig, fed_init, make_fl_round
+    from repro_torch.launch import train
+    from repro_torch.optim import AdamHyper
+    cfg = reduce_for_smoke(get_config(name))
+    fed = FedConfig(algorithm="fedadam_ssm", alpha=0.05, n_clients=2,
+                    local_epochs=2, exact_topk=False, error_feedback=True,
+                    use_kernel_adam=True, adam=AdamHyper(lr=1e-3))
+    run, state = train.make_trainer(cfg, fed, seed=1, device=cuda_device)
+    batch = train.build_client_batches(cfg, 2, 2, 64, device=cuda_device)
+    state = run(state, batch)[0]
+    reset_launches()
+    a, ma = run(state, batch)
+    b, mb = run(state, batch)
+    _assert_states_bitwise(a, b)
+    assert float(ma["uplink_bits"]) == float(mb["uplink_bits"])
+    n = len(T.leaves(state.W))
+    assert LAUNCHES["pack_words"] == 2 * 2
+    assert LAUNCHES["fused_adam"] == 2 * 2 * 2 * n
+    assert LAUNCHES["absmax"] == LAUNCHES["ssm_apply_ef"] == 2 * 2 * n

@@ -63,16 +63,24 @@ def _configs(dtype="bfloat16", gated=False):
 
 
 def test_config_is_the_jax_packages():
-    for full in (True, False):
-        j = jget_config("starcoder2-3b")
-        t = get_config("starcoder2-3b")
-        if not full:
-            j, t = jreduce(j), reduce_for_smoke(t)
-        assert dataclasses.asdict(t) == dataclasses.asdict(j)
-        assert t.padded_vocab == j.padded_vocab
-        assert t.param_count() == j.param_count()
-    with pytest.raises(NotImplementedError, match="§1.13"):
-        get_config("mamba2-1-3b")
+    """Every architecture the port registers is the JAX package's, full
+    and reduced; only the encoder and the stub frontend raise."""
+    from repro.configs import available_archs as javailable
+    from repro_torch.configs import available_archs
+    unported = {"llava-next-mistral-7b", "whisper-base"}
+    assert set(available_archs()) == set(javailable()) - unported
+    for name in available_archs():
+        for full in (True, False):
+            j, t = jget_config(name), get_config(name)
+            if not full:
+                j, t = jreduce(j), reduce_for_smoke(t)
+            assert dataclasses.asdict(t) == dataclasses.asdict(j), name
+            assert t.padded_vocab == j.padded_vocab
+            assert t.param_count() == j.param_count()
+            assert t.active_param_count() == j.active_param_count()
+    for name in sorted(unported):
+        with pytest.raises(NotImplementedError, match="§1.13"):
+            get_config(name)
     with pytest.raises(KeyError):
         get_config("no-such-arch")
 
