@@ -127,7 +127,25 @@ Phases:
    a_log), pack_words and unpack_words on its bitmap; then one block of
    each (MLA + MoE; SSD) forward and backward in float32 at b = 1, s =
    512 on the card against the host's CPU, routing identical, outputs and
-   gradients within ``ZOO_BLOCK_TOL``.
+   gradients within ``ZOO_BLOCK_TOL``;
+14. (after 13) serving, each model whole (every pattern repeat, the whole
+   vocabulary) in bfloat16 and built after the previous one is freed:
+   deepseek-v2-lite-16b (16,150,149,120 parameters), mamba2-1-3b,
+   starcoder2-3b, llava-next-mistral-7b and whisper-base, through
+   ``repro_torch.launch.serve``'s functions at the CLI's defaults (batch
+   2, a 32-token prompt replayed through ``decode_step``, 16 greedy
+   tokens; whisper's cross caches from ``prefill`` over its 1500 frames
+   first, llava's prompt through ``prefill`` after its 16-token prefix):
+   build time and peak (reset before the build), replay or prefill wall,
+   decode wall and tokens/s, no kernel of the port launched, 0 stream
+   syncs and bitwise the same tokens and logits in a second decode from
+   the same cache state, one decode step profiled beside its byte bound,
+   the peak; then, in float32 at full width, one decode step of an MLA +
+   MoE, an SSD and a cross-attention block on the card against the CPU
+   (routing identical, output and caches within ``ZOO_BLOCK_TOL``), and
+   at 2 pattern repeats the teacher-forced decode against ``forward`` and
+   a prefill-seeded continuation against the replay's, within
+   ``SERVE_REL``.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.  Any failure
@@ -614,6 +632,11 @@ def count_syncs(torch, round_fn, state, batch, w) -> dict:
     pageable memory, ``.item()`` and the like), as PyTorch's sync debug
     mode reports them, with the innermost line of this checkout (and the
     line outside it) that made each."""
+    return count_syncs_of(torch, lambda: round_fn(state, batch, w))
+
+
+def count_syncs_of(torch, fn) -> dict:
+    """``count_syncs`` of one call of ``fn()``."""
     import traceback
     import warnings
 
@@ -636,7 +659,7 @@ def count_syncs(torch, round_fn, state, batch, w) -> dict:
         torch.cuda.set_sync_debug_mode("warn")
         warnings.showwarning = record
         try:
-            round_fn(state, batch, w)
+            fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
@@ -657,12 +680,18 @@ def profile_round(torch, round_fn, state, batch, w, port_kernels=True):
     pays no per-operator cost): its wall time, the device's busy share and
     the kernels that took the most device time.  ``port_kernels``: the
     round must run some of the port's kernels (a dense round runs none)."""
+    return profile_call(torch, lambda: round_fn(state, batch, w),
+                        port_kernels)
+
+
+def profile_call(torch, fn, port_kernels=True):
+    """``profile_round`` of one call of ``fn()``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        round_fn(state, batch, w)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     ops = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
@@ -2729,7 +2758,7 @@ def phase_zoo_block_vs_cpu(torch, seed, name):
             xd = x.to(dev).requires_grad_(True)
             pos = torch.arange(ZOO_SEQ, device=dev)[None]
             t0 = time.perf_counter()
-            y, aux = TM._block_fwd(cfg, spec, p, xd, positions=pos)
+            y, aux, _ = TM._block_fwd(cfg, spec, p, xd, positions=pos)
             loss = (y * cot.to(dev)).sum()
             if aux is not None:
                 loss = loss + aux
@@ -2762,6 +2791,290 @@ def phase_zoo_block_vs_cpu(torch, seed, name):
     log(f"{name} block card vs CPU: {json.dumps(out)}")
     require(y_err <= ZOO_BLOCK_TOL and g_err <= ZOO_BLOCK_TOL,
             f"{name} block: card vs CPU {y_err:.2e} / {g_err:.2e}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 14: serving at full width and depth
+# ---------------------------------------------------------------------------
+
+#: Phase 14's models, whole (every pattern repeat, the whole vocabulary),
+#: in bfloat16 as configured: parameters of the port's tree and leaves.
+SERVE = {
+    "deepseek-v2-lite-16b": (16_150_149_120, 17),
+    "mamba2-1-3b": (1_344_052_224, 11),
+    "starcoder2-3b": (3_180_518_400, 11),
+    "llava-next-mistral-7b": (7_241_732_096, 12),
+    "whisper-base": (97_271_808, 25),
+}
+#: The serving CLI's defaults: batch, prompt length, generated tokens.
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 2, 32, 16
+#: The float32 checks: one block family each (MLA + MoE, SSD, GQA with
+#: cross-attention) at full width, one decode step card vs CPU within
+#: ZOO_BLOCK_TOL; at full width and 2 pattern repeats, a teacher-forced
+#: decode of SERVE_CHECK_TOKENS against the port's own forward, and a
+#: prefill-seeded continuation against the replay's, within SERVE_REL of
+#: the largest logit (the JAX package's decode test's bound).
+SERVE_CHECK = ("deepseek-v2-lite-16b", "mamba2-1-3b", "whisper-base")
+SERVE_CHECK_TOKENS = 16
+SERVE_REL = 0.05
+
+
+def _no_drop(cfg):
+    """The MoE capacity factor raised to 8: no token drops, where the
+    parallel forward and one-token decode route alike (the JAX package's
+    decode test does the same)."""
+    import dataclasses
+    return dataclasses.replace(cfg, layer_pattern=tuple(
+        dataclasses.replace(sp, moe=dataclasses.replace(
+            sp.moe, capacity_factor=8.0)) if sp.moe else sp
+        for sp in cfg.layer_pattern))
+
+
+def _seed_caches(torch, caches, pre):
+    """Copy prefill's caches ``pre`` into decode caches: a leaf of the
+    same shape whole, else into the first slots of its kv_seq axis (axis
+    3 of (repeat, count, b, S, ...))."""
+    from repro_torch import tree as T
+    for z, p in zip(T.leaves(caches), T.leaves(pre)):
+        (z if z.shape == p.shape else z[:, :, :, :p.shape[3]]).copy_(p)
+
+
+def _nbytes(tree) -> int:
+    from repro_torch import tree as T
+    return sum(x.numel() * x.element_size() for x in T.leaves(tree))
+
+
+def phase_serve(torch, seed, name):
+    """``name`` whole in bfloat16 through ``launch/serve.py``'s functions
+    at the CLI's defaults (batch 2, prompt 32, 16 greedy tokens): the
+    build (timed; the peak reset before it), the prompt replayed through
+    ``decode_step`` (whisper's cross keys and values from ``prefill`` over
+    its 1500 frames first; llava's prompt through ``prefill`` after its
+    16-token prefix instead of the replay), the generation (wall,
+    tokens/s) with the launch counters zeroed before and read after (the
+    path runs no kernel of the port), then the generation again from the
+    same cache state, counting stream syncs (0) and bitwise the same
+    tokens and logits, and one decode step profiled (device operations,
+    busy share) beside its byte bound: every weight the step reads (all
+    but an untied embedding table and the encoder) and the caches, over
+    the HBM rate."""
+    import gc
+    from repro_torch import tree as T
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import serve
+    from repro_torch.models import model as TM
+
+    cfg = get_config(name)
+    n_params, n_leaves = SERVE[name]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = {"param_count": cfg.param_count(),
+           "pattern_repeats": cfg.pattern_repeats,
+           "vocab_rows": cfg.padded_vocab}
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        params, toks, embeds, seq = serve.setup(
+            cfg, SERVE_BATCH, SERVE_PROMPT, SERVE_GEN, device="cuda",
+            seed=seed)
+        torch.cuda.synchronize()
+        out["build_s"] = time.perf_counter() - t0
+        out["build_peak_bytes"] = torch.cuda.max_memory_allocated()
+        leaves = T.leaves(params)
+        out["params"] = sum(x.numel() for x in leaves)
+        out["param_bytes"] = _nbytes(params)
+        require(out["params"] == n_params and len(leaves) == n_leaves,
+                f"{name}: {out['params']} parameters in {len(leaves)} "
+                f"leaves")
+        caches = serve.new_caches(cfg, SERVE_BATCH, seq, "cuda")
+        out["seq_len"], out["cache_bytes"] = seq, _nbytes(caches)
+        reset_launches()
+        pos = 0
+        if embeds is not None:
+            t0 = time.perf_counter()
+            logits, pre = TM.prefill(cfg, params, toks,
+                                     frontend_embeds=embeds)
+            torch.cuda.synchronize()
+            out["prefill_s"] = time.perf_counter() - t0
+            out["frontend_tokens"] = embeds.shape[1]
+            if cfg.encoder is not None:
+                for c, pc in zip(caches, pre):
+                    c["cross_k"].copy_(pc["cross_k"])
+                    c["cross_v"].copy_(pc["cross_v"])
+            else:
+                _seed_caches(torch, caches, pre)
+                pos = embeds.shape[1] + SERVE_PROMPT
+            del pre
+        if pos == 0:
+            t0 = time.perf_counter()
+            logits, pos = serve.replay(cfg, params, caches, toks,
+                                       seq_len=seq)
+            torch.cuda.synchronize()
+            out["replay_s"] = time.perf_counter() - t0
+        snap = (T.tree_map(torch.clone, caches), logits.clone(), pos)
+        t0 = time.perf_counter()
+        tokens, last = serve.generate(cfg, params, caches, logits, pos,
+                                      SERVE_GEN, seq_len=seq)
+        torch.cuda.synchronize()
+        out["decode_s"] = time.perf_counter() - t0
+        out["tokens_per_s"] = SERVE_BATCH * SERVE_GEN / out["decode_s"]
+        out["launches"] = dict(LAUNCHES)
+        require(not any(out["launches"].values()),
+                f"{name}: the serving path launched {out['launches']}")
+        tokens = tokens.cpu()
+        require(bool(torch.isfinite(last).all()), f"{name}: logits")
+        require(int(tokens.max()) < cfg.vocab_size, f"{name}: tokens")
+        out["sample"] = tokens[0][:12].tolist()
+
+        def again(res):
+            res["run"] = serve.generate(
+                cfg, params, T.tree_map(torch.clone, snap[0]), snap[1],
+                snap[2], SERVE_GEN, seq_len=seq)
+
+        res = {}
+        out["syncs"] = count_syncs_of(torch, lambda: again(res))
+        require(out["syncs"]["per_round"] == 0,
+                f"{name}: the decode loop synchronised: {out['syncs']}")
+        tok_b, last_b = res.pop("run")
+        require(torch.equal(tok_b.cpu(), tokens)
+                and torch.equal(_bits(torch, last_b), _bits(torch, last)),
+                f"{name}: a decode from one cache state does not repeat "
+                f"bit for bit")
+        out["repeat_bitwise"] = True
+        c = T.tree_map(torch.clone, snap[0])
+        nxt = serve.pick(snap[1], cfg.vocab_size)
+        out["step_profile"] = profile_call(
+            torch, lambda: TM.decode_step(cfg, params, c, snap[2], nxt,
+                                          seq_len=seq), port_kernels=False)
+        read = out["param_bytes"] - _nbytes(params.get("encoder")) - (
+            0 if cfg.tie_embeddings else _nbytes(params["embed"]))
+        out["step_bytes"] = read + out["cache_bytes"]
+        out["step_bound_ms"] = out["step_bytes"] / HBM_BYTES_PER_S * 1e3
+        out["peak_bytes"] = torch.cuda.max_memory_allocated()
+        del params, caches, snap, c, res, logits, last, tok_b, last_b
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"{name} served whole: {json.dumps(out)}")
+    return out
+
+
+def serve_block_vs_cpu(torch, seed, name):
+    """One decode step of ``name``'s first block at full width in float32
+    (no drop), card against the host's CPU, from the same weights, input
+    and cache (random, b = 2, the CLI's 48 slots, pos 32; whisper's cross
+    keys and values over 1500 frames): the MoE routing identical, the
+    output and every cache leaf within ``ZOO_BLOCK_TOL`` of its largest
+    element."""
+    import dataclasses
+    from repro_torch import tree as T
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as TM
+    from repro_torch.models.params import materialize
+
+    cfg = _no_drop(dataclasses.replace(get_config(name), dtype="float32"))
+    spec = cfg.layer_pattern[0]
+    params = materialize(TM._block_params(cfg, spec), seed, "float32",
+                         "cpu")
+    meta = TM._layer_cache_meta(cfg, spec, SERVE_BATCH,
+                                SERVE_PROMPT + SERVE_GEN)
+    gen = torch.Generator().manual_seed(seed + 2)
+    cache = {k: torch.randn(p.shape, generator=gen) * 0.5
+             for k, p in meta.items()}
+    x = torch.randn((SERVE_BATCH, 1, cfg.d_model), generator=gen)
+    side = {}
+    with torch.inference_mode():
+        for dev in ("cuda", "cpu"):
+            cap = Capture()
+            cap.wrap(L, "moe_route", "route",
+                     keep=lambda r: (r.eidx.cpu(), r.keep.cpu(),
+                                     r.dst.cpu()))
+            try:
+                p = T.tree_map(lambda t: t.to(dev), params)
+                c = {k: v.to(dev).clone() for k, v in cache.items()}
+                y = TM._block_decode(cfg, spec, p, x.to(dev), c,
+                                     pos=SERVE_PROMPT, ring=False,
+                                     window_eff=None)
+            finally:
+                cap.restore()
+            side[dev] = (y.cpu(), {k: v.cpu() for k, v in c.items()},
+                         cap.outs.get("route"))
+    (gy, gc_, groute), (cy, cc, croute) = side["cuda"], side["cpu"]
+    rel = lambda a, b: float((a.double() - b.double()).abs().max()
+                             / b.double().abs().max().clamp_min(1e-30))
+    moe = spec.moe is not None
+    require(moe == (groute is not None), f"{name}: routing capture")
+    if moe:
+        for what, a, b in zip(("eidx", "keep", "dst"), groute, croute):
+            require(torch.equal(a, b), f"{name} decode: routing {what} "
+                    f"differs between the card and the CPU")
+    out = {"y_rel_err": rel(gy, cy),
+           "cache_rel_err": max(rel(gc_[k], cc[k]) for k in cc),
+           "cache_leaves": sorted(cc), "routing_identical": moe or None,
+           "tolerance": ZOO_BLOCK_TOL}
+    log(f"{name} decode block card vs CPU: {json.dumps(out)}")
+    require(out["y_rel_err"] <= ZOO_BLOCK_TOL
+            and out["cache_rel_err"] <= ZOO_BLOCK_TOL,
+            f"{name} decode block: card vs CPU {out}")
+    return out
+
+
+def serve_depth_check(torch, seed, name):
+    """``name`` at full width, 2 pattern repeats, float32 (no drop), on
+    the card: SERVE_CHECK_TOKENS tokens through ``decode_step`` (whisper's
+    cross caches from ``prefill``) against ``forward`` at every position,
+    and prefill's caches, padded, continuing one step as the replay's do,
+    both within SERVE_REL of the largest logit."""
+    import dataclasses
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import model as TM
+
+    cfg = _no_drop(dataclasses.replace(get_config(name), dtype="float32",
+                                       pattern_repeats=2))
+    n, b = SERVE_CHECK_TOKENS, SERVE_BATCH
+    rel = lambda a, e: float((a - e).abs().max() / e.abs().max())
+    with torch.inference_mode():
+        params = TM.init_params(cfg, seed=seed, device="cuda")
+        gen = torch.Generator().manual_seed(seed + 3)
+        toks = torch.randint(0, cfg.vocab_size, (b, n + 1),
+                             generator=gen).cuda()
+        kw = {}
+        if cfg.encoder is not None:
+            kw["frontend_embeds"] = (torch.randn(
+                (b, cfg.encoder.src_len, cfg.d_model), generator=gen)
+                * 0.02).cuda()
+        fwd, _ = TM.forward(cfg, params, toks[:, :n], **kw)
+        last, pre = TM.prefill(cfg, params, toks[:, :n], **kw)
+        replay = serve.new_caches(cfg, b, n + 1, "cuda")
+        if cfg.encoder is not None:
+            for c, pc in zip(replay, pre):
+                c["cross_k"].copy_(pc["cross_k"])
+                c["cross_v"].copy_(pc["cross_v"])
+        dec = torch.stack([TM.decode_step(cfg, params, replay, i,
+                                          toks[:, i], seq_len=n + 1)[0]
+                           for i in range(n)], 1)
+        seeded = serve.new_caches(cfg, b, n + 1, "cuda")
+        _seed_caches(torch, seeded, pre)
+        la = TM.decode_step(cfg, params, replay, n, toks[:, n],
+                            seq_len=n + 1)[0]
+        lb = TM.decode_step(cfg, params, seeded, n, toks[:, n],
+                            seq_len=n + 1)[0]
+        out = {"decode_vs_forward": rel(dec, fwd),
+               "prefill_vs_replay_last": rel(last, dec[:, -1]),
+               "continuation": rel(lb, la), "tokens": n,
+               "bound": SERVE_REL}
+        del params, pre, replay, seeded, fwd, dec
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"{name} at 2 repeats, float32: {json.dumps(out)}")
+    require(max(out["decode_vs_forward"], out["prefill_vs_replay_last"],
+                out["continuation"]) <= SERVE_REL,
+            f"{name}: decode against forward / prefill {out}")
     return out
 
 
@@ -2838,7 +3151,18 @@ def main(argv=None):
         del captured
         zoo[name]["block_card_vs_cpu"] = phase_zoo_block_vs_cpu(
             torch, args.seed, name)
+    # phase 14: each model served whole after the previous one is freed
+    t_serve = time.perf_counter()
+    served = {name: phase_serve(torch, args.seed, name) for name in SERVE}
+    for name in SERVE_CHECK:
+        served[name]["decode_block_card_vs_cpu"] = serve_block_vs_cpu(
+            torch, args.seed, name)
+        served[name]["two_repeats_float32"] = serve_depth_check(
+            torch, args.seed, name)
+    log(f"phase 14 took {time.perf_counter() - t_serve:.1f} s")
     for k in kernels:
+        k["launches_serve"] = {n: r["launches"][k["name"]]
+                               for n, r in served.items()}
         k["launches_fedadam_top"] = {"cnn": cnn_top["launches"][k["name"]],
                                      "lm": lm_top["launches"][k["name"]]}
         if k["name"] in ("pack_words", "unpack_words"):
@@ -2879,7 +3203,8 @@ def main(argv=None):
               "cnn_baselines": cnn_base, "exact_topk_ties": exact,
               "transformer_baselines": lm_base,
               "cnn_drivers": cnn_drivers, "transformer_drivers": lm_drivers,
-              "zoo": zoo, "total_s": time.perf_counter() - t_start}
+              "zoo": zoo, "serve": served,
+              "total_s": time.perf_counter() - t_start}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))

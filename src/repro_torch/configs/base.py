@@ -6,11 +6,6 @@ a declarative description of a (possibly heterogeneous) decoder stack that
 :mod:`repro_torch.models.model` turns into parameters and a forward
 function.  Layer heterogeneity is a repeating ``layer_pattern`` of
 :class:`LayerSpec` entries; parameters are stacked over pattern repeats.
-
-The registry holds the architectures the port has (see
-``repro_torch/configs/__init__.py``); :func:`get_config` of a name of the
-JAX package's zoo that it lacks (an encoder or a stub frontend) raises
-``NotImplementedError`` naming ROADMAP §1.13.
 """
 from __future__ import annotations
 
@@ -240,22 +235,11 @@ def register(fn):
     return fn
 
 
-#: The JAX package's zoo; the names the port has not ported yet (not in
-#: the registry) raise NotImplementedError instead of KeyError.
-ZOO = ("kimi-k2-1t-a32b", "deepseek-v2-lite-16b", "gemma3-27b",
-       "starcoder2-7b", "llava-next-mistral-7b", "jamba-1-5-large-398b",
-       "mamba2-1-3b", "whisper-base", "mistral-large-123b", "starcoder2-3b")
-
-
 def get_config(name: str) -> ArchConfig:
     # configs register on import; import the package lazily to avoid cycles
     from repro_torch import configs as _pkg  # noqa: F401
     key = name.replace("_", "-")
     if key not in _REGISTRY:
-        if key in ZOO:
-            raise NotImplementedError(
-                f"arch {name!r} is not ported yet: ROADMAP §1.13 (the model "
-                f"zoo; ported: {sorted(_REGISTRY)})")
         raise KeyError(f"unknown arch {name!r}; known: {sorted(_REGISTRY)}")
     return _REGISTRY[key]()
 

@@ -1,5 +1,6 @@
 """FL training driver of the port: a model of the zoo (dense, MoE, MLA or
-Mamba-2 decoders; ``--arch`` any name the port's registry has) under a
+Mamba-2 decoders, Whisper's encoder-decoder, the VLM's stub frontend;
+``--arch`` any name of the zoo) under a
 FedAdam algorithm, in synchronous rounds or buffered-async under client
 churn.
 
@@ -51,7 +52,8 @@ from repro_torch.core import (AsyncConfig, FedConfig, fed_init,
                               make_async_round, make_fl_round)
 from repro_torch.core.compressors import make_compressor
 from repro_torch.core.compressors import available as available_algorithms
-from repro_torch.data import ChurnConfig, ChurnModel, synthetic_tokens
+from repro_torch.data import (ChurnConfig, ChurnModel,
+                              synthetic_frontend_embeds, synthetic_tokens)
 from repro_torch.device import DeviceLike, exact_float32, resolve_device
 from repro_torch.models.model import init_params, loss_fn
 from repro_torch.optim import AdamHyper
@@ -60,15 +62,25 @@ from repro_torch.optim import AdamHyper
 def build_client_batches(cfg, n_clients, batch_size, seq_len, *, seed=0,
                          non_iid=True, device: DeviceLike = None):
     """``{"tokens": (C, B, S) int32}`` on ``device``: Zipf tokens with a
-    topic per client (non-IID), from the seed."""
-    if cfg.stub_frontend:
-        raise NotImplementedError(
-            "stub frontends are not ported yet: ROADMAP §1.13")
+    topic per client (non-IID), from the seed; for a stub frontend also
+    ``"embeds": (C, B, n_front, d)`` float32, the precomputed frame (the
+    encoder's src_len) or patch (at most 16) embeddings, client c's from
+    seed + c, as the JAX package's trainer makes them."""
+    dev = resolve_device(device)
     toks = np.stack([
         synthetic_tokens(batch_size, seq_len, cfg.vocab_size, seed=seed,
                          topic=(c if non_iid else 0))
         for c in range(n_clients)])
-    return {"tokens": torch.from_numpy(toks).to(resolve_device(device))}
+    batch = {"tokens": torch.from_numpy(toks).to(dev)}
+    if cfg.stub_frontend:
+        n_front = cfg.encoder.src_len if cfg.encoder is not None else \
+            min(cfg.stub_frontend_tokens, 16)
+        emb = np.stack([
+            synthetic_frontend_embeds(batch_size, n_front, cfg.d_model,
+                                      seed=seed + c)
+            for c in range(n_clients)])
+        batch["embeds"] = torch.from_numpy(emb).to(dev)
+    return batch
 
 
 def make_trainer(cfg, fed: FedConfig, *, seed: int = 0,
@@ -83,7 +95,8 @@ def make_trainer(cfg, fed: FedConfig, *, seed: int = 0,
     params = init_params(cfg, seed=seed, device=dev)
 
     def loss(p, batch):
-        return loss_fn(cfg, p, batch["tokens"], remat="none")
+        return loss_fn(cfg, p, batch["tokens"],
+                       frontend_embeds=batch.get("embeds"), remat="none")
 
     run = make_fl_round(fed, loss) if acfg is None else \
         make_async_round(fed, loss, acfg, churn=churn)

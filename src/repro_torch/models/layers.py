@@ -7,8 +7,13 @@ there: activations are (batch, seq, d_model) in the model dtype,
 normalisation and softmax statistics in float32, weights in the JAX
 package's layout (``wq`` is (d, heads, head_dim), ``wo`` (heads, head_dim,
 d)).  The matrix products are plain PyTorch (the JAX package leaves them
-to XLA, not to a Pallas kernel).  The decode path (``mla_decode``,
-``ssm_decode``, the caches) is ROADMAP §1.14.
+to XLA, not to a Pallas kernel).
+
+The decode functions take one new token against a cache and write the
+cache IN PLACE (at ``pos``, or ``pos % S`` for a ring), where the JAX
+package returns an updated copy (``dynamic_update_slice`` under
+``donate_argnums``).  ``pos`` is a Python int, so that no mask or slot
+needs a read from the device; they return the cache they were given.
 """
 from __future__ import annotations
 
@@ -120,6 +125,31 @@ def chunked_attention(q, k, v, *, causal=True, window=None, q_offset=0,
     return torch.movedim(out, 3, 1).to(q.dtype)
 
 
+def decode_attention(q, k_cache, v_cache, *, pos: int, window=None,
+                     ring: bool = False):
+    """One-token attention against a cache, softmax in float32.
+
+    q: (b, nkv, g, hd); caches: (b, S, nkv, hd); pos: the index of the
+    current token (already written into the cache).  ``ring``: the cache
+    is a ring buffer of S = window slots written at ``t % S``."""
+    S, hd = k_cache.shape[1], k_cache.shape[3]
+    s = torch.einsum("bkgh,bskh->bkgs", q.to(_F32) * (1.0 / math.sqrt(hd)),
+                     k_cache.to(_F32))
+    slots = torch.arange(S, device=q.device)
+    if ring:
+        # slot s holds global position pos - ((pos - s) mod S); valid if >= 0
+        valid = pos - torch.remainder(pos - slots, S) >= 0
+    else:
+        valid = slots <= pos
+        if window is not None:
+            valid &= slots > pos - window
+    s = torch.where(valid, s, NEG_INF)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = p / torch.clamp_min(p.sum(dim=-1, keepdim=True), 1e-30)
+    out = torch.einsum("bkgs,bskh->bkgh", p, v_cache.to(_F32))
+    return out.to(q.dtype)
+
+
 # ---------------------------------------------------------------------------
 # GQA attention layer
 # ---------------------------------------------------------------------------
@@ -141,25 +171,68 @@ def attention_params(d: int, a: AttentionSpec):
 
 
 def attention_fwd(p, a: AttentionSpec, x, *, positions, window_override=None,
-                  chunk=1024):
-    """Causal self-attention forward.  x: (b, s, d).  Returns (out, (k,
-    v)), or MLA's (out, (ckv,))."""
+                  kv=None, kv_valid_len=None, chunk=1024):
+    """Training/prefill forward.  x: (b, s, d).  ``kv``: an optional (b,
+    skv, d) source for cross-attention (the encoder's states), which takes
+    no rotary and no causal mask.  Returns (out, (k, v)), or MLA's (out,
+    (ckv,))."""
     if a.is_mla:
         return mla_fwd(p, a, x, positions=positions, chunk=chunk)
     b, s, _ = x.shape
+    cross = kv is not None
+    src = kv if cross else x
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
-    q = rope(q, positions, a.rope_theta)
-    k = rope(k, positions, a.rope_theta)
+    k = torch.einsum("bsd,dhk->bshk", src, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", src, p["wv"])
+    if not cross:
+        q = rope(q, positions, a.rope_theta)
+        k = rope(k, positions, a.rope_theta)
     g = a.num_heads // a.num_kv_heads
     qg = q.reshape(b, s, a.num_kv_heads, g, a.head_dim)
     window = a.window if window_override is None else window_override
-    out = chunked_attention(qg, k, v, causal=True, window=window,
-                            chunk=chunk)
+    out = chunked_attention(qg, k, v, causal=not cross, window=window,
+                            kv_valid_len=kv_valid_len, chunk=chunk)
     out = out.reshape(b, s, a.num_heads * a.head_dim)
     wo = p["wo"].reshape(a.num_heads * a.head_dim, -1)
     return torch.einsum("bsk,kd->bsd", out, wo), (k, v)
+
+
+def attention_decode(p, a: AttentionSpec, x, cache, *, pos: int,
+                     window_override=None, ring=False):
+    """x: (b, 1, d); cache: {"k", "v"} (b, S, nkv, hd), or MLA's
+    {"ckv"}.  Writes the current token's k and v into the cache (at pos,
+    or pos % S for a ring), then attends.  Returns (out, cache)."""
+    if a.is_mla:
+        return mla_decode(p, a, x, cache, pos=pos)
+    b = x.shape[0]
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])        # (b, 1, H, hd)
+    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
+    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    posv = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    q = rope(q, posv, a.rope_theta)[:, 0]
+    k = rope(k, posv, a.rope_theta)[:, 0]
+    slot = pos % cache["k"].shape[1] if ring else pos
+    cache["k"][:, slot] = k
+    cache["v"][:, slot] = v[:, 0]
+    g = a.num_heads // a.num_kv_heads
+    qg = q.reshape(b, a.num_kv_heads, g, a.head_dim)
+    window = a.window if window_override is None else window_override
+    out = decode_attention(qg, cache["k"], cache["v"], pos=pos,
+                           window=None if ring else window, ring=ring)
+    out = out.reshape(b, 1, a.num_heads * a.head_dim)
+    wo = p["wo"].reshape(a.num_heads * a.head_dim, -1)
+    return torch.einsum("bsk,kd->bsd", out, wo), cache
+
+
+def attention_cache(a: AttentionSpec, batch: int, cache_len: int, dtype):
+    if a.is_mla:
+        return {"ckv": P((batch, cache_len, a.kv_lora_rank),
+                         ("batch", "kv_seq", "kv_lora"), init="zeros",
+                         dtype=dtype)}
+    shape = (batch, cache_len, a.num_kv_heads, a.head_dim)
+    axes = ("batch", "kv_seq", "kv_heads", "head_dim")
+    return {"k": P(shape, axes, init="zeros", dtype=dtype),
+            "v": P(shape, axes, init="zeros", dtype=dtype)}
 
 
 # ---------------------------------------------------------------------------
@@ -186,9 +259,8 @@ def mla_fwd(p, a: AttentionSpec, x, *, positions, chunk=1024):
     """Training: the latent expanded to full K/V, with no rotary (the JAX
     package's NoPE convention, so that training matches its absorbed
     decode form).  Returns (out, (ckv,)), ckv: (b, s, kv_lora_rank): the
-    (out, cache) signature of every mixer here and in the JAX package,
-    whose cache the training path drops, decode (ROADMAP §1.14) will read
-    and the parity tests hold against JAX's."""
+    (out, cache) signature of every mixer here and in the JAX package;
+    prefill keeps ckv as the cache that :func:`mla_decode` reads."""
     del positions                       # NoPE: no position enters
     b, s, _ = x.shape
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
@@ -200,6 +272,31 @@ def mla_fwd(p, a: AttentionSpec, x, *, positions, chunk=1024):
     out = out.reshape(b, s, a.num_heads * a.head_dim)
     wo = p["wo"].reshape(a.num_heads * a.head_dim, -1)
     return torch.einsum("bsk,kd->bsd", out, wo), (ckv,)
+
+
+def mla_decode(p, a: AttentionSpec, x, cache, *, pos: int):
+    """Decode in the absorbed form: scores and context live in the latent
+    space, in float32, so the cache holds only ckv (b, S, kv_lora_rank).
+    NoPE, as :func:`mla_fwd` (the JAX package's convention: the released
+    DeepSeek models split each head into a rotary and a NoPE part)."""
+    b = x.shape[0]
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])[:, 0]   # (b, H, hd)
+    ckv = torch.einsum("bsd,dr->bsr", x, p["w_dkv"])
+    cache["ckv"][:, pos] = ckv[:, 0]
+    c = cache["ckv"].to(_F32)
+    # absorb: q_lat[h] = w_uk[., h, :]^T q[h]  -> (b, H, r)
+    q_lat = torch.einsum("bhk,rhk->bhr", q.to(_F32), p["w_uk"].to(_F32))
+    s = torch.einsum("bhr,bsr->bhs", q_lat * (1.0 / math.sqrt(a.head_dim)),
+                     c)
+    valid = torch.arange(c.shape[1], device=x.device) <= pos
+    s = torch.where(valid, s, NEG_INF)
+    pr = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    pr = pr / torch.clamp_min(pr.sum(dim=-1, keepdim=True), 1e-30)
+    ctx_lat = torch.einsum("bhs,bsr->bhr", pr, c)
+    out = torch.einsum("bhr,rhk->bhk", ctx_lat, p["w_uv"].to(_F32))
+    out = out.reshape(b, 1, a.num_heads * a.head_dim).to(x.dtype)
+    wo = p["wo"].reshape(a.num_heads * a.head_dim, -1)
+    return torch.einsum("bsk,kd->bsd", out, wo), cache
 
 
 # ---------------------------------------------------------------------------
@@ -518,3 +615,49 @@ def ssm_fwd(p, spec: SSMSpec, x, *, norm_eps=1e-6):
     out = torch.einsum("bse,ed->bsd", y, p["out_proj"])
     return out, {"state": final_state,
                  "conv": xbc_raw[:, -(spec.d_conv - 1):, :]}
+
+
+def ssm_decode(p, spec: SSMSpec, x, cache, *, norm_eps=1e-6):
+    """One-token Mamba-2 step.  x: (b, 1, d); cache: {"conv": (b, d_conv
+    - 1, ch) the last raw conv inputs, "state": (b, h, p, n) float32},
+    both updated in place.  Returns (out, cache)."""
+    b, _, d = x.shape
+    d_inner = spec.expand * d
+    n = spec.d_state
+    h = spec.num_heads(d)
+    zxbcdt = torch.einsum("bsd,de->bse", x, p["in_proj"])[:, 0]
+    z, xin, Braw, Craw, dtraw = torch.split(
+        zxbcdt, [d_inner, d_inner, n, n, h], dim=-1)
+    xbc = torch.cat([xin, Braw, Craw], dim=-1)             # (b, ch)
+    window = torch.cat([cache["conv"], xbc[:, None]], dim=1)  # (b, w, ch)
+    conv_out = F.silu(torch.einsum("bwc,wc->bc", window, p["conv_w"])
+                      + p["conv_b"])
+    cache["conv"].copy_(window[:, 1:])
+    xin, Braw, Craw = torch.split(conv_out, [d_inner, n, n], dim=-1)
+    A = -torch.exp(p["a_log"].to(_F32))
+    u = dtraw.to(_F32) + p["dt_bias"].to(_F32)
+    dt = torch.logaddexp(u, torch.zeros((), dtype=_F32, device=x.device))
+    xh = xin.reshape(b, h, spec.head_dim).to(_F32)
+    # "bh,bhp,bn->bhpn": (dt * x) outer B
+    inc = (dt[..., None] * xh)[..., None] * Braw.to(_F32)[:, None, None]
+    state = cache["state"] * torch.exp(dt * A)[..., None, None] + inc
+    cache["state"].copy_(state)
+    y = torch.einsum("bn,bhpn->bhp", Craw.to(_F32), state)
+    y = y + xh * p["d_skip"].to(_F32)[:, None]
+    y = y.reshape(b, 1, d_inner).to(x.dtype)
+    y = y * F.silu(z[:, None])
+    y = rmsnorm({"scale": p["norm"]}, y, norm_eps)
+    return torch.einsum("bse,ed->bsd", y, p["out_proj"]), cache
+
+
+def ssm_cache(spec: SSMSpec, d: int, batch: int, dtype):
+    d_inner = spec.expand * d
+    h = spec.num_heads(d)
+    ch = d_inner + 2 * spec.d_state
+    return {
+        "conv": P((batch, spec.d_conv - 1, ch), ("batch", "conv", "ssm_inner"),
+                  init="zeros", dtype=dtype),
+        "state": P((batch, h, spec.head_dim, spec.d_state),
+                   ("batch", "ssm_heads", "head_dim", "ssm_state"),
+                   init="zeros", dtype="float32"),
+    }

@@ -1,23 +1,29 @@
-"""Stack builder: ArchConfig -> parameters + the training forward and loss.
+"""Stack builder: ArchConfig -> parameters, the training forward and loss,
+prefill and one-token decode.
 
-Counterpart of ``repro/models/model.py``'s training path, for every
-decoder of the zoo: attention (GQA, windowed or MLA) and Mamba-2 (SSD)
-mixers, dense or MoE FFNs.  The parameter tree is the JAX package's, leaf
-for leaf:
+Counterpart of ``repro/models/model.py``, for every model of the zoo:
+attention (GQA, windowed or MLA) and Mamba-2 (SSD) mixers, dense or MoE
+FFNs, Whisper's encoder with cross-attention, and the VLM's stub frontend
+(precomputed embeddings prepended to the tokens').  The parameter tree is
+the JAX package's, leaf for leaf:
 
     {"embed": (V, d), "blocks": (group, ...), "final_norm": {"scale"},
-     "lm_head": (d, V)}
+     "lm_head": (d, V), "encoder": {"blocks", "final_norm"}}
 
 where ``blocks`` is a tuple with one dict per run of identical layer specs
 (:func:`pattern_groups`), each leaf stacked ``(pattern_repeats, count,
-...)``.  The per-leaf compress, the packed wire layout and so the wire
-bytes follow this leaf order and these shapes.  The JAX scans over repeats
-and over a group's layers are loops here.  Only ``remat="none"`` (what the
-trainer uses) is offered; recomputation is ROADMAP §1.14, as are prefill
-and decode.  Encoders and stub frontends raise (ROADMAP §1.13).
+...)``, and the encoder's blocks ``(num_layers, ...)``.  The per-leaf
+compress, the packed wire layout and so the wire bytes follow this leaf
+order and these shapes.  The JAX scans over repeats and over a group's
+layers are loops here.  Only ``remat="none"`` (what the trainer uses) is
+offered; recomputation is ROADMAP §1.14.
+
+The decode caches (:func:`cache_meta`) are stacked the same way, one dict
+per group; :func:`decode_step` writes them in place.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, List, Tuple
 
 import numpy as np
@@ -47,13 +53,6 @@ def pattern_groups(cfg: ArchConfig) -> List[Tuple[LayerSpec, int]]:
     return groups
 
 
-def _check_ported(cfg: ArchConfig) -> None:
-    if cfg.encoder is not None or cfg.stub_frontend:
-        raise NotImplementedError(
-            f"{cfg.name}: encoders and stub frontends are not ported yet: "
-            "ROADMAP §1.13")
-
-
 # ---------------------------------------------------------------------------
 # Parameters
 # ---------------------------------------------------------------------------
@@ -64,6 +63,10 @@ def _block_params(cfg: ArchConfig, spec: LayerSpec) -> Dict[str, Any]:
     p: Dict[str, Any] = {"norm_mixer": L.rmsnorm_params(d)}
     if spec.kind == "attn":
         p["mixer"] = L.attention_params(d, spec.attention)
+        if cfg.encoder is not None:
+            p["cross"] = L.attention_params(
+                d, dataclasses.replace(spec.attention, window=None))
+            p["norm_cross"] = L.rmsnorm_params(d)
     else:
         p["mixer"] = L.ssm_params(d, spec.ssm)
     if spec.d_ff:
@@ -77,7 +80,6 @@ def _block_params(cfg: ArchConfig, spec: LayerSpec) -> Dict[str, Any]:
 
 def abstract_params(cfg: ArchConfig):
     """The tree of :class:`P` records."""
-    _check_ported(cfg)
     d = cfg.d_model
     tree: Dict[str, Any] = {
         "embed": P((cfg.padded_vocab, d), ("vocab", "embed")),
@@ -90,6 +92,19 @@ def abstract_params(cfg: ArchConfig):
     if not cfg.tie_embeddings:
         tree["lm_head"] = P((d, cfg.padded_vocab), ("embed", "vocab"),
                             init="scaled", fan_in=d)
+    if cfg.encoder is not None:
+        enc_attn = dataclasses.replace(
+            cfg.layer_pattern[0].attention, window=None, causal=False)
+        enc_block = {
+            "norm_mixer": L.rmsnorm_params(d),
+            "mixer": L.attention_params(d, enc_attn),
+            "norm_ffn": L.rmsnorm_params(d),
+            "ffn": L.mlp_params(d, 4 * d, gated=False),
+        }
+        tree["encoder"] = {
+            "blocks": stack_tree(enc_block, cfg.encoder.num_layers),
+            "final_norm": L.rmsnorm_params(d),
+        }
     return tree
 
 
@@ -100,21 +115,21 @@ def init_params(cfg: ArchConfig, seed: int = 0, device: DeviceLike = None):
                        resolve_device(device))
 
 
-def params_from_jax(np_params, cfg: ArchConfig, device: DeviceLike = None):
-    """The JAX package's parameter tree (numpy leaves) on ``device``, same
-    structure, shapes and dtypes.  A 2-byte leaf (numpy ``bfloat16`` or
-    its ``uint16`` bit view) is taken bit for bit as bfloat16."""
-    dev = resolve_device(device)
-    metas, td = T.flatten(abstract_params(cfg))
-    arrays, td_np = T.flatten(np_params)
+def _from_jax(metas, np_tree, default_dtype: str, dev, what: str):
+    """Numpy leaves of the JAX package on ``dev`` in the dtypes of the
+    :class:`P` tree ``metas``, after checking structure and shapes.  A
+    2-byte leaf (numpy ``bfloat16`` or its ``uint16`` bit view) is taken
+    bit for bit."""
+    metas, td = T.flatten(metas)
+    arrays, td_np = T.flatten(np_tree)
     if td_np != td:
-        raise ValueError(f"parameter tree differs from {cfg.name}'s")
+        raise ValueError(f"{what} tree differs from the expected one")
     out = []
     for p, a in zip(metas, arrays):
         a = np.asarray(a)
         if tuple(a.shape) != p.shape:
             raise ValueError(f"shape {a.shape} where {p.shape} is expected")
-        dtype = leaf_dtype(p, cfg.dtype)
+        dtype = leaf_dtype(p, default_dtype)
         if a.dtype.itemsize == 2:
             t = torch.from_numpy(a.view(np.int16).copy()).view(dtype)
         else:
@@ -123,22 +138,61 @@ def params_from_jax(np_params, cfg: ArchConfig, device: DeviceLike = None):
     return td.unflatten(out)
 
 
+def params_from_jax(np_params, cfg: ArchConfig, device: DeviceLike = None):
+    """The JAX package's parameter tree (numpy leaves) on ``device``, same
+    structure, shapes and dtypes (bfloat16 as its bits)."""
+    return _from_jax(abstract_params(cfg), np_params, cfg.dtype,
+                     resolve_device(device), f"{cfg.name}'s parameter")
+
+
+def caches_from_jax(np_caches, cfg: ArchConfig, batch: int, seq_len: int, *,
+                    long_mode: bool = False, device: DeviceLike = None):
+    """The JAX package's decode caches (numpy leaves, ``cache_meta(cfg,
+    batch, seq_len, long_mode)``'s tree and shapes) as the port's."""
+    return _from_jax(cache_meta(cfg, batch, seq_len, long_mode), np_caches,
+                     cfg.dtype, resolve_device(device),
+                     f"{cfg.name}'s cache")
+
+
 # ---------------------------------------------------------------------------
 # Forward and loss
 # ---------------------------------------------------------------------------
 
 
 def _block_fwd(cfg: ArchConfig, spec: LayerSpec, p, x, *, positions,
-               chunk=1024):
-    """Returns (x, aux): aux the MoE load-balance loss, None without an
-    MoE."""
+               enc_out=None, chunk=1024, collect_cache=False):
+    """Returns (x, aux, cache_entry): aux the MoE load-balance loss (None
+    without an MoE); with ``collect_cache``, the layer's decode cache over
+    the sequence (k and v, MLA's ckv, or the SSD's state and conv tail;
+    with an encoder, the cross keys and values), else {}."""
     h = L.rmsnorm(p["norm_mixer"], x, cfg.norm_eps)
+    entry = {}
     if spec.kind == "attn":
-        out, _ = L.attention_fwd(p["mixer"], spec.attention, h,
-                                 positions=positions, chunk=chunk)
+        out, kv = L.attention_fwd(p["mixer"], spec.attention, h,
+                                  positions=positions, chunk=chunk)
+        if collect_cache:
+            if spec.attention.is_mla:
+                entry["ckv"] = kv[0]
+            else:
+                entry["k"], entry["v"] = kv
+        x = x + out
+        if enc_out is not None and "cross" in p:
+            hc = L.rmsnorm(p["norm_cross"], x, cfg.norm_eps)
+            out, _ = L.attention_fwd(p["cross"], spec.attention, hc,
+                                     positions=positions, kv=enc_out,
+                                     chunk=chunk)
+            x = x + out
+        if collect_cache and cfg.encoder is not None:
+            entry["cross_k"] = torch.einsum("bsd,dhk->bshk", enc_out,
+                                            p["cross"]["wk"])
+            entry["cross_v"] = torch.einsum("bsd,dhk->bshk", enc_out,
+                                            p["cross"]["wv"])
     else:
-        out, _ = L.ssm_fwd(p["mixer"], spec.ssm, h, norm_eps=cfg.norm_eps)
-    x = x + out
+        out, ssm_cache = L.ssm_fwd(p["mixer"], spec.ssm, h,
+                                   norm_eps=cfg.norm_eps)
+        if collect_cache:
+            entry = ssm_cache
+        x = x + out
     aux = None
     if spec.d_ff:
         h = L.rmsnorm(p["norm_ffn"], x, cfg.norm_eps)
@@ -147,43 +201,232 @@ def _block_fwd(cfg: ArchConfig, spec: LayerSpec, p, x, *, positions,
         h = L.rmsnorm(p["norm_ffn"], x, cfg.norm_eps)
         out, aux = L.moe_fwd(p["ffn"], spec.moe, h)
         x = x + out
-    return x, aux
+    return x, aux, entry
 
 
-def forward(cfg: ArchConfig, params, tokens, *, remat: str = "none",
-            chunk: int = 1024):
-    """tokens: (b, s) integers.  Returns (logits (b, s, V), aux): aux the
+def _encoder_fwd(cfg: ArchConfig, enc_params, frames):
+    """frames: (b, src, d) precomputed frame embeddings (the stub
+    frontend).  Non-causal self-attention with rotary, then the GELU MLP,
+    per encoder layer; the final norm."""
+    d = cfg.d_model
+    b, src = frames.shape[:2]
+    pos = torch.arange(src, device=frames.device).expand(b, src)
+    a = cfg.layer_pattern[0].attention
+    x = frames.to(DTYPES[cfg.dtype])
+    g = a.num_heads // a.num_kv_heads
+    for i in range(cfg.encoder.num_layers):
+        p = T.tree_map(lambda t: t[i], enc_params["blocks"])
+        h = L.rmsnorm(p["norm_mixer"], x, cfg.norm_eps)
+        q = torch.einsum("bsd,dhk->bshk", h, p["mixer"]["wq"])
+        k = torch.einsum("bsd,dhk->bshk", h, p["mixer"]["wk"])
+        v = torch.einsum("bsd,dhk->bshk", h, p["mixer"]["wv"])
+        q = L.rope(q, pos, a.rope_theta)
+        k = L.rope(k, pos, a.rope_theta)
+        qg = q.reshape(b, src, a.num_kv_heads, g, a.head_dim)
+        out = L.chunked_attention(qg, k, v, causal=False, chunk=src)
+        out = out.reshape(b, src, a.num_heads * a.head_dim)
+        x = x + torch.einsum("bsk,kd->bsd", out,
+                             p["mixer"]["wo"].reshape(-1, d))
+        hf = L.rmsnorm(p["norm_ffn"], x, cfg.norm_eps)
+        x = x + L.mlp_fwd(p["ffn"], hf)
+    return L.rmsnorm(enc_params["final_norm"], x, cfg.norm_eps)
+
+
+def _embed_inputs(cfg: ArchConfig, params, tokens, frontend_embeds):
+    """(x, enc_out): the token embeddings, after the VLM's stub prefix
+    where there is one, and the encoder's output (or None)."""
+    x = params["embed"][tokens.long()].to(DTYPES[cfg.dtype])
+    enc_out = None
+    if cfg.encoder is not None:
+        enc_out = _encoder_fwd(cfg, params["encoder"], frontend_embeds)
+    elif cfg.stub_frontend and frontend_embeds is not None:
+        x = torch.cat([frontend_embeds.to(x.dtype), x], dim=1)
+    return x, enc_out
+
+
+def _layers(cfg: ArchConfig, params):
+    """(repeat, group, index in the group, spec, that layer's parameters)
+    in layer order."""
+    for r in range(cfg.pattern_repeats):
+        for gi, ((spec, count), gp) in enumerate(zip(pattern_groups(cfg),
+                                                     params["blocks"])):
+            for i in range(count):
+                yield r, gi, i, spec, T.tree_map(lambda a: a[r, i], gp)
+
+
+def _lm_head(cfg: ArchConfig, params, x):
+    if cfg.tie_embeddings:
+        return torch.einsum("bsd,vd->bsv", x, params["embed"])
+    return torch.einsum("bsd,dv->bsv", x, params["lm_head"])
+
+
+def forward(cfg: ArchConfig, params, tokens, *, frontend_embeds=None,
+            remat: str = "none", chunk: int = 1024):
+    """tokens: (b, s) integers.  frontend_embeds: (b, s_front, d) for a
+    stub frontend (the VLM's prefix, prepended; the audio encoder's
+    input).  Returns (logits (b, s_front + s or s, V), aux): aux the
     float32 sum of the MoE layers' load-balance losses, in layer order (0
     without an MoE layer)."""
     if remat != "none":
         raise NotImplementedError(
             f"remat={remat!r} is not ported yet: ROADMAP §1.14")
-    x = params["embed"][tokens.long()].to(DTYPES[cfg.dtype])
+    x, enc_out = _embed_inputs(cfg, params, tokens, frontend_embeds)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
     aux = torch.zeros((), dtype=_F32, device=x.device)
-    groups = pattern_groups(cfg)
-    for r in range(cfg.pattern_repeats):
-        for (spec, count), gp in zip(groups, params["blocks"]):
-            for c in range(count):
-                p_one = T.tree_map(lambda a: a[r, c], gp)
-                x, a = _block_fwd(cfg, spec, p_one, x, positions=positions,
-                                  chunk=chunk)
-                if a is not None:
-                    aux = aux + a
+    for *_, spec, p_one in _layers(cfg, params):
+        x, a, _ = _block_fwd(cfg, spec, p_one, x, positions=positions,
+                             enc_out=enc_out, chunk=chunk)
+        if a is not None:
+            aux = aux + a
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    if cfg.tie_embeddings:
-        return torch.einsum("bsd,vd->bsv", x, params["embed"]), aux
-    return torch.einsum("bsd,dv->bsv", x, params["lm_head"]), aux
+    return _lm_head(cfg, params, x), aux
 
 
-def loss_fn(cfg: ArchConfig, params, tokens, *, remat: str = "none",
-            chunk: int = 1024):
-    """Next-token cross-entropy plus ``MOE_AUX_WEIGHT`` times the MoE
-    load-balance loss (0 for a model without MoE layers)."""
-    logits, aux = forward(cfg, params, tokens, remat=remat, chunk=chunk)
-    lg = logits[:, :-1].to(_F32)
+def loss_fn(cfg: ArchConfig, params, tokens, *, frontend_embeds=None,
+            remat: str = "none", chunk: int = 1024):
+    """Next-token cross-entropy over the tokens (a VLM's prefix positions
+    sliced off) plus ``MOE_AUX_WEIGHT`` times the MoE load-balance loss
+    (0 for a model without MoE layers)."""
+    logits, aux = forward(cfg, params, tokens,
+                          frontend_embeds=frontend_embeds, remat=remat,
+                          chunk=chunk)
+    n_front = 0
+    if cfg.stub_frontend and frontend_embeds is not None \
+            and cfg.encoder is None:
+        n_front = frontend_embeds.shape[1]
+    lg = logits[:, n_front:-1].to(_F32)
     tgt = tokens[:, 1:].long()
     lse = torch.logsumexp(lg, dim=-1)
     picked = lg.gather(-1, tgt[..., None])[..., 0]
     return (lse - picked).mean() + MOE_AUX_WEIGHT * aux
+
+
+# ---------------------------------------------------------------------------
+# Serving: prefill and decode
+# ---------------------------------------------------------------------------
+
+
+def _stack_caches(cfg: ArchConfig, entries):
+    """Per group, the layers' cache entries (a list in layer order)
+    stacked ``(pattern_repeats, count, ...)``."""
+    out = []
+    for (_, count), group in zip(pattern_groups(cfg), entries):
+        out.append({k: torch.stack([
+            torch.stack([group[r * count + c][k] for c in range(count)])
+            for r in range(cfg.pattern_repeats)]) for k in group[0]})
+    return tuple(out)
+
+
+def prefill(cfg: ArchConfig, params, tokens, *, frontend_embeds=None,
+            chunk: int = 1024):
+    """The forward over the prompt (a VLM's prefix first): (the last
+    position's logits (b, V), the caches), each cache leaf stacked
+    ``(repeats, count, b, ...)`` as :func:`cache_meta` lays it out, over
+    the prompt's length (k, v, ckv) or whole (the SSD's state and conv
+    tail, the cross keys and values)."""
+    x, enc_out = _embed_inputs(cfg, params, tokens, frontend_embeds)
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    entries = [[] for _ in pattern_groups(cfg)]
+    for _, gi, _, spec, p_one in _layers(cfg, params):
+        x, _, entry = _block_fwd(cfg, spec, p_one, x, positions=positions,
+                                 enc_out=enc_out, chunk=chunk,
+                                 collect_cache=True)
+        entries[gi].append(entry)
+    x = L.rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
+    return _lm_head(cfg, params, x)[:, 0], _stack_caches(cfg, entries)
+
+
+def decode_layout(cfg: ArchConfig, seq_len: int, long_mode: bool):
+    """Static per-GROUP cache layout: (kind, ring, window_eff, cache_len)."""
+    out = []
+    for spec, _ in pattern_groups(cfg):
+        if spec.kind == "ssm":
+            out.append(("ssm", False, None, 0))
+            continue
+        window = spec.attention.window
+        if long_mode and window is None and cfg.long_strategy == "window_all" \
+                and cfg.long_context_window:
+            window = cfg.long_context_window
+        ring = window is not None and window < seq_len
+        cache_len = window if ring else seq_len
+        out.append(("attn", ring, window, cache_len))
+    return tuple(out)
+
+
+def _layer_cache_meta(cfg: ArchConfig, spec: LayerSpec, batch: int,
+                      cache_len: int):
+    if spec.kind == "ssm":
+        return L.ssm_cache(spec.ssm, cfg.d_model, batch, cfg.dtype)
+    a = spec.attention
+    meta = L.attention_cache(a, batch, cache_len, cfg.dtype)
+    if cfg.encoder is not None:
+        shape = (batch, cfg.encoder.src_len, a.num_kv_heads, a.head_dim)
+        axes = ("batch", "enc_seq", "kv_heads", "head_dim")
+        meta["cross_k"] = P(shape, axes, init="zeros", dtype=cfg.dtype)
+        meta["cross_v"] = P(shape, axes, init="zeros", dtype=cfg.dtype)
+    return meta
+
+
+def cache_meta(cfg: ArchConfig, batch: int, seq_len: int,
+               long_mode: bool = False):
+    """The decode cache as a tree of :class:`P` (zeros; ``materialize``
+    allocates it): a tuple with one dict per group, leaves stacked
+    ``(pattern_repeats, count, ...)``."""
+    layout = decode_layout(cfg, seq_len, long_mode)
+    return tuple(
+        stack_tree(stack_tree(_layer_cache_meta(cfg, spec, batch, lay[3]),
+                              count), cfg.pattern_repeats)
+        for (spec, count), lay in zip(pattern_groups(cfg), layout))
+
+
+def _block_decode(cfg: ArchConfig, spec: LayerSpec, p, x, c, *, pos: int,
+                  ring: bool, window_eff):
+    """One layer's decode step: x (b, 1, d) against its cache c (written
+    in place).  Returns the new x."""
+    h = L.rmsnorm(p["norm_mixer"], x, cfg.norm_eps)
+    if spec.kind == "attn":
+        a = spec.attention
+        self_c = {k: v for k, v in c.items() if k in ("k", "v", "ckv")}
+        out, _ = L.attention_decode(p["mixer"], a, h, self_c, pos=pos,
+                                    window_override=window_eff, ring=ring)
+        x = x + out
+        if "cross_k" in c:
+            hc = L.rmsnorm(p["norm_cross"], x, cfg.norm_eps)
+            g = a.num_heads // a.num_kv_heads
+            q = torch.einsum("bsd,dhk->bshk", hc, p["cross"]["wq"])[:, 0]
+            qg = q.reshape(q.shape[0], a.num_kv_heads, g, a.head_dim)
+            src = c["cross_k"].shape[1]
+            outc = L.decode_attention(qg, c["cross_k"], c["cross_v"],
+                                      pos=src - 1)
+            outc = outc.reshape(x.shape[0], 1, -1)
+            wo = p["cross"]["wo"].reshape(-1, cfg.d_model)
+            x = x + torch.einsum("bsk,kd->bsd", outc, wo)
+    else:
+        out, _ = L.ssm_decode(p["mixer"], spec.ssm, h, c,
+                              norm_eps=cfg.norm_eps)
+        x = x + out
+    if spec.d_ff:
+        hf = L.rmsnorm(p["norm_ffn"], x, cfg.norm_eps)
+        x = x + L.mlp_fwd(p["ffn"], hf)
+    elif spec.moe:
+        hf = L.rmsnorm(p["norm_ffn"], x, cfg.norm_eps)
+        x = x + L.moe_fwd(p["ffn"], spec.moe, hf)[0]
+    return x
+
+
+def decode_step(cfg: ArchConfig, params, caches, pos: int, token, *,
+                seq_len: int, long_mode: bool = False):
+    """One decoding step.  caches per :func:`cache_meta`, written in place;
+    pos: the index of the current token (a Python int); token: (b,)
+    integers on the caches' device.  Returns (logits (b, V), caches)."""
+    layout = decode_layout(cfg, seq_len, long_mode)
+    x = params["embed"][token.long()][:, None].to(DTYPES[cfg.dtype])
+    for r, gi, i, spec, p_one in _layers(cfg, params):
+        _, ring, window_eff, _ = layout[gi]
+        c_one = {k: v[r, i] for k, v in caches[gi].items()}
+        x = _block_decode(cfg, spec, p_one, x, c_one, pos=pos, ring=ring,
+                          window_eff=window_eff)
+    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return _lm_head(cfg, params, x)[:, 0], caches

@@ -60,10 +60,12 @@ def _init_one(p: P, gen: torch.Generator, default_dtype: str,
         std = 1.0 / math.sqrt(max(1, fan_in))
     else:
         std = 0.02
-    # drawn in float32, then cast, as the JAX package does
+    # drawn in float32, scaled in place (one float32 copy of the leaf at a
+    # time, the same bits as ``x * std``), then cast, as the JAX package
+    # does
     x = torch.randn(p.shape, generator=gen, dtype=torch.float32,
                     device=device)
-    return (x * std).to(dtype)
+    return x.mul_(std).to(dtype)
 
 
 def materialize(tree, seed: int, default_dtype: str = "float32",

@@ -82,6 +82,32 @@ def np_bits_tree(tree):
         else np.asarray(x), tree)
 
 
+def np_model_params(jcfg, tcfg, seed=0):
+    """A zoo model's parameters in both packages from one numpy seed, by
+    the JAX package's init rules (zeros, ones, N(0, 1/fan_in), N(0,
+    0.02²)) and leaf dtypes: no JAX random draw to compile per leaf
+    shape.  Returns (JAX tree, the port's tree on the CPU)."""
+    import jax
+    import jax.numpy as jnp
+    from repro.models import model as JM
+    from repro.models.params import is_meta
+    from repro_torch.models import model as TM
+    rng = np.random.default_rng(seed)
+
+    def draw(p):
+        dtype = jnp.dtype(p.dtype or jcfg.dtype)
+        if p.init in ("zeros", "ones"):
+            return jnp.full(p.shape, p.init == "ones", dtype)
+        fan_in = p.fan_in or (p.shape[-2] if len(p.shape) >= 2
+                              else p.shape[-1])
+        std = 1.0 / np.sqrt(max(1, fan_in)) if p.init == "scaled" else 0.02
+        x = (rng.standard_normal(p.shape) * std).astype(np.float32)
+        return jnp.asarray(x).astype(dtype)
+
+    jp = jax.tree.map(draw, JM.abstract_params(jcfg), is_leaf=is_meta)
+    return jp, TM.params_from_jax(np_bits_tree(jp), tcfg, "cpu")
+
+
 def leaf_to_torch(x: np.ndarray, device="cpu") -> torch.Tensor:
     """A numpy leaf as a tensor; uint16 is taken as bfloat16 bits."""
     x = np.asarray(x)

@@ -747,7 +747,8 @@ def _zoo_block(name, device, seed=5):
     pos = torch.arange(s)[None].expand(2, s)
 
     def fwd(p, xx):
-        y, aux = TM._block_fwd(cfg, spec, p, xx, positions=pos.to(xx.device))
+        y, aux, _ = TM._block_fwd(cfg, spec, p, xx,
+                                  positions=pos.to(xx.device))
         return y, (torch.zeros((), device=xx.device) if aux is None else aux)
 
     return spec, params, x, fwd
@@ -850,3 +851,101 @@ def test_cuda_zoo_round_repeats_bitwise(cuda_device, name):
     assert LAUNCHES["pack_words"] == 2 * 2
     assert LAUNCHES["fused_adam"] == 2 * 2 * 2 * n
     assert LAUNCHES["absmax"] == LAUNCHES["ssm_apply_ef"] == 2 * 2 * n
+
+
+# ---------------------------------------------------------------------------
+# Serving: prefill and the decode step on the card
+# ---------------------------------------------------------------------------
+
+#: One smoke model of each served family: MLA + MoE, SSD, the hybrid,
+#: GQA with cross-attention, GQA after a stub prefix.
+SERVED = ["deepseek-v2-lite-16b", "mamba2-1-3b", "jamba-1-5-large-398b",
+          "whisper-base", "llava-next-mistral-7b"]
+
+
+SERVED_PROMPT = 8
+
+
+def _served(name, device, gen=6, seed=3):
+    """A float32 smoke model (MoE capacity factor 8: no drops), weights
+    drawn on the CPU, and on ``device`` its prefill over SERVED_PROMPT
+    tokens (after a VLM's prefix or with whisper's frames), the prefill's
+    caches in decode caches of SERVED_PROMPT + gen slots (after the
+    prefix), the tokens and the next position."""
+    import dataclasses
+    from repro_torch import tree as T
+    from repro_torch.configs import get_config, reduce_for_smoke
+    from repro_torch.launch import serve
+    from repro_torch.models import model as TM
+    cfg = dataclasses.replace(reduce_for_smoke(get_config(name)),
+                              dtype="float32")
+    cfg = dataclasses.replace(cfg, layer_pattern=tuple(
+        dataclasses.replace(sp, moe=dataclasses.replace(
+            sp.moe, capacity_factor=8.0)) if sp.moe else sp
+        for sp in cfg.layer_pattern))
+    gen_ = torch.Generator().manual_seed(seed)
+    params = TM.init_params(cfg, seed=seed, device="cpu")
+    prompt = SERVED_PROMPT
+    toks = torch.randint(0, cfg.vocab_size, (2, prompt + gen),
+                         generator=gen_)
+    kw, n_front = {}, 0
+    if cfg.stub_frontend:
+        n = cfg.encoder.src_len if cfg.encoder is not None else \
+            min(cfg.stub_frontend_tokens, 16)
+        kw["frontend_embeds"] = (torch.randn((2, n, cfg.d_model),
+                                             generator=gen_) * 0.02)
+        n_front = 0 if cfg.encoder is not None else n
+    seq = n_front + prompt + gen
+    p = T.tree_map(lambda t: t.to(device), params)
+    kw = {k: v.to(device) for k, v in kw.items()}
+    logits, pre = TM.prefill(cfg, p, toks[:, :prompt].to(device), **kw)
+    caches = serve.new_caches(cfg, 2, seq, device)
+    for z, c in zip(T.leaves(caches), T.leaves(pre)):
+        (z if z.shape == c.shape else z[:, :, :, :c.shape[3]]).copy_(c)
+    return cfg, p, toks.to(device), caches, logits, n_front + prompt, seq
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", SERVED)
+def test_cuda_decode_step_matches_cpu(cuda_device, name):
+    """Prefill and six teacher-forced decode steps of a float32 smoke
+    model (TF32 off) on the card against the CPU: every logit within 1e-5
+    of the largest (summation orders differ)."""
+    from repro_torch.device import exact_float32
+    from repro_torch.models import model as TM
+    exact_float32()
+    runs = []
+    for dev in (cuda_device, "cpu"):
+        cfg, p, toks, caches, logits, pos, seq = _served(name, dev)
+        out = [logits]
+        for j, i in enumerate(range(SERVED_PROMPT, toks.shape[1])):
+            lg, _ = TM.decode_step(cfg, p, caches, pos + j, toks[:, i],
+                                   seq_len=seq)
+            out.append(lg)
+        runs.append(torch.stack(out, 1).cpu())
+    a, b = runs
+    assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", SERVED)
+def test_cuda_decode_repeats_bitwise_without_syncs(cuda_device, name):
+    """Greedy generation from one cache state twice on the card: the same
+    tokens and logits bit for bit, with no stream synchronisation in the
+    loop (PyTorch's sync debug mode raises on one)."""
+    from repro_torch import tree as T
+    from repro_torch.launch import serve
+    cfg, p, _, caches, logits, pos, seq = _served(name, cuda_device)
+    runs = []
+    for _ in range(2):
+        c = T.tree_map(torch.clone, caches)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            toks, last = serve.generate(cfg, p, c, logits, pos, seq - pos,
+                                        seq_len=seq)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        runs.append((toks.cpu(), last.cpu()))
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert_bitwise(runs[0][1], runs[1][1], "logits")

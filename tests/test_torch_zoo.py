@@ -18,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import np_bits_tree, to_torch
+from _torch_parity import np_model_params, to_torch
 from repro.configs import get_config as jget_config
 from repro.configs import reduce_for_smoke as jreduce
 from repro.core import fed as jfed
@@ -429,53 +429,15 @@ def test_full_width_tree_matches_jax_at_the_cut(name):
     assert wire.mask_wire_bits(sizes, 0.05, exact_topk=False) % 8 == 0
 
 
-def test_encoder_and_stub_frontend_raise():
-    """The two zoo members the port lacks raise naming ROADMAP §1.13: at
-    ``get_config``, and (built from a ported config) at the parameter tree
-    for an encoder and at the batches for a stub frontend."""
-    from repro_torch.configs import EncoderSpec
-    for name in ("whisper-base", "llava-next-mistral-7b"):
-        with pytest.raises(NotImplementedError, match="§1.13"):
-            get_config(name)
-    cfg = reduce_for_smoke(get_config("starcoder2-3b"))
-    enc = dataclasses.replace(cfg, encoder=EncoderSpec(2, 4, 64))
-    with pytest.raises(NotImplementedError, match="§1.13"):
-        TM.abstract_params(enc)
-    stub = dataclasses.replace(cfg, stub_frontend=True)
-    with pytest.raises(NotImplementedError, match="§1.13"):
-        train.build_client_batches(stub, 2, 2, 16, device="cpu")
-
-
 def _zoo_configs(name, dtype):
     return (dataclasses.replace(jreduce(jget_config(name)), dtype=dtype),
             dataclasses.replace(reduce_for_smoke(get_config(name)),
                                 dtype=dtype))
 
 
-def _zoo_params(jcfg, tcfg, seed=0):
-    """Both packages' parameters from one numpy seed, by the JAX
-    package's init rules (zeros, ones, N(0, 1/fan_in), N(0, 0.02²)) and
-    leaf dtypes: no JAX random draw to compile per leaf shape."""
-    from repro.models.params import is_meta
-    rng = np.random.default_rng(seed)
-
-    def draw(p):
-        dtype = jnp.dtype(p.dtype or jcfg.dtype)
-        if p.init in ("zeros", "ones"):
-            return jnp.full(p.shape, p.init == "ones", dtype)
-        fan_in = p.fan_in or (p.shape[-2] if len(p.shape) >= 2
-                              else p.shape[-1])
-        std = 1.0 / np.sqrt(max(1, fan_in)) if p.init == "scaled" else 0.02
-        x = (rng.standard_normal(p.shape) * std).astype(np.float32)
-        return jnp.asarray(x).astype(dtype)
-
-    jp = jax.tree.map(draw, JM.abstract_params(jcfg), is_leaf=is_meta)
-    return jp, TM.params_from_jax(np_bits_tree(jp), tcfg, "cpu")
-
-
 def _loss_and_grads(name, dtype, seq=32):
     jcfg, tcfg = _zoo_configs(name, dtype)
-    jp, tp = _zoo_params(jcfg, tcfg)
+    jp, tp = np_model_params(jcfg, tcfg)
     for a, b in zip(T.leaves(tp), jax.tree_util.tree_leaves(jp)):
         assert a.dtype == getattr(torch, b.dtype.name)
     toks = np.random.default_rng(0).integers(0, 512, (2, seq)) \
@@ -618,7 +580,7 @@ def zoo_rounds(request):
                   use_kernel_adam=True, sparsify_backend="kernel")
     jf = jfed.FedConfig(**fed_kw, adam=jadam.AdamHyper(lr=1e-3))
     tf = FedConfig(**fed_kw, adam=AdamHyper(lr=1e-3))
-    jp, tp = _zoo_params(jcfg, tcfg)
+    jp, tp = np_model_params(jcfg, tcfg)
     jround = jax.jit(jfed.make_fl_round(
         jf, lambda p, b: JM.loss_fn(jcfg, p, b["tokens"], remat="none")))
     tround = make_fl_round(
