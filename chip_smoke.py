@@ -145,7 +145,26 @@ Phases:
    (routing identical, output and caches within ``ZOO_BLOCK_TOL``), and
    at 2 pattern repeats the teacher-forced decode against ``forward`` and
    a prefill-seeded continuation against the replay's, within
-   ``SERVE_REL``.
+   ``SERVE_REL``;
+15. (after 14) the multi-GPU spatial driver: (a) on a world-1 NCCL group,
+   the CNN's client 0 at phase 2's configuration through the spatial round
+   with the per-shard bitmap transport, against a 1-client scan round from
+   the same state: bitwise except at the values the transport's per-leaf
+   capacity drops into the residual (counted), launches per client
+   (packed_hist 2, packed_apply 1, no word kernel), the bytes gathered
+   against the bytes billed, 0 stream syncs; whether NCCL gathers uint32
+   as it is; then deepseek-v2-lite-16b's spatial train step
+   (``launch.steps.build_train_step``, its DeployPlan) at full width, the
+   whole vocabulary, train_4k's sequence of 4096, the global batch cut to
+   1 and the pattern repeats cut to the most of ``SPATIAL_REPEATS`` that
+   fit the card (each that does not recorded): one round with remat
+   "full" and one with "none" from the same state, bitwise, each with its
+   peak, launches (absmax L, count_ge 2L, ssm_apply_ef L), the bill; the
+   packed and per-leaf kernels against their plain versions on each
+   path's first inputs; (b) 4 gloo processes with CUDA tensors sharing
+   the card: the CNN's spatial round (C = 4) against the 4-client scan
+   round, and the async driver under churn with the group's cohort
+   bitwise the scan cohort.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.  Any failure
@@ -3078,6 +3097,498 @@ def serve_depth_check(torch, seed, name):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the multi-GPU spatial driver
+# ---------------------------------------------------------------------------
+
+#: The spatial train step's model and its cuts: the global batch cut to 1
+#: (the client's one sequence of train_4k's 4096 tokens) and the pattern
+#: repeats cut to the most of these that fit one card with remat "full"
+#: (each tried in turn; one that does not fit is recorded).
+SPATIAL_ARCH = "deepseek-v2-lite-16b"
+SPATIAL_REPEATS = (4, 3, 2, 1)
+#: Ranks of part (b), gloo processes sharing the one card.
+SPATIAL_RANKS = 4
+#: part (b)'s async run: phase 11's churn at 4 clients, K 2.
+SPATIAL_CHURN = dict(seed=0, jitter=3, straggler_prob=0.1, drop_prob=0.2)
+SPATIAL_ASYNC = dict(buffer_size=2, max_staleness=2)
+SPATIAL_ASYNC_STEPS = 4
+
+
+def spatial_gather_bytes(sizes, alpha) -> int:
+    """Bytes one client's transport all-gathers (FedAdam-SSM, float32
+    values): per leaf its bitmap, 4 ceil(n / 32), and three streams of kb
+    = k + overselect_bound(k) values."""
+    from repro_torch.core import sparsify as S
+    from repro_torch.kernels.topk_mask.ref import overselect_bound
+    total = 0
+    for n in sizes:
+        k = S.k_for(n, alpha)
+        total += 4 * -(-n // 32) + 3 * 4 * min(n, k + overselect_bound(k))
+    return total
+
+
+@contextlib.contextmanager
+def _count_gathered(aggregate):
+    """The bytes of every tensor the transport all-gathers, in a list."""
+    sizes, gather = [], aggregate._gather_clients
+
+    def counting(x, mesh):
+        sizes.append(x.numel() * x.element_size())
+        return gather(x, mesh)
+
+    aggregate._gather_clients = counting
+    try:
+        yield sizes
+    finally:
+        aggregate._gather_clients = gather
+
+
+@contextlib.contextmanager
+def _count_overflow(aggregate):
+    """Per call of the transport's pack (one per leaf for a shared mask,
+    in leaf order): the slots its capacity drops, a device scalar
+    (``max(0, nnz - kb)``)."""
+    drops, pack = [], aggregate._local_pack
+
+    def counting(wf, alpha):
+        out = pack(wf, alpha)
+        drops.append(((wf != 0).sum() - out[3]).clamp_min(0))
+        return out
+
+    aggregate._local_pack = counting
+    try:
+        yield drops
+    finally:
+        aggregate._local_pack = pack
+
+
+def _spatial_vs_scan(torch, st, ref, drops, what):
+    """The spatial round against the scan round from one state: every
+    leaf of W, M, V and the clients' residuals bitwise where no client's
+    pack dropped a value; where one did (``drops[c][leaf]``, values past
+    the leaf's capacity k + overselect_bound(k), which the transport feeds
+    back into the residual while the wire's pooled capacity keeps them),
+    the two differ at no more positions than were dropped.  Returns the
+    positions that differ, by leaf and part."""
+    from repro_torch import tree as T
+    names = [n for n, _ in _paths_of(st.W)]
+    total = [sum(d[i] for d in drops) for i in range(len(names))]
+    out = {}
+    for part in ("W", "M", "V"):
+        for name, n, x, y in zip(names, total, T.leaves(getattr(st, part)),
+                                 T.leaves(getattr(ref, part))):
+            diff = int((_bits(torch, x) != _bits(torch, y)).sum())
+            require(diff <= n, f"{what}: {part}[{name}] differs at {diff} "
+                    f"positions, {n} values dropped")
+            if diff:
+                out[f"{part}/{name}"] = diff
+    err_s = T.leaves(st.client_state["comp"]["err"])
+    err_r = T.leaves(ref.client_state["comp"]["err"])
+    for i, (name, x, y) in enumerate(zip(names, err_s, err_r)):
+        for c in range(x.shape[0]):
+            diff = int((_bits(torch, x[c]) != _bits(torch, y[c])).sum())
+            require(diff <= drops[c][i], f"{what}: client {c}'s residual "
+                    f"at {name} differs at {diff} positions, "
+                    f"{drops[c][i]} dropped")
+            if diff:
+                out[f"err/{c}/{name}"] = diff
+    return out
+
+
+def _nccl_uint32(torch, mesh):
+    """Whether the group's backend gathers a uint32 tensor as it is (the
+    transport gathers the bitmap as int32 either way): True, or the
+    error."""
+    import torch.distributed as dist
+    x = torch.arange(3, dtype=torch.int32, device=mesh.device).view(
+        torch.uint32)
+    out = [torch.empty_like(x) for _ in range(mesh.world_size)]
+    try:
+        dist.all_gather(out, x)
+    except (RuntimeError, TypeError) as e:
+        return f"{type(e).__name__}: {e}"[:200]
+    return True
+
+
+def spatial_cnn(torch, seed, mesh):
+    """(a) the full-width CNN (phase 2's configuration, its client 0)
+    through the spatial round on a world-1 group with the bitmap
+    transport, FedAdam-SSM with error feedback, against a 1-client
+    round_scan from the same state (``_spatial_vs_scan``: bitwise but
+    where the pack dropped values); launches (packed_hist 2, packed_apply
+    1, no word kernel: the step builds no payload); the bytes gathered
+    against the bytes billed; 0 stream syncs.  Also returns the first
+    inputs the round gave the packed kernels."""
+    from repro_torch import tree as T
+    from repro_torch.core import aggregate, fed_init, make_fl_round
+    from repro_torch.core import sparsify
+    from repro_torch.models.vision import build_vision
+
+    dev = torch.device("cuda")
+    params, _, loss_fn, _, _ = build_vision("cnn", width=1.0, seed=seed,
+                                            device=dev)
+    imgs, labels, n_train, parts = make_data(seed, CLIENTS)
+    batch, w = round_batch(torch, imgs, labels, n_train, parts, 0, dev)
+    batch, w = T.tree_map(lambda x: x[:1], batch), w[:1]
+    fed_s = cnn_fed("fedadam_ssm", n_clients=1)
+    fed_m = cnn_fed("fedadam_ssm", n_clients=1, client_mode="vmap",
+                    client_axes=mesh.client_axes, aggregate="sparse_gather")
+    spatial = make_fl_round(
+        fed_m, loss_fn, aggregate.make_shardmap_sparse_aggregate(
+            mesh, mesh.client_axes, fed_m.alpha), mesh=mesh)
+    state0 = fed_init(fed_s, params)
+    (ref, _), scan_wall, _, scan_launches = _timed(
+        torch, lambda: make_fl_round(fed_s, loss_fn)(state0, batch, w))
+    cap = Capture()
+    cap.wrap(sparsify, "packed_hist", "packed_hist")
+    cap.wrap(sparsify, "packed_apply", "packed_apply")
+    try:
+        with _count_gathered(aggregate) as gathered, \
+                _count_overflow(aggregate) as drops:
+            (st, mets), wall, peak, launches = _timed(
+                torch, lambda: spatial(state0, batch, w))
+    finally:
+        cap.restore()
+    drops = [int(d) for d in drops]
+    differ = _spatial_vs_scan(torch, st, ref, [drops],
+                              "cnn spatial round vs 1-client scan")
+    _finite_state(torch, st, "cnn spatial round")
+    want = per_client_round(packed_hist=2, packed_apply=1)
+    require(launches == want, f"cnn spatial launches {launches}")
+    require(scan_launches == per_client_round(
+        packed_hist=2, packed_apply=1, pack_words=1, unpack_words=1),
+        f"cnn 1-client scan launches {scan_launches}")
+    sizes = [x.numel() for x in T.leaves(params)]
+    gathered = sum(gathered)
+    billed = float(mets["uplink_bits"]) / 8
+    require(gathered == spatial_gather_bytes(sizes, fed_m.alpha),
+            f"cnn spatial round gathered {gathered} bytes")
+    require(billed == CNN_WIRE_BYTES_PER_CLIENT, f"billed {billed} bytes")
+    syncs = count_syncs(torch, spatial, state0, batch, w)
+    require(syncs["per_round"] == 0, f"cnn spatial syncs {syncs}")
+    rec = {"bitwise_scan": not differ, "dropped_per_leaf": drops,
+           "differ_from_scan": differ,
+           "wall_s": wall, "scan_wall_s": scan_wall,
+           "peak_bytes": peak, "launches_per_client": launches,
+           "gathered_bytes_per_client": gathered,
+           "billed_bytes_per_client": billed, "syncs": syncs}
+    log(f"cnn spatial round (world 1, {mesh.device.type}): dropped per "
+        f"leaf {drops}; differs from the 1-client scan round at {differ} "
+        f"(bitwise elsewhere); wall={wall:.4f} s (scan {scan_wall:.4f} s); "
+        f"gathered {gathered} bytes, billed {billed:.0f}; launches "
+        f"{ {k: v for k, v in launches.items() if v} }; syncs "
+        f"{syncs['per_round']}")
+    return rec, {k: cap.args[k][None] for k in ("packed_hist",
+                                                 "packed_apply")}
+
+
+def _free(torch):
+    import gc
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+
+def _try_round(torch, fn):
+    """``_timed(fn)``, or where the card runs out of memory ``None`` and
+    the peak allocated when the allocation failed, with the message."""
+    try:
+        return _timed(torch, fn), None
+    except torch.OutOfMemoryError as e:
+        err = {"peak_bytes": torch.cuda.max_memory_allocated(),
+               "error": str(e)[:400]}
+    _free(torch)
+    return None, err
+
+
+def spatial_lm_at(torch, cfg, mesh, seed):
+    """One spatial round of ``cfg`` through ``launch.steps.
+    build_train_step`` (its DeployPlan, train_4k's sequence, batch 1) with
+    remat "full", then one with "none" from the same state: peaks, walls,
+    launches, bitwise or the leaves that differ; then one more "full"
+    round that captures the per-leaf kernels' first inputs at the largest
+    bfloat16 leaf and the float32 router (on the host, outside the timed
+    rounds).  ``(fits, record, captured)``: where the "full" round
+    does not fit, the record of its failed allocation."""
+    import dataclasses
+    from repro_torch import tree as T
+    from repro_torch.launch import steps, train
+    from repro_torch.models.model import init_params
+
+    dev = torch.device("cuda")
+    shape = dataclasses.replace(steps.SHAPES["train_4k"], global_batch=1)
+    bundles = {r: steps.build_train_step(cfg, mesh, shape, remat=r)
+               for r in ("full", "none")}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state0 = bundles["full"].init(init_params(cfg, seed=seed, device=dev))
+    build_peak = torch.cuda.max_memory_allocated()
+    per_client, text_len = bundles["full"].batch_shapes["tokens"][1:]
+    batch = train.build_client_batches(cfg, 1, per_client, text_len,
+                                       seed=0, device=dev)
+    sizes = [x.numel() for x in T.leaves(state0.W)]
+    names = [n for n, _ in _paths_of(state0.W)]
+    big = max(range(len(sizes)), key=lambda i: (
+        T.leaves(state0.W)[i].dtype != torch.float32, sizes[i]))
+    router = next(i for i, n in enumerate(names) if n.endswith("router"))
+    replayed = {names[big]: sizes[big], names[router]: sizes[router]}
+    full, oom = _try_round(torch, lambda: bundles["full"].fn(state0, batch))
+    if full is None:
+        return False, dict(oom, params=sum(sizes),
+                           build_peak_bytes=build_peak), None
+    (st, mets), wall, peak, launches = full
+    _finite_state(torch, st, f"{cfg.name} spatial round")
+    loss = mets["loss"].cpu().tolist()
+    require(all(math.isfinite(x) for x in loss), f"loss {loss}")
+    L = len(sizes)
+    want = per_client_round(absmax=L, count_ge=2 * L, ssm_apply_ef=L)
+    require(launches == want, f"{cfg.name} spatial launches {launches}")
+    from repro_torch.core.compressors import make_compressor
+    bits = make_compressor(bundles["full"].static["fed"]) \
+        .wire_bits_per_client(tuple(sizes))
+    require(float(mets["uplink_bits"]) == _f32(torch, bits),
+            f"uplink bits {float(mets['uplink_bits'])}")
+    # the first result on the host, the second beside it on the card
+    first = st._replace(**{k: T.tree_map(lambda x: x.cpu(), getattr(st, k))
+                           for k in ("W", "M", "V")})
+    del st, mets, full
+    _free(torch)
+    none, none_oom = _try_round(
+        torch, lambda: bundles["none"].fn(state0, batch))
+    rec = {"params": sum(sizes), "leaves": L, "build_peak_bytes": build_peak,
+           "full": {"wall_s": wall, "peak_bytes": peak, "loss": loss},
+           "launches": launches, "uplink_bits": float(bits),
+           "captured_leaves": replayed}
+    if none is None:
+        rec["none"] = dict(none_oom, fits=False)
+    else:
+        (st2, _), wall2, peak2, _ = none
+        differ = [f"{p}.{n}" for p in ("W", "M", "V")
+                  for n, x, y in zip(names, T.leaves(getattr(st2, p)),
+                                     T.leaves(getattr(first, p)))
+                  if not torch.equal(_bits(torch, x),
+                                     _bits(torch, y.to(x.device)))]
+        rec["none"] = {"fits": True, "wall_s": wall2, "peak_bytes": peak2,
+                       "bitwise_full": not differ, "differ": differ}
+        require(not differ, f"{cfg.name}: remat full and none differ in "
+                f"{differ}")
+        del st2, none
+    _free(torch)
+    cap = Capture(host=True)
+    entry = _lm_entry_points()
+    for kname in ("absmax", "count_ge", "ssm_apply_ef"):
+        passes = len(LM_PASSES.get(kname, ("",)))
+        for n in replayed.values():
+            cap.wrap(*entry[kname], kname, LM_KERNELS[kname][2], (n,),
+                     passes)
+    try:
+        bundles["full"].fn(state0, batch)
+    finally:
+        cap.restore()
+    log(f"{cfg.name} spatial train step at {cfg.pattern_repeats} repeats "
+        f"({sum(sizes):,} parameters): {json.dumps(rec)}")
+    captured = {k: [(_on_card(a), kw) for calls in cap.args[k].values()
+                    for a, kw in calls] for k in cap.args}
+    del state0, batch, first
+    _free(torch)
+    return True, rec, captured
+
+
+def _paths_of(tree):
+    from repro_torch.checkpoint.io import _paths
+    return _paths(tree, ())
+
+
+def spatial_lm(torch, seed, mesh):
+    """(a) the spatial train step of SPATIAL_ARCH at full width (its whole
+    vocabulary, train_4k's sequence of 4096, the global batch cut to 1)
+    at the most of SPATIAL_REPEATS pattern repeats that fit: each count
+    that does not is recorded."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.sharding import plan_for
+    cfg0 = get_config(SPATIAL_ARCH)
+    require(plan_for(cfg0.name).clients == "spatial",
+            f"{SPATIAL_ARCH}'s plan is not spatial")
+    tried = {}
+    for repeats in SPATIAL_REPEATS:
+        cfg = dataclasses.replace(cfg0, pattern_repeats=repeats)
+        fits, rec, captured = spatial_lm_at(torch, cfg, mesh, seed)
+        if not fits:
+            log(f"{SPATIAL_ARCH}: {repeats} repeats do not fit: "
+                f"{json.dumps(rec)}")
+            tried[repeats] = rec
+            _free(torch)
+            continue
+        return dict(repeats=repeats, tried=tried,
+                    reduced={"global_batch": 1,
+                             "pattern_repeats": [repeats,
+                                                 cfg0.pattern_repeats]},
+                    **rec), captured
+    raise RuntimeError(f"chip_smoke: {SPATIAL_ARCH} fits at none of "
+                       f"{SPATIAL_REPEATS} repeats: {tried}")
+
+
+def phase_spatial(torch, seed):
+    """Phase 15 (a): a world-1 group on the card (NCCL): the CNN's spatial
+    round and SPATIAL_ARCH's spatial train step (``spatial_cnn``,
+    ``spatial_lm``); whether NCCL gathers uint32 as it is.  Returns the
+    record and the kernels' first inputs of each path."""
+    import shutil
+    import tempfile
+    from repro_torch.launch import mesh as MM
+
+    tmp = tempfile.mkdtemp()
+    mesh = MM.init(1, 0, store=os.path.join(tmp, "store"), device="cuda")
+    try:
+        import torch.distributed as dist
+        out = {"backend": dist.get_backend(),
+               "uint32_gather": _nccl_uint32(torch, mesh)}
+        log(f"world-1 group: {out}")
+        out["cnn"], cnn_inputs = spatial_cnn(torch, seed, mesh)
+        out["lm"], lm_inputs = spatial_lm(torch, seed, mesh)
+    finally:
+        mesh.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out, cnn_inputs, lm_inputs
+
+
+def spatial_rank(rank, world, store, seed):
+    """Phase 15 (b), one rank of a gloo group of CUDA tensors sharing the
+    card: the CNN's spatial round (C = world) against the world-client
+    scan round, and the async driver under churn with the group's cohort
+    against the scan cohort, both bitwise (rank 0 runs the references);
+    the launches of each; rank 0 also holds the packed kernels against
+    their plain versions on its first inputs."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    from repro_torch import tree as T
+    from repro_torch.core import (AsyncConfig, aggregate, fed_init,
+                                  make_async_round, make_fl_round, sparsify)
+    from repro_torch.core.fed import gather_client_state, local_clients
+    from repro_torch.data import ChurnConfig, ChurnModel
+    from repro_torch.device import exact_float32
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import mesh as MM
+    from repro_torch.models.vision import build_vision
+
+    torch.backends.cudnn.deterministic = True
+    exact_float32()
+    dev = torch.device("cuda")
+    mesh = MM.init(world, rank, store=store, device=dev, backend="gloo")
+    try:
+        params, _, loss_fn, _, _ = build_vision("cnn", width=1.0, seed=seed,
+                                                device=dev)
+        imgs, labels, n_train, parts = make_data(seed, world)
+        batch, w = round_batch(torch, imgs, labels, n_train, parts, 0, dev)
+        fed_s = cnn_fed("fedadam_ssm", n_clients=world)
+        fed_m = cnn_fed("fedadam_ssm", n_clients=world, client_mode="vmap",
+                        client_axes=mesh.client_axes,
+                        aggregate="sparse_gather")
+        spatial = make_fl_round(
+            fed_m, loss_fn, aggregate.make_shardmap_sparse_aggregate(
+                mesh, mesh.client_axes, fed_m.alpha), mesh=mesh)
+        state0 = fed_init(fed_s, params)
+        mine = state0._replace(client_state=local_clients(
+            state0.client_state, mesh))
+        cap = Capture()
+        cap.wrap(sparsify, "packed_hist", "packed_hist")
+        cap.wrap(sparsify, "packed_apply", "packed_apply")
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        try:
+            with _count_overflow(aggregate) as drops:
+                st, mets = spatial(mine, local_clients(batch, mesh), w)
+            torch.cuda.synchronize()
+        finally:
+            cap.restore()
+        drops = mesh.all_gather(torch.stack(drops)).tolist()
+        out = {"rank": rank, "round_wall_s": time.perf_counter() - t0,
+               "round_launches": dict(LAUNCHES)}
+        st = gather_client_state(st, mesh)
+        out["uplink_bits"] = float(mets["uplink_bits"])
+        out["dropped_per_client_leaf"] = drops
+        if rank == 0:
+            ref, _ = make_fl_round(fed_s, loss_fn)(state0, batch, w)
+            out["differ_from_scan"] = _spatial_vs_scan(
+                torch, st, ref, drops, f"{world}-rank spatial round vs scan")
+            out["round_bitwise_scan"] = not out["differ_from_scan"]
+            errs = {}
+            for name in ("packed_hist", "packed_apply"):
+                ((args, kw),) = cap.args[name][None]
+                fk, fp, _ = run_kernel(torch, name, args, kw)
+                a, b = fk(), fp()
+                a = a if isinstance(a, tuple) else (a,)
+                b = b if isinstance(b, tuple) else (b,)
+                errs[name] = max(max_abs_err(torch, x, y)
+                                 for x, y in zip(a, b))
+            out["kernel_max_abs_err"] = errs
+        st = ref = None
+        runs = {}
+        for kind in ("scan", "shardmap") if rank == 0 else ("shardmap",):
+            fed = fed_m if kind == "shardmap" else fed_s
+            run = make_async_round(
+                fed, loss_fn, AsyncConfig(**SPATIAL_ASYNC),
+                churn=ChurnModel(ChurnConfig(**SPATIAL_CHURN), world),
+                client_exec=kind, mesh=mesh if kind == "shardmap" else None)
+            reset_launches()
+            t0 = time.perf_counter()
+            runs[kind] = run(fed_init(fed, params), batch, w,
+                             rounds=SPATIAL_ASYNC_STEPS)
+            torch.cuda.synchronize()
+            out[f"async_{kind}"] = {
+                "wall_s": time.perf_counter() - t0,
+                "launches": dict(LAUNCHES),
+                **{k: runs[kind][1][k] for k in (
+                    "server_steps", "landed", "dropped", "discarded")}}
+        if rank == 0:
+            (a, ma), (b, mb) = runs["scan"], runs["shardmap"]
+            require(ma["events"] == mb["events"], "async event logs differ")
+            require(float(ma["uplink_bits"]) == float(mb["uplink_bits"]),
+                    "async bills differ")
+            _states_bitwise(torch, b, a, "async group cohort vs scan cohort")
+            require(mb["server_steps"] == SPATIAL_ASYNC_STEPS,
+                    f"async steps {mb['server_steps']}")
+            out["async_bitwise_scan"] = True
+        return out
+    finally:
+        mesh.close()
+
+
+def phase_spatial_ranks(torch, seed):
+    """Phase 15 (b): SPATIAL_RANKS gloo processes with CUDA tensors on the
+    one card (NCCL takes one rank per device): ``spatial_rank`` on each.
+    A failure in any rank fails the phase."""
+    import shutil
+    import tempfile
+    from repro_torch.launch import mesh as MM
+
+    tmp = tempfile.mkdtemp()
+    t0 = time.perf_counter()
+    try:
+        ranks = MM.run_ranks(spatial_rank, SPATIAL_RANKS,
+                             store=os.path.join(tmp, "store"),
+                             args=(seed,), timeout_s=300)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out = {"ranks": ranks, "wall_s": time.perf_counter() - t0}
+    require(ranks[0]["async_bitwise_scan"], "phase 15 (b) async check")
+    want = per_client_round(packed_hist=2, packed_apply=1)
+    for r in ranks:
+        require(r["round_launches"] == want,
+                f"rank {r['rank']} launches {r['round_launches']}")
+    r0 = ranks[0]
+    log(f"phase 15 (b): {SPATIAL_RANKS} gloo ranks on the card in "
+        f"{out['wall_s']:.1f} s: the spatial round against the scan round: "
+        f"dropped {r0['dropped_per_client_leaf']}, differs at "
+        f"{r0['differ_from_scan']} (bitwise elsewhere); the async group "
+        f"cohort bitwise the scan cohort ({r0['async_shardmap']}); "
+        f"kernels vs plain {r0['kernel_max_abs_err']}")
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3160,6 +3671,22 @@ def main(argv=None):
         served[name]["two_repeats_float32"] = serve_depth_check(
             torch, args.seed, name)
     log(f"phase 14 took {time.perf_counter() - t_serve:.1f} s")
+    # phase 15: the multi-GPU spatial driver, (a) on a world-1 NCCL group,
+    # (b) on gloo ranks sharing the card
+    t_spatial = time.perf_counter()
+    torch.cuda.empty_cache()
+    spatial, cnn_inputs, lm_inputs = phase_spatial(torch, args.seed)
+    phase_driver_kernels(torch, cnn_inputs, kernels, "cnn_spatial")
+    phase_driver_kernels(torch, lm_inputs, kernels, "lm_spatial")
+    del cnn_inputs, lm_inputs
+    torch.cuda.empty_cache()
+    spatial["ranks"] = phase_spatial_ranks(torch, args.seed)
+    rank0 = spatial["ranks"]["ranks"][0]
+    for name, err in rank0["kernel_max_abs_err"].items():
+        k = next(k for k in kernels if k["name"] == name)
+        k["max_abs_err"] = max(k["max_abs_err"], err)
+        k["at_cnn_spatial_ranks"] = {"max_abs_err": err}
+    log(f"phase 15 took {time.perf_counter() - t_spatial:.1f} s")
     for k in kernels:
         k["launches_serve"] = {n: r["launches"][k["name"]]
                                for n, r in served.items()}
@@ -3172,6 +3699,11 @@ def main(argv=None):
                 run: sum(x["launches"][k["name"]] for x in res[a]["rounds"]
                          if x["algorithm"] == a)
                 for run, res in (("cnn", cnn_base), ("lm", lm_base))}
+        # the spatial driver's: per client of its rounds
+        k["launches_spatial"] = {
+            "cnn_world1": spatial["cnn"]["launches_per_client"][k["name"]],
+            "lm_world1": spatial["lm"]["launches"][k["name"]],
+            "cnn_gloo_ranks": rank0["round_launches"][k["name"]]}
         # the drivers' launches: per client of a vmap round, per dispatch
         # of an async run (its repacks and server decodes included)
         k["launches_drivers"] = {
@@ -3203,7 +3735,7 @@ def main(argv=None):
               "cnn_baselines": cnn_base, "exact_topk_ties": exact,
               "transformer_baselines": lm_base,
               "cnn_drivers": cnn_drivers, "transformer_drivers": lm_drivers,
-              "zoo": zoo, "serve": served,
+              "zoo": zoo, "serve": served, "spatial": spatial,
               "total_s": time.perf_counter() - t_start}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -15,9 +15,20 @@ Counterpart of the single-device half of ``repro/core/aggregate.py``:
 The scan round's FedAvg fold (:func:`weighted_fold`, client 0 first)
 is the one every order-exact sum here shares: :func:`ordered_weighted_sum`
 is its stacked form and :func:`wire_gather_sum` folds each decoded
-payload with it.  The multi-GPU transport
-(``make_shardmap_sparse_aggregate``: per-shard bitmaps and an all-gather
-of the value streams, with its replication constraint) is ROADMAP §1.10.
+payload with it.
+
+The multi-GPU transport, :func:`make_shardmap_sparse_aggregate` (the JAX
+package's shard_map realization, on ``torch.distributed``): each rank
+packs its own client's carriers into a uint32 support bitmap
+(:func:`repro_torch.core.wire.pack_bits_1d`) and the first ``kb`` values
+of the compacted stream per leaf, all-gathers those, and replays the
+server fold locally with :func:`weighted_fold`; no index tensor crosses
+the group.  Values the fixed capacity drops feed back into the
+error-feedback residual.  The JAX package's ``_maybe_replicate`` (an
+all-gather constraint in the global view) has no counterpart: it acts
+only in ``round_vmap`` under a mesh, which the round never reaches once
+``client_axes`` is set, and the explicit gathers here are the
+replication.
 
 :func:`packed_gather_sum` dispatches on the compressor's ``transport``
 tag, as in the JAX package.
@@ -234,3 +245,145 @@ def packed_gather_sum(compressor, sW_c, sM_c, sV_c, weights, *, alpha,
     return (dense_weighted_sum(sW_c, weights),
             dense_weighted_sum(sM_c, weights),
             dense_weighted_sum(sV_c, weights))
+
+
+# ---------------------------------------------------------------------------
+# The multi-GPU transport: per-shard bitmaps over torch.distributed
+# ---------------------------------------------------------------------------
+
+
+def _local_pack(wf, alpha):
+    """``wf``: (n_loc,) masked dense, this rank's.  -> ``(words, pos, keep,
+    kb)``: the support bitmap packed to uint32 words and the compaction
+    plan (prefix-sum positions, ``keep`` = supported and under the
+    capacity ``kb = k + overselect_bound(k)``)."""
+    n = wf.shape[0]
+    k = S.k_for(n, alpha)
+    kb = min(n, k + overselect_bound(k))
+    m = wf != 0
+    pos = wire._support_positions(m)
+    return wire.pack_bits_1d(m), pos, m & (pos < kb), kb
+
+
+def _compact_vals(xf, pos, keep, kb):
+    """The first ``kb`` values of ``xf`` on the support plan, float32."""
+    return wire._compact(keep, pos, xf, kb)
+
+
+def _expand_vals(words, vals, n_loc):
+    """Inverse of the (bitmap, stream) pack: (nw,) uint32 words + (kb,)
+    values -> (n_loc,) float32 (capacity-overflow slots decode to 0)."""
+    sup = wire.unpack_bits_1d(words, n_loc) == 1
+    return wire._expand(sup, wire._support_positions(sup),
+                        vals.to(_F32), (n_loc,))
+
+
+def _gathered_decode_sum(words_g, vals_g, weights, n_loc):
+    """``words_g`` (C, nw) + ``vals_g`` (C, kb), gathered -> the (n_loc,)
+    float32 weighted sum, folded client 0 first with the scan round's
+    arithmetic (:func:`weighted_fold`), so the transport is bitwise the
+    scan round when nothing overflows."""
+    w = weights.to(_F32)
+    acc = None
+    for c in range(w.shape[0]):
+        acc = weighted_fold(acc, w[c], _expand_vals(words_g[c], vals_g[c],
+                                                    n_loc))
+    return acc
+
+
+def _gather_clients(x, mesh):
+    """All-gather over the client group -> (C, *x.shape), in rank order:
+    the row-major client linearization of JAX's gather over the client
+    axes."""
+    return mesh.all_gather(x)
+
+
+def make_shardmap_sparse_aggregate(mesh, client_axes, alpha, *,
+                                   shared: bool = True, value_dtype=None):
+    """The multi-GPU sparse transport::
+
+        agg(sW_c, sM_c, sV_c, weights)           -> (aW, aM, aV)
+        agg(sW_c, sM_c, sV_c, weights, comp_err) -> (aW, aM, aV), new_err
+
+    (weighted SUMS, float32, the same on every rank).  ``mesh``: the
+    rank's :class:`~repro_torch.launch.mesh.ClientMesh`, whose client axes
+    must be ``client_axes``.  The carriers ``s*_c`` and ``comp_err`` are
+    this rank's client's, stacked ``(1, ...)`` (one spatial client per
+    rank); ``weights`` the (C,) FedAvg weights of every client.
+
+    ``comp_err``: the rank's error-feedback residual tree on dW (the
+    round's ``client_state["comp"]["err"]``).  Values the pack's capacity
+    drops (``k + overselect_bound(k)`` per leaf) are added back into it
+    (drop first, then add: when nothing overflows the drop is 0.0 and the
+    residual passes through bitwise).  ``shared=False``: the independent
+    masks of FedAdam-Top, three bitmaps per leaf.  ``value_dtype``: the
+    value streams' wire cast."""
+    if tuple(client_axes) != tuple(mesh.client_axes):
+        raise ValueError(f"client axes {tuple(client_axes)} are not the "
+                         f"mesh's {mesh.client_axes}")
+    mesh.check()
+    vdt = None if value_dtype is None else _VALUE_DTYPES[value_dtype]
+    gather = lambda t: _gather_clients(t, mesh)
+
+    def stream(xf, pos, keep, kb):
+        vals = _compact_vals(xf, pos, keep, kb)
+        return vals if vdt is None else vals.to(vdt)
+
+    def leaf(w, m, v, err, weights):
+        if w.shape[0] != 1:
+            raise ValueError("one spatial client per rank: carriers of "
+                             f"shape {tuple(w.shape)}")
+        shape_loc = w.shape[1:]
+        n_loc = math.prod(shape_loc)
+        wf = w.reshape(n_loc)
+        words, pos, keep, kb = _local_pack(wf, alpha)
+        vals_w = stream(wf, pos, keep, kb)
+        new_err = None
+        if err is not None:
+            # what the server receives of this client: the (cast) stream
+            # expanded back onto the plan; the overflow feeds the residual
+            kept = torch.where(keep, vals_w.to(_F32)[pos.clamp(0, kb - 1)],
+                               torch.zeros((), dtype=_F32, device=w.device))
+            drop = wf.to(_F32) - kept
+            new_err = (err.reshape(n_loc).to(_F32) + drop).to(err.dtype) \
+                .reshape(err.shape)
+        # THE UPLINK: the bitmap words and the value streams are the only
+        # tensors that cross the group
+        words_g = gather(words)
+        out_w = _gathered_decode_sum(words_g, gather(vals_w), weights, n_loc)
+        if shared:
+            # the SSM alignment: ONE bitmap describes all three streams
+            out_m, out_v = (_gathered_decode_sum(
+                words_g, gather(stream(t.reshape(n_loc), pos, keep, kb)),
+                weights, n_loc) for t in (m, v))
+        else:
+            # independent masks: M and V ship bitmaps of their own
+            outs = []
+            for t in (m, v):
+                tf = t.reshape(n_loc)
+                wds, ps, kp, cap = _local_pack(tf, alpha)
+                outs.append(_gathered_decode_sum(
+                    gather(wds), gather(stream(tf, ps, kp, cap)), weights,
+                    n_loc))
+            out_m, out_v = outs
+        return tuple(o.reshape(shape_loc) for o in (out_w, out_m, out_v)), \
+            new_err
+
+    def agg(sW_c, sM_c, sV_c, weights, comp_err=None):
+        lw, td = T.flatten(sW_c)
+        lm, lv = T.leaves(sM_c), T.leaves(sV_c)
+        lerr = [None] * len(lw)
+        err_td = None
+        if comp_err is not None:
+            lerr, err_td = T.flatten(comp_err)
+        outs, errs = [], []
+        for w, m, v, e in zip(lw, lm, lv, lerr):
+            o, ne = leaf(w, m, v, e, weights)
+            outs.append(o)
+            errs.append(ne)
+        sums = tuple(td.unflatten([o[i] for o in outs]) for i in range(3))
+        if comp_err is None:
+            return sums
+        return sums, err_td.unflatten(errs)
+
+    return agg

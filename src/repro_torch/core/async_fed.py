@@ -26,10 +26,17 @@ round's own builders (``fed.make_client_step`` and
 ``fed.run_clients_stacked``, ``fed.make_server_apply``, and the scan
 fold: ``aggregate.ordered_weighted_sum`` / ``wire_gather_sum`` /
 ``weight_total``).  The JAX
-builders are ``jax.jit``-wrapped; here they are plain functions, and a
-group of simultaneous dispatches runs as a loop over its clients
-(``client_exec="scan"``).  The multi-GPU group (``client_exec=
-"shardmap"``) is ROADMAP §1.10.
+builders are ``jax.jit``-wrapped; here they are plain functions.  A group
+of simultaneous dispatches runs two ways:
+
+* ``client_exec="scan"``: a loop over its clients;
+* ``client_exec="shardmap"``: one client per rank of a
+  :class:`~repro_torch.launch.mesh.ClientMesh`, as the spatial round
+  runs them (:func:`make_mesh_cohort_exec`).  The event loop is
+  replicated on every rank (the churn is seeded); a group is padded to
+  the world size by repeating its last client, rank r runs lane r, the
+  lanes' outputs are all-gathered and the padded lanes discarded.  The
+  step keeps the wire round trip, as the JAX cohort's does.
 """
 from __future__ import annotations
 
@@ -118,6 +125,26 @@ def make_cohort_exec(fed: FedConfig, loss_fn: Callable,
     return exec_cohort
 
 
+def make_mesh_cohort_exec(fed: FedConfig, loss_fn: Callable, mesh,
+                          comp: Optional[compressors.Compressor] = None):
+    """The cohort on the client group: ``exec_cohort(W, M, V, batches,
+    cstates)`` with ``(G, ...)`` inputs, G the world size of ``mesh``:
+    rank r runs client r's step (``fed.make_client_step``, the wire round
+    trip kept), and every output is all-gathered into ``(G, ...)``, the
+    same on every rank."""
+    client_step = make_client_step(fed, loss_fn, comp)
+
+    def exec_cohort(W, M, V, batches, cstates):
+        r = mesh.rank
+        pick = lambda t: None if t is None else T.tree_map(
+            lambda x: x[r], t)
+        out = client_step(W, M, V, pick(batches), pick(cstates))
+        return tuple(None if o is None else T.tree_map(mesh.all_gather, o)
+                     for o in out)
+
+    return exec_cohort
+
+
 def make_buffer_apply(fed: FedConfig,
                       comp: Optional[compressors.Compressor] = None):
     """One server step from a full buffer: ``apply(W, M, V, bufW, bufM,
@@ -182,13 +209,20 @@ class AsyncRoundDriver:
 
     def __init__(self, fed: FedConfig, loss_fn: Callable,
                  acfg: AsyncConfig, churn: Optional[ChurnModel] = None,
-                 client_exec: str = "scan"):
-        if client_exec != "scan":
-            raise NotImplementedError(
-                f"client_exec={client_exec!r}: the multi-GPU cohort is not "
-                "ported yet: ROADMAP §1.10")
-        check_ported(fed)
+                 client_exec: str = "scan", mesh=None):
+        if client_exec not in ("scan", "shardmap"):
+            raise ValueError(f"client_exec={client_exec!r}: scan | "
+                             "shardmap")
+        if client_exec == "shardmap":
+            if not fed.client_axes or mesh is None:
+                raise ValueError("the shardmap cohort needs fed.client_axes "
+                                 "and the client group (mesh=)")
+            mesh.check()
+        else:
+            check_ported(fed)
+            mesh = None
         self.fed = fed
+        self.mesh = mesh
         self.acfg = acfg
         self.churn = churn if churn is not None \
             else ChurnModel(ChurnConfig(), fed.n_clients)
@@ -196,15 +230,26 @@ class AsyncRoundDriver:
             raise ValueError(f"churn model of {self.churn.n_clients} "
                              f"clients for {fed.n_clients}")
         self._comp = compressors.make_compressor(fed)
-        self._exec = make_cohort_exec(fed, loss_fn, self._comp)
+        self._exec = make_cohort_exec(fed, loss_fn, self._comp) \
+            if mesh is None else \
+            make_mesh_cohort_exec(fed, loss_fn, mesh, self._comp)
         self._apply = make_buffer_apply(fed, self._comp)
         self._apply_wire = make_wire_buffer_apply(fed, self._comp)
 
     def _run_group(self, W, M, V, batches, cs, group, has_cs):
         """The clients of ``group`` (all dispatched at one tick) against
-        the snapshot (W, M, V); one record per client, in group order."""
+        the snapshot (W, M, V); one record per client, in group order.  On
+        the client group the group runs in lanes of the world size, the
+        last client repeated, and the padded lanes are discarded."""
+        lanes = list(group)
+        if self.mesh is not None:
+            world = self.mesh.world_size
+            if len(lanes) > world:
+                raise ValueError(f"{len(lanes)} simultaneous dispatches on "
+                                 f"a group of {world} ranks")
+            lanes += [lanes[-1]] * (world - len(lanes))
         take = lambda t: T.tree_map(
-            lambda x: torch.stack([x[c] for c in group]), t)
+            lambda x: torch.stack([x[c] for c in lanes]), t)
         sW, sM, sV, ncs, mets = self._exec(
             W, M, V, take(batches), take(cs) if has_cs else None)
         out = []
@@ -386,10 +431,12 @@ class AsyncRoundDriver:
 def make_async_round(fed: FedConfig, loss_fn: Callable,
                      acfg: Optional[AsyncConfig] = None, *,
                      churn: Optional[ChurnModel] = None,
-                     client_exec: str = "scan") -> AsyncRoundDriver:
+                     client_exec: str = "scan",
+                     mesh=None) -> AsyncRoundDriver:
     """Build the buffered-async driver (mirrors ``make_fl_round``):
     ``run(state, batches, weights=None, rounds=1) -> (state, metrics)``
     on the synchronous round's :class:`FedState`, so the two drivers
-    take each other's checkpoints."""
+    take each other's checkpoints.  ``client_exec="shardmap"`` runs the
+    cohorts on the client group ``mesh``."""
     return AsyncRoundDriver(fed, loss_fn, acfg or AsyncConfig(),
-                            churn=churn, client_exec=client_exec)
+                            churn=churn, client_exec=client_exec, mesh=mesh)

@@ -6,7 +6,9 @@ Counterpart of ``repro/core/compressors/base.py``:
 * ``Packed``: the compressed triple as dense carriers, encoder-side
   diagnostics (:data:`DIAG_KEYS`) and the wire payload;
 * ``Compressor``: ``init_state(params) -> state``,
-  ``compress(deltas, state) -> (packed, state, bits)``, ``unpack_wire``,
+  ``compress(deltas, state, *, emit_wire=True) -> (packed, state, bits)``
+  (``emit_wire=False``: no payload is built, ``packed.wire`` is None),
+  ``unpack_wire``,
   the accounting methods, and the declarative tags ``transport``,
   ``local_update`` and ``server_update`` that ``core/fed.py`` dispatches
   on.
@@ -91,7 +93,8 @@ class Compressor:
         """Per-client state for ONE client (``None``: stateless)."""
         return None
 
-    def compress(self, deltas: Deltas, state) -> Tuple[Packed, Any, Any]:
+    def compress(self, deltas: Deltas, state, *,
+                 emit_wire: bool = True) -> Tuple[Packed, Any, Any]:
         raise NotImplementedError
 
     def decompress(self, packed: Packed) -> Deltas:

@@ -36,7 +36,7 @@ class DenseCompressor(Compressor):
         # the wire ships float32 planes: exact only at the paper's q = 32
         return self.q_bits == wire.VALUE_BITS
 
-    def compress(self, deltas: Deltas, state):
+    def compress(self, deltas: Deltas, state, *, emit_wire: bool = True):
         packed = Packed(deltas.W, deltas.M, deltas.V,
                         diag_metrics(deltas, deltas), None)
         return packed, state, self.bits_per_client(tree_size(deltas.W))

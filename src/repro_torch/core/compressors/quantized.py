@@ -51,14 +51,15 @@ class OneBitAdamCompressor(Compressor):
         return self.block == wire.SCALE_BLOCK \
             and self.q_bits == wire.VALUE_BITS
 
-    def compress(self, deltas: Deltas, state):
+    def compress(self, deltas: Deltas, state, *, emit_wire: bool = True):
         assert state is not None, "1-bit Adam requires error-feedback state"
         dM = tree_add(deltas.M, state["err"])
         q = quantize.tree_sign_quant(dM, self.block)
         ef = Deltas(deltas.W, dM, deltas.V)
         packed = Packed(tree_zeros_like(q), q, tree_zeros_like(deltas.V),
                         diag_metrics(ef, Deltas(deltas.W, q, deltas.V)),
-                        wire.pack_sign(q) if self._wire_ok() else None)
+                        wire.pack_sign(q) if emit_wire and self._wire_ok()
+                        else None)
         return packed, {"err": tree_sub(dM, q)}, \
             self.bits_per_client(tree_size(deltas.W))
 
@@ -116,7 +117,7 @@ class EfficientAdamCompressor(Compressor):
         return wire.pack_bbit_codes([c for c, _ in enc], [s for _, s in enc],
                                     self.quant_bits)
 
-    def compress(self, deltas: Deltas, state):
+    def compress(self, deltas: Deltas, state, *, emit_wire: bool = True):
         assert state is not None, \
             "Efficient-Adam requires error-feedback state"
         dW = tree_add(deltas.W, state["err"])
@@ -130,7 +131,7 @@ class EfficientAdamCompressor(Compressor):
         packed = Packed(q, tree_zeros_like(deltas.M),
                         tree_zeros_like(deltas.V),
                         diag_metrics(ef, Deltas(q, deltas.M, deltas.V)),
-                        self._payload(enc))
+                        self._payload(enc) if emit_wire else None)
         return packed, {"err": tree_sub(dW, q)}, \
             self.bits_per_client(tree_size(deltas.W))
 

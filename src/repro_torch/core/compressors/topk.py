@@ -74,7 +74,7 @@ class _TopKBase(Compressor):
     def _pack_wire(self, sW, sM, sV, sizes):
         raise NotImplementedError
 
-    def compress(self, deltas: Deltas, state):
+    def compress(self, deltas: Deltas, state, *, emit_wire: bool = True):
         dW, dM, dV = deltas
         if state is not None:
             dW = tree_add(dW, state["err"])
@@ -102,7 +102,9 @@ class _TopKBase(Compressor):
             "norm_dm": S.tree_norm(dM),
             "norm_dv": S.tree_norm(dV),
         }
-        packed = Packed(sW, sM, sV, diag, self.pack_wire(Deltas(sW, sM, sV)))
+        packed = Packed(sW, sM, sV, diag,
+                        self.pack_wire(Deltas(sW, sM, sV)) if emit_wire
+                        else None)
         return packed, new_state, self.bits_per_client(tree_size(deltas.W))
 
     def pack_wire(self, carriers: Deltas):

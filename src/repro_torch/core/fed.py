@@ -28,12 +28,20 @@ Client execution modes, as in the JAX package:
   stack: ``dense`` (a weighted sum over the client axis) or
   ``sparse_gather`` (the clients' wire payloads, or a COO pack where the
   compressor has no wire realization).
+* ``vmap`` with ``client_axes`` (the multi-GPU spatial round, JAX's
+  ``round_shardmap``): one client per ``torch.distributed`` rank of a
+  :class:`~repro_torch.launch.mesh.ClientMesh`, each against the same
+  replicated (W, M, V); the injected transport
+  (``aggregate.make_shardmap_sparse_aggregate``) or, without one, the
+  dense carriers all-gathered and folded in client order.  A rank holds
+  its own client's batch and client state, stacked ``(1, ...)``
+  (:func:`local_clients`, :func:`gather_client_state`).  Every rank holds
+  whole leaves: a model axis above 1 raises naming ROADMAP §1.10.
 
 Partial participation draws the round's clients as the JAX round does,
 ``jax.random.permutation(fold_in(PRNGKey(17), round), C)`` (reproduced
-in numpy by :mod:`repro_torch.core._threefry`), and masks the FedAvg
-weights of the others.  The multi-GPU driver (``client_axes``) is not
-ported yet and raises ``NotImplementedError`` naming ROADMAP §1.10.
+in numpy by :mod:`repro_torch.core._threefry`; the same draw on every
+rank), and masks the FedAvg weights of the others.
 """
 from __future__ import annotations
 
@@ -71,7 +79,7 @@ class FedConfig:
     q_bits: int = 32                      # accounting float precision
     client_mode: str = "scan"             # scan | vmap
     aggregate: str = "dense"              # dense | sparse_gather (vmap only)
-    client_axes: Optional[Tuple[str, ...]] = None  # multi-GPU: §1.10
+    client_axes: Optional[Tuple[str, ...]] = None  # the group's client axes
     use_kernel_adam: bool = False         # fused_adam kernel per leaf
     value_dtype: Optional[str] = None     # None | bfloat16 | float16
     # fraction of clients sampled per round, by masking FedAvg weights
@@ -113,16 +121,52 @@ def fed_init(fed: FedConfig, params) -> FedState:
                     client_state=parts or None)
 
 
-def check_ported(fed: FedConfig) -> None:
-    """Raise for the parts of a configuration the port does not run yet:
-    the multi-GPU driver (``client_axes``, or any client mode but scan
-    and vmap)."""
-    if fed.client_axes is not None or fed.client_mode not in ("scan",
-                                                              "vmap"):
-        raise NotImplementedError(
-            f"client_axes={fed.client_axes!r}, client_mode="
-            f"{fed.client_mode!r}: the multi-GPU driver is not ported "
-            "yet: ROADMAP §1.10")
+def spatial(fed: FedConfig) -> bool:
+    """Whether ``fed`` runs the multi-GPU spatial round (JAX's
+    ``round_fn`` dispatch: a client mode other than scan, with client
+    axes)."""
+    return fed.client_mode != "scan" and fed.client_axes is not None
+
+
+def check_ported(fed: FedConfig, mesh=None) -> None:
+    """Raise for a configuration the port cannot run: an unknown client
+    mode; for the spatial round, a missing or mismatched client group,
+    or one with a model axis above 1 (tensor and FSDP sharding: ROADMAP
+    §1.10)."""
+    if fed.client_mode not in ("scan", "vmap"):
+        raise ValueError(f"client_mode={fed.client_mode!r}: scan | vmap")
+    if not spatial(fed):
+        return
+    if mesh is None:
+        raise ValueError(f"client_axes={fed.client_axes!r}: the spatial "
+                         "round needs the client group (mesh=)")
+    mesh.check()
+    if tuple(fed.client_axes) != tuple(mesh.client_axes):
+        raise ValueError(f"client_axes={fed.client_axes!r} are not the "
+                         f"mesh's {mesh.client_axes}")
+    if fed.n_clients != mesh.world_size:
+        raise ValueError(f"{fed.n_clients} clients on a group of "
+                         f"{mesh.world_size} ranks: one client per rank")
+
+
+def local_clients(tree, mesh):
+    """This rank's slice ``(1, ...)`` of a client-stacked ``(C, ...)``
+    tree (a batch, a client state): the counterpart of JAX placing the
+    client axis on the mesh."""
+    if tree is None:
+        return None
+    r = mesh.rank
+    return T.tree_map(lambda x: x[r:r + 1].clone(), tree)
+
+
+def gather_client_state(state: FedState, mesh) -> FedState:
+    """``state`` with every rank's ``(1, ...)`` client state all-gathered
+    into the ``(C, ...)`` stack of the scan round (for tests and
+    checkpoints); every rank must call it."""
+    if state.client_state is None:
+        return state
+    return state._replace(client_state=T.tree_map(
+        lambda x: mesh.all_gather(x[0]), state.client_state))
 
 
 # ---------------------------------------------------------------------------
@@ -207,7 +251,7 @@ def _local_deltas(local_update: str, loss_fn, W, M, V, batch, cstate,
 
 def make_client_step(fed: FedConfig, loss_fn: Callable,
                      comp: Optional[compressors.Compressor] = None,
-                     *, emit: str = "dense"):
+                     *, emit: str = "dense", wire_roundtrip: bool = True):
     """ONE client's round: local epochs + compression.
 
     ``client_step(W, M, V, batch, cstate) -> (sW, sM, sV, new_cstate,
@@ -216,9 +260,13 @@ def make_client_step(fed: FedConfig, loss_fn: Callable,
     is the identity, and FedSGD's payload holds W alone).  ``emit="wire"``
     (the vmap sparse-gather transport) returns ``(payload, new_cstate,
     metrics)``: the client's :class:`~repro_torch.core.wire.WirePayload`
-    is its output, and the server decodes it.  (The JAX package's
-    ``wire_roundtrip=False``, the encoder's carriers without the round
-    trip, serves only its multi-GPU driver: ROADMAP §1.10.)"""
+    is its output, and the server decodes it.
+
+    ``wire_roundtrip=False`` (the spatial round's step) returns the
+    encoder's carriers and builds no payload at all: its transport is the
+    per-shard bitmap of ``aggregate.make_shardmap_sparse_aggregate``.  The
+    round trip being bitwise, the numbers are the same; the JAX package's
+    jit drops the unused pack as dead code, the port never launches it."""
     if comp is None:
         comp = compressors.make_compressor(fed)
     if emit not in ("dense", "wire"):
@@ -231,7 +279,8 @@ def make_client_step(fed: FedConfig, loss_fn: Callable,
         # compress's peak memory
         deltas, loss, extras = _local_deltas(comp.local_update, loss_fn,
                                              W, M, V, batch, cstate, fed)
-        packed, new_comp_state, _bits = comp.compress(deltas, comp_state)
+        packed, new_comp_state, _bits = comp.compress(
+            deltas, comp_state, emit_wire=wire_roundtrip or emit == "wire")
         new_cstate = None
         if cstate is not None:
             new_cstate = dict(cstate)
@@ -244,7 +293,8 @@ def make_client_step(fed: FedConfig, loss_fn: Callable,
                 raise ValueError(f"{comp.name}: emit='wire' but compress "
                                  "built no payload")
             return packed.wire, new_cstate, mets
-        if packed.wire is not None and comp.transport != "dense":
+        if wire_roundtrip and packed.wire is not None \
+                and comp.transport != "dense":
             sW, sM, sV = comp.unpack_wire(packed.wire, deltas.W)
         else:
             sW, sM, sV = comp.decompress(packed)
@@ -352,7 +402,9 @@ def participation_weights(fed: FedConfig, weights: torch.Tensor,
     return weights * host.to(weights.device, non_blocking=True)
 
 
-def make_fl_round(fed: FedConfig, loss_fn: Callable):
+def make_fl_round(fed: FedConfig, loss_fn: Callable,
+                  sparse_aggregate_fn: Optional[Callable] = None, *,
+                  mesh=None):
     """Build ``round_fn(state, batches, weights=None, rng=None) -> (state,
     metrics)``.
 
@@ -360,11 +412,24 @@ def make_fl_round(fed: FedConfig, loss_fn: Callable):
     the device of the parameters.  ``weights``: optional (C,) FedAvg
     weights |D_n| (uniform by default).  ``rng``: with ``participation <
     1``, an optional uint32 key pair for the client draw (by default the
-    round counter's)."""
-    check_ported(fed)
+    round counter's).
+
+    The spatial round (``client_axes`` with ``client_mode="vmap"``) runs
+    on every rank of ``mesh`` (a
+    :class:`~repro_torch.launch.mesh.ClientMesh`): ``batches`` and the
+    state's client state are this rank's ``(1, ...)`` slices, ``weights``
+    every client's, and the metrics come back gathered ``(C,)``.
+    ``sparse_aggregate_fn(sW_c, sM_c, sV_c, weights[, comp_err])``: the
+    injected transport (``aggregate.make_shardmap_sparse_aggregate``),
+    taken with ``aggregate="sparse_gather"``."""
+    check_ported(fed, mesh)
     comp = compressors.make_compressor(fed)
     n_active = active_client_count(fed)
     client_step = make_client_step(fed, loss_fn, comp)
+    # the spatial step skips the (bitwise) wire round trip and builds no
+    # payload: its transport is the per-shard bitmap aggregate
+    mesh_client_step = make_client_step(fed, loss_fn, comp,
+                                        wire_roundtrip=False)
     server_apply = make_server_apply(fed, comp)
 
     def stack(items):
@@ -427,7 +492,57 @@ def make_fl_round(fed: FedConfig, loss_fn: Callable):
                           for t in (sW, sM, sV))
         return (aW, aM, aV), wsum, new_cs, mets
 
-    driver = round_scan if fed.client_mode == "scan" else round_vmap
+    def round_shardmap(state: FedState, batches, weights):
+        """The spatial round on this rank: its client's step against the
+        replicated (W, M, V) and its ``(1, ...)`` client state, then the
+        injected transport (with the error-feedback residual handed over,
+        so that what the pack's capacity drops feeds back) or the dense
+        carriers all-gathered and folded in client order (C times the
+        parameters in memory, as in JAX's global view; bitwise the scan
+        round's fold).  The metrics are all-gathered into ``(C,)``."""
+        W, M, V = state.W, state.M, state.V
+
+        def one(tree):
+            if tree is None:
+                return None
+            for x in T.leaves(tree):
+                if x.shape[0] != 1:
+                    raise ValueError("the spatial round takes this rank's "
+                                     f"(1, ...) slice, got {tuple(x.shape)}")
+            return T.tree_map(lambda x: x[0], tree)
+
+        lead = lambda t: None if t is None else T.tree_map(
+            lambda x: x[None], t)
+        sW, sM, sV, ncs, m = mesh_client_step(
+            W, M, V, one(batches), one(state.client_state))
+        new_cs = lead(ncs)
+        mets = {k: mesh.all_gather(v) for k, v in m.items()}
+        wsum = torch.sum(weights.to(_F32))
+        if fed.aggregate == "sparse_gather" \
+                and sparse_aggregate_fn is not None:
+            carriers = (lead(sW), lead(sM), lead(sV), weights)
+            comp_err = new_cs["comp"].get("err") if new_cs is not None \
+                and isinstance(new_cs.get("comp"), dict) else None
+            if comp_err is not None and comp.transport in (
+                    "shared_sparse", "independent_sparse"):
+                (aW, aM, aV), new_err = sparse_aggregate_fn(*carriers,
+                                                            comp_err)
+                new_cs = dict(new_cs, comp=dict(new_cs["comp"],
+                                                err=new_err))
+            else:
+                aW, aM, aV = sparse_aggregate_fn(*carriers)
+        else:
+            aW, aM, aV = (aggregate.ordered_weighted_sum(
+                T.tree_map(mesh.all_gather, t), weights)
+                for t in (sW, sM, sV))
+        return (aW, aM, aV), wsum, new_cs, mets
+
+    if fed.client_mode == "scan":
+        driver = round_scan
+    elif spatial(fed):
+        driver = round_shardmap
+    else:
+        driver = round_vmap
 
     def round_fn(state: FedState, batches, weights=None, rng=None):
         device = T.leaves(state.W)[0].device

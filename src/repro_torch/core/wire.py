@@ -1,7 +1,8 @@
 """The uplink wire format: what a client's payload actually ships.
 
-Counterpart of ``repro/core/wire.py`` (the static layout math and every
-scheme codec; ``pack_bits_1d``, for the multi-GPU round, is ROADMAP §1.5).  A
+Counterpart of ``repro/core/wire.py``: the static layout math, every
+scheme codec, and :func:`pack_bits_1d` / :func:`unpack_bits_1d`, the
+per-shard bitmap of the multi-GPU transport (``core/aggregate.py``).  A
 :class:`WirePayload` holds the transported arrays, uint32 bit-packed words
 plus float32 value and scale streams, and :func:`payload_nbytes` is
 measured from them, so ``uplink_bits == 8 * nbytes`` holds by
@@ -41,8 +42,9 @@ from repro_torch.core import sparsify as S
 from repro_torch import tree as T
 from repro_torch.kernels.topk_mask.ref import overselect_bound
 from repro_torch.kernels.wirepack.ops import (
-    CODE_SUBLANES, LANES, SCALE_BLOCK, pack_bbit, pack_mask_bits,
-    pack_sign_scale, unpack_bbit, unpack_mask_bits, unpack_sign_scale)
+    CODE_SUBLANES, LANES, SCALE_BLOCK, WORD_BITS, _to_uint32, pack_bbit,
+    pack_mask_bits, pack_sign_scale, unpack_bbit, unpack_mask_bits,
+    unpack_sign_scale)
 
 _F32 = torch.float32
 
@@ -183,6 +185,28 @@ def _support_positions(flat_support):
     """Rank of each supported slot in flat order (prefix sum - 1), in
     place on the one int64 buffer the sum needs."""
     return torch.cumsum(flat_support, 0, dtype=torch.int64).sub_(1)
+
+
+def pack_bits_1d(bits) -> torch.Tensor:
+    """(n,) bool/int bitmap -> (ceil(n/32),) uint32, bit ``i`` of word
+    ``w`` = slot ``32 w + i`` (little-endian in the word, as the
+    ``wirepack`` words).  Plain PyTorch on a vector of any length: the
+    per-shard bitmap of the multi-GPU transport, whose leaves are 1-D and
+    not (32, 128)-aligned, so the word kernel's lane-major layout does not
+    apply (the JAX package's is plain jnp too)."""
+    n = bits.shape[0]
+    nw = -(-n // WORD_BITS)
+    b = torch.nn.functional.pad(bits.to(torch.int64), (0, nw * WORD_BITS - n))
+    shifts = torch.arange(WORD_BITS, device=b.device)
+    return _to_uint32((b.reshape(nw, WORD_BITS) << shifts).sum(dim=1))
+
+
+def unpack_bits_1d(words, n: int) -> torch.Tensor:
+    """Inverse of :func:`pack_bits_1d`: (nw,) uint32 -> (n,) int32 in
+    {0, 1} (the word padding's tail cut off)."""
+    shifts = torch.arange(WORD_BITS, device=words.device)
+    w = words.view(torch.int32).to(torch.int64)
+    return ((w[:, None] >> shifts) & 1).reshape(-1)[:n].to(torch.int32)
 
 
 # ---------------------------------------------------------------------------

@@ -15,8 +15,11 @@ where ``blocks`` is a tuple with one dict per run of identical layer specs
 ...)``, and the encoder's blocks ``(num_layers, ...)``.  The per-leaf
 compress, the packed wire layout and so the wire bytes follow this leaf
 order and these shapes.  The JAX scans over repeats and over a group's
-layers are loops here.  Only ``remat="none"`` (what the trainer uses) is
-offered; recomputation is ROADMAP §1.14.
+layers are loops here.  ``remat`` recomputes a pattern repeat's
+activations in the backward as JAX's ``jax.checkpoint`` around the scan
+body does: ``"full"`` (the default, as in JAX) keeps only each repeat's
+input, ``"dots"`` also the matrix products' outputs, ``"none"`` keeps
+everything; the losses and gradients are the same bits.
 
 The decode caches (:func:`cache_meta`) are stacked the same way, one dict
 per group; :func:`decode_step` writes them in place.
@@ -35,6 +38,11 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models.params import (DTYPES, P, leaf_dtype, materialize,
                                        stack_tree)
+
+# the matrix products whose outputs remat="dots" keeps (JAX's
+# dots_with_no_batch_dims_saveable; einsum lowers to bmm)
+_DOT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+            torch.ops.aten.addmm.default)
 
 _F32 = torch.float32
 # Weight of the MoE load-balance loss in the training loss (the JAX
@@ -244,14 +252,47 @@ def _embed_inputs(cfg: ArchConfig, params, tokens, frontend_embeds):
     return x, enc_out
 
 
+def _repeat_layers(cfg: ArchConfig, params, r: int):
+    """(group, index in the group, spec, that layer's parameters) of
+    pattern repeat ``r``, in layer order."""
+    for gi, ((spec, count), gp) in enumerate(zip(pattern_groups(cfg),
+                                                 params["blocks"])):
+        for i in range(count):
+            yield gi, i, spec, T.tree_map(lambda a: a[r, i], gp)
+
+
 def _layers(cfg: ArchConfig, params):
     """(repeat, group, index in the group, spec, that layer's parameters)
     in layer order."""
     for r in range(cfg.pattern_repeats):
-        for gi, ((spec, count), gp) in enumerate(zip(pattern_groups(cfg),
-                                                     params["blocks"])):
-            for i in range(count):
-                yield r, gi, i, spec, T.tree_map(lambda a: a[r, i], gp)
+        for layer in _repeat_layers(cfg, params, r):
+            yield (r, *layer)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+    return CheckpointPolicy.MUST_SAVE if op in _DOT_OPS \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(body, remat: str):
+    """``body`` wrapped for ``remat``: ``"none"`` as is; ``"full"`` under
+    ``torch.utils.checkpoint`` (only the inputs kept, the rest recomputed
+    in the backward); ``"dots"`` a selective checkpoint that keeps the
+    matrix products' outputs.  Without a graph being recorded (no grad)
+    there is nothing to keep, and the body runs as is."""
+    if remat not in ("none", "full", "dots"):
+        raise ValueError(f"remat={remat!r}: none | full | dots")
+    if remat == "none" or not torch.is_grad_enabled():
+        return body
+    import functools
+    from torch.utils.checkpoint import (checkpoint,
+                                        create_selective_checkpoint_contexts)
+    kw = {}
+    if remat == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy)
+    return lambda *args: checkpoint(body, *args, use_reentrant=False, **kw)
 
 
 def _lm_head(cfg: ArchConfig, params, x):
@@ -261,30 +302,36 @@ def _lm_head(cfg: ArchConfig, params, x):
 
 
 def forward(cfg: ArchConfig, params, tokens, *, frontend_embeds=None,
-            remat: str = "none", chunk: int = 1024):
+            remat: str = "full", chunk: int = 1024):
     """tokens: (b, s) integers.  frontend_embeds: (b, s_front, d) for a
     stub frontend (the VLM's prefix, prepended; the audio encoder's
     input).  Returns (logits (b, s_front + s or s, V), aux): aux the
     float32 sum of the MoE layers' load-balance losses, in layer order (0
-    without an MoE layer)."""
-    if remat != "none":
-        raise NotImplementedError(
-            f"remat={remat!r} is not ported yet: ROADMAP §1.14")
+    without an MoE layer).  ``remat``: what each pattern repeat keeps for
+    the backward (``"full"``, ``"dots"`` or ``"none"``; the module
+    docstring)."""
     x, enc_out = _embed_inputs(cfg, params, tokens, frontend_embeds)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
+
+    def repeat(x, aux, r):
+        for *_, spec, p_one in _repeat_layers(cfg, params, r):
+            x, a, _ = _block_fwd(cfg, spec, p_one, x, positions=positions,
+                                 enc_out=enc_out, chunk=chunk)
+            if a is not None:
+                aux = aux + a
+        return x, aux
+
+    body = _remat(repeat, remat)
     aux = torch.zeros((), dtype=_F32, device=x.device)
-    for *_, spec, p_one in _layers(cfg, params):
-        x, a, _ = _block_fwd(cfg, spec, p_one, x, positions=positions,
-                             enc_out=enc_out, chunk=chunk)
-        if a is not None:
-            aux = aux + a
+    for r in range(cfg.pattern_repeats):
+        x, aux = body(x, aux, r)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     return _lm_head(cfg, params, x), aux
 
 
 def loss_fn(cfg: ArchConfig, params, tokens, *, frontend_embeds=None,
-            remat: str = "none", chunk: int = 1024):
+            remat: str = "full", chunk: int = 1024):
     """Next-token cross-entropy over the tokens (a VLM's prefix positions
     sliced off) plus ``MOE_AUX_WEIGHT`` times the MoE load-balance loss
     (0 for a model without MoE layers)."""

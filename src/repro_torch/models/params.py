@@ -2,8 +2,9 @@
 
 Counterpart of ``repro/models/params.py``.  Model builders return trees
 whose leaves are :class:`P`; :func:`materialize` turns such a tree into
-tensors.  The logical axis names are kept for the JAX layout's sake (the
-sharding rules that read them, ``pspecs``, are ROADMAP §1.10).
+tensors.  The logical axis names are kept for the JAX layout's sake: the
+rules that read them (``pspecs``, the tensor and FSDP sharding of the
+leaves) are the open half of ROADMAP §1.10.
 """
 from __future__ import annotations
 

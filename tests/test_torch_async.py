@@ -279,6 +279,15 @@ def test_churn_model_is_the_jax_model():
 
 
 def test_shardmap_exec_raises():
-    with pytest.raises(NotImplementedError, match="§1.10"):
-        make_async_round(_fed(2), lambda p, b: p["w"].sum(),
+    """The group cohort needs its group, and refuses one with a model axis
+    above 1 (the tensor and FSDP half, ROADMAP §1.10)."""
+    from repro_torch.launch.mesh import ClientMesh
+    fed = _fed(2, client_mode="vmap", client_axes=("data",))
+    with pytest.raises(ValueError, match="mesh="):
+        make_async_round(fed, lambda p, b: p["w"].sum(),
                          client_exec="shardmap")
+    mesh = ClientMesh(shape={"data": 2, "model": 2}, client_axes=("data",),
+                      rank=0, device=torch.device("cpu"))
+    with pytest.raises(NotImplementedError, match="§1.10"):
+        make_async_round(fed, lambda p, b: p["w"].sum(),
+                         client_exec="shardmap", mesh=mesh)

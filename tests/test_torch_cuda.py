@@ -949,3 +949,86 @@ def test_cuda_decode_repeats_bitwise_without_syncs(cuda_device, name):
         runs.append((toks.cpu(), last.cpu()))
     assert torch.equal(runs[0][0], runs[1][0])
     assert_bitwise(runs[0][1], runs[1][1], "logits")
+
+
+# ---------------------------------------------------------------------------
+# The multi-GPU spatial driver's pieces and remat
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 33, 100_003])
+def test_cuda_pack_bits_1d_matches_cpu(cuda_device, n):
+    from repro_torch.core import wire
+    bits = torch.from_numpy(np.random.default_rng(n).random(n) < 0.3)
+    words = wire.pack_bits_1d(bits.to(cuda_device))
+    assert_bitwise(words, wire.pack_bits_1d(bits), "words")
+    assert_bitwise(wire.unpack_bits_1d(words, n),
+                   wire.unpack_bits_1d(words.cpu(), n), "bits")
+
+
+@pytest.mark.cuda
+def test_cuda_world1_nccl_aggregate_overflow_matches_cpu(cuda_device,
+                                                         tmp_path):
+    """The transport on a world-1 NCCL group, past its capacity on one
+    leaf, with error feedback: the sums and the residual bitwise those of
+    a gloo group of the same process on the CPU (NCCL gathers the uint32
+    bitmap as int32)."""
+    import torch.distributed as dist
+    from repro_torch.core import aggregate
+    from repro_torch.launch import mesh as MM
+    gpu = MM.init(1, 0, store=str(tmp_path / "store"), device=cuda_device)
+    try:
+        cpu = MM.ClientMesh(shape={"data": 1}, client_axes=("data",),
+                            rank=0, device=torch.device("cpu"),
+                            group=dist.new_group([0], backend="gloo"))
+        rng = np.random.default_rng(3)
+        x = np.zeros((1, 5000), np.float32)
+        x[0, :2000] = rng.standard_normal(2000)         # past kb = 273
+        y = (rng.standard_normal((1, 64, 33))
+             * (rng.random((1, 64, 33)) < 0.05)).astype(np.float32)
+        err = {"x": rng.standard_normal((1, 5000)).astype(np.float32),
+               "y": rng.standard_normal((1, 64, 33)).astype(np.float32)}
+        outs = {}
+        for mesh in (gpu, cpu):
+            on = lambda t: {k: torch.from_numpy(v).to(mesh.device)
+                            for k, v in t.items()}
+            car = on({"x": x, "y": y})
+            agg = aggregate.make_shardmap_sparse_aggregate(
+                mesh, ("data",), 0.05, value_dtype="bfloat16")
+            outs[mesh.device.type] = agg(
+                car, car, car, torch.full((1,), 0.5, device=mesh.device),
+                on(err))
+        (ga, gerr), (ca, cerr) = outs["cuda"], outs["cpu"]
+        for a, b in zip(ga + (gerr,), ca + (cerr,)):
+            for k in a:
+                assert a[k].is_cuda
+                assert_bitwise(a[k], b[k], k)
+        assert not torch.equal(cerr["x"], torch.from_numpy(err["x"])), \
+            "the overflow fed nothing back"
+    finally:
+        gpu.close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat", ["full", "dots"])
+def test_cuda_remat_bitwise_none(cuda_device, remat):
+    """The MLA + MoE smoke model's loss and gradients on the card are the
+    same bits with and without recomputation."""
+    from repro_torch import tree as T
+    from repro_torch.configs import get_config, reduce_for_smoke
+    from repro_torch.models import model as TM
+    cfg = reduce_for_smoke(get_config("deepseek-v2-lite-16b"))
+    params = TM.init_params(cfg, seed=0, device=cuda_device)
+    toks = torch.randint(0, cfg.vocab_size, (2, 64),
+                         generator=torch.Generator().manual_seed(0)) \
+        .to(torch.int32).to(cuda_device)
+    res = []
+    for r in ("none", remat):
+        leaves, td = T.flatten(params)
+        req = [x.detach().clone().requires_grad_(True) for x in leaves]
+        loss = TM.loss_fn(cfg, td.unflatten(req), toks, remat=r)
+        res.append((loss.detach(), torch.autograd.grad(loss, req)))
+    assert_bitwise(res[1][0], res[0][0], "loss")
+    for i, (a, b) in enumerate(zip(res[1][1], res[0][1])):
+        assert_bitwise(a, b, f"gradient {i}")

@@ -485,17 +485,43 @@ def test_entry_points_need_a_card_or_device_cpu(monkeypatch):
     assert all(x.device.type == "cpu" for x in params.values())
 
 
+def _model_axis_mesh():
+    """A client group's view with a model axis of 2 (no process group is
+    needed to refuse it)."""
+    from repro_torch.launch.mesh import ClientMesh
+    return ClientMesh(shape={"data": 1, "model": 2}, client_axes=("data",),
+                      rank=0, device=torch.device("cpu"))
+
+
+def _fsdp_train_step(loss):
+    from repro_torch.configs import get_config, reduce_for_smoke
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import ClientMesh
+    from repro_torch.sharding import DeployPlan
+    return steps.build_train_step(
+        reduce_for_smoke(get_config("mistral-large-123b")),
+        ClientMesh(shape={"data": 1}, client_axes=("data",), rank=0,
+                   device=torch.device("cpu")),
+        steps.SHAPES["train_4k"],
+        plan=DeployPlan(clients="virtual", train_params="fsdp"))
+
+
+_SPATIAL = FedConfig(client_mode="vmap", client_axes=("data",),
+                     n_clients=1)
+
+
 @pytest.mark.parametrize("build,what", [
-    (lambda loss: make_fl_round(FedConfig(client_axes=("data",)), loss),
+    (lambda loss: make_fl_round(_SPATIAL, loss, mesh=_model_axis_mesh()),
      "§1.10"),
-    (lambda loss: make_async_round(FedConfig(), loss,
-                                   client_exec="shardmap"), "§1.10"),
-    (lambda loss: make_fl_round(FedConfig(client_mode="shard_map"), loss),
-     "§1.10"),
+    (lambda loss: make_async_round(_SPATIAL, loss, client_exec="shardmap",
+                                   mesh=_model_axis_mesh()), "§1.10"),
+    (_fsdp_train_step, "§1.10"),
 ])
 def test_round_outside_the_slice_raises(build, what):
-    """Only the multi-GPU drivers are left to port: the round over mesh
-    client axes and the async driver's shard_map cohort."""
+    """The multi-GPU driver's tensor and FSDP half is left to port: the
+    spatial round and the async driver's group cohort on a mesh with a
+    model axis above 1, and a virtual/FSDP plan's train step, raise naming
+    its ROADMAP item."""
     with pytest.raises(NotImplementedError, match=what):
         build(lambda p, b: p["w"].sum())
 

@@ -447,7 +447,8 @@ def _loss_and_grads(name, dtype, seq=32):
             jp, jnp.asarray(toks))
     leaves, td = T.flatten(tp)
     req = [x.clone().requires_grad_(True) for x in leaves]
-    loss = TM.loss_fn(tcfg, td.unflatten(req), torch.from_numpy(toks))
+    loss = TM.loss_fn(tcfg, td.unflatten(req), torch.from_numpy(toks),
+                      remat="none")
     loss.backward()
     grads = [(x.grad.float().numpy(), np.asarray(g).astype(np.float32))
              for x, g in zip(req, jax.tree_util.tree_leaves(jg))]
@@ -507,7 +508,8 @@ def test_kernel_adam_takes_a_tied_gradient_contiguous(monkeypatch):
     p = TM.init_params(tcfg, seed=0, device="cpu")
     toks = torch.from_numpy(np.random.default_rng(0).integers(0, 512,
                                                               (2, 32)))
-    _, g = _value_and_grad(lambda q, b: TM.loss_fn(tcfg, q, b), p, toks)
+    _, g = _value_and_grad(
+        lambda q, b: TM.loss_fn(tcfg, q, b, remat="none"), p, toks)
     assert not g["embed"].is_contiguous()
     seen = []
     real = FA.fused_adam_apply
