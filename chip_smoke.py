@@ -164,7 +164,27 @@ Phases:
    path's first inputs; (b) 4 gloo processes with CUDA tensors sharing
    the card: the CNN's spatial round (C = 4) against the 4-client scan
    round, and the async driver under churn with the group's cohort
-   bitwise the scan cohort.
+   bitwise the scan cohort;
+16. (after 15) tensor parallelism on a model axis, gloo processes with
+   CUDA tensors sharing the card (``launch.steps.build_train_step`` with
+   the ``tp`` rules: each rank holds its shard of every leaf, the
+   Megatron-split layers, the whole leaf's threshold, the per-shard
+   transport): (a) 2 ranks, a (data 1, model 2) mesh: starcoder2-3b at
+   full width (phase 5's cut and traffic), one FedAdam-SSM and one
+   FedAdam-Top round in float32 with error feedback, each against the
+   whole-leaf world-1 round from the same params and batch (W, M, V and
+   the residual within ``TENSOR_TOL``/``TENSOR_ERR_TOL`` except where a
+   support differs or a transport dropped a value, both counted; the
+   bill equal), then one round in its bfloat16; launches per rank
+   (absmax L, count_ge 2L, ssm_apply_ef L; FedAdam-Top absmax, count_ge
+   and apply_mask for three masks), wall, peak per rank, the bytes the
+   client group all-gathers and the model group reduces or gathers; the
+   selection kernels and the applies bitwise their plain versions on the
+   largest leaf's shard inputs, with times; then deepseek-v2-lite-16b at
+   full width at the most of ``TENSOR_MOE_REPEATS`` that both ranks fit,
+   one round against the whole-leaf round; (b) 4 ranks, a (data 2, model
+   2) mesh: starcoder2-3b's FedAdam-SSM round through each client group's
+   per-shard transport, against the world-2 whole-leaf round.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.  Any failure
@@ -3236,7 +3256,7 @@ def spatial_cnn(torch, seed, mesh):
                     client_axes=mesh.client_axes, aggregate="sparse_gather")
     spatial = make_fl_round(
         fed_m, loss_fn, aggregate.make_shardmap_sparse_aggregate(
-            mesh, mesh.client_axes, fed_m.alpha), mesh=mesh)
+            mesh, None, mesh.client_axes, fed_m.alpha), mesh=mesh)
     state0 = fed_init(fed_s, params)
     (ref, _), scan_wall, _, scan_launches = _timed(
         torch, lambda: make_fl_round(fed_s, loss_fn)(state0, batch, w))
@@ -3488,7 +3508,7 @@ def spatial_rank(rank, world, store, seed):
                         aggregate="sparse_gather")
         spatial = make_fl_round(
             fed_m, loss_fn, aggregate.make_shardmap_sparse_aggregate(
-                mesh, mesh.client_axes, fed_m.alpha), mesh=mesh)
+                mesh, None, mesh.client_axes, fed_m.alpha), mesh=mesh)
         state0 = fed_init(fed_s, params)
         mine = state0._replace(client_state=local_clients(
             state0.client_state, mesh))
@@ -3586,6 +3606,581 @@ def phase_spatial_ranks(torch, seed):
         f"{r0['differ_from_scan']} (bitwise elsewhere); the async group "
         f"cohort bitwise the scan cohort ({r0['async_shardmap']}); "
         f"kernels vs plain {r0['kernel_max_abs_err']}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 16: tensor parallelism on a model axis (gloo ranks sharing the card)
+# ---------------------------------------------------------------------------
+
+#: (a) and (b)'s dense model: starcoder2-3b at full width, phase 5's cut
+#: (2 of 30 pattern repeats) and traffic (sequence 128, 2 sequences a
+#: client), build_train_step's 2 local epochs, error feedback.
+TENSOR_ARCH = "starcoder2-3b"
+TENSOR_REPEATS = 2
+TENSOR_SEQ = 128
+TENSOR_PER_CLIENT = 2
+#: (a)'s MLA + MoE model at full width, in float32 as starcoder2's
+#: compared rounds, and the repeats it tries, most first; phase 13's
+#: sequence, one sequence.
+TENSOR_MOE_ARCH = "deepseek-v2-lite-16b"
+TENSOR_MOE_REPEATS = (3, 2, 1)
+TENSOR_MOE_SEQ = 512
+#: The split float32 round against the whole-leaf one: W, M, V within
+#: ``TENSOR_TOL`` of a leaf's largest element and the residual within
+#: ``TENSOR_ERR_TOL`` (tests/test_torch_tensor.py's bounds against JAX),
+#: except at the elements whose support differs (a tie, or a value at the
+#: threshold that the split products' other summation order moves across
+#: it) or that a transport's capacity dropped, both counted.
+TENSOR_TOL = 1e-4
+TENSOR_ERR_TOL = 1e-3
+#: The share of the elements whose support may differ, and the share of
+#: a leaf's elements that may lie beyond those bounds besides: at full
+#: width a gradient summed over 512 tokens or 102,400 logits cancels at
+#: some elements, where the split products' other summation order moves
+#: its low bits far (chip run 1 of PR 21: 10,787 of deepseek's
+#: 209,715,200 lm_head residuals beyond 1e-3 of the largest).
+TENSOR_SUPPORT_SHARE = 1e-3
+TENSOR_SHARE = 1e-4
+#: A rank that runs out of memory inside a collective leaves the other
+#: waiting, so a count of repeats is tried only where both ranks' peaks,
+#: and then rank 0's whole-leaf round's, are predicted to fit
+#: ``TENSOR_MOE_FIT`` of the card, at ``TENSOR_MOE_BYTES_PER_PARAM``
+#: (deepseek's float32 rounds at 1 repeat peaked at 59.2 bytes a
+#: parameter on a rank and 61.9 whole: chip run 4 of PR 21).
+TENSOR_MOE_FIT = 0.9
+TENSOR_MOE_BYTES_PER_PARAM = 62
+#: The kernels of the split rounds: replayed at the largest leaf's shard.
+TENSOR_KERNELS = ("absmax", "count_ge", "ssm_apply_ef", "apply_mask")
+
+
+@contextlib.contextmanager
+def _count_collectives(MM):
+    """Bytes the model group all-reduces or all-gathers and the client
+    group all-gathers (this rank's sends, as the backend moves them:
+    bfloat16 reductions in float32), by kind, while the block runs."""
+    counts = collections.Counter()
+    ar, ag, cg = MM.ModelGroup.all_reduce, MM.ModelGroup.all_gather, \
+        MM.ClientMesh.all_gather
+
+    def all_reduce(self, x, op="sum"):
+        e = 4 if x.element_size() == 2 else x.element_size()
+        counts["model_all_reduce"] += x.numel() * e
+        counts["model_collectives"] += 1
+        return ar(self, x, op)
+
+    def all_gather(self, x, dim):
+        counts["model_all_gather"] += x.numel() * x.element_size()
+        counts["model_collectives"] += 1
+        return ag(self, x, dim)
+
+    def client_gather(self, x):
+        counts["client_all_gather"] += x.numel() * x.element_size()
+        return cg(self, x)
+
+    MM.ModelGroup.all_reduce, MM.ModelGroup.all_gather = all_reduce, \
+        all_gather
+    MM.ClientMesh.all_gather = client_gather
+    try:
+        yield counts
+    finally:
+        MM.ModelGroup.all_reduce, MM.ModelGroup.all_gather = ar, ag
+        MM.ClientMesh.all_gather = cg
+
+
+def _host_params(cfg, seed, dev):
+    """``cfg``'s random weights from ``seed``, drawn on ``dev`` (every rank
+    the same) and kept on the host, leaf by leaf."""
+    from repro_torch import tree as T
+    from repro_torch.models.model import init_params
+    return T.tree_map(lambda x: x.cpu(), init_params(cfg, seed=seed,
+                                                     device=dev))
+
+
+def _sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _tensor_cfg(name, repeats, dtype, smoke):
+    import dataclasses
+    from repro_torch.configs import get_config, reduce_for_smoke
+    cfg = get_config(name)
+    cfg = reduce_for_smoke(cfg) if smoke else dataclasses.replace(
+        cfg, pattern_repeats=repeats)
+    return dataclasses.replace(cfg, dtype=dtype or cfg.dtype)
+
+
+def _pinned(torch, x):
+    """A copy of ``x`` in pinned host memory (a card's copy out of pinned
+    memory runs at the link's rate, out of pageable memory at a tenth)."""
+    if not x.is_cuda:
+        return x.contiguous()
+    return torch.empty(x.shape, dtype=x.dtype, pin_memory=True).copy_(x)
+
+
+def _to_first(torch, x, group):
+    """Every copy of ``x`` over ``group`` (a list in the group's rank
+    order) at the group's first rank, on the host; ``None`` at the others.
+    A gather through the host (gloo gathers CPU tensors), moved as bytes
+    (gloo refuses bfloat16)."""
+    import torch.distributed as dist
+    ranks = dist.get_process_group_ranks(group)
+    host = _pinned(torch, x)
+    if len(ranks) == 1:
+        return [host]
+    flat = host.reshape(-1).view(torch.uint8)
+    out = [torch.empty(flat.shape, dtype=torch.uint8, pin_memory=x.is_cuda)
+           for _ in ranks] if dist.get_rank() == ranks[0] else None
+    dist.gather(flat, out, dst=ranks[0], group=group)
+    return None if out is None else \
+        [o.view(x.dtype).reshape(x.shape) for o in out]
+
+
+def _state_at_rank0(torch, state, specs, mesh, on_device=False):
+    """W, M, V whole and every client's residual whole (C, ...), on the
+    host of global rank 0 (``None`` at every other rank): each leaf's
+    shards gathered to its client's model index 0, then the residuals
+    over model index 0's client group, leaf by leaf (only rank 0 keeps a
+    model's worth of them).  ``on_device``: a whole-leaf state's W, M and
+    V stay where they are (on the card)."""
+    import torch.distributed as dist
+    from repro_torch import tree as T
+    group = mesh.model_group
+    specs = T.leaves(specs)
+
+    first = dist.get_rank() == 0
+
+    def whole(x, spec, need, here=False):
+        if group is None:
+            return (x if here else _pinned(torch, x)) if need else None
+        parts = _to_first(torch, x, group)
+        if parts is None:
+            return None
+        dims = [d for d, e in enumerate(spec) if e == "model"]
+        if not dims:
+            return parts[0]
+        shape = list(parts[0].shape)
+        shape[dims[0]] *= len(parts)
+        return torch.cat(parts, dims[0], out=torch.empty(
+            shape, dtype=x.dtype, pin_memory=x.is_cuda))
+
+    out = {}
+    for part in ("W", "M", "V"):
+        leaves = [whole(x, sp, first, on_device) for x, sp in zip(
+            T.leaves(getattr(state, part)), specs)]
+        out[part] = leaves if first else None
+    out["err"] = []
+    for x, sp in zip(T.leaves(state.client_state["comp"]["err"]), specs):
+        w = whole(x[0], sp, True)
+        if mesh.model_index == 0:
+            parts = _to_first(torch, w, mesh.group)
+            if first:
+                out["err"].append(torch.stack(parts))
+    return out if first else None
+
+
+def tensor_round(torch, mesh, cfg, algorithm, params, tokens, *, seq,
+                 per_client, capture=None, drops=None, gather=True,
+                 on_device=False):
+    """One round of ``launch.steps.build_train_step`` (error feedback) on
+    ``mesh`` from the whole ``params`` (host) and every client's
+    ``tokens`` (host, (C, per_client, seq)): its wall, peak, launches and
+    the collectives' bytes, with ``gather`` the state whole on global
+    rank 0's host (``_state_at_rank0``; ``None`` elsewhere; a whole-leaf
+    round's W, M, V kept on the card with ``on_device``), and at the rank
+    ``capture`` names the per-leaf kernels' first inputs at the largest
+    leaf's shard.  The peak is the round's (from after the build)."""
+    import dataclasses
+    from repro_torch import tree as T
+    from repro_torch.core import aggregate
+    from repro_torch.core.fed import local_clients
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import mesh as MM
+    from repro_torch.launch import steps
+
+    dev = mesh.device
+    shape = dataclasses.replace(steps.SHAPES["train_4k"], seq_len=seq,
+                                global_batch=per_client * mesh.n_clients)
+    bundle = steps.build_train_step(cfg, mesh, shape, algorithm=algorithm,
+                                    error_feedback=True)
+    require(bundle.batch_shapes["tokens"] == (1, per_client, seq),
+            f"batch {bundle.batch_shapes}")
+    state = bundle.init(T.tree_map(lambda x: x.to(dev), params))
+    sizes = [x.numel() for x in T.leaves(state.W)]
+    batch = local_clients({"tokens": tokens.to(dev)}, mesh)
+    _sync(torch, dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    with _count_collectives(MM) as moved, \
+            _count_overflow(aggregate) as dropped:
+        reset_launches()
+        t0 = time.perf_counter()
+        st, mets = bundle.fn(state, batch)
+        _sync(torch, dev)
+        wall = time.perf_counter() - t0
+    rec = {"wall_s": wall, "launches": dict(LAUNCHES),
+           "peak_bytes": torch.cuda.max_memory_allocated()
+           if dev.type == "cuda" else None,
+           "collective_bytes": dict(moved),
+           "loss": mets["loss"].cpu().tolist(),
+           "uplink_bits": float(mets["uplink_bits"]),
+           "leaves": len(sizes), "shard_elements": sum(sizes)}
+    if drops is not None:
+        drops.extend(int(d) for d in dropped)
+    t0 = time.perf_counter()
+    host = _state_at_rank0(torch, st, bundle.static["pspecs"], mesh,
+                           on_device) if gather else None
+    rec["state_gather_s"] = time.perf_counter() - t0
+    captured = None
+    if capture is not None:
+        # the round again from the same state, its kernels' first inputs
+        # at the largest leaf's shard kept on the card for the replay
+        # (outside the timed round, whose peak they would raise); every
+        # rank runs it, rank ``capture`` keeps them
+        cap = Capture() if mesh.rank == capture else None
+        if cap is not None:
+            entry = _lm_entry_points()
+            for k in TENSOR_KERNELS:
+                passes = len(LM_PASSES.get(k, ("",)))
+                cap.wrap(*entry[k], k, LM_KERNELS[k][2], (max(sizes),),
+                         passes)
+        try:
+            bundle.fn(state, batch)
+        finally:
+            if cap is not None:
+                cap.restore()
+        if cap is not None:
+            captured = {k: [(a, kw) for calls in cap.args[k].values()
+                            for a, kw in calls] for k in cap.args}
+    del st, state, bundle
+    _free(torch)
+    return rec, host, captured
+
+
+def _tensor_vs_whole(torch, split, whole, drops, what):
+    """The split round's whole-state against the whole-leaf round's, leaf
+    by leaf: the elements beyond ``TENSOR_TOL`` (``TENSOR_ERR_TOL`` for
+    the residual) of the leaf's largest must be no more than those whose
+    support differs between the two (a zero residual on one side only)
+    plus the values the two transports' capacities dropped at that leaf,
+    plus ``TENSOR_SHARE`` of the leaf's elements; beyond the dropped
+    values, the supports may differ at ``TENSOR_SUPPORT_SHARE`` of the
+    elements.  Returns the counts, the largest error relative to each
+    leaf's largest element and the failures (the phase raises on any,
+    after its record is written)."""
+    t0 = time.perf_counter()
+    dev = torch.device("cuda") if torch.cuda.is_available() else \
+        torch.device("cpu")
+    L = len(whole["W"])
+    per_leaf = [0] * L
+    for d in drops:                     # one list per run and rank
+        k = len(d) // L                 # one pack per leaf and mask
+        for i in range(L):
+            per_leaf[i] += sum(d[i * k:(i + 1) * k])
+    support = [int(((a.to(dev) == 0) != (b.to(dev) == 0)).sum())
+               for a, b in zip(split["err"], whole["err"])]
+    out = {"support_differs": sum(support),
+           "dropped": sum(per_leaf), "beyond": {}, "beyond_10x": {},
+           "max_rel_err": {}, "elements": sum(x.numel() for x in whole["W"]),
+           "failures": []}
+    total = sum(x.numel() for x in whole["err"])
+    for part, t in (("W", TENSOR_TOL), ("M", TENSOR_TOL), ("V", TENSOR_TOL),
+                    ("err", TENSOR_ERR_TOL)):
+        beyond, rel = [], []
+        for i, (a, b) in enumerate(zip(split[part], whole[part])):
+            a, b = a.to(dev).double(), b.to(dev).double()
+            d = (a - b).abs() / b.abs().max().clamp_min(1e-30)
+            n = int((d > t).sum())
+            rel.append(float(d.max()))
+            if n > support[i] + per_leaf[i] + TENSOR_SHARE * b.numel():
+                out["failures"].append(
+                    f"{what}: {part}[{i}] beyond {t} at {n} of {b.numel()}"
+                    f" elements, {support[i]} supports differ, "
+                    f"{per_leaf[i]} dropped")
+            beyond.append(n)
+            out["beyond_10x"].setdefault(part, []).append(
+                int((d > 10 * t).sum()))
+        out["beyond"][part] = beyond
+        out["max_rel_err"][part] = rel
+    out["support_per_leaf"], out["dropped_per_leaf"] = support, per_leaf
+    if out["support_differs"] - out["dropped"] > TENSOR_SUPPORT_SHARE * total:
+        out["failures"].append(
+            f"{what}: supports differ at {out['support_differs']} of "
+            f"{total}, {out['dropped']} values dropped")
+    out["compare_s"] = time.perf_counter() - t0
+    return out
+
+
+def _replay_tensor_kernels(torch, captured, on_card, measure_times):
+    """Each captured kernel against its plain version, bitwise, on its
+    first shard inputs (``on_card``: back on the card, else as captured in
+    a CPU rehearsal); with ``measure_times`` also its times and bound
+    (``lm_kernel_record``).  Returns name -> record."""
+    out = {}
+    for name, calls in captured.items():
+        passes = LM_PASSES.get(name, ("",))
+        for pass_name, (args, kw) in zip(passes, calls):
+            if on_card:
+                args = _on_card(args)
+            label = f"{name}/{pass_name}" if pass_name else name
+            leaf_arg = LM_KERNELS[name][2]
+            n = args[leaf_arg].numel()
+            if measure_times:
+                rec = lm_kernel_record(torch, name, args, kw, leaf_arg, n)
+            else:
+                fk, fp = lm_kernel(torch, name, args, kw)[:2]
+                a, b = fk(), fp()
+                a = a if isinstance(a, tuple) else (a,)
+                b = b if isinstance(b, tuple) else (b,)
+                rec = {"elements": n, "max_abs_err": max(
+                    max_abs_err(torch, x, y) for x, y in zip(a, b))}
+            rec["shape"] = list(args[leaf_arg].shape)
+            out[label] = rec
+    return out
+
+
+def _tensor_launches(L, algorithm):
+    """Launches per rank and round of the split step: the per-leaf
+    selection on each shard (absmax, two counts), then FedAdam-SSM's fused
+    apply, or FedAdam-Top's three masks' applies; no Adam kernel (the
+    step's Adam is unfused, as JAX's) and no word kernel (no payload)."""
+    if algorithm == "fedadam_top":
+        return per_client_round(absmax=3 * L, count_ge=6 * L,
+                                apply_mask=3 * L)
+    return per_client_round(absmax=L, count_ge=2 * L, ssm_apply_ef=L)
+
+
+def _world_drops(torch, dist, drops, world):
+    """Every rank's list of the values its packs dropped (one entry per
+    pack, in pack order), gathered over the whole world."""
+    g = [torch.zeros(len(drops), dtype=torch.int64) for _ in range(world)]
+    dist.all_gather(g, torch.tensor(drops, dtype=torch.int64))
+    return [x.tolist() for x in g]
+
+
+def _world1_group(mesh, ranks):
+    """A whole-leaf world-1 ClientMesh for each rank of ``ranks`` (every
+    rank of the world must call it, in the same order)."""
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as MM
+    out = None
+    for r in ranks:
+        g = dist.new_group([r])
+        if r == mesh.rank:
+            out = MM.ClientMesh(shape={"data": 1}, client_axes=("data",),
+                                rank=0, device=mesh.device, group=g)
+    return out
+
+
+def tensor_rank(rank, world, store, seed, part, device="cuda", smoke=False):
+    """Phase 16 on one rank of a gloo group of CUDA tensors sharing the
+    card.  (a) a (data 1, model 2) mesh: starcoder2's split rounds in
+    float32 (FedAdam-SSM, FedAdam-Top) against the whole-leaf world-1
+    round rank 0 runs after them, one bfloat16 round, then deepseek's at
+    the most repeats that fit; (b) a (data 2, model 2) mesh: starcoder2's
+    split FedAdam-SSM round against the world-2 whole-leaf round of the
+    model index 0's client group.  ``device``/``smoke``: a CPU rehearsal
+    at the smoke configs."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+    from repro_torch.device import exact_float32
+    from repro_torch.launch import mesh as MM
+    from repro_torch.launch import train
+
+    exact_float32()
+    dev = torch.device(device)
+    shape = {"data": 1 if part == "a" else 2, "model": 2}
+    mesh = MM.init(world, rank, store=store, device=dev, backend="gloo",
+                   shape=shape, timeout_s=180)
+    out = {"rank": rank, "client": mesh.client_index,
+           "model_index": mesh.model_index}
+    t_rank = time.perf_counter()
+    try:
+        C = mesh.n_clients
+        cfg32 = _tensor_cfg(TENSOR_ARCH, TENSOR_REPEATS, "float32", smoke)
+        params = _host_params(cfg32, seed, dev)
+        seq = 32 if smoke else TENSOR_SEQ
+        tokens = train.build_client_batches(cfg32, C, TENSOR_PER_CLIENT, seq,
+                                            seed=seed, device="cpu")["tokens"]
+        # whole-leaf references: rank 0 alone at (a), the client group of
+        # model index 0 at (b)
+        ref_mesh = _world1_group(mesh, [0]) if part == "a" else (
+            MM.ClientMesh(shape={"data": C}, client_axes=("data",),
+                          rank=mesh.client_index, device=dev,
+                          group=mesh.group)
+            if mesh.model_index == 0 else None)
+        algs = ("fedadam_ssm", "fedadam_top") if part == "a" \
+            else ("fedadam_ssm",)
+        for alg in algs:
+            drops = []
+            rec, split, captured = tensor_round(
+                torch, mesh, cfg32, alg, params, tokens, seq=seq,
+                per_client=TENSOR_PER_CLIENT, capture=0, drops=drops)
+            L = rec["leaves"]
+            require(rec["launches"] == _tensor_launches(L, alg)
+                    or dev.type != "cuda",
+                    f"rank {rank} {alg} launches {rec['launches']}")
+            drops_all = _world_drops(torch, dist, drops, world)
+            dist.barrier()
+            if ref_mesh is not None:
+                wdrops = []
+                wrec, whole, _ = tensor_round(
+                    torch, ref_mesh, cfg32, alg, params, tokens, seq=seq,
+                    per_client=TENSOR_PER_CLIENT, drops=wdrops,
+                    on_device=True)
+                wdrops = ref_mesh.all_gather(torch.tensor(wdrops)).tolist()
+                rec["whole_leaf"] = wrec
+                if rank == 0:
+                    require(wrec["uplink_bits"] == rec["uplink_bits"],
+                            f"{alg}: bill {rec['uplink_bits']} against "
+                            f"the whole-leaf round's {wrec['uplink_bits']}")
+                    require(max(abs(a - b) for a, b in zip(
+                        rec["loss"], wrec["loss"])) <= 1e-5 * max(
+                        abs(b) for b in wrec["loss"]), f"{alg}: losses "
+                        f"{rec['loss']} against {wrec['loss']}")
+                    rec["vs_whole_leaf"] = _tensor_vs_whole(
+                        torch, split, whole, drops_all + wdrops,
+                        f"{alg} split vs whole")
+                del whole
+            dist.barrier()
+            if captured is not None:
+                t0 = time.perf_counter()
+                rec["kernels"] = _replay_tensor_kernels(
+                    torch, captured, dev.type == "cuda",
+                    dev.type == "cuda" and part == "a")
+                rec["kernels_s"] = time.perf_counter() - t0
+            rec["dropped"] = sum(drops)
+            out[alg] = rec
+            if rank == 0:
+                log(f"phase 16 ({part}) {alg}: " + json.dumps(
+                    {k: v for k, v in rec.items() if k != "kernels"}))
+            del split, captured
+            _free(torch)
+        if part == "a":
+            cfg16 = _tensor_cfg(TENSOR_ARCH, TENSOR_REPEATS, None, smoke)
+            p16 = _host_params(cfg16, seed, dev)
+            rec, _, _ = tensor_round(torch, mesh, cfg16, "fedadam_ssm", p16,
+                                     tokens, seq=seq,
+                                     per_client=TENSOR_PER_CLIENT,
+                                     gather=False)
+            require(rec["launches"] == _tensor_launches(rec["leaves"],
+                                                        "fedadam_ssm")
+                    or dev.type != "cuda",
+                    f"bf16 launches {rec['launches']}")
+            out["bfloat16"] = rec
+            if rank == 0:
+                log(f"phase 16 (a) bfloat16: {json.dumps(rec)}")
+            del p16
+            out["moe"] = tensor_moe(torch, mesh, ref_mesh, seed, smoke)
+        out["rank_s"] = time.perf_counter() - t_rank
+        return out
+    finally:
+        mesh.close()
+
+
+def tensor_moe(torch, mesh, ref_mesh, seed, smoke):
+    """(a)'s deepseek-v2-lite-16b at full width in float32, the most of
+    ``TENSOR_MOE_REPEATS`` whose split round (on both ranks) and whole-leaf
+    round are predicted to fit the card (``TENSOR_MOE_FIT``; each that is
+    not recorded with its prediction), one FedAdam-SSM round against the
+    whole-leaf round rank 0 runs after it."""
+    import torch.distributed as dist
+    from repro_torch.launch import train
+    from repro_torch import sharding as shd
+    from repro_torch import tree as T
+    from repro_torch.models import params as PM
+    from repro_torch.models.model import abstract_params
+    tried = {}
+    card = torch.cuda.get_device_properties(0).total_memory \
+        if mesh.device.type == "cuda" else float("inf")
+    for repeats in ((2,) if smoke else TENSOR_MOE_REPEATS):
+        cfg = _tensor_cfg(TENSOR_MOE_ARCH, repeats, "float32", smoke)
+        meta = abstract_params(cfg)
+        split = PM.model_split(PM.pspecs(meta, shd.param_rules("tp", False),
+                                         mesh))
+        whole = sum(math.prod(p.shape) for p in T.leaves(meta))
+        on_rank = sum(math.prod(p.shape) // (2 if s else 1)
+                      for p, s in zip(T.leaves(meta), split))
+        predicted = TENSOR_MOE_BYTES_PER_PARAM * on_rank
+        predicted_whole = TENSOR_MOE_BYTES_PER_PARAM * whole
+        if max(2 * predicted, predicted_whole) > TENSOR_MOE_FIT * card:
+            tried[repeats] = {"params": whole,
+                              "predicted_peak_bytes_per_rank": predicted,
+                              "predicted_whole_leaf_peak_bytes":
+                                  predicted_whole,
+                              "card_bytes": card, "tried": False}
+            continue
+        params = _host_params(cfg, seed, mesh.device)
+        seq = 64 if smoke else TENSOR_MOE_SEQ
+        tokens = train.build_client_batches(cfg, 1, 1, seq, seed=seed,
+                                            device="cpu")["tokens"]
+        drops = []
+        rec, split, _ = tensor_round(torch, mesh, cfg, "fedadam_ssm",
+                                     params, tokens, seq=seq, per_client=1,
+                                     drops=drops)
+        g = _world_drops(torch, dist, drops, 2)
+        dist.barrier()
+        rec.update(repeats=repeats, tried=tried, params=whole,
+                   predicted_peak_bytes_per_rank=predicted,
+                   predicted_whole_leaf_peak_bytes=predicted_whole)
+        if ref_mesh is not None:
+            wdrops = []
+            wrec, whole_state, _ = tensor_round(
+                torch, ref_mesh, cfg, "fedadam_ssm", params, tokens,
+                seq=seq, per_client=1, drops=wdrops, on_device=True)
+            rec["whole_leaf"] = wrec
+            rec["dropped"] = sum(map(sum, g))
+            require(wrec["uplink_bits"] == rec["uplink_bits"],
+                    f"deepseek bill {rec['uplink_bits']}")
+            require(abs(rec["loss"][0] - wrec["loss"][0])
+                    <= 1e-5 * abs(wrec["loss"][0]),
+                    f"deepseek losses {rec['loss']} {wrec['loss']}")
+            rec["vs_whole_leaf"] = _tensor_vs_whole(
+                torch, split, whole_state, g + [wdrops],
+                "deepseek split vs whole")
+            del whole_state
+        dist.barrier()
+        if mesh.rank == 0:
+            log(f"phase 16 (a) {TENSOR_MOE_ARCH}: {json.dumps(rec)}")
+        return rec
+    raise RuntimeError(f"chip_smoke: {TENSOR_MOE_ARCH}'s split round fits "
+                       f"at none of {TENSOR_MOE_REPEATS} repeats: {tried}")
+
+
+def phase_tensor(torch, seed):
+    """Phase 16: (a) 2, then (b) 4 gloo processes with CUDA tensors on the
+    one card (``tensor_rank``); a failure in any rank fails the phase.
+    Returns the record and rank 0's kernel records."""
+    import shutil
+    import tempfile
+    from repro_torch.launch import mesh as MM
+
+    out = {}
+    for part, world in (("a", 2), ("b", 4)):
+        tmp = tempfile.mkdtemp()
+        t0 = time.perf_counter()
+        try:
+            ranks = MM.run_ranks(tensor_rank, world,
+                                 store=os.path.join(tmp, "store"),
+                                 args=(seed, part), timeout_s=600)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        out[part] = {"ranks": ranks, "wall_s": time.perf_counter() - t0}
+        r0 = ranks[0]
+        dump = ROOT / "chiprun_out" / f"phase16_{part}.json"
+        dump.parent.mkdir(exist_ok=True)
+        dump.write_text(json.dumps(ranks, indent=1))
+        log(f"phase 16 ({part}): {world} gloo ranks on the card "
+            f"({smi_line()}) in {out[part]['wall_s']:.1f} s: "
+            + json.dumps({k: {kk: r0[k][kk] for kk in (
+                "wall_s", "peak_bytes", "collective_bytes", "uplink_bits",
+                "vs_whole_leaf", "dropped") if kk in r0[k]}
+                for k in r0 if isinstance(r0[k], dict)}))
+        failures = [f for k in r0.values() if isinstance(k, dict)
+                    for f in k.get("vs_whole_leaf", {}).get("failures", [])]
+        require(not failures, "; ".join(failures))
     return out
 
 
@@ -3687,6 +4282,25 @@ def main(argv=None):
         k["max_abs_err"] = max(k["max_abs_err"], err)
         k["at_cnn_spatial_ranks"] = {"max_abs_err": err}
     log(f"phase 15 took {time.perf_counter() - t_spatial:.1f} s")
+    # phase 16: tensor parallelism on a model axis, gloo ranks on the card
+    t_tensor = time.perf_counter()
+    torch.cuda.empty_cache()
+    tensor = phase_tensor(torch, args.seed)
+    tensor["wall_s"] = time.perf_counter() - t_tensor
+    log(f"phase 16 took {tensor['wall_s']:.1f} s")
+    a0, b0 = tensor["a"]["ranks"][0], tensor["b"]["ranks"][0]
+    for label, rec in (("a_fedadam_ssm", a0["fedadam_ssm"]),
+                       ("a_fedadam_top", a0["fedadam_top"]),
+                       ("b_fedadam_ssm", b0["fedadam_ssm"])):
+        for kname in TENSOR_KERNELS:
+            shard = {lab: r for lab, r in rec["kernels"].items()
+                     if lab.split("/")[0] == kname}
+            if not shard:
+                continue
+            k = next(k for k in kernels if k["name"] == kname)
+            k["max_abs_err"] = max(k["max_abs_err"], *(
+                r["max_abs_err"] for r in shard.values()))
+            k[f"at_tensor_{label}"] = shard
     for k in kernels:
         k["launches_serve"] = {n: r["launches"][k["name"]]
                                for n, r in served.items()}
@@ -3704,6 +4318,17 @@ def main(argv=None):
             "cnn_world1": spatial["cnn"]["launches_per_client"][k["name"]],
             "lm_world1": spatial["lm"]["launches"][k["name"]],
             "cnn_gloo_ranks": rank0["round_launches"][k["name"]]}
+        # the split rounds': per rank and round (each rank one half of a
+        # client's leaves)
+        k["launches_tensor"] = {
+            "a_starcoder2_fedadam_ssm": a0["fedadam_ssm"]["launches"][
+                k["name"]],
+            "a_starcoder2_fedadam_top": a0["fedadam_top"]["launches"][
+                k["name"]],
+            "a_starcoder2_bfloat16": a0["bfloat16"]["launches"][k["name"]],
+            "a_deepseek": a0["moe"]["launches"][k["name"]],
+            "b_starcoder2_fedadam_ssm": b0["fedadam_ssm"]["launches"][
+                k["name"]]}
         # the drivers' launches: per client of a vmap round, per dispatch
         # of an async run (its repacks and server decodes included)
         k["launches_drivers"] = {
@@ -3736,6 +4361,7 @@ def main(argv=None):
               "transformer_baselines": lm_base,
               "cnn_drivers": cnn_drivers, "transformer_drivers": lm_drivers,
               "zoo": zoo, "serve": served, "spatial": spatial,
+              "tensor": tensor,
               "total_s": time.perf_counter() - t_start}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

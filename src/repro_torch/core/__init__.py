@@ -1,4 +1,5 @@
 from repro_torch.core.fed import (  # noqa: F401
+    ALGORITHMS,
     FedConfig,
     FedState,
     active_client_count,
@@ -20,6 +21,7 @@ from repro_torch.core import (  # noqa: F401
     masks,
     quantize,
     sparsify,
+    theory,
     wire,
 )
 from repro_torch.core.compressors import (  # noqa: F401

@@ -19,11 +19,13 @@ payload with it.
 
 The multi-GPU transport, :func:`make_shardmap_sparse_aggregate` (the JAX
 package's shard_map realization, on ``torch.distributed``): each rank
-packs its own client's carriers into a uint32 support bitmap
+packs its own client's carriers (its shard of each leaf, on a model
+axis) into a uint32 support bitmap
 (:func:`repro_torch.core.wire.pack_bits_1d`) and the first ``kb`` values
-of the compacted stream per leaf, all-gathers those, and replays the
-server fold locally with :func:`weighted_fold`; no index tensor crosses
-the group.  Values the fixed capacity drops feed back into the
+of the compacted stream per leaf shard, all-gathers those over its
+client group, and replays the server fold into its shard locally with
+:func:`weighted_fold`; no index tensor crosses the group, and nothing
+crosses the model axis.  Values the fixed capacity drops feed back into the
 error-feedback residual.  The JAX package's ``_maybe_replicate`` (an
 all-gather constraint in the global view) has no counterpart: it acts
 only in ``round_vmap`` under a mesh, which the round never reaches once
@@ -298,18 +300,24 @@ def _gather_clients(x, mesh):
     return mesh.all_gather(x)
 
 
-def make_shardmap_sparse_aggregate(mesh, client_axes, alpha, *,
-                                   shared: bool = True, value_dtype=None):
+def make_shardmap_sparse_aggregate(mesh, param_pspecs, client_axes, alpha,
+                                   *, shared: bool = True,
+                                   value_dtype=None):
     """The multi-GPU sparse transport::
 
         agg(sW_c, sM_c, sV_c, weights)           -> (aW, aM, aV)
         agg(sW_c, sM_c, sV_c, weights, comp_err) -> (aW, aM, aV), new_err
 
-    (weighted SUMS, float32, the same on every rank).  ``mesh``: the
-    rank's :class:`~repro_torch.launch.mesh.ClientMesh`, whose client axes
-    must be ``client_axes``.  The carriers ``s*_c`` and ``comp_err`` are
-    this rank's client's, stacked ``(1, ...)`` (one spatial client per
-    rank); ``weights`` the (C,) FedAvg weights of every client.
+    (weighted SUMS, float32, the same on every rank of a model index).
+    ``mesh``: the rank's :class:`~repro_torch.launch.mesh.ClientMesh`,
+    whose client axes must be ``client_axes``.  ``param_pspecs``: the
+    params' :class:`~repro_torch.models.params.Spec` tree (JAX's
+    signature; ``None`` on a model axis of 1): each rank packs the shards
+    it holds, each with its own capacity ``k_for(n_loc) +
+    overselect_bound``, as JAX's shard_map body sees a device's shard.
+    The carriers ``s*_c`` and ``comp_err`` are this rank's client's,
+    stacked ``(1, ...)`` (one spatial client per rank of a model index);
+    ``weights`` the (C,) FedAvg weights of every client.
 
     ``comp_err``: the rank's error-feedback residual tree on dW (the
     round's ``client_state["comp"]["err"]``).  Values the pack's capacity
@@ -322,6 +330,8 @@ def make_shardmap_sparse_aggregate(mesh, client_axes, alpha, *,
         raise ValueError(f"client axes {tuple(client_axes)} are not the "
                          f"mesh's {mesh.client_axes}")
     mesh.check()
+    if mesh.model is not None and param_pspecs is None:
+        raise ValueError("a model axis above 1 needs the param specs")
     vdt = None if value_dtype is None else _VALUE_DTYPES[value_dtype]
     gather = lambda t: _gather_clients(t, mesh)
 
@@ -371,6 +381,10 @@ def make_shardmap_sparse_aggregate(mesh, client_axes, alpha, *,
 
     def agg(sW_c, sM_c, sV_c, weights, comp_err=None):
         lw, td = T.flatten(sW_c)
+        if param_pspecs is not None and \
+                len(T.leaves(param_pspecs)) != len(lw):
+            raise ValueError(f"{len(lw)} carriers for "
+                             f"{len(T.leaves(param_pspecs))} param specs")
         lm, lv = T.leaves(sM_c), T.leaves(sV_c)
         lerr = [None] * len(lw)
         err_td = None

@@ -218,6 +218,11 @@ class AsyncRoundDriver:
                 raise ValueError("the shardmap cohort needs fed.client_axes "
                                  "and the client group (mesh=)")
             mesh.check()
+            if mesh.model_size > 1:
+                from repro_torch.launch.mesh import TENSOR_ITEM
+                raise NotImplementedError(
+                    "the async group cohort on a model axis above 1 (split "
+                    f"leaves) is not ported yet: {TENSOR_ITEM}")
         else:
             check_ported(fed)
             mesh = None

@@ -13,6 +13,11 @@ backend (auto for CUDA tensors), ``compress`` runs the packed pipeline of
 mixed-dtype one the per-leaf kernels (the fused compress, or FedAdam-Top's
 threshold masks); the wire payload packs its bitmaps with the ``wirepack``
 kernel.
+
+On a model axis (``split``, a ``sparsify.LeafSplit`` that the spatial
+round sets) each leaf is this rank's shard: the masks keep the whole
+leaf's per-tensor threshold, always per leaf, and the diagnostics' norms
+are the whole tree's.
 """
 from __future__ import annotations
 
@@ -47,6 +52,7 @@ class _TopKBase(Compressor):
     value_dtype: Optional[str] = None
     q_bits: int = 32
     sparsify_backend: str = "auto"        # auto | kernel | reference
+    split: Optional[S.LeafSplit] = None   # leaves split over a model axis
 
     def init_state(self, params):
         if not self.error_feedback:
@@ -94,18 +100,20 @@ class _TopKBase(Compressor):
             sV = _cast_values(self.value_dtype, S.tree_sparsify(dV, mV))
             new_state = {"err": tree_sub(dW, sW)} \
                 if state is not None else None
+        sp = self.split
         diag = {
-            "err_w": S.tree_sparsity_error(dW, mW),
-            "err_m": S.tree_sparsity_error(dM, mM),
-            "err_v": S.tree_sparsity_error(dV, mV),
-            "norm_dw": S.tree_norm(dW),
-            "norm_dm": S.tree_norm(dM),
-            "norm_dv": S.tree_norm(dV),
+            "err_w": S.tree_sparsity_error(dW, mW, sp),
+            "err_m": S.tree_sparsity_error(dM, mM, sp),
+            "err_v": S.tree_sparsity_error(dV, mV, sp),
+            "norm_dw": S.tree_norm(dW, sp),
+            "norm_dm": S.tree_norm(dM, sp),
+            "norm_dv": S.tree_norm(dV, sp),
         }
         packed = Packed(sW, sM, sV, diag,
                         self.pack_wire(Deltas(sW, sM, sV)) if emit_wire
                         else None)
-        return packed, new_state, self.bits_per_client(tree_size(deltas.W))
+        d = tree_size(deltas.W) if sp is None else sum(sp.sizes(deltas.W))
+        return packed, new_state, self.bits_per_client(d)
 
     def pack_wire(self, carriers: Deltas):
         if not self._wire_ok():
@@ -127,14 +135,16 @@ class SharedTopKCompressor(_TopKBase):
     def _masks(self, dW, dM, dV):
         m = masks.shared_mask(self.rule, dW, dM, dV, self.alpha,
                               self.mask_scope, self.exact_topk,
-                              backend=self.sparsify_backend)
+                              backend=self.sparsify_backend,
+                              split=self.split)
         return m, m, m
 
     def _fused_compress(self, dW, dM, dV, with_residual):
         score = masks.shared_score_tree(self.rule, dW, dM, dV)
         return S.tree_shared_compress_fused(
             score, dW, dM, dV, self.alpha, self.mask_scope,
-            value_dtype=self.value_dtype, with_residual=with_residual)
+            value_dtype=self.value_dtype, with_residual=with_residual,
+            split=self.split)
 
     def _pack_wire(self, sW, sM, sV, sizes):
         return wire.pack_shared_mask(sW, sM, sV, self._mask_capacity(sizes))
@@ -165,12 +175,14 @@ class IndependentTopKCompressor(_TopKBase):
     def _masks(self, dW, dM, dV):
         return masks.independent_masks(dW, dM, dV, self.alpha,
                                        self.mask_scope, self.exact_topk,
-                                       backend=self.sparsify_backend)
+                                       backend=self.sparsify_backend,
+                                       split=self.split)
 
     def _fused_compress(self, dW, dM, dV, with_residual):
-        # mixed dtypes defeat the packed layout: compress() then takes
+        # mixed dtypes defeat the packed layout, and split leaves need
+        # their counts reduced between the passes: compress() then takes
         # the per-leaf threshold masks of _masks
-        if not S._uniform_dtype(dW, dM, dV):
+        if self.split is not None or not S._uniform_dtype(dW, dM, dV):
             return None
         return S.tree_independent_compress_packed(
             dW, dM, dV, self.alpha, self.mask_scope,

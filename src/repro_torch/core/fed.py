@@ -35,8 +35,13 @@ Client execution modes, as in the JAX package:
   (``aggregate.make_shardmap_sparse_aggregate``) or, without one, the
   dense carriers all-gathered and folded in client order.  A rank holds
   its own client's batch and client state, stacked ``(1, ...)``
-  (:func:`local_clients`, :func:`gather_client_state`).  Every rank holds
-  whole leaves: a model axis above 1 raises naming ROADMAP §1.10.
+  (:func:`local_clients`, :func:`gather_client_state`).  On a mesh with a
+  model axis above 1 (the ``tp`` plans) a client's ranks each hold their
+  shard of every leaf (``pspecs``: W, M, V, the EF residual and the
+  ``local_adam`` moments alike, :func:`client_state_pspecs`), the loss
+  runs its tensor-parallel layers, the masks keep each whole leaf's
+  threshold (``sparsify.LeafSplit``), the transport packs each shard,
+  and the bill counts the whole leaves.
 
 Partial participation draws the round's clients as the JAX round does,
 ``jax.random.permutation(fold_in(PRNGKey(17), round), C)`` (reproduced
@@ -121,6 +126,38 @@ def fed_init(fed: FedConfig, params) -> FedState:
                     client_state=parts or None)
 
 
+#: The registered algorithm names, in registration order (JAX's
+#: ``fed.ALGORITHMS``).
+ALGORITHMS = compressors.available()
+
+
+def client_state_pspecs(client_state, param_pspecs, client_axes):
+    """The :class:`~repro_torch.models.params.Spec` tree of a
+    client-stacked ``client_state`` (JAX's ``client_state_pspecs``): each
+    leaf's leading client axis on ``client_axes`` (``None``: the scan
+    driver's virtual clients), and its trailing dims as the params' where
+    a sub-tree has the params' structure (the EF residual
+    ``{"comp": {"err": ...}}``, the ``local_adam`` moments ``"m"``/``"v"``),
+    so a client's residual shard lies like its param shard; any other
+    sub-tree is split on the client axis alone."""
+    from repro_torch.models.params import Spec
+    if client_state is None:
+        return None
+    cax = (tuple(client_axes) if len(client_axes) > 1 else client_axes[0]) \
+        if client_axes else None
+    pleaves, ptd = T.flatten(param_pspecs)
+
+    def spec_for(sub):
+        if T.flatten(sub)[1] == ptd:
+            return ptd.unflatten([Spec((cax,) + tuple(sp)) for sp in pleaves])
+        if isinstance(sub, dict):
+            return {k: spec_for(v) for k, v in sub.items()}
+        return T.tree_map(lambda x: Spec((cax,) + (None,) * (x.dim() - 1)),
+                          sub)
+
+    return spec_for(client_state)
+
+
 def spatial(fed: FedConfig) -> bool:
     """Whether ``fed`` runs the multi-GPU spatial round (JAX's
     ``round_fn`` dispatch: a client mode other than scan, with client
@@ -131,8 +168,8 @@ def spatial(fed: FedConfig) -> bool:
 def check_ported(fed: FedConfig, mesh=None) -> None:
     """Raise for a configuration the port cannot run: an unknown client
     mode; for the spatial round, a missing or mismatched client group,
-    or one with a model axis above 1 (tensor and FSDP sharding: ROADMAP
-    §1.10)."""
+    or one with an axis beyond the client axes and "model" (FSDP:
+    ROADMAP §1.10(b))."""
     if fed.client_mode not in ("scan", "vmap"):
         raise ValueError(f"client_mode={fed.client_mode!r}: scan | vmap")
     if not spatial(fed):
@@ -144,18 +181,43 @@ def check_ported(fed: FedConfig, mesh=None) -> None:
     if tuple(fed.client_axes) != tuple(mesh.client_axes):
         raise ValueError(f"client_axes={fed.client_axes!r} are not the "
                          f"mesh's {mesh.client_axes}")
-    if fed.n_clients != mesh.world_size:
-        raise ValueError(f"{fed.n_clients} clients on a group of "
-                         f"{mesh.world_size} ranks: one client per rank")
+    if fed.n_clients != mesh.n_clients:
+        raise ValueError(f"{fed.n_clients} clients on a mesh of "
+                         f"{mesh.n_clients}: one client per rank (per "
+                         "model group on a model axis)")
+
+
+def _leaf_split(fed: FedConfig, comp, mesh, pspecs):
+    """The round's ``sparsify.LeafSplit`` on a model axis above 1 (else
+    ``None``), after checking that the configuration runs there."""
+    from repro_torch.core import sparsify as S
+    from repro_torch.launch.mesh import TENSOR_ITEM
+    from repro_torch.models.params import model_split
+    model = None if mesh is None else mesh.model
+    if model is None:
+        return None
+    if not spatial(fed):
+        raise ValueError("a model axis above 1 needs the spatial round "
+                         "(client_mode='vmap' with client_axes)")
+    if pspecs is None:
+        raise ValueError("a model axis above 1 needs the param specs "
+                         "(pspecs=)")
+    if comp.transport not in ("shared_sparse", "independent_sparse") \
+            or getattr(comp, "rule", "ssm_w") == "fairness_top":
+        raise NotImplementedError(
+            f"{comp.name} on a model axis (its scales or norms over split "
+            f"leaves) is not ported: {TENSOR_ITEM}")
+    return S.LeafSplit(model, model_split(pspecs))
 
 
 def local_clients(tree, mesh):
     """This rank's slice ``(1, ...)`` of a client-stacked ``(C, ...)``
-    tree (a batch, a client state): the counterpart of JAX placing the
-    client axis on the mesh."""
+    tree (a batch, a client state): its client's, the counterpart of JAX
+    placing the client axis on the mesh (every model rank of a client
+    takes the same slice)."""
     if tree is None:
         return None
-    r = mesh.rank
+    r = mesh.client_index
     return T.tree_map(lambda x: x[r:r + 1].clone(), tree)
 
 
@@ -404,7 +466,7 @@ def participation_weights(fed: FedConfig, weights: torch.Tensor,
 
 def make_fl_round(fed: FedConfig, loss_fn: Callable,
                   sparse_aggregate_fn: Optional[Callable] = None, *,
-                  mesh=None):
+                  mesh=None, pspecs=None):
     """Build ``round_fn(state, batches, weights=None, rng=None) -> (state,
     metrics)``.
 
@@ -421,9 +483,17 @@ def make_fl_round(fed: FedConfig, loss_fn: Callable,
     every client's, and the metrics come back gathered ``(C,)``.
     ``sparse_aggregate_fn(sW_c, sM_c, sV_c, weights[, comp_err])``: the
     injected transport (``aggregate.make_shardmap_sparse_aggregate``),
-    taken with ``aggregate="sparse_gather"``."""
+    taken with ``aggregate="sparse_gather"``.
+
+    On a mesh with a model axis above 1, ``pspecs`` (the params'
+    :class:`~repro_torch.models.params.Spec` tree) says which leaves are
+    split: the state's leaves are this rank's shards, ``loss_fn`` runs
+    the split layers, and the metrics are the same on every model rank."""
     check_ported(fed, mesh)
     comp = compressors.make_compressor(fed)
+    split = _leaf_split(fed, comp, mesh, pspecs)
+    if split is not None:
+        comp = dataclasses.replace(comp, split=split)
     n_active = active_client_count(fed)
     client_step = make_client_step(fed, loss_fn, comp)
     # the spatial step skips the (bitwise) wire round trip and builds no
@@ -557,8 +627,9 @@ def make_fl_round(fed: FedConfig, loss_fn: Callable,
                                            aW, aM, aV, wsum)
         # uplink accounting: the measured wire bytes when the compressor
         # ships a payload, else the paper-analytic count, times the
-        # participating clients
-        sizes = tuple(x.numel() for x in T.leaves(state.W))
+        # participating clients; of the whole leaves on a model axis
+        sizes = tuple(x.numel() for x in T.leaves(state.W)) \
+            if split is None else split.sizes(state.W)
         per_client = comp.wire_bits_per_client(sizes)
         if per_client is None:
             per_client = comp.bits_per_client(sum(sizes))

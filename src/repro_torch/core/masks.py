@@ -46,18 +46,21 @@ def shared_score_tree(rule: str, dW, dM, dV):
 
 def shared_mask(rule: str, dW, dM, dV, alpha: float,
                 scope: str = "per_tensor", exact: bool = True,
-                backend=None):
+                backend=None, split=None):
+    """``split``: leaves split over a model axis (``sparsify.LeafSplit``),
+    masked with their whole leaves' thresholds."""
     score = shared_score_tree(rule, dW, dM, dV)
     score = T.tree_map(torch.abs, dW if score is None else score)
     return S.tree_topk_masks(score, alpha, scope=scope, exact=exact,
-                             backend=backend)
+                             backend=backend, split=split)
 
 
 def independent_masks(dW, dM, dV, alpha: float, scope: str = "per_tensor",
-                      exact: bool = True, backend=None):
+                      exact: bool = True, backend=None, split=None):
     """FedAdam-Top: three separate Top_k masks, one per tensor."""
     def mk(t):
         return S.tree_topk_masks(T.tree_map(torch.abs, t), alpha,
-                                 scope=scope, exact=exact, backend=backend)
+                                 scope=scope, exact=exact, backend=backend,
+                                 split=split)
 
     return mk(dW), mk(dM), mk(dV)

@@ -30,6 +30,14 @@ leaf of dW ++ dM ++ dV in one buffer, one tau segment per leaf and stream);
 on a mixed-dtype tree they are threshold MASKS (``tree_topk_masks``), which
 on the kernel backend run ``topk_mask`` per leaf: the selection passes and
 the ``apply_mask`` kernel.
+
+Leaves split over a model axis (:class:`LeafSplit`, the tensor-parallel
+round) keep the per-tensor threshold of the WHOLE leaf: ``k`` from its
+global size and the selection's counts reduced over the model group
+(``kernels/topk_mask/ops.select_tau``; the bisection reference the same
+way).  They always take the per-leaf path: the packed apply picks tau in
+its count's epilogue, where no reduction fits.  Exact masks and the
+``global`` scope raise there (ROADMAP §1.10(a)).
 """
 from __future__ import annotations
 
@@ -86,6 +94,35 @@ def k_for(n: int, alpha: float) -> int:
     return max(1, int(round(alpha * n)))
 
 
+@dataclasses.dataclass(frozen=True)
+class LeafSplit:
+    """How the leaves of a parameter-shaped tree lie on a model axis:
+    ``group`` the ``launch.mesh.ModelGroup``, ``split`` per leaf (flatten
+    order) whether the axis splits it (``models/params.model_split``); a
+    leaf it does not split is whole, and the same, on every rank."""
+    group: object
+    split: tuple
+
+    def model(self, i: int):
+        """Leaf ``i``'s group, or ``None`` for a whole leaf."""
+        return self.group if self.split[i] else None
+
+    def numel(self, i: int, x: torch.Tensor) -> int:
+        """Leaf ``i``'s whole size, ``x`` this rank's shard of it."""
+        return x.numel() * (self.group.size if self.split[i] else 1)
+
+    def sizes(self, tree) -> tuple:
+        return tuple(self.numel(i, x) for i, x in enumerate(T.leaves(tree)))
+
+
+def _whole_leaf_only(split, exact: bool, scope: str) -> None:
+    if split is not None and (exact or scope != "per_tensor"):
+        from repro_torch.launch.mesh import TENSOR_ITEM
+        raise NotImplementedError(
+            "on a model axis the masks are per-tensor threshold masks; "
+            f"exact={exact}, scope={scope!r} are not ported: {TENSOR_ITEM}")
+
+
 #: Leaves above BLOCK elements take exact top-k per BLOCK-sized tile.
 BLOCK = 1 << 20
 
@@ -124,19 +161,28 @@ def topk_mask_exact(x: torch.Tensor, k: int) -> torch.Tensor:
     return _topk_rows(x.reshape(-1).abs(), k).reshape(x.shape)
 
 
-def topk_mask_threshold(x: torch.Tensor, k: int,
-                        iters: int = 24) -> torch.Tensor:
+def topk_mask_threshold(x: torch.Tensor, k: int, iters: int = 24, *,
+                        model=None) -> torch.Tensor:
     """Bisection threshold mask (ties may push the count above k): tau in
-    [0, max|x|] with count(|x| >= tau) ~ k."""
+    [0, max|x|] with count(|x| >= tau) ~ k.  ``model``: the group of a
+    leaf split over a model axis, ``x`` this rank's shard: the max and
+    each count are reduced over it (the counts as exact float64 sums), so
+    tau is the whole leaf's."""
     a = x.abs().to(_F32)
     hi = a.max()
     lo = torch.zeros((), dtype=_F32, device=x.device)
     kf = torch.full((), float(k), dtype=_F32, device=x.device)
+    if model is None:
+        count = lambda t: (a >= t).to(_F32).sum()
+    else:
+        hi = model.all_reduce(hi, "max")
+        count = lambda t: model.all_reduce(
+            (a >= t).sum(dtype=torch.float64)).to(_F32)
     for _ in range(iters):
         mid = 0.5 * (lo + hi)
-        more = (a >= mid).to(_F32).sum() > kf
+        more = count(mid) > kf
         lo, hi = torch.where(more, mid, lo), torch.where(more, hi, mid)
-    tau = torch.where((a >= lo).to(_F32).sum() >= kf, lo, hi)
+    tau = torch.where(count(lo) >= kf, lo, hi)
     return a >= tau
 
 
@@ -162,20 +208,32 @@ def _unravel_bool(mask_flat, like_tree):
 
 
 def tree_topk_masks(score_tree, alpha: float, scope: str = "per_tensor",
-                    exact: bool = True, backend: Optional[str] = None):
+                    exact: bool = True, backend: Optional[str] = None,
+                    split: Optional[LeafSplit] = None):
     """Boolean mask tree keeping ~alpha of the elements of score_tree by
     magnitude, per tensor or over the whole flattened model.  Threshold
     masks (``exact=False``) run :func:`topk_mask` on the kernel backend and
-    the bisection reference elsewhere."""
-    def mk(s, k):
+    the bisection reference elsewhere.  ``split``: leaves split over a
+    model axis, each masked with its whole leaf's threshold."""
+    def mk(s, k, model=None, n=None):
         if not exact:
             if use_kernel_path(backend, s.device):
-                return topk_mask(s, k)[0]
-            return topk_mask_threshold(s, k)
+                return (topk_mask(s, k) if model is None else
+                        topk_mask(s, k, model=model, n=n))[0]
+            return topk_mask_threshold(s, k) if model is None else \
+                topk_mask_threshold(s, k, model=model)
         if s.numel() > BLOCK:
             return blocked_topk_mask(s, alpha)
         return topk_mask_exact(s, k)
 
+    _whole_leaf_only(split, exact, scope)
+    if split is not None:
+        leaves, td = T.flatten(score_tree)
+        out = []
+        for i, s in enumerate(leaves):
+            n = split.numel(i, s)
+            out.append(mk(s, k_for(n, alpha), split.model(i), n))
+        return td.unflatten(out)
     if scope == "per_tensor":
         return T.tree_map(lambda s: mk(s, k_for(s.numel(), alpha)),
                           score_tree)
@@ -187,17 +245,30 @@ def tree_sparsify(tree, masks):
     return T.tree_map(sparsify, tree, masks)
 
 
-def tree_sparsity_error(tree, masks):
+def _root_of_sums(sq_leaves, split: Optional[LeafSplit]):
+    """sqrt of the leaves' sums of squares added in leaf order; a split
+    leaf's sum is its shards' over the model group (one all-reduce)."""
+    sq = list(sq_leaves)
+    idx = [] if split is None else [i for i, sp in enumerate(split.split)
+                                    if sp]
+    if idx:
+        red = split.group.all_reduce(torch.stack([sq[i] for i in idx]))
+        for j, i in enumerate(idx):
+            sq[i] = red[j]
+    return torch.sqrt(sum(sq))
+
+
+def tree_sparsity_error(tree, masks, split: Optional[LeafSplit] = None):
     """|| (1 - mask) . x ||_2 over the whole tree (Theorem 1 terms)."""
     sq = T.tree_map(
         lambda x, m: (torch.where(m, 0.0, x.to(_F32)) ** 2).sum(), tree,
         masks)
-    return torch.sqrt(sum(T.leaves(sq)))
+    return _root_of_sums(T.leaves(sq), split)
 
 
-def tree_norm(tree):
+def tree_norm(tree, split: Optional[LeafSplit] = None):
     sq = T.tree_map(lambda x: (x.to(_F32) ** 2).sum(), tree)
-    return torch.sqrt(sum(T.leaves(sq)))
+    return _root_of_sums(T.leaves(sq), split)
 
 
 # ---------------------------------------------------------------------------
@@ -400,13 +471,16 @@ def tree_independent_compress_packed(dW, dM, dV, alpha: float,
     return sW, sM, sV, err_tree, thirds(_leaf_masks(layout, leaves, taus))
 
 
-def _fused_leaf(score, w, m, v, k: int, value_dtype, with_residual: bool):
+def _fused_leaf(score, w, m, v, k: int, value_dtype, with_residual: bool,
+                model=None, n: Optional[int] = None):
     """One leaf of the fused compress: the selection passes on the score
     (``w`` when ``score`` is None), then ONE apply/cast/residual pass.
     Returns ``(sw, sm, sv, err | None, mask)``; the mask is recomputed
-    from tau for the diagnostics only."""
+    from tau for the diagnostics only.  ``model``, ``n``: a shard of a
+    leaf split over a model axis (``select_tau``)."""
     s = w if score is None else score
-    tau, _ = select_tau(s, k)
+    tau, _ = select_tau(s, k) if model is None else \
+        select_tau(s, k, model=model, n=n)
     outs = ssm_apply_ef(tau, w, m, v, score, with_residual=with_residual,
                         value_dtype=value_dtype)
     err = outs[3] if with_residual else None
@@ -437,15 +511,18 @@ def tree_shared_compress_fused(score_tree, dW, dM, dV, alpha: float,
                                scope: str = "per_tensor", *,
                                value_dtype=None,
                                with_residual: bool = False,
-                               packed: bool = True):
+                               packed: bool = True,
+                               split: Optional[LeafSplit] = None):
     """Kernel-path shared-mask compress.  Uniform-dtype cohorts take the
     packed path (``packed=True``); mixed-dtype trees and ``packed=False``
     take the per-leaf loop: for each leaf (or the raveled model when
     ``scope == "global"``) :func:`_fused_leaf`.  ``score_tree=None`` means
-    the scores are dW (the ssm_w rule).  Returns ``(sW, sM, sV, err_tree |
-    None, mask_tree)``; given the same tau the arithmetic is that of the
-    composed reference ops."""
-    if packed and _uniform_dtype(score_tree, dW, dM, dV):
+    the scores are dW (the ssm_w rule).  ``split``: leaves split over a
+    model axis, always per leaf, with their whole leaves' thresholds.
+    Returns ``(sW, sM, sV, err_tree | None, mask_tree)``; given the same
+    tau the arithmetic is that of the composed reference ops."""
+    _whole_leaf_only(split, False, scope)
+    if packed and split is None and _uniform_dtype(score_tree, dW, dM, dV):
         return tree_shared_compress_packed(
             score_tree, dW, dM, dV, alpha, scope,
             value_dtype=value_dtype, with_residual=with_residual)
@@ -463,10 +540,14 @@ def tree_shared_compress_fused(score_tree, dW, dM, dV, alpha: float,
     w_leaves, td = T.flatten(dW)
     s_leaves = ([None] * len(w_leaves) if score_tree is None
                 else T.leaves(score_tree))
-    outs = [_fused_leaf(s, w, m, v, k_for(w.numel(), alpha), value_dtype,
-                        with_residual)
-            for s, w, m, v in zip(s_leaves, w_leaves, T.leaves(dM),
-                                  T.leaves(dV))]
+    outs = []
+    for i, (s, w, m, v) in enumerate(zip(s_leaves, w_leaves, T.leaves(dM),
+                                         T.leaves(dV))):
+        n = w.numel() if split is None else split.numel(i, w)
+        outs.append(_fused_leaf(s, w, m, v, k_for(n, alpha), value_dtype,
+                                with_residual,
+                                None if split is None else split.model(i),
+                                n))
     unflat = lambda i: td.unflatten([o[i] for o in outs])
     return (unflat(0), unflat(1), unflat(2),
             unflat(3) if with_residual else None, unflat(4))

@@ -10,6 +10,13 @@ gathers, never ``.item()``), so a client's compress never waits on the
 host.  :func:`select_tau` alone feeds the fused compress
 (``kernels/ssm_apply/ops.py``); :func:`topk_mask` adds the apply and
 gives the boolean mask, as ``topk_mask_kernel`` does.
+
+A leaf split over a model axis (``model``, a ``launch.mesh.ModelGroup``)
+is selected as the whole leaf: each pass runs its kernel on this rank's
+shard, then the group reduces the result before the next step reads it
+(the absmax by MAX, each count by a SUM in float64, exact where the
+float32 count of a shard is), and the tile padding is that of the whole
+leaf, counted once, on model index 0.  The kernels are the same.
 """
 from __future__ import annotations
 
@@ -104,10 +111,23 @@ def count_ge(taus: torch.Tensor, x: torch.Tensor,
     return out
 
 
-def select_tau(x: torch.Tensor, k: int):
+def _count_sum(counts: torch.Tensor, model) -> torch.Tensor:
+    """Shard counts summed over the model group: float32 counts of a
+    shard are exact integers, so their float64 sum is the whole leaf's
+    count, rounded once to float32 as its kernel rounds it."""
+    if model is None:
+        return counts
+    return model.all_reduce(counts.to(torch.float64)).to(_F32)
+
+
+def select_tau(x: torch.Tensor, k: int, *, model=None, n: int = None):
     """Threshold selection over ``x`` (any shape) for ``k`` kept elements:
     ``(tau, achieved_count)``, float32 scalars on x's device.  Three
     launches on the card (absmax, two counts), as ``select_tau_kernel``.
+
+    ``model``: the model group of a leaf split over it, ``x`` this rank's
+    shard and ``n`` the whole leaf's size; tau and the count are then the
+    whole leaf's, on every rank (the module docstring).
 
     The counts take in the zero padding the JAX wrapper adds up to a whole
     8192-element tile, as its kernels count it: the padding counts at every
@@ -115,17 +135,20 @@ def select_tau(x: torch.Tensor, k: int):
     the achieved count equals JAX's, which includes the padding where tau
     comes out 0 (an all-zero leaf, or a subnormal absmax whose candidates
     underflow)."""
-    n = x.numel()
-    pad = (-n) % _TILE
+    if n is None:
+        n = x.numel()
+    pad = (-n) % _TILE if model is None or model.index == 0 else 0
     am = absmax(x)
+    if model is not None:
+        am = model.all_reduce(am, "max")
     taus1 = log2_taus(am)
-    counts1 = count_ge(taus1, x, pad)
+    counts1 = _count_sum(count_ge(taus1, x, pad), model)
     idx = torch.argmax((counts1 >= k).to(torch.uint8))
     above = taus1.gather(0, (idx - 1).clamp(min=0).reshape(1))[0]
     hi = torch.where(idx > 0, above, am)
     lo = taus1.gather(0, idx.reshape(1))[0]
     taus2 = linear_taus(lo, hi)
-    counts2 = count_ge(taus2, x, pad)
+    counts2 = _count_sum(count_ge(taus2, x, pad), model)
     idx2 = torch.argmax((counts2 >= k).to(torch.uint8)).reshape(1)
     tau = taus2.gather(0, idx2)[0]
     count = counts2.gather(0, idx2)[0]
@@ -150,10 +173,11 @@ def apply_mask(tau: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def topk_mask(x: torch.Tensor, k: int):
+def topk_mask(x: torch.Tensor, k: int, *, model=None, n: int = None):
     """Threshold top-k mask of ``x`` (any shape) for ``k`` kept elements:
     ``(mask, tau, achieved_count)``, as ``topk_mask_kernel``.  Four
     launches on the card: :func:`select_tau`'s three, then
-    :func:`apply_mask`."""
-    tau, count = select_tau(x, k)
+    :func:`apply_mask` (on this rank's shard of a split leaf: ``model``,
+    ``n`` as :func:`select_tau`)."""
+    tau, count = select_tau(x, k, model=model, n=n)
     return apply_mask(tau, x), tau, count

@@ -2,17 +2,27 @@
 
 Counterpart of ``repro/launch/mesh.py`` and of the mesh half of
 ``repro/compat.py``.  The JAX package lays the clients on the data (and
-pod) axes of a device mesh and runs each client's step under shard_map;
-here each spatial client is one ``torch.distributed`` rank, and a
-:class:`ClientMesh` (the process group, the client-axis names and sizes,
-the rank, the device) is what the aggregate, the round and the async
-cohort take in place of a mesh.  The client index is the rank: the
-row-major linearization of the client axes that JAX's all-gather over
-those axes (``aggregate._gather_clients``) gives.
+pod) axes of a device mesh, and a client's leaves on its "model" axis,
+and runs each client's step under shard_map; here every device of that
+mesh is one ``torch.distributed`` rank, and a :class:`ClientMesh` (the
+mesh's axes and sizes, the rank, the device, the process groups) is what
+the aggregate, the round and the async cohort take in place of a mesh.
 
-Every rank holds whole leaves: the model axis is 1 in the port.  A mesh
-with a model axis above 1 (tensor or FSDP sharding of the leaves) raises
-``NotImplementedError`` naming ROADMAP §1.10.
+The ranks follow JAX's row-major device order: on a ``(data, model)``
+mesh (``(pod, data, model)`` alike) rank ``r`` is client ``r // M`` and
+model index ``r % M``, ``M`` the model axis's size.  So the client index
+is the row-major linearization of the client axes that JAX's all-gather
+over those axes (``aggregate._gather_clients``) gives.  Every rank makes
+two sub-groups (:func:`init`): the **client group** of its model index,
+over which the uplink and the metrics are all-gathered
+(:meth:`ClientMesh.all_gather`), and the **model group** of its client
+(:class:`ModelGroup`), which carries the tensor-parallel collectives.
+With a model axis of 1 the client group is the whole group and there is
+no model group.
+
+A mesh axis that is neither a client axis nor "model" (the ``fsdp``
+plans' sharding of the leaves over the data axes) raises
+``NotImplementedError`` naming ROADMAP §1.10(b).
 
 :func:`init` joins a group over a ``file://`` store (no network);
 :func:`make_test_group` is the CPU tests' gloo group, and
@@ -36,65 +46,171 @@ import torch.distributed as dist
 
 from repro_torch.device import DeviceLike, resolve_device
 
-#: The ROADMAP item of what the port does not run: a model axis above 1.
-TENSOR_FSDP_ITEM = "ROADMAP §1.10"
+#: The ROADMAP item of the tensor-parallel half: a model axis above 1.
+TENSOR_ITEM = "ROADMAP §1.10(a)"
+#: The ROADMAP item the port does not run yet: the ``virtual`` clients
+#: and the ``fsdp`` plans (the leaves sharded over the data axes).
+FSDP_ITEM = "ROADMAP §1.10(b)"
+#: The mesh axis the leaves are split on.
+MODEL_AXIS = "model"
+
+
+def make_test_mesh(*, multi_pod: bool = False) -> Dict[str, int]:
+    """JAX's ``make_test_mesh`` as a shape (axis -> size, in mesh order):
+    (data 2, model 2), a pod axis of 2 in front with ``multi_pod``."""
+    return ({"pod": 2} if multi_pod else {}) | {"data": 2, "model": 2}
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Dict[str, int]:
+    """JAX's ``make_production_mesh`` as a shape: (data 16, model 16), a
+    pod axis of 2 in front with ``multi_pod``."""
+    return ({"pod": 2} if multi_pod else {}) | {"data": 16, "model": 16}
+
 
 # gloo refuses uint32, int16 and bfloat16 ("Invalid scalar type"): the
 # gather moves uint32 as int32 and the 2-byte and bool types as bytes,
 # bitwise copies either way
 _GATHER_VIEWS = {torch.uint32: torch.int32, torch.bfloat16: torch.uint8,
                  torch.float16: torch.uint8, torch.bool: torch.uint8}
+# the types an all-reduce takes in float32 (gloo refuses bfloat16)
+_REDUCE_IN_F32 = (torch.bfloat16, torch.float16)
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+
+
+def _gather_list(x: torch.Tensor, n: int, group) -> list:
+    """Every rank's ``x`` of ``group`` (``n`` ranks), in rank order, as
+    tensors of ``x``'s dtype and shape (moved through ``_GATHER_VIEWS``)."""
+    view = _GATHER_VIEWS.get(x.dtype)
+    src = x.contiguous() if view is None else \
+        x.contiguous().reshape(-1).view(view)
+    out = [torch.empty_like(src) for _ in range(n)]
+    dist.all_gather(out, src, group=group)
+    if view is None:
+        return out
+    return [o.view(x.dtype).reshape(x.shape) for o in out]
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelGroup:
+    """The ranks that hold one client's leaves split on the model axis:
+    this rank is ``index`` of ``size``.  The collectives here are plain
+    (no autograd); ``models/tensor.py`` wraps them for the layers.
+
+    A bfloat16 or float16 all-reduce runs in float32 and is cast back, on
+    gloo (which refuses bfloat16) and on NCCL alike, so that the two
+    backends compute the same bits: the partial sums are added in float32
+    and rounded once."""
+    size: int
+    index: int
+    group: Any = None
+
+    def chunk(self, n: int) -> Tuple[int, int]:
+        """``[lo, hi)``: this rank's contiguous share of ``n`` items (as
+        JAX splits a dim the axis divides; an uneven ``n`` gives the
+        first ranks one more)."""
+        return (self.index * n) // self.size, \
+            ((self.index + 1) * n) // self.size
+
+    def all_reduce(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """A new tensor: ``x`` reduced (``"sum"`` or ``"max"``) over the
+        group."""
+        y = x.to(torch.float32) if x.dtype in _REDUCE_IN_F32 \
+            else x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(y, op=_OPS[op], group=self.group)
+        return y.to(x.dtype)
+
+    def all_gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The group's ``x`` concatenated along ``dim`` in rank order."""
+        return torch.cat(_gather_list(x, self.size, self.group), dim=dim)
+
+    def reduce_scatter(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's chunk along ``dim`` of ``x`` summed over the group:
+        an all-reduce, then the chunk (gloo has no reduce-scatter; the
+        same bits on NCCL)."""
+        lo, hi = self.chunk(x.shape[dim])
+        return self.all_reduce(x).narrow(dim, lo, hi - lo).contiguous()
 
 
 @dataclasses.dataclass(frozen=True)
 class ClientMesh:
-    """One rank's view of the spatial clients' process group.
+    """One rank's view of the spatial clients' mesh.
 
     ``shape``: mesh axis -> size, in mesh order (JAX's ``mesh.shape``);
-    the client axes' sizes multiply to the world size, every other axis
-    (a model axis) must be 1.  ``group``: the ``torch.distributed``
-    process group (``None``: the default group)."""
+    the client axes' sizes multiply to the number of clients, and a
+    "model" axis splits each client's leaves.  ``group``: the client
+    group this rank all-gathers the uplink over (``None``: the default
+    group, when the model axis is 1); ``model_group``: the process group
+    of this rank's client's model ranks (``None`` with a model axis of
+    1)."""
     shape: Dict[str, int]
     client_axes: Tuple[str, ...]
     rank: int
     device: torch.device
     group: Any = None
+    model_group: Any = None
+
+    @property
+    def n_clients(self) -> int:
+        """The clients: the product of the client axes' sizes."""
+        return math.prod(self.shape[a] for a in self.client_axes)
+
+    @property
+    def model_size(self) -> int:
+        return self.shape.get(MODEL_AXIS, 1)
 
     @property
     def world_size(self) -> int:
-        return math.prod(self.shape[a] for a in self.client_axes)
+        """The ranks: every axis's size multiplied."""
+        return math.prod(self.shape.values())
+
+    @property
+    def client_index(self) -> int:
+        """This rank's client (row-major over the client axes)."""
+        return self.rank // self.model_size
+
+    @property
+    def model_index(self) -> int:
+        return self.rank % self.model_size
+
+    @property
+    def model(self) -> Optional[ModelGroup]:
+        """This rank's :class:`ModelGroup`, or ``None`` with a model axis
+        of 1."""
+        if self.model_size == 1:
+            return None
+        return ModelGroup(self.model_size, self.model_index,
+                          self.model_group)
 
     def check(self) -> None:
         """Raise for a mesh the port does not run: client axes that are
-        not axes of the mesh, or a model axis above 1."""
+        not axes of the mesh, or the model axis in front of one; an axis
+        beyond them and "model" (ROADMAP §1.10(b))."""
         missing = [a for a in self.client_axes if a not in self.shape]
         if missing:
             raise ValueError(f"client axes {missing} are not axes of the "
                              f"mesh {self.shape}")
-        model = {a: n for a, n in self.shape.items()
-                 if a not in self.client_axes and n > 1}
-        if model:
+        other = {a: n for a, n in self.shape.items()
+                 if a not in self.client_axes and a != MODEL_AXIS and n > 1}
+        if other:
             raise NotImplementedError(
-                f"mesh axes {model} beyond the client axes "
-                f"{self.client_axes}: tensor and FSDP sharding of the "
-                f"leaves is not ported yet: {TENSOR_FSDP_ITEM}")
+                f"mesh axes {other} beyond the client axes "
+                f"{self.client_axes} and {MODEL_AXIS!r}: the FSDP "
+                f"sharding of the leaves is not ported yet: {FSDP_ITEM}")
+        axes = list(self.shape)
+        if MODEL_AXIS in self.shape and self.model_size > 1 and \
+                axes[-1] != MODEL_AXIS:
+            raise ValueError(f"the {MODEL_AXIS!r} axis must be the mesh's "
+                             f"last, got {axes}")
 
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
-        """``(C, *x.shape)``: every rank's ``x``, in rank (client) order."""
-        view = _GATHER_VIEWS.get(x.dtype)
-        src = x.contiguous() if view is None else \
-            x.reshape(-1).view(view)
-        out = [torch.empty_like(src) for _ in range(self.world_size)]
-        dist.all_gather(out, src, group=self.group)
-        g = torch.stack(out)
-        if view is None:
-            return g
-        return g.view(x.dtype).reshape((self.world_size,) + tuple(x.shape))
+        """``(C, *x.shape)``: every client's ``x`` over this rank's client
+        group, in client order."""
+        return torch.stack(_gather_list(x, self.n_clients, self.group))
 
     def close(self) -> None:
-        """Leave the group (the default group: destroy it)."""
+        """Leave the group (every process group of this process)."""
         if dist.is_initialized():
-            dist.destroy_process_group(self.group)
+            dist.destroy_process_group()
 
 
 def init(world_size: int, rank: int, *, store: str,
@@ -107,7 +223,9 @@ def init(world_size: int, rank: int, *, store: str,
     file; it must not be left over from another group) and return this
     rank's :class:`ClientMesh`.  ``backend``: NCCL for a CUDA device,
     gloo for the CPU, unless named.  ``shape`` defaults to one client
-    axis of ``world_size``."""
+    axis of ``world_size``; with a model axis above 1 every rank then
+    makes the client groups (one per model index) and the model groups
+    (one per client) in the same order, and keeps its own two."""
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
@@ -118,21 +236,37 @@ def init(world_size: int, rank: int, *, store: str,
                       client_axes=axes, rank=rank, device=dev)
     mesh.check()
     if mesh.world_size != world_size:
-        raise ValueError(f"mesh {mesh.shape} has {mesh.world_size} clients "
+        raise ValueError(f"mesh {mesh.shape} has {mesh.world_size} ranks "
                          f"for a world of {world_size}")
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
+    timeout = datetime.timedelta(seconds=timeout_s)
     dist.init_process_group(
         backend, init_method=f"file://{os.path.abspath(store)}",
-        world_size=world_size, rank=rank,
-        timeout=datetime.timedelta(seconds=timeout_s))
-    return mesh
+        world_size=world_size, rank=rank, timeout=timeout)
+    M, C = mesh.model_size, mesh.n_clients
+    if M == 1:
+        return mesh
+    client_group = model_group = None
+    for m in range(M):
+        g = dist.new_group([c * M + m for c in range(C)], timeout=timeout)
+        if m == mesh.model_index:
+            client_group = g
+    for c in range(C):
+        g = dist.new_group([c * M + m for m in range(M)], timeout=timeout)
+        if c == mesh.client_index:
+            model_group = g
+    return dataclasses.replace(mesh, group=client_group,
+                               model_group=model_group)
 
 
-def make_test_group(world_size: int, rank: int, store: str) -> ClientMesh:
-    """The CPU tests' group: gloo over ``store``, one client axis
-    ``("data",)``, a minute's timeout on every collective."""
-    return init(world_size, rank, store=store, device="cpu", timeout_s=60.0)
+def make_test_group(world_size: int, rank: int, store: str, *,
+                    shape: Optional[Dict[str, int]] = None) -> ClientMesh:
+    """The CPU tests' group: gloo over ``store``, the client axis
+    ``("data",)`` (and a "model" axis where ``shape`` has one; e.g.
+    :func:`make_test_mesh`), a minute's timeout on every collective."""
+    return init(world_size, rank, store=store, device="cpu", shape=shape,
+                timeout_s=60.0)
 
 
 def _rank_main(fn, rank, world_size, store, args, results):

@@ -9,6 +9,13 @@ package's layout (``wq`` is (d, heads, head_dim), ``wo`` (heads, head_dim,
 d)).  The matrix products are plain PyTorch (the JAX package leaves them
 to XLA, not to a Pallas kernel).
 
+The ``*_tp`` forms are the training forward on leaves split over a model
+axis (``models/tensor.py``; ``group`` a ``launch.mesh.ModelGroup``), with
+the parameter names of the whole layer and each leaf this rank's shard as
+``models/params.shard`` cuts it: column-split projections in, row-split
+out.  A layer whose leaves the axis does not split (JAX's divisibility
+fallback) runs whole on every rank.
+
 The decode functions take one new token against a cache and write the
 cache IN PLACE (at ``pos``, or ``pos % S`` for a ring), where the JAX
 package returns an updated copy (``dynamic_update_slice`` under
@@ -24,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import AttentionSpec, MoESpec, SSMSpec
+from repro_torch.models import tensor as TP
 from repro_torch.models.params import P
 
 NEG_INF = -1e9          # finite mask value, as in the JAX package
@@ -385,9 +393,15 @@ def moe_route(p, m: MoESpec, x) -> Routing:
     position in its expert is the int32 count of earlier slots (token
     major, then slot) routed to the same expert; a slot at position >= C
     is dropped."""
-    b, s, _ = x.shape
-    E, k = m.num_experts, m.top_k
     logits = torch.einsum("bsd,de->bse", x.to(_F32), p["router"].to(_F32))
+    return _route(m, logits)
+
+
+def _route(m: MoESpec, logits) -> Routing:
+    """:func:`moe_route` from the router's float32 logits (b, s, E)."""
+    b, s, _ = logits.shape
+    E, k = m.num_experts, m.top_k
+    dev = logits.device
     probs = torch.softmax(logits, dim=-1)
     eidx = torch.sort(probs.detach(), dim=-1, descending=True,
                       stable=True).indices[..., :k]
@@ -401,10 +415,9 @@ def moe_route(p, m: MoESpec, x) -> Routing:
     keep = pos_flat < C
     dst = torch.where(keep, e_flat * C + pos_flat, E * C)
     # 1 + the token of each slot (token major): no host-side count needed
-    src = torch.arange(s * k, device=x.device, dtype=torch.int32) // k + 1
+    src = torch.arange(s * k, device=dev, dtype=torch.int32) // k + 1
     # kept slots are unique; every dropped one lands in the extra column
-    slot_tok = torch.zeros((b, E * C + 1), dtype=torch.int32,
-                           device=x.device)
+    slot_tok = torch.zeros((b, E * C + 1), dtype=torch.int32, device=dev)
     slot_tok.scatter_(1, dst, src.expand(b, s * k))
     return Routing(probs, gates, eidx, keep, dst, slot_tok[:, :-1])
 
@@ -661,3 +674,217 @@ def ssm_cache(spec: SSMSpec, d: int, batch: int, dtype):
                    ("batch", "ssm_heads", "head_dim", "ssm_state"),
                    init="zeros", dtype="float32"),
     }
+
+
+# ---------------------------------------------------------------------------
+# Tensor-parallel training forms (a model axis above 1)
+# ---------------------------------------------------------------------------
+
+
+def _moe_hint(x, *axes):
+    """A sharding constraint on the expert buffer in the JAX package; the
+    port's communication is explicit, so the identity."""
+    return x
+
+
+def gqa_tp(p, a: AttentionSpec, x, *, group, positions, kv=None,
+           causal=True, rotary=True, window=None, kv_valid_len=None,
+           chunk=1024):
+    """GQA attention with ``wq``/``wo`` split on heads and ``wk``/``wv`` on
+    kv_heads where the axis divides them: this rank's heads, then the
+    row-split ``wo`` summed over the group.  Heads are contiguous per
+    rank, so with kv_heads split too a rank's query heads are exactly the
+    groups of its kv heads (``chunked_attention``'s ``(kv, g)`` layout);
+    with kv_heads replicated (the divisibility fallback) a rank takes the
+    kv heads of its query heads from the whole ``wk``/``wv`` (one kv head
+    per query head where its heads cut a group).  Without a head split
+    the layer runs whole, as :func:`attention_fwd`.  ``kv``: the
+    cross-attention source (whole on every rank).  Returns (out, (k, v))
+    with this rank's k and v."""
+    H, K, hd = a.num_heads, a.num_kv_heads, a.head_dim
+    Hl = p["wq"].shape[1]
+    if Hl == H:
+        # no head split (nor a kv one): the whole layer on every rank
+        group = None
+    b, s, _ = x.shape
+    x1 = TP.copy(x, group)
+    src = x1 if kv is None else TP.copy(kv, group)
+    q = torch.einsum("bsd,dhk->bshk", x1, p["wq"])
+    if p["wk"].shape[1] != K:
+        wk, wv = p["wk"], p["wv"]
+    else:
+        wk, wv = TP.copy(p["wk"], group), TP.copy(p["wv"], group)
+    k = torch.einsum("bsd,dhk->bshk", src, wk)
+    v = torch.einsum("bsd,dhk->bshk", src, wv)
+    if rotary:
+        q = rope(q, positions, a.rope_theta)
+        k = rope(k, positions, a.rope_theta)
+    g = H // K
+    if k.shape[2] != K or Hl == H:
+        nkv, gl = k.shape[2], Hl // k.shape[2]
+    else:
+        h0 = (H // group.size) * group.index
+        kv0, kv1 = h0 // g, (h0 + Hl - 1) // g + 1
+        if h0 % g == 0 and (kv1 - kv0) * g == Hl:
+            k, v, nkv, gl = k[:, :, kv0:kv1], v[:, :, kv0:kv1], kv1 - kv0, g
+        elif kv1 - kv0 == 1:
+            k, v, nkv, gl = k[:, :, kv0:kv1], v[:, :, kv0:kv1], 1, Hl
+        else:
+            idx = torch.arange(h0, h0 + Hl, device=x.device) // g
+            k, v, nkv, gl = k[:, :, idx], v[:, :, idx], Hl, 1
+    out = chunked_attention(q.reshape(b, s, nkv, gl, hd), k, v,
+                            causal=causal, window=window,
+                            kv_valid_len=kv_valid_len, chunk=chunk)
+    out = out.reshape(b, s, Hl * hd)
+    wo = p["wo"].reshape(Hl * hd, -1)
+    return TP.reduce(torch.einsum("bsk,kd->bsd", out, wo), group), (k, v)
+
+
+def attention_fwd_tp(p, a: AttentionSpec, x, *, group, positions,
+                     window_override=None, kv=None, kv_valid_len=None,
+                     chunk=1024):
+    """:func:`attention_fwd` on leaves split over the model axis
+    (:func:`gqa_tp`; MLA: :func:`mla_fwd_tp`)."""
+    if a.is_mla:
+        return mla_fwd_tp(p, a, x, group=group, positions=positions,
+                          chunk=chunk)
+    cross = kv is not None
+    window = a.window if window_override is None else window_override
+    return gqa_tp(p, a, x, group=group, positions=positions, kv=kv,
+                  causal=not cross, rotary=not cross, window=window,
+                  kv_valid_len=kv_valid_len, chunk=chunk)
+
+
+def mla_fwd_tp(p, a: AttentionSpec, x, *, group, positions, chunk=1024):
+    """:func:`mla_fwd` with ``wq``, ``w_uk``, ``w_uv`` split on heads and
+    ``wo`` by rows; the latent ``ckv`` (``w_dkv`` replicated) is computed
+    whole on every rank, which then expands only its heads' K and V."""
+    del positions                       # NoPE, as mla_fwd
+    Hl = p["wq"].shape[1]
+    if Hl == a.num_heads:
+        return mla_fwd(p, a, x, positions=None, chunk=chunk)
+    b, s, _ = x.shape
+    x1 = TP.copy(x, group)
+    q = torch.einsum("bsd,dhk->bshk", x1, p["wq"])
+    ckv = torch.einsum("bsd,dr->bsr", x1, TP.copy(p["w_dkv"], group))
+    k = torch.einsum("bsr,rhk->bshk", ckv, p["w_uk"])
+    v = torch.einsum("bsr,rhk->bshk", ckv, p["w_uv"])
+    out = chunked_attention(q.reshape(b, s, Hl, 1, a.head_dim), k, v,
+                            causal=True, chunk=chunk)
+    out = out.reshape(b, s, Hl * a.head_dim)
+    wo = p["wo"].reshape(Hl * a.head_dim, -1)
+    return TP.reduce(torch.einsum("bsk,kd->bsd", out, wo), group), (ckv,)
+
+
+def mlp_fwd_tp(p, x, *, group, d_ff: int):
+    """:func:`mlp_fwd` with ``w_gate``/``w_up`` column-split and
+    ``w_down`` row-split (``d_ff`` the whole width); whole where the axis
+    does not split it."""
+    if p["w_up"].shape[-1] == d_ff:
+        return mlp_fwd(p, x)
+    x1 = TP.copy(x, group)
+    h = torch.einsum("bsd,df->bsf", x1, p["w_up"])
+    if "w_gate" in p:
+        h = F.silu(torch.einsum("bsd,df->bsf", x1, p["w_gate"])) * h
+    else:
+        h = F.gelu(h, approximate="tanh")
+    return TP.reduce(torch.einsum("bsf,fd->bsd", h, p["w_down"]), group)
+
+
+def moe_fwd_tp(p, m: MoESpec, x, *, group):
+    """:func:`moe_fwd` with the experts split over the model axis.
+
+    The router is ("embed", "experts"): each rank's logits are its
+    experts' columns, all-gathered before the softmax and top-k, so the
+    routing and the dispatch plan are computed the same on every rank.
+    Each rank then fills and runs only its experts' slots (the dispatch's
+    backward on those slots), combines them in slot order in float32,
+    and the ranks' partial combines are summed (g).  The load-balance
+    loss is summed the same way, over each rank's experts.  The shared
+    experts follow :func:`mlp_fwd_tp`."""
+    b, s, d = x.shape
+    E, k = m.num_experts, m.top_k
+    El = p["w_up"].shape[0]
+    if El == E:
+        out, aux = moe_fwd({kk: v for kk, v in p.items() if kk != "shared"},
+                           m, x)
+    else:
+        x1 = TP.copy(x, group)
+        logits = torch.einsum("bsd,de->bse", x1.to(_F32),
+                              p["router"].to(_F32))
+        r = _route(m, TP.gather(logits, group, 2))
+        C = moe_capacity(m, s)
+        e0 = El * group.index
+        lo, hi = e0 * C, (e0 + El) * C
+        here = (r.dst >= lo) & (r.dst < hi)
+        dst = torch.where(here, r.dst - lo, El * C)
+        buf = _Dispatch.apply(x1, r.slot_tok[:, lo:hi], dst, k)
+        buf = _moe_hint(buf.reshape(b, El, C, d), "data", "model", None,
+                        None)
+        h = torch.einsum("becd,edf->becf", buf, p["w_up"])
+        gt = torch.einsum("becd,edf->becf", buf, p["w_gate"])
+        y = torch.einsum("becf,efd->becd", F.silu(gt) * h, p["w_down"])
+        y_flat = _moe_hint(y, "data", "model", None, None) \
+            .reshape(b, El * C, d)
+        part = torch.zeros((b, s, d), dtype=_F32, device=x.device)
+        for j in range(k):
+            at = dst[:, j::k].clamp_max(El * C - 1)
+            gath = torch.gather(y_flat, 1, at[..., None].expand(-1, -1, d))
+            gath = torch.where(here[:, j::k, None], gath.to(_F32), 0.0)
+            part = part + gath * r.gates[:, :, j, None]
+        out = TP.reduce(part, group).to(x.dtype)
+        frac_tokens = _one_hot(r.eidx, E, _F32).mean(dim=(0, 1, 2))
+        frac_probs = r.probs.mean(dim=(0, 1))
+        aux = TP.reduce(E * (frac_tokens[e0:e0 + El]
+                             * frac_probs[e0:e0 + El]).sum(), group)
+    if "shared" in p:
+        out = out + mlp_fwd_tp(p["shared"], x, group=group,
+                               d_ff=m.num_shared_experts * m.shared_d_ff)
+    return out, aux
+
+
+def ssm_fwd_tp(p, spec: SSMSpec, x, *, group, norm_eps=1e-6):
+    """:func:`ssm_fwd` on leaves split over the model axis.
+
+    ``in_proj``'s "ssm_inner" columns are the concatenation [z, x, B, C,
+    dt], and an even split does not fall on its boundaries (mamba2-1.3b:
+    8,512 columns, 4,256 a rank at two, where z alone is 4,096).  The
+    gated RMSNorm also normalises over the whole d_inner.  So this layer
+    all-gathers activations rather than keeping them split: ``in_proj``'s
+    and the depthwise conv's split outputs are gathered along the feature
+    dim (reduce-scattered backward), the scan runs whole on every rank
+    with ``a_log``, ``dt_bias`` and ``d_skip`` gathered the same way, and
+    each rank feeds its heads' slice of the normed output to its rows of
+    ``out_proj``, summed over the group (g)."""
+    b, s, d = x.shape
+    d_inner = spec.expand * d
+    n = spec.d_state
+    h = spec.num_heads(d)
+    conv_ch = d_inner + 2 * n
+    x1 = TP.copy(x, group)
+    zxbcdt = TP.column(x1, p["in_proj"], group, 2 * d_inner + 2 * n + h,
+                       "bsd,de->bse")
+    z, xin, Braw, Craw, dtraw = torch.split(
+        zxbcdt, [d_inner, d_inner, n, n, h], dim=-1)
+    xbc_raw = torch.cat([xin, Braw, Craw], dim=-1)
+    if p["conv_w"].shape[-1] != conv_ch:
+        lo, hi = group.chunk(conv_ch)
+        xbc = TP.gather(F.silu(causal_conv(xbc_raw[..., lo:hi], p["conv_w"],
+                                           p["conv_b"])), group, 2)
+    else:
+        xbc = F.silu(causal_conv(xbc_raw, TP.copy(p["conv_w"], group),
+                                 TP.copy(p["conv_b"], group)))
+    xin, Braw, Craw = torch.split(xbc, [d_inner, n, n], dim=-1)
+    whole = lambda name, size: TP.gather_or_copy(p[name], group, size, 0)
+    A = -torch.exp(whole("a_log", h).to(_F32))
+    u = dtraw.to(_F32) + whole("dt_bias", h).to(_F32)
+    dt = torch.logaddexp(u, torch.zeros((), dtype=_F32, device=x.device))
+    xh = xin.reshape(b, s, h, spec.head_dim)
+    y, final_state = ssd_chunked(xh, dt, A, Braw, Craw, spec.chunk_size)
+    y = y + xh.to(_F32) * whole("d_skip", h).to(_F32)[:, None]
+    y = y.reshape(b, s, d_inner).to(x.dtype)
+    y = y * F.silu(z)
+    y = rmsnorm({"scale": whole("norm", d_inner)}, y, norm_eps)
+    out = TP.row(y, p["out_proj"], group, "bse,ed->bsd")
+    return out, {"state": final_state,
+                 "conv": xbc_raw[:, -(spec.d_conv - 1):, :]}

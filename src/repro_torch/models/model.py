@@ -23,6 +23,15 @@ everything; the losses and gradients are the same bits.
 
 The decode caches (:func:`cache_meta`) are stacked the same way, one dict
 per group; :func:`decode_step` writes them in place.
+
+Tensor parallelism: with ``tp`` (a ``launch.mesh.ModelGroup``, which
+``launch/steps.build_train_step`` closes over; no global state) the
+training forward and loss take each leaf as this rank's shard
+(``models/params.shard`` under ``sharding.param_rules("tp")``): the
+layers' ``*_tp`` forms, a vocabulary-split embedding (each rank looks up
+the tokens of its rows, zeros elsewhere, summed over the group), a
+vocabulary-split head (the tied head reads the split embedding) and a
+vocabulary-parallel cross-entropy (:func:`vocab_parallel_ce`).
 """
 from __future__ import annotations
 
@@ -36,6 +45,7 @@ from repro_torch import tree as T
 from repro_torch.configs.base import ArchConfig, LayerSpec
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import tensor as TPX
 from repro_torch.models.params import (DTYPES, P, leaf_dtype, materialize,
                                        stack_tree)
 
@@ -168,16 +178,25 @@ def caches_from_jax(np_caches, cfg: ArchConfig, batch: int, seq_len: int, *,
 
 
 def _block_fwd(cfg: ArchConfig, spec: LayerSpec, p, x, *, positions,
-               enc_out=None, chunk=1024, collect_cache=False):
+               enc_out=None, window_override=None, chunk=1024,
+               collect_cache=False, tp=None):
     """Returns (x, aux, cache_entry): aux the MoE load-balance loss (None
     without an MoE); with ``collect_cache``, the layer's decode cache over
     the sequence (k and v, MLA's ckv, or the SSD's state and conv tail;
-    with an encoder, the cross keys and values), else {}."""
+    with an encoder, the cross keys and values), else {}.  ``tp``: the
+    model group of split leaves (the training forward only)."""
+    if tp is not None:
+        return _block_fwd_tp(cfg, spec, p, x, positions=positions,
+                             enc_out=enc_out,
+                             window_override=window_override, chunk=chunk,
+                             tp=tp)
     h = L.rmsnorm(p["norm_mixer"], x, cfg.norm_eps)
     entry = {}
     if spec.kind == "attn":
         out, kv = L.attention_fwd(p["mixer"], spec.attention, h,
-                                  positions=positions, chunk=chunk)
+                                  positions=positions,
+                                  window_override=window_override,
+                                  chunk=chunk)
         if collect_cache:
             if spec.attention.is_mla:
                 entry["ckv"] = kv[0]
@@ -212,7 +231,38 @@ def _block_fwd(cfg: ArchConfig, spec: LayerSpec, p, x, *, positions,
     return x, aux, entry
 
 
-def _encoder_fwd(cfg: ArchConfig, enc_params, frames):
+def _block_fwd_tp(cfg: ArchConfig, spec: LayerSpec, p, x, *, positions,
+                  enc_out, window_override, chunk, tp):
+    """:func:`_block_fwd` on split leaves (the layers' ``*_tp`` forms)."""
+    h = L.rmsnorm(p["norm_mixer"], x, cfg.norm_eps)
+    if spec.kind == "attn":
+        out, _ = L.attention_fwd_tp(p["mixer"], spec.attention, h, group=tp,
+                                    positions=positions,
+                                    window_override=window_override,
+                                    chunk=chunk)
+        x = x + out
+        if enc_out is not None and "cross" in p:
+            hc = L.rmsnorm(p["norm_cross"], x, cfg.norm_eps)
+            out, _ = L.attention_fwd_tp(p["cross"], spec.attention, hc,
+                                        group=tp, positions=positions,
+                                        kv=enc_out, chunk=chunk)
+            x = x + out
+    else:
+        out, _ = L.ssm_fwd_tp(p["mixer"], spec.ssm, h, group=tp,
+                              norm_eps=cfg.norm_eps)
+        x = x + out
+    aux = None
+    if spec.d_ff:
+        h = L.rmsnorm(p["norm_ffn"], x, cfg.norm_eps)
+        x = x + L.mlp_fwd_tp(p["ffn"], h, group=tp, d_ff=spec.d_ff)
+    elif spec.moe:
+        h = L.rmsnorm(p["norm_ffn"], x, cfg.norm_eps)
+        out, aux = L.moe_fwd_tp(p["ffn"], spec.moe, h, group=tp)
+        x = x + out
+    return x, aux, {}
+
+
+def _encoder_fwd(cfg: ArchConfig, enc_params, frames, tp=None):
     """frames: (b, src, d) precomputed frame embeddings (the stub
     frontend).  Non-causal self-attention with rotary, then the GELU MLP,
     per encoder layer; the final norm."""
@@ -225,6 +275,13 @@ def _encoder_fwd(cfg: ArchConfig, enc_params, frames):
     for i in range(cfg.encoder.num_layers):
         p = T.tree_map(lambda t: t[i], enc_params["blocks"])
         h = L.rmsnorm(p["norm_mixer"], x, cfg.norm_eps)
+        if tp is not None:
+            out, _ = L.gqa_tp(p["mixer"], a, h, group=tp, positions=pos,
+                              causal=False, rotary=True, chunk=src)
+            x = x + out
+            hf = L.rmsnorm(p["norm_ffn"], x, cfg.norm_eps)
+            x = x + L.mlp_fwd_tp(p["ffn"], hf, group=tp, d_ff=4 * d)
+            continue
         q = torch.einsum("bsd,dhk->bshk", h, p["mixer"]["wq"])
         k = torch.einsum("bsd,dhk->bshk", h, p["mixer"]["wk"])
         v = torch.einsum("bsd,dhk->bshk", h, p["mixer"]["wv"])
@@ -240,13 +297,35 @@ def _encoder_fwd(cfg: ArchConfig, enc_params, frames):
     return L.rmsnorm(enc_params["final_norm"], x, cfg.norm_eps)
 
 
-def _embed_inputs(cfg: ArchConfig, params, tokens, frontend_embeds):
+def _vocab_split(cfg: ArchConfig, params, tp) -> bool:
+    """Whether ``tp`` splits the vocabulary (the embedding's rows)."""
+    return tp is not None and params["embed"].shape[0] != cfg.padded_vocab
+
+
+def _embed_tokens(cfg: ArchConfig, params, tokens, tp=None):
+    """The token embeddings.  Vocabulary-split: each rank looks up the
+    tokens of its rows (zeros for the others) and the group sums them, in
+    float32, so the result is the whole lookup's bits."""
+    emb = params["embed"]
+    tok = tokens.long()
+    if not _vocab_split(cfg, params, tp):
+        return emb[tok].to(DTYPES[cfg.dtype])
+    v0 = emb.shape[0] * tp.index
+    local = (tok >= v0) & (tok < v0 + emb.shape[0])
+    rows = emb[(tok - v0).clamp(0, emb.shape[0] - 1)]
+    rows = torch.where(local[..., None], rows,
+                       torch.zeros((), dtype=rows.dtype, device=rows.device))
+    return TPX.reduce(rows, tp).to(DTYPES[cfg.dtype])
+
+
+def _embed_inputs(cfg: ArchConfig, params, tokens, frontend_embeds,
+                  tp=None):
     """(x, enc_out): the token embeddings, after the VLM's stub prefix
     where there is one, and the encoder's output (or None)."""
-    x = params["embed"][tokens.long()].to(DTYPES[cfg.dtype])
+    x = _embed_tokens(cfg, params, tokens, tp)
     enc_out = None
     if cfg.encoder is not None:
-        enc_out = _encoder_fwd(cfg, params["encoder"], frontend_embeds)
+        enc_out = _encoder_fwd(cfg, params["encoder"], frontend_embeds, tp)
     elif cfg.stub_frontend and frontend_embeds is not None:
         x = torch.cat([frontend_embeds.to(x.dtype), x], dim=1)
     return x, enc_out
@@ -295,29 +374,48 @@ def _remat(body, remat: str):
     return lambda *args: checkpoint(body, *args, use_reentrant=False, **kw)
 
 
-def _lm_head(cfg: ArchConfig, params, x):
+def _lm_head(cfg: ArchConfig, params, x, tp=None):
+    """Logits; vocabulary-split under ``tp``: this rank's columns."""
+    if _vocab_split(cfg, params, tp):
+        x = TPX.copy(x, tp)
     if cfg.tie_embeddings:
         return torch.einsum("bsd,vd->bsv", x, params["embed"])
     return torch.einsum("bsd,dv->bsv", x, params["lm_head"])
 
 
+def _window_override(cfg: ArchConfig, spec: LayerSpec, long_mode: bool):
+    """The window the long shapes impose on a full-attention layer of a
+    ``window_all`` model (None elsewhere)."""
+    if long_mode and spec.kind == "attn" and spec.attention.window is None \
+            and cfg.long_strategy == "window_all" and cfg.long_context_window:
+        return cfg.long_context_window
+    return None
+
+
 def forward(cfg: ArchConfig, params, tokens, *, frontend_embeds=None,
-            remat: str = "full", chunk: int = 1024):
+            remat: str = "full", chunk: int = 1024,
+            long_mode: bool = False, tp=None):
     """tokens: (b, s) integers.  frontend_embeds: (b, s_front, d) for a
     stub frontend (the VLM's prefix, prepended; the audio encoder's
     input).  Returns (logits (b, s_front + s or s, V), aux): aux the
     float32 sum of the MoE layers' load-balance losses, in layer order (0
     without an MoE layer).  ``remat``: what each pattern repeat keeps for
     the backward (``"full"``, ``"dots"`` or ``"none"``; the module
-    docstring)."""
-    x, enc_out = _embed_inputs(cfg, params, tokens, frontend_embeds)
+    docstring).  ``long_mode``: the long shapes' window on a
+    ``window_all`` model's full-attention layers (:func:`_window_override`).
+    ``tp``: split leaves (the module docstring); the logits are then this
+    rank's vocabulary columns where the vocabulary is split."""
+    x, enc_out = _embed_inputs(cfg, params, tokens, frontend_embeds, tp)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
+    wov = [_window_override(cfg, spec, long_mode)
+           for spec, _ in pattern_groups(cfg)]
 
     def repeat(x, aux, r):
-        for *_, spec, p_one in _repeat_layers(cfg, params, r):
+        for gi, _, spec, p_one in _repeat_layers(cfg, params, r):
             x, a, _ = _block_fwd(cfg, spec, p_one, x, positions=positions,
-                                 enc_out=enc_out, chunk=chunk)
+                                 enc_out=enc_out, window_override=wov[gi],
+                                 chunk=chunk, tp=tp)
             if a is not None:
                 aux = aux + a
         return x, aux
@@ -327,23 +425,45 @@ def forward(cfg: ArchConfig, params, tokens, *, frontend_embeds=None,
     for r in range(cfg.pattern_repeats):
         x, aux = body(x, aux, r)
     x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return _lm_head(cfg, params, x), aux
+    return _lm_head(cfg, params, x, tp), aux
+
+
+def vocab_parallel_ce(lg, tgt, tp):
+    """Per position ``logsumexp(lg) - lg[tgt]`` (float32) of logits split
+    over the vocabulary: ``lg`` (..., V / M) this rank's columns, ``tgt``
+    (...) global ids.  The max is all-reduced (MAX; a constant to the
+    gradient), then the sum of exponentials and the target's logit, each
+    the owner's alone (zeros elsewhere), are all-reduced (g); the
+    gradient of ``lg`` is this rank's columns of the whole softmax's."""
+    V_l = lg.shape[-1]
+    v0 = V_l * tp.index
+    m = tp.all_reduce(lg.detach().amax(dim=-1), "max")
+    se = TPX.reduce(torch.exp(lg - m[..., None]).sum(dim=-1), tp)
+    lse = m + torch.log(se)
+    local = (tgt >= v0) & (tgt < v0 + V_l)
+    picked = lg.gather(-1, (tgt - v0).clamp(0, V_l - 1)[..., None])[..., 0]
+    picked = TPX.reduce(torch.where(local, picked, 0.0), tp)
+    return lse - picked
 
 
 def loss_fn(cfg: ArchConfig, params, tokens, *, frontend_embeds=None,
-            remat: str = "full", chunk: int = 1024):
+            remat: str = "full", chunk: int = 1024, tp=None):
     """Next-token cross-entropy over the tokens (a VLM's prefix positions
     sliced off) plus ``MOE_AUX_WEIGHT`` times the MoE load-balance loss
-    (0 for a model without MoE layers)."""
+    (0 for a model without MoE layers).  ``tp``: split leaves, with the
+    vocabulary-parallel cross-entropy where the vocabulary is split (the
+    same loss on every rank)."""
     logits, aux = forward(cfg, params, tokens,
                           frontend_embeds=frontend_embeds, remat=remat,
-                          chunk=chunk)
+                          chunk=chunk, tp=tp)
     n_front = 0
     if cfg.stub_frontend and frontend_embeds is not None \
             and cfg.encoder is None:
         n_front = frontend_embeds.shape[1]
     lg = logits[:, n_front:-1].to(_F32)
     tgt = tokens[:, 1:].long()
+    if _vocab_split(cfg, params, tp):
+        return vocab_parallel_ce(lg, tgt, tp).mean() + MOE_AUX_WEIGHT * aux
     lse = torch.logsumexp(lg, dim=-1)
     picked = lg.gather(-1, tgt[..., None])[..., 0]
     return (lse - picked).mean() + MOE_AUX_WEIGHT * aux
@@ -392,10 +512,8 @@ def decode_layout(cfg: ArchConfig, seq_len: int, long_mode: bool):
         if spec.kind == "ssm":
             out.append(("ssm", False, None, 0))
             continue
-        window = spec.attention.window
-        if long_mode and window is None and cfg.long_strategy == "window_all" \
-                and cfg.long_context_window:
-            window = cfg.long_context_window
+        window = _window_override(cfg, spec, long_mode) \
+            or spec.attention.window
         ring = window is not None and window < seq_len
         cache_len = window if ring else seq_len
         out.append(("attn", ring, window, cache_len))

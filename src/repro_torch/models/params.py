@@ -2,15 +2,17 @@
 
 Counterpart of ``repro/models/params.py``.  Model builders return trees
 whose leaves are :class:`P`; :func:`materialize` turns such a tree into
-tensors.  The logical axis names are kept for the JAX layout's sake: the
-rules that read them (``pspecs``, the tensor and FSDP sharding of the
-leaves) are the open half of ROADMAP §1.10.
+tensors.  :func:`pspecs` reads the logical axis names with a rule set
+(``sharding.param_rules``) into each leaf's :class:`Spec`, JAX's
+``PartitionSpec`` as a plain tuple; :func:`shard` cuts a whole leaf to
+this rank's contiguous chunk (GSPMD's layout) and :func:`unshard`
+gathers it back over the model axis.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -83,3 +85,120 @@ def materialize(tree, seed: int, default_dtype: str = "float32",
 def count_params(tree) -> int:
     return sum(int(math.prod(p.shape)) if p.shape else 1
                for p in T.leaves(tree))
+
+
+# ---------------------------------------------------------------------------
+# Partition specs
+# ---------------------------------------------------------------------------
+
+
+class Spec(tuple):
+    """A leaf's partition spec: per dim, a mesh axis name, a tuple of
+    names, or ``None`` (replicated), as ``tuple(PartitionSpec)`` reads in
+    the JAX package.  A tuple subclass, so that a tree of specs keeps the
+    params' structure (``repro_torch.tree`` walks plain tuples only)."""
+
+    def axes(self) -> Tuple[str, ...]:
+        """Every mesh axis the spec names, in dim order."""
+        out = []
+        for e in self:
+            if e is not None:
+                out.extend((e,) if isinstance(e, str) else e)
+        return tuple(out)
+
+
+def _mesh_sizes(mesh) -> Dict[str, int]:
+    if mesh is None:
+        return {}
+    return dict(mesh if isinstance(mesh, dict) else mesh.shape)
+
+
+def pspecs(tree, rules: dict, mesh=None):
+    """Each :class:`P` of ``tree`` mapped to its :class:`Spec` by
+    ``rules`` (logical axis -> mesh axis, tuple of axes, or None; an
+    unlisted axis is replicated), with JAX's two rules: a mesh axis
+    appears at most once in a spec (a later dim that resolves to a used
+    axis stays replicated), and, given ``mesh`` (a ``ClientMesh`` or a
+    shape dict), a dim whose size the axes' product does not divide stays
+    replicated (GQA's kv_heads on a wide model axis; an axis the mesh
+    lacks counts as 1)."""
+    sizes = _mesh_sizes(mesh)
+
+    def spec_of(p: P) -> Spec:
+        used, entries = set(), []
+        for dim, name in zip(p.shape, p.axes):
+            mesh_axes = rules.get(name) if name else None
+            if mesh_axes is None:
+                entries.append(None)
+                continue
+            if isinstance(mesh_axes, str):
+                mesh_axes = (mesh_axes,)
+            free = tuple(a for a in mesh_axes if a not in used)
+            if not free or (sizes and dim % math.prod(sizes.get(a, 1)
+                                                      for a in free)):
+                entries.append(None)
+                continue
+            used.update(free)
+            entries.append(free[0] if len(free) == 1 else free)
+        return Spec(entries)
+
+    return T.tree_map(spec_of, tree)
+
+
+def _coords(mesh) -> Dict[str, int]:
+    """This rank's index along every mesh axis (row-major device order)."""
+    out, r = {}, mesh.rank
+    for a, n in reversed(list(mesh.shape.items())):
+        out[a], r = r % n, r // n
+    return out
+
+
+def model_split(specs) -> Tuple[bool, ...]:
+    """Per leaf of a spec tree (flatten order), whether the model axis
+    splits it."""
+    from repro_torch.launch.mesh import MODEL_AXIS
+    return tuple(MODEL_AXIS in s.axes() for s in T.leaves(specs))
+
+
+def shard(tree, specs, mesh):
+    """This rank's contiguous chunk of every whole leaf of ``tree`` along
+    each dim its :class:`Spec` names (a tuple entry row-major over its
+    axes), as GSPMD lays out a ``PartitionSpec``; replicated dims whole."""
+    coords = _coords(mesh)
+
+    def one(x, spec):
+        for dim, e in enumerate(spec):
+            if e is None:
+                continue
+            axes = (e,) if isinstance(e, str) else tuple(e)
+            n_ax, idx = 1, 0
+            for a in axes:
+                n_ax, idx = n_ax * mesh.shape[a], idx * mesh.shape[a] \
+                    + coords[a]
+            size = x.shape[dim] // n_ax
+            x = x.narrow(dim, idx * size, size)
+        return x.contiguous()
+
+    return T.tree_map(one, tree, specs)
+
+
+def unshard(tree, specs, mesh):
+    """The inverse of :func:`shard` over the model axis: every leaf
+    all-gathered along its model dim (every rank of the model group must
+    call it).  For tests, checkpoints and ``chip_smoke.py``."""
+    from repro_torch.launch.mesh import FSDP_ITEM, MODEL_AXIS
+    group = mesh.model
+
+    def one(x, spec):
+        for dim, e in enumerate(spec):
+            if e is None:
+                continue
+            if e != MODEL_AXIS:
+                raise NotImplementedError(
+                    f"unshard over {e!r}: the FSDP sharding of the leaves "
+                    f"is not ported yet: {FSDP_ITEM}")
+            if group is not None:
+                x = group.all_gather(x, dim)
+        return x
+
+    return T.tree_map(one, tree, specs)

@@ -1,17 +1,24 @@
-"""Deployment plans and the client axes of the multi-GPU driver.
+"""Logical-axis -> mesh-axis rules, deployment plans and the client axes
+of the multi-GPU driver.
 
-Counterpart of the spatial part of ``repro/sharding.py``, as data:
+Counterpart of ``repro/sharding.py``, as data:
 
-``spatial`` : FL clients = the ranks of the client group, laid out on
-              the data (and pod) axes; each rank holds its own client's
-              divergent replica (``core/fed.py``'s spatial round).
-``virtual`` : FL clients time-multiplexed over the whole group.
+``tp``      : Megatron-style tensor parallelism: heads, kv_heads, mlp,
+              experts, vocab, ssm_heads and ssm_inner over "model",
+              everything else replicated (``models/params.pspecs`` turns
+              the rules into each leaf's spec, ``models/tensor.py`` and
+              the layers' tensor-parallel forms run them).
+``fsdp``    : tp + the d_model ("embed") dim over the data[, pod] axes.
+              Here as data: a train step with these rules raises naming
+              ROADMAP §1.10(b).
 
-The port holds whole leaves on every rank (a model axis of 1), so the
-``tp`` plan of a spatial deployment needs no rule here.  The parameter
-and cache rules (``param_rules``, ``fsdp_axes``, ``cache_rules``), which
-a model axis above 1 or the ``fsdp`` plans need, are the open half of
-ROADMAP §1.10.
+``spatial`` : FL clients = the client axes of the mesh; each client's
+              divergent replica on its own ranks (``core/fed.py``'s
+              spatial round), split over its "model" ranks.
+``virtual`` : FL clients time-multiplexed over the whole group
+              (ROADMAP §1.10(b)).
+
+:func:`cache_rules` is data only: sharded serving is ROADMAP §1.10(c).
 """
 from __future__ import annotations
 
@@ -21,6 +28,62 @@ from typing import Tuple
 
 def client_axes(multi_pod: bool) -> Tuple[str, ...]:
     return ("pod", "data") if multi_pod else ("data",)
+
+
+def fsdp_axes(multi_pod: bool) -> Tuple[str, ...]:
+    return ("data", "pod") if multi_pod else ("data",)
+
+
+def param_rules(kind: str, multi_pod: bool) -> dict:
+    """Logical axis -> mesh axis (a name, a tuple of names, or None) of
+    the ``tp`` or ``fsdp`` parameter rules."""
+    rules = {
+        "vocab": "model",
+        "heads": "model",
+        "kv_heads": "model",
+        "mlp": "model",
+        "experts": "model",
+        "ssm_heads": "model",
+        "ssm_inner": "model",
+        "embed": None,
+        "kv_lora": None,
+        "head_dim": None,
+        "conv": None,
+        "layers": None,
+    }
+    if kind == "fsdp":
+        rules["embed"] = fsdp_axes(multi_pod)
+    elif kind != "tp":
+        raise ValueError(kind)
+    return rules
+
+
+def cache_rules(shape_kind: str, multi_pod: bool,
+                cache_seq_shard=None) -> dict:
+    """Logical rules of the decode caches.  ``cache_seq_shard``: an
+    optional mesh axis (or tuple) for the cache's sequence dim, the
+    split-KV decode of the long shapes."""
+    rules = {
+        "batch": client_axes(multi_pod),
+        "kv_heads": "model",
+        "ssm_heads": "model",
+        "ssm_inner": "model",
+        "kv_lora": None,
+        "kv_seq": None,
+        "enc_seq": None,
+        "head_dim": None,
+        "ssm_state": None,
+        "conv": None,
+        "layers": None,
+        "embed": None,
+    }
+    if shape_kind == "long":
+        # batch 1: the cache's sequence axis is sharded instead
+        rules["batch"] = None
+        rules["kv_seq"] = "data"
+    if cache_seq_shard is not None:
+        rules["kv_seq"] = cache_seq_shard
+    return rules
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,6 +124,6 @@ def plan_for(arch: str) -> DeployPlan:
 
 
 def hint(x, *axes):
-    """A sharding constraint in the JAX package; every rank holds whole
-    leaves here, so the identity."""
+    """A sharding constraint in the JAX package; the port's communication
+    is explicit (``models/tensor.py``), so the identity."""
     return x

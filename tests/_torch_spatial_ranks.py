@@ -121,7 +121,7 @@ def spatial_rounds(mesh, cases):
         agg = None
         if fed_m.aggregate == "sparse_gather":
             agg = aggregate.make_shardmap_sparse_aggregate(
-                mesh, ("data",), fed_m.alpha,
+                mesh, None, ("data",), fed_m.alpha,
                 shared=transport_of(fed_m.algorithm) == "shared_sparse")
         spatial = make_fl_round(fed_m, toy_loss, agg, mesh=mesh)
         scan = make_fl_round(fed_s, toy_loss)

@@ -279,15 +279,18 @@ def test_churn_model_is_the_jax_model():
 
 
 def test_shardmap_exec_raises():
-    """The group cohort needs its group, and refuses one with a model axis
-    above 1 (the tensor and FSDP half, ROADMAP §1.10)."""
+    """The group cohort needs its group, refuses one with a model axis
+    above 1 (split leaves: ROADMAP §1.10(a)), and one with an axis beyond
+    the client axes and "model" (§1.10(b))."""
     from repro_torch.launch.mesh import ClientMesh
     fed = _fed(2, client_mode="vmap", client_axes=("data",))
     with pytest.raises(ValueError, match="mesh="):
         make_async_round(fed, lambda p, b: p["w"].sum(),
                          client_exec="shardmap")
-    mesh = ClientMesh(shape={"data": 2, "model": 2}, client_axes=("data",),
-                      rank=0, device=torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="§1.10"):
-        make_async_round(fed, lambda p, b: p["w"].sum(),
-                         client_exec="shardmap", mesh=mesh)
+    for shape, item in (({"data": 2, "model": 2}, r"§1\.10\(a\)"),
+                        ({"data": 2, "expert": 2}, r"§1\.10\(b\)")):
+        mesh = ClientMesh(shape=shape, client_axes=("data",), rank=0,
+                          device=torch.device("cpu"))
+        with pytest.raises(NotImplementedError, match=item):
+            make_async_round(fed, lambda p, b: p["w"].sum(),
+                             client_exec="shardmap", mesh=mesh)

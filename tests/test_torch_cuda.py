@@ -995,7 +995,7 @@ def test_cuda_world1_nccl_aggregate_overflow_matches_cpu(cuda_device,
                             for k, v in t.items()}
             car = on({"x": x, "y": y})
             agg = aggregate.make_shardmap_sparse_aggregate(
-                mesh, ("data",), 0.05, value_dtype="bfloat16")
+                mesh, None, ("data",), 0.05, value_dtype="bfloat16")
             outs[mesh.device.type] = agg(
                 car, car, car, torch.full((1,), 0.5, device=mesh.device),
                 on(err))
@@ -1032,3 +1032,109 @@ def test_cuda_remat_bitwise_none(cuda_device, remat):
     assert_bitwise(res[1][0], res[0][0], "loss")
     for i, (a, b) in enumerate(zip(res[1][1], res[0][1])):
         assert_bitwise(a, b, f"gradient {i}")
+
+
+class _Halves:
+    """A model group of two "ranks" that are two threads of this process:
+    each ``all_reduce`` posts its tensor, waits for the other's, and both
+    get the reduction (sum or max; a sum of float64 counts stays float64),
+    so a function written for one shard runs on both halves of a leaf
+    here, with the reduction done on one process."""
+
+    size = 2
+
+    def __init__(self):
+        import threading
+        self.slots = [None, None]
+        self.barrier = threading.Barrier(2)
+
+    def rank(self, index):
+        outer = self
+
+        class _Rank:
+            size = 2
+
+            def __init__(self):
+                self.index = index
+
+            def chunk(self, n):
+                return (index * n) // 2, ((index + 1) * n) // 2
+
+            def all_reduce(self, x, op="sum"):
+                outer.slots[index] = x
+                outer.barrier.wait()
+                a, b = outer.slots
+                out = torch.maximum(a, b) if op == "max" else a + b
+                outer.barrier.wait()
+                return out.to(x.dtype)
+
+        return _Rank()
+
+    def run(self, fn):
+        """``[fn(rank 0), fn(rank 1)]``, each in a thread of its own."""
+        import concurrent.futures
+        with concurrent.futures.ThreadPoolExecutor(2) as pool:
+            futs = [pool.submit(fn, self.rank(i)) for i in range(2)]
+            return [f.result(timeout=120) for f in futs]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,dtype", [(24578, torch.float32),
+                                     (2 * 150_001, torch.bfloat16),
+                                     (16384, torch.float32)])
+def test_cuda_split_select_tau_bitwise_whole(cuda_device, n, dtype):
+    """``select_tau`` of a leaf split in two on the model axis: the
+    ``absmax`` and ``count_ge`` kernels on each half, the MAX and float64
+    SUM reductions done on this process (two threads): tau and count
+    bitwise the whole leaf's (the tile padding counted once); the last
+    case an all-zero leaf."""
+    rng = np.random.default_rng(n)
+    x = rng.standard_normal(n).astype(np.float32) if n != 16384 \
+        else np.zeros(n, np.float32)
+    x = torch.from_numpy(x).to(dtype).to(cuda_device)
+    for alpha in (0.05, 0.01):
+        k = S.k_for(n, alpha)
+        tau0, cnt0 = TM.select_tau(x, k)
+
+        def half(model):
+            lo, hi = model.chunk(n)
+            return TM.select_tau(x[lo:hi].contiguous(), k, model=model, n=n)
+
+        reset_launches()
+        for tau, cnt in _Halves().run(half):
+            assert tau.is_cuda
+            assert_bitwise(tau, tau0, f"tau at alpha {alpha}")
+            assert_bitwise(cnt, cnt0, f"count at alpha {alpha}")
+        assert LAUNCHES["absmax"] == 2 and LAUNCHES["count_ge"] == 4
+
+
+@pytest.mark.cuda
+def test_cuda_vocab_parallel_loss_matches_cpu(cuda_device):
+    """The vocabulary-parallel cross-entropy on CUDA logits split in two
+    (the reductions done on this process) against ``logsumexp - picked``
+    of the whole logits on the CPU, float32: the per-position losses and
+    the logits' gradient within 2e-6 of the largest."""
+    from repro_torch.models import model as TM_
+    rng = np.random.default_rng(5)
+    lg = rng.standard_normal((3, 17, 512)).astype(np.float32) * 4
+    tgt = torch.from_numpy(rng.integers(0, 512, (3, 17)))
+    whole = torch.from_numpy(lg).requires_grad_(True)
+    ref = torch.logsumexp(whole, -1) - whole.gather(-1, tgt[..., None])[
+        ..., 0]
+    (gref,) = torch.autograd.grad(ref.sum(), whole)
+
+    def half(model):
+        lo, hi = model.chunk(512)
+        part = torch.from_numpy(lg[..., lo:hi]).to(cuda_device) \
+            .requires_grad_(True)
+        ce = TM_.vocab_parallel_ce(part, tgt.to(cuda_device), model)
+        (g,) = torch.autograd.grad(ce.sum(), part)
+        return ce.detach().cpu(), g.cpu()
+
+    (ce0, g0), (ce1, g1) = _Halves().run(half)
+    assert_bitwise(ce0, ce1, "the two halves' losses")
+    np.testing.assert_allclose(ce0.numpy(), ref.detach().numpy(), rtol=0,
+                               atol=2e-6 * float(ref.detach().abs().max()))
+    g = torch.cat([g0, g1], dim=-1).numpy()
+    np.testing.assert_allclose(g, gref.numpy(), rtol=0,
+                               atol=2e-6 * float(gref.abs().max()))

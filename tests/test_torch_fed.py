@@ -493,6 +493,14 @@ def _model_axis_mesh():
                       rank=0, device=torch.device("cpu"))
 
 
+def _unknown_axis_mesh():
+    """A mesh with an axis beyond the client axes and "model" (the FSDP
+    plans' sharding of the leaves over another axis)."""
+    from repro_torch.launch.mesh import ClientMesh
+    return ClientMesh(shape={"data": 1, "expert": 2}, client_axes=("data",),
+                      rank=0, device=torch.device("cpu"))
+
+
 def _fsdp_train_step(loss):
     from repro_torch.configs import get_config, reduce_for_smoke
     from repro_torch.launch import steps
@@ -511,17 +519,19 @@ _SPATIAL = FedConfig(client_mode="vmap", client_axes=("data",),
 
 
 @pytest.mark.parametrize("build,what", [
-    (lambda loss: make_fl_round(_SPATIAL, loss, mesh=_model_axis_mesh()),
-     "§1.10"),
+    (lambda loss: make_fl_round(_SPATIAL, loss, mesh=_unknown_axis_mesh()),
+     r"§1\.10\(b\)"),
     (lambda loss: make_async_round(_SPATIAL, loss, client_exec="shardmap",
-                                   mesh=_model_axis_mesh()), "§1.10"),
-    (_fsdp_train_step, "§1.10"),
+                                   mesh=_model_axis_mesh()),
+     r"§1\.10\(a\)"),
+    (_fsdp_train_step, r"§1\.10\(b\)"),
 ])
 def test_round_outside_the_slice_raises(build, what):
-    """The multi-GPU driver's tensor and FSDP half is left to port: the
-    spatial round and the async driver's group cohort on a mesh with a
-    model axis above 1, and a virtual/FSDP plan's train step, raise naming
-    its ROADMAP item."""
+    """What stays outside the port raises naming its ROADMAP item: a mesh
+    axis beyond the client axes and "model" (the FSDP sharding, §1.10(b)),
+    the async driver's group cohort on a model axis above 1 (§1.10(a)),
+    and a virtual/FSDP plan's train step (§1.10(b)).  The spatial round
+    on a model axis itself runs (tests/test_torch_tensor.py)."""
     with pytest.raises(NotImplementedError, match=what):
         build(lambda p, b: p["w"].sum())
 

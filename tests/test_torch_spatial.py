@@ -141,7 +141,8 @@ def test_world1_aggregate_bitwise_vs_jax(group1, shared, value_dtype):
     tree = lambda i, f: {k: f(v[i]) for k, v in car.items()}
     tt = lambda x: torch.from_numpy(x)
     agg = aggregate.make_shardmap_sparse_aggregate(
-        group1, ("data",), alpha, shared=shared, value_dtype=value_dtype)
+        group1, None, ("data",), alpha, shared=shared,
+        value_dtype=value_dtype)
     (aw, am, av), new_err = agg(tree(0, tt), tree(1, tt), tree(2, tt),
                                 tt(w), {k: tt(v) for k, v in err.items()})
     jagg_fn = _jax_agg(alpha, shared, value_dtype)
@@ -173,7 +174,8 @@ def test_world1_aggregate_overflow_feeds_the_residual(group1):
     err0 = np.random.default_rng(9).standard_normal((1, n)).astype(
         np.float32)
     one = np.ones(1, np.float32)
-    agg = aggregate.make_shardmap_sparse_aggregate(group1, ("data",), alpha)
+    agg = aggregate.make_shardmap_sparse_aggregate(group1, None, ("data",),
+                                                 alpha)
     x = {"x": torch.from_numpy(wf[None])}
     (aw, _, _), err1 = agg(x, x, x, torch.from_numpy(one),
                            {"x": torch.from_numpy(err0)})
@@ -197,11 +199,12 @@ def test_world1_aggregate_overflow_feeds_the_residual(group1):
 
 def test_aggregate_rejects_another_mesh(group1):
     with pytest.raises(ValueError, match="client axes"):
-        aggregate.make_shardmap_sparse_aggregate(group1, ("pod", "data"),
-                                                 0.1)
+        aggregate.make_shardmap_sparse_aggregate(group1, None,
+                                                 ("pod", "data"), 0.1)
     with pytest.raises(ValueError, match="one spatial client per rank"):
         x = {"x": torch.ones(2, 4)}
-        aggregate.make_shardmap_sparse_aggregate(group1, ("data",), 0.5)(
+        aggregate.make_shardmap_sparse_aggregate(group1, None, ("data",),
+                                                 0.5)(
             x, x, x, torch.ones(2))
 
 
