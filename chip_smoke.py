@@ -184,7 +184,34 @@ Phases:
    full width at the most of ``TENSOR_MOE_REPEATS`` that both ranks fit,
    one round against the whole-leaf round; (b) 4 ranks, a (data 2, model
    2) mesh: starcoder2-3b's FedAdam-SSM round through each client group's
-   per-shard transport, against the world-2 whole-leaf round.
+   per-shard transport, against the world-2 whole-leaf round;
+17. (after 16) the virtual clients and the FSDP leaves, 4 gloo processes
+   with CUDA tensors sharing the card on a (data 2, model 2) mesh with no
+   client axes (the ``fsdp`` rules: every leaf split over "model" by the
+   tp rules and along its ``embed`` dim over "data", gathered over the
+   data group at its use), each part run only where its predicted peaks
+   fit ``FSDP_FIT`` of the card (every prediction recorded): (a) the
+   ``DeployPlan(clients="virtual", train_params="fsdp", n_virtual=2)``
+   round of starcoder2-3b at phase 5's width and cut (2 virtual clients of
+   4 sequences, 2 a data rank, sequence 128, FedAdam-SSM with error
+   feedback, float32) through ``launch/steps.build_train_step``, each
+   rank's shards drawn leaf by leaf on the card, against the whole-leaf
+   world-1 scan round rank 0 runs after it (``TENSOR_TOL``/
+   ``TENSOR_ERR_TOL`` except where a support differs, counted; the bill
+   equal, 2 x 375,854,948 bytes); launches per rank exactly absmax 2L,
+   count_ge 4L, ssm_apply_ef 2L (L = 11) and no word or Adam kernel; the
+   bytes each group (model, data, leaf) moves, wall and peak per rank;
+   the selection and apply kernels bitwise their plain versions on the
+   embedding's shard; then one bfloat16 round; (b) mistral-large-123b at
+   full width, 1 of 88 repeats (2,189,463,552 parameters): one step,
+   loss and gradient, in float32 at sequence 512 with 2 sequences a data
+   rank through the FSDP+tp layers, against the whole-leaf step rank 0
+   runs after it, compared shard by shard on the card (within
+   ``FSDP_GRAD_TOL``); ``select_tau`` over every rank on the embedding
+   gradient's shard (100,663,296 elements a rank) bitwise the whole
+   leaf's; absmax, count_ge and ssm_apply_ef bitwise their plain versions
+   on that shard, with times; and the predicted peak of mistral's whole
+   round at this depth, in float32 and bfloat16 (not run).
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.  Any failure
@@ -373,6 +400,12 @@ def require(cond, msg: str) -> None:
 
 def log(msg: str) -> None:
     print(f"[chip_smoke] {msg}", flush=True)
+
+
+def phase(n: int, what: str) -> None:
+    """Log a phase's start, so that a failed run names it on its last
+    lines."""
+    log(f"== phase {n}: {what}")
 
 
 def host_cpu() -> str:
@@ -3655,23 +3688,29 @@ TENSOR_KERNELS = ("absmax", "count_ge", "ssm_apply_ef", "apply_mask")
 
 
 @contextlib.contextmanager
-def _count_collectives(MM):
-    """Bytes the model group all-reduces or all-gathers and the client
-    group all-gathers (this rank's sends, as the backend moves them:
-    bfloat16 reductions in float32), by kind, while the block runs."""
+def _count_collectives(MM, mesh):
+    """Bytes this rank's groups move (its sends, as the backend moves
+    them: bfloat16 reductions in float32) while the block runs, by kind
+    and group: the model group's all-reduces and all-gathers, the data
+    and leaf groups' of the FSDP leaves, and the client group's uplink
+    all-gathers; and each group's count of collectives."""
     counts = collections.Counter()
     ar, ag, cg = MM.ModelGroup.all_reduce, MM.ModelGroup.all_gather, \
         MM.ClientMesh.all_gather
 
+    def label(g):
+        return ("model" if g.group is mesh.model_group else
+                "data" if g.group is mesh.group else "leaf")
+
     def all_reduce(self, x, op="sum"):
         e = 4 if x.element_size() == 2 else x.element_size()
-        counts["model_all_reduce"] += x.numel() * e
-        counts["model_collectives"] += 1
+        counts[f"{label(self)}_all_reduce"] += x.numel() * e
+        counts[f"{label(self)}_collectives"] += 1
         return ar(self, x, op)
 
     def all_gather(self, x, dim):
-        counts["model_all_gather"] += x.numel() * x.element_size()
-        counts["model_collectives"] += 1
+        counts[f"{label(self)}_all_gather"] += x.numel() * x.element_size()
+        counts[f"{label(self)}_collectives"] += 1
         return ag(self, x, dim)
 
     def client_gather(self, x):
@@ -3812,7 +3851,7 @@ def tensor_round(torch, mesh, cfg, algorithm, params, tokens, *, seq,
     _sync(torch, dev)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
-    with _count_collectives(MM) as moved, \
+    with _count_collectives(MM, mesh) as moved, \
             _count_overflow(aggregate) as dropped:
         reset_launches()
         t0 = time.perf_counter()
@@ -3832,6 +3871,10 @@ def tensor_round(torch, mesh, cfg, algorithm, params, tokens, *, seq,
     host = _state_at_rank0(torch, st, bundle.static["pspecs"], mesh,
                            on_device) if gather else None
     rec["state_gather_s"] = time.perf_counter() - t0
+    # the round's result is not needed past here: the capture round
+    # below holds its own (four ranks' peaks then fit the card)
+    del st
+    _free(torch)
     captured = None
     if capture is not None:
         # the round again from the same state, its kernels' first inputs
@@ -3853,7 +3896,7 @@ def tensor_round(torch, mesh, cfg, algorithm, params, tokens, *, seq,
         if cap is not None:
             captured = {k: [(a, kw) for calls in cap.args[k].values()
                             for a, kw in calls] for k in cap.args}
-    del st, state, bundle
+    del state, bundle
     _free(torch)
     return rec, host, captured
 
@@ -4184,6 +4227,626 @@ def phase_tensor(torch, seed):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the virtual clients and the FSDP leaves (gloo ranks on the card)
+# ---------------------------------------------------------------------------
+
+#: A (data 2, model 2) mesh with no client axes: every leaf split over
+#: "model" by the tp rules and along its ``embed`` dim over "data".
+FSDP_MESH = {"data": 2, "model": 2}
+FSDP_WORLD = 4
+#: (a): the virtual/fsdp round of starcoder2-3b at phase 5's width and
+#: cut (2 of 30 repeats, 493,894,656 parameters, sequence 128), 2 virtual
+#: clients of 4 sequences (2 a data rank), build_train_step's 2 local
+#: epochs, FedAdam-SSM with error feedback.
+FSDP_N_VIRTUAL = 2
+FSDP_GLOBAL_BATCH = 4
+FSDP_BILL_BYTES = 2 * 375_854_948
+#: (b): mistral-large-123b at full width, 1 of 88 repeats (2,189,463,552
+#: parameters), one local step (loss and gradient) in float32 at
+#: sequence 512, 2 sequences a data rank.
+FSDP_STEP_ARCH = "mistral-large-123b"
+FSDP_STEP_REPEATS = 1
+FSDP_STEP_SEQ = 512
+FSDP_STEP_PER_RANK = 2
+FSDP_STEP_PARAMS = 2_189_463_552
+FSDP_EMBED_SHARD = 100_663_296
+#: The split step's gradient against the whole-leaf step's: within
+#: ``FSDP_GRAD_TOL`` of each leaf's largest element, but at
+#: ``TENSOR_SHARE`` of its elements (the split products and the data
+#: group's sums add in another order, and a gradient summed over 1,024
+#: tokens cancels at some elements); the loss within ``FSDP_LOSS_TOL``.
+FSDP_GRAD_TOL = 1e-4
+FSDP_LOSS_TOL = 1e-5
+#: The per-leaf kernels of the split round, replayed at its largest
+#: leaf's shard (the embedding's).
+FSDP_KERNELS = ("absmax", "count_ge", "ssm_apply_ef")
+#: Each part runs only where its predicted peaks fit this share of the
+#: card: the split ranks' sum, and the whole-leaf reference's (run after
+#: them, alone), each.
+FSDP_FIT = 0.9
+#: (a)'s float32 round, measured on an H100 80GB: a split rank peaked at
+#: 84 bytes a parameter it holds (the virtual clients' residuals stacked,
+#: a layer gathered), the whole-leaf scan round at 113.5 a parameter (its
+#: wire round trip and the fold's float32 sums besides); the spatial
+#: round's ``TENSOR_MOE_BYTES_PER_PARAM`` predicts neither.
+FSDP_SPLIT_BYTES_PER_PARAM = 84
+FSDP_WHOLE_BYTES_PER_PARAM = 114
+
+
+def fsdp_plan():
+    from repro_torch.sharding import DeployPlan
+    return DeployPlan(clients="virtual", train_params="fsdp",
+                      n_virtual=FSDP_N_VIRTUAL)
+
+
+def fsdp_specs(cfg, mesh):
+    from repro_torch import sharding as shd
+    from repro_torch.models import params as PM
+    from repro_torch.models.model import abstract_params
+    meta = abstract_params(cfg)
+    return meta, PM.pspecs(meta, shd.param_rules("fsdp", False), mesh)
+
+
+def fsdp_local_params(cfg, mesh) -> list:
+    """Every rank's count of parameters it holds under the fsdp rules."""
+    import dataclasses as dc
+    from repro_torch import tree as T
+    from repro_torch.models import params as PM
+    meta, specs = fsdp_specs(cfg, mesh)
+    out = []
+    for r in range(mesh.world_size):
+        view = dc.replace(mesh, rank=r)
+        out.append(sum(math.prod(b.stop - b.start for b in PM.shard_block(
+            sp, p.shape, view)) for p, sp in zip(T.leaves(meta),
+                                                 T.leaves(specs))))
+    return out
+
+
+#: Float32 activations a step keeps live per token and unit of model
+#: width (a layer's recompute, its MLP's hidden state, the logits): a
+#: bound read off the layer shapes, not measured.
+FSDP_ACT_FLOATS = 64
+
+
+def fsdp_step_bytes(cfg, mesh, seq, per_rank) -> dict:
+    """The predicted peak bytes of one float32 FSDP+tp step (loss and
+    gradient) on each split rank and of the whole-leaf step, counted from
+    the shapes: a rank holds its shards and their gradients, one layer's
+    leaves gathered over the data group (its tp shard) with their
+    gradients and the reduce-scatter's all-reduce buffer of the largest,
+    the embedding and head gathered the same way, and the activations of
+    a layer's recompute (``FSDP_ACT_FLOATS`` per token and model width);
+    the whole step holds the params, their gradients and its
+    activations."""
+    from repro_torch import tree as T
+    from repro_torch.models.model import pattern_groups
+    meta, specs = fsdp_specs(cfg, mesh)
+    local = max(fsdp_local_params(cfg, mesh))
+    whole = sum(math.prod(p.shape) for p in T.leaves(meta))
+    M = mesh.shape["model"]
+    tp = lambda p, sp: math.prod(p.shape) // (M if "model" in sp.axes()
+                                             else 1)
+    leaves = list(zip(T.leaves(meta), T.leaves(specs)))
+    layers = sum(c for _, c in pattern_groups(cfg)) * cfg.pattern_repeats
+    block = [tp(p, sp) // layers for p, sp in leaves if len(p.shape) > 2]
+    top = [tp(p, sp) for p, sp in leaves if len(p.shape) == 2]
+    per_layer, biggest = sum(block), max(block + top)
+    acts = FSDP_ACT_FLOATS * per_rank * seq * cfg.d_model
+    rank = 4 * (2 * local + 2 * per_layer + max(top) * 2 + biggest) \
+        + 4 * acts
+    whole_b = 4 * 2 * whole + 4 * acts * mesh.shape["data"]
+    return {"split_rank": rank, "split_total": rank * mesh.world_size,
+            "whole": whole_b, "local_params": local,
+            "gathered_layer_params": per_layer, "params": whole}
+
+
+def _whole_at_rank0(torch, leaves, specs, mesh):
+    """The whole leaves of this rank's ``leaves`` (shards under ``specs``)
+    on global rank 0's host, ``None`` elsewhere: each leaf's shards
+    gathered over every rank and placed at their blocks, leaf by leaf."""
+    import dataclasses as dc
+    import torch.distributed as dist
+    from repro_torch.models import params as PM
+    first = dist.get_rank() == 0
+    out = []
+    for x, sp in zip(leaves, specs):
+        parts = _to_first(torch, x, dist.group.WORLD)
+        if not first:
+            continue
+        shape = [n * math.prod(mesh.shape[a] for a in (
+            () if e is None else (e,) if isinstance(e, str) else e))
+            for n, e in zip(x.shape, sp)]
+        whole = torch.empty(shape, dtype=x.dtype, pin_memory=x.is_cuda)
+        for r, part in enumerate(parts):
+            whole[PM.shard_block(sp, shape, dc.replace(mesh, rank=r))] = part
+        out.append(whole)
+    return out if first else None
+
+
+def fsdp_round(torch, mesh, cfg, seed, tokens, *, gather=True,
+               capture=None):
+    """One virtual/fsdp round of ``launch.steps.build_train_step``
+    (FedAdam-SSM, error feedback) on ``mesh`` from ``cfg``'s random
+    weights (this rank's shards drawn leaf by leaf on the card,
+    ``models/params.materialize_shards``) and every client's ``tokens``
+    (host, (C, global batch, seq)): wall, peak, launches, the bytes each
+    group moves, and with ``gather`` the whole state (W, M, V, the
+    clients' residuals) on global rank 0's host.  ``capture``: the rank
+    that keeps the per-leaf kernels' first inputs at the largest leaf's
+    shard, from the round run again from the same state (its wall, warm
+    but for those copies, recorded besides)."""
+    import dataclasses as dc
+    from repro_torch import tree as T
+    from repro_torch.core.fed import local_batch
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import mesh as MM
+    from repro_torch.launch import steps
+    from repro_torch.models import params as PM
+    from repro_torch.models.model import abstract_params
+
+    dev = mesh.device
+    shape = dc.replace(steps.SHAPES["train_4k"], seq_len=tokens.shape[2],
+                       global_batch=tokens.shape[1])
+    bundle = steps.build_train_step(cfg, mesh, shape,
+                                    algorithm="fedadam_ssm",
+                                    error_feedback=True, plan=fsdp_plan())
+    specs = bundle.static["pspecs"]
+    shards = PM.materialize_shards(abstract_params(cfg), specs, mesh, seed,
+                                   cfg.dtype, dev)
+    state = bundle.init(shards, sharded=True)
+    del shards
+    batch = local_batch({"tokens": tokens.to(dev)}, mesh)
+    require(tuple(batch["tokens"].shape) == bundle.batch_shapes["tokens"],
+            f"batch {tuple(batch['tokens'].shape)} against "
+            f"{bundle.batch_shapes}")
+    sizes = [x.numel() for x in T.leaves(state.W)]
+    _sync(torch, dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() if dev.type == "cuda" else None
+    with _count_collectives(MM, mesh) as moved:
+        reset_launches()
+        t0 = time.perf_counter()
+        st, mets = bundle.fn(state, batch)
+        _sync(torch, dev)
+        wall = time.perf_counter() - t0
+    rec = {"wall_s": wall, "launches": dict(LAUNCHES),
+           "peak_bytes": torch.cuda.max_memory_allocated()
+           if dev.type == "cuda" else None, "held_bytes": held,
+           "collective_bytes": dict(moved),
+           "loss": mets["loss"].cpu().tolist(),
+           "uplink_bits": float(mets["uplink_bits"]),
+           "leaves": len(sizes), "shard_elements": sum(sizes),
+           "batch": list(batch["tokens"].shape)}
+    t0 = time.perf_counter()
+    host = None
+    if gather:
+        cs_specs = [PM.Spec((None,) + tuple(sp)) for sp in T.leaves(specs)]
+        host = {part: _whole_at_rank0(torch, T.leaves(getattr(st, part)),
+                                      T.leaves(specs), mesh)
+                for part in ("W", "M", "V")}
+        host["err"] = _whole_at_rank0(
+            torch, T.leaves(st.client_state["comp"]["err"]), cs_specs, mesh)
+        if mesh.rank != 0:
+            host = None
+    rec["state_gather_s"] = time.perf_counter() - t0
+    del st
+    _free(torch)
+    captured = None
+    if capture is not None:
+        cap = Capture() if mesh.rank == capture else None
+        if cap is not None:
+            entry = _lm_entry_points()
+            for k in FSDP_KERNELS:
+                passes = len(LM_PASSES.get(k, ("",)))
+                cap.wrap(*entry[k], k, LM_KERNELS[k][2], (max(sizes),),
+                         passes)
+        t0 = time.perf_counter()
+        try:
+            bundle.fn(state, batch)
+            _sync(torch, dev)
+        finally:
+            if cap is not None:
+                cap.restore()
+        rec["wall_s_again"] = time.perf_counter() - t0
+        if cap is not None:
+            captured = {k: [(a, kw) for calls in cap.args[k].values()
+                            for a, kw in calls] for k in cap.args}
+    del state, bundle
+    _free(torch)
+    return rec, host, captured
+
+
+def fsdp_whole_round(torch, cfg, seed, tokens, dev):
+    """The whole-leaf scan round of the same plan on one rank (a world-1
+    virtual mesh, no collective), from the same weights (drawn whole on
+    the card) and batch: its record and its state (W, M, V on the card,
+    the residuals on the host)."""
+    import dataclasses as dc
+    from repro_torch import tree as T
+    from repro_torch.launch import mesh as MM
+    from repro_torch.launch import steps
+    from repro_torch.models.model import init_params
+    one = MM.ClientMesh(shape={"data": 1}, client_axes=(), rank=0,
+                        device=dev)
+    shape = dc.replace(steps.SHAPES["train_4k"], seq_len=tokens.shape[2],
+                       global_batch=tokens.shape[1])
+    bundle = steps.build_train_step(cfg, one, shape,
+                                    algorithm="fedadam_ssm",
+                                    error_feedback=True, plan=fsdp_plan())
+    state = bundle.init(init_params(cfg, seed=seed, device=dev))
+    batch = {"tokens": tokens.to(dev)}
+    _sync(torch, dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    st, mets = bundle.fn(state, batch)
+    _sync(torch, dev)
+    rec = {"wall_s": time.perf_counter() - t0,
+           "peak_bytes": torch.cuda.max_memory_allocated()
+           if dev.type == "cuda" else None,
+           "loss": mets["loss"].cpu().tolist(),
+           "uplink_bits": float(mets["uplink_bits"])}
+    whole = {p: T.leaves(getattr(st, p)) for p in ("W", "M", "V")}
+    whole["err"] = [_pinned(torch, x) for x in
+                    T.leaves(st.client_state["comp"]["err"])]
+    del st, state, bundle
+    _free(torch)
+    return rec, whole
+
+
+def fsdp_launches(L):
+    """Launches per rank and round of the virtual/fsdp round: per client
+    and leaf the selection on each shard (absmax, two counts) and the
+    fused apply; no Adam kernel (unfused, as JAX's), no word kernel (no
+    payload: the scan round hands over the encoder's carriers)."""
+    C = FSDP_N_VIRTUAL
+    return per_client_round(absmax=C * L, count_ge=2 * C * L,
+                            ssm_apply_ef=C * L)
+
+
+def fsdp_rank(rank, world, store, seed, device="cuda", smoke=False):
+    """Phase 17 on one rank of a gloo group of CUDA tensors sharing the
+    card, a (data 2, model 2) mesh with no client axes: (a) the
+    virtual/fsdp round of starcoder2-3b in float32 against the whole-leaf
+    round rank 0 runs after it, one bfloat16 round, the per-leaf kernels
+    bitwise on the embedding's shard; (b) mistral-large-123b's FSDP+tp
+    step at full width against the whole-leaf step, ``select_tau`` on its
+    embedding gradient's shards bitwise the whole leaf's, and the
+    selection and apply kernels bitwise on that shard with times.
+    ``device``/``smoke``: a CPU rehearsal at the smoke configs."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+    from repro_torch.device import exact_float32
+    from repro_torch.launch import mesh as MM
+    from repro_torch.launch import train
+
+    exact_float32()
+    dev = torch.device(device)
+    mesh = MM.init(world, rank, store=store, device=dev, backend="gloo",
+                   shape=FSDP_MESH, client_axes=(), timeout_s=180)
+    out = {"rank": rank, "row": mesh.client_index,
+           "model_index": mesh.model_index,
+           "data_index": mesh.data.index}
+    t_rank = time.perf_counter()
+    card = torch.cuda.get_device_properties(0).total_memory \
+        if dev.type == "cuda" else float("inf")
+    try:
+        out["a"] = fsdp_part_a(torch, dist, mesh, seed, card, smoke, train)
+        _free(torch)
+        out["b"] = fsdp_part_b(torch, dist, mesh, seed, card, smoke)
+        out["rank_s"] = time.perf_counter() - t_rank
+        return out
+    finally:
+        mesh.close()
+
+
+def fsdp_part_a(torch, dist, mesh, seed, card, smoke, train):
+    """(a) on this rank; rank 0 also runs the whole-leaf reference."""
+    from repro_torch import tree as T
+    dev = mesh.device
+    cfg32 = _tensor_cfg(TENSOR_ARCH, TENSOR_REPEATS, "float32", smoke)
+    local = fsdp_local_params(cfg32, mesh)
+    params = sum(math.prod(p.shape) for p in
+                 T.leaves(fsdp_specs(cfg32, mesh)[0]))
+    pred = {"split_rank": FSDP_SPLIT_BYTES_PER_PARAM * max(local),
+            "split_total": FSDP_SPLIT_BYTES_PER_PARAM * sum(local),
+            "whole": FSDP_WHOLE_BYTES_PER_PARAM * params,
+            "card_bytes": card, "params": params, "local_params": local}
+    # the whole-leaf round runs after the split ranks' rounds, their
+    # state on the host: each must fit alone
+    require(max(pred["split_total"], pred["whole"]) <= FSDP_FIT * card,
+            f"phase 17 (a) predicted not to fit: {pred}")
+    seq = 32 if smoke else TENSOR_SEQ
+    tokens = train.build_client_batches(
+        cfg32, FSDP_N_VIRTUAL, FSDP_GLOBAL_BATCH, seq, seed=seed,
+        device="cpu")["tokens"]
+    rec, split, captured = fsdp_round(torch, mesh, cfg32, seed, tokens,
+                                      capture=0)
+    rec["predicted"] = pred
+    L = rec["leaves"]
+    dist.barrier()
+    if mesh.rank == 0:
+        log(f"phase 17 (a) float32 split round: {json.dumps(rec)}")
+        wrec, whole = fsdp_whole_round(torch, cfg32, seed, tokens, dev)
+        rec["whole_leaf"] = wrec
+        rec["vs_whole_leaf"] = _tensor_vs_whole(torch, split, whole, [],
+                                                "fsdp split vs whole")
+        log(f"phase 17 (a) whole-leaf round: {json.dumps(wrec)}; split vs "
+            f"whole: {json.dumps(rec['vs_whole_leaf'])}")
+        # the bill is a float32 scalar, as JAX's
+        bill = float(torch.tensor(8.0 * FSDP_BILL_BYTES,
+                                  dtype=torch.float32))
+        require(wrec["uplink_bits"] == rec["uplink_bits"] and (
+                    smoke or rec["uplink_bits"] == bill),
+                f"bill {rec['uplink_bits']} against the whole-leaf "
+                f"round's {wrec['uplink_bits']} and {bill}")
+        require(max(abs(a - b) for a, b in zip(rec["loss"], wrec["loss"]))
+                <= 1e-5 * max(abs(b) for b in wrec["loss"]),
+                f"losses {rec['loss']} against {wrec['loss']}")
+        del whole
+    require(rec["launches"] == fsdp_launches(L) or dev.type != "cuda",
+            f"rank {mesh.rank} launches {rec['launches']}")
+    del split
+    _free(torch)
+    dist.barrier()
+    if captured is not None:
+        t0 = time.perf_counter()
+        rec["kernels"] = _replay_tensor_kernels(
+            torch, captured, dev.type == "cuda", dev.type == "cuda")
+        rec["kernels_s"] = time.perf_counter() - t0
+        del captured
+    dist.barrier()
+    cfg16 = _tensor_cfg(TENSOR_ARCH, TENSOR_REPEATS, None, smoke)
+    rec16, _, _ = fsdp_round(torch, mesh, cfg16, seed, tokens, gather=False)
+    require(rec16["launches"] == fsdp_launches(rec16["leaves"])
+            or dev.type != "cuda", f"bf16 launches {rec16['launches']}")
+    if mesh.rank == 0:
+        log(f"phase 17 (a) bfloat16: {json.dumps(rec16)}")
+    return {"float32": rec, "bfloat16": rec16}
+
+
+def _rel_block_err(torch, part, whole):
+    """(largest |part - whole| over whole's largest element, the count of
+    elements beyond ``FSDP_GRAD_TOL`` of it)."""
+    d = (part.double() - whole.double()).abs()
+    scale = max(float(whole.abs().max()), 1e-30)
+    return float(d.max()) / scale, int((d > FSDP_GRAD_TOL * scale).sum())
+
+
+def fsdp_part_b(torch, dist, mesh, seed, card, smoke):
+    """(b) on this rank: the split step, then rank 0's whole-leaf step and
+    the shard-by-shard comparison, ``select_tau`` over the leaf group on
+    the embedding gradient's shard, the kernels on that shard."""
+    import dataclasses as dc
+    from repro_torch import tree as T
+    from repro_torch.core import sparsify as S
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.topk_mask.ops import select_tau
+    from repro_torch.models import model as Mdl
+    from repro_torch.models import params as PM
+    from repro_torch.models.tensor import FSDP
+    dev = mesh.device
+    cfg = _tensor_cfg(FSDP_STEP_ARCH, FSDP_STEP_REPEATS, "float32", smoke)
+    seq = 64 if smoke else FSDP_STEP_SEQ
+    pred = fsdp_step_bytes(cfg, mesh, seq, FSDP_STEP_PER_RANK)
+    pred["card_bytes"] = card
+    require(smoke or pred["params"] == FSDP_STEP_PARAMS,
+            f"{FSDP_STEP_ARCH} at 1 repeat: {pred['params']} parameters")
+    require(max(pred["split_total"], pred["whole"]) <= FSDP_FIT * card,
+            f"phase 17 (b) predicted not to fit: {pred}")
+    meta, specs = fsdp_specs(cfg, mesh)
+    rows = mesh.world_size // mesh.model_size
+    rng = torch.Generator().manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab_size,
+                           (rows * FSDP_STEP_PER_RANK, seq), generator=rng,
+                           dtype=torch.int32)
+    lo = mesh.client_index * FSDP_STEP_PER_RANK
+    local_tok = tokens[lo:lo + FSDP_STEP_PER_RANK].to(dev)
+    fsdp = FSDP(mesh.data, specs, mesh.fsdp_axes)
+
+    def step(params, toks, **kw):
+        leaves, td = T.flatten(params)
+        req = [x.requires_grad_(True) for x in leaves]
+        loss = Mdl.loss_fn(cfg, td.unflatten(req), toks, **kw)
+        grads = torch.autograd.grad(loss, req)
+        return loss.detach(), list(grads)
+
+    t0 = time.perf_counter()
+    shards = PM.materialize_shards(meta, specs, mesh, seed, "float32", dev)
+    _sync(torch, dev)
+    init_s = time.perf_counter() - t0
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss, grads = step(shards, local_tok, tp=mesh.model, fsdp=fsdp)
+    _sync(torch, dev)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() if dev.type == "cuda" else None
+    del shards
+    _free(torch)
+    rec = {"params": pred["params"], "predicted": pred, "init_s": init_s,
+           "wall_s": wall, "peak_bytes": peak, "loss": float(loss),
+           "batch": list(local_tok.shape)}
+    # select_tau over the leaf group on the embedding gradient's shard
+    leaves_meta = T.leaves(meta)
+    ie = next(i for i, p in enumerate(leaves_meta)
+              if p.axes == ("vocab", "embed"))
+    g_emb = grads[ie]
+    require(smoke or g_emb.numel() == FSDP_EMBED_SHARD,
+            f"embed shard {g_emb.numel()}")
+    n_emb = math.prod(leaves_meta[ie].shape)
+    k = S.k_for(n_emb, 0.05)
+    # rank 0 keeps the selection kernels' inputs on its shard for the
+    # replay against their plain versions
+    cap = Capture() if mesh.rank == 0 else None
+    if cap is not None:
+        entry = _lm_entry_points()
+        for kname in ("absmax", "count_ge"):
+            cap.wrap(*entry[kname], kname, LM_KERNELS[kname][2],
+                     (g_emb.numel(),), len(LM_PASSES.get(kname, ("",))))
+    reset_launches()
+    try:
+        tau, cnt = select_tau(g_emb, k, model=mesh.leaf, n=n_emb)
+    finally:
+        if cap is not None:
+            cap.restore()
+    rec["select_launches"] = {a: b for a, b in LAUNCHES.items() if b}
+    rec["tau"], rec["count"] = float(tau), float(cnt)
+    dist.barrier()
+    # the whole-leaf step and the comparison on rank 0, leaf by leaf
+    whole_grads = None
+    if mesh.rank == 0:
+        params = Mdl.init_params(cfg, seed=seed, device=dev)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        wloss, whole_grads = step(params, tokens.to(dev))
+        _sync(torch, dev)
+        rec["whole_leaf"] = {
+            "wall_s": time.perf_counter() - t0, "loss": float(wloss),
+            "peak_bytes": torch.cuda.max_memory_allocated()
+            if dev.type == "cuda" else None}
+        del params
+        _free(torch)
+    t0 = time.perf_counter()
+    errs, beyond, failures = [], [], []
+    if mesh.rank == 0 and abs(float(loss) - float(wloss)) > FSDP_LOSS_TOL \
+            * abs(float(wloss)):
+        failures.append(f"loss {float(loss)} against the whole step's "
+                        f"{float(wloss)}")
+    for i, (g, sp, p) in enumerate(zip(grads, T.leaves(specs),
+                                       leaves_meta)):
+        parts = _to_first(torch, g, dist.group.WORLD)
+        if parts is None:
+            continue
+        worst, n_bad = 0.0, 0
+        for r, part in enumerate(parts):
+            blk = PM.shard_block(sp, p.shape, dc.replace(mesh, rank=r))
+            e, nb = _rel_block_err(torch, part.to(dev),
+                                   whole_grads[i][blk])
+            worst, n_bad = max(worst, e), n_bad + nb
+        errs.append(worst)
+        beyond.append(n_bad)
+        if n_bad > TENSOR_SHARE * math.prod(p.shape):
+            failures.append(f"grad[{i}] beyond {FSDP_GRAD_TOL} at {n_bad} "
+                            f"of {math.prod(p.shape)} elements")
+        if i == ie:
+            # the whole embedding gradient from the same shards: its tau
+            whole_emb = torch.empty(p.shape, dtype=g.dtype, device=dev)
+            for r, part in enumerate(parts):
+                blk = PM.shard_block(sp, p.shape, dc.replace(mesh, rank=r))
+                whole_emb[blk] = part.to(dev)
+            tau0, cnt0 = select_tau(whole_emb, k)
+            rec["tau_bitwise"] = bool(torch.equal(
+                tau.view(torch.int32), tau0.view(torch.int32))) and \
+                bool(torch.equal(cnt, cnt0))
+            rec["tau_whole"] = (float(tau0), float(cnt0))
+            if not rec["tau_bitwise"]:
+                failures.append(f"select_tau on the shards {float(tau)}/"
+                                f"{float(cnt)} against the whole leaf's "
+                                f"{float(tau0)}/{float(cnt0)}")
+            del whole_emb
+    if mesh.rank == 0:
+        rec["vs_whole_leaf"] = {"max_rel_err": errs, "beyond": beyond,
+                                "failures": failures,
+                                "compare_s": time.perf_counter() - t0}
+        log(f"phase 17 (b): {json.dumps(rec)}")
+    del whole_grads
+    _free(torch)
+    dist.barrier()
+    if mesh.rank == 0:
+        # the selection's and the fused apply's kernels on the shard,
+        # bitwise their plain versions, with times and bounds
+        captured = {kk: [(a, kw) for calls in cap.args[kk].values()
+                         for a, kw in calls] for kk in cap.args}
+        dm, dv = 0.1 * g_emb, 1e-3 * g_emb * g_emb
+        captured["ssm_apply_ef"] = [((tau, g_emb, dm, dv),
+                                     {"with_residual": True})]
+        t0 = time.perf_counter()
+        rec["kernels"] = _replay_tensor_kernels(
+            torch, captured, dev.type == "cuda", dev.type == "cuda")
+        rec["kernels_s"] = time.perf_counter() - t0
+        del captured, dm, dv
+        require(not failures, "; ".join(failures))
+    del grads, g_emb
+    _free(torch)
+    dist.barrier()
+    return rec
+
+
+def phase_fsdp(torch, seed):
+    """Phase 17: 4 gloo processes with CUDA tensors on the one card
+    (``fsdp_rank``); a failure in any rank fails the phase.  Also the
+    predicted peak of mistral-large-123b's whole round at 1 repeat, in
+    float32 and bfloat16, from (a)'s measured bytes per parameter (not
+    run)."""
+    import shutil
+    import tempfile
+    from repro_torch.launch import mesh as MM
+
+    log("phase 17: the virtual clients and the FSDP leaves, "
+        f"{FSDP_WORLD} gloo ranks on the card")
+    tmp = tempfile.mkdtemp()
+    t0 = time.perf_counter()
+    try:
+        ranks = MM.run_ranks(fsdp_rank, FSDP_WORLD,
+                             store=os.path.join(tmp, "store"),
+                             args=(seed,), timeout_s=600)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out = {"ranks": ranks, "wall_s": time.perf_counter() - t0}
+    dump = ROOT / "chiprun_out" / "phase17.json"
+    dump.parent.mkdir(exist_ok=True)
+    dump.write_text(json.dumps(ranks, indent=1))
+    out["mistral_round_predicted"] = fsdp_round_prediction(ranks)
+    r0 = ranks[0]
+    log(f"phase 17: {FSDP_WORLD} gloo ranks on the card ({smi_line()}) in "
+        f"{out['wall_s']:.1f} s: " + json.dumps({
+            "a": {k: r0["a"]["float32"].get(k) for k in (
+                "wall_s", "peak_bytes", "collective_bytes", "uplink_bits",
+                "vs_whole_leaf")},
+            "a_bfloat16": {k: r0["a"]["bfloat16"].get(k) for k in (
+                "wall_s", "peak_bytes")},
+            "b": {k: r0["b"].get(k) for k in (
+                "wall_s", "peak_bytes", "predicted", "loss", "whole_leaf",
+                "tau_bitwise", "vs_whole_leaf")},
+            "mistral_round_predicted": out["mistral_round_predicted"]}))
+    failures = r0["a"]["float32"]["vs_whole_leaf"]["failures"] \
+        + r0["b"]["vs_whole_leaf"]["failures"]
+    require(not failures, "; ".join(failures))
+    return out
+
+
+def fsdp_round_prediction(ranks) -> dict:
+    """mistral-large-123b's virtual/fsdp round at 1 repeat, predicted (not
+    run): (a)'s measured peak bytes per parameter a rank holds (split, in
+    float32 and bfloat16) and per parameter of the whole-leaf round, times
+    mistral's counts."""
+    import dataclasses as dc
+    from repro_torch.launch import mesh as MM
+    view = MM.ClientMesh(shape=FSDP_MESH, client_axes=(), rank=0,
+                         device=None)
+    cfg = _tensor_cfg(FSDP_STEP_ARCH, FSDP_STEP_REPEATS, None, False)
+    local = fsdp_local_params(dc.replace(cfg, dtype="float32"), view)
+    out = {"params": FSDP_STEP_PARAMS, "local_params": local}
+    if any(r["a"][d]["peak_bytes"] is None for r in ranks
+           for d in ("float32", "bfloat16")):
+        return {"not_measured": "no card"}
+    for dtype in ("float32", "bfloat16"):
+        per = max(r["a"][dtype]["peak_bytes"] / r["a"][dtype]["shard_elements"]
+                  for r in ranks)
+        out[dtype] = {"bytes_per_local_param": per,
+                      "split_total": per * sum(local)}
+    whole = ranks[0]["a"]["float32"]["whole_leaf"]
+    per = whole["peak_bytes"] / ranks[0]["a"]["float32"]["predicted"]["params"]
+    out["float32"]["whole_bytes_per_param"] = per
+    out["float32"]["whole"] = per * FSDP_STEP_PARAMS
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4199,31 +4862,41 @@ def main(argv=None):
     import torch
 
     t_start = time.perf_counter()
+    phase(1, "device and build")
     smi, build_s = phase_device_and_build(torch)
+    phase(2, "the CNN's main path")
     rounds, launches, captured, round_profile, payload_bytes = \
         phase_main_path(torch, args.seed)
+    phase(3, "the CNN path's kernels against their plain versions")
     kernels = phase_kernels(torch, captured, launches, ROUNDS * CLIENTS,
                             args.seed)
+    phase(2, "the CNN's FedAdam-Top round")
     cnn_top, captured = phase_cnn_top(torch, args.seed)
     phase_cnn_top_kernels(torch, captured, kernels)
     del captured
+    phase(4, "CNN rounds card vs CPU")
     vs_cpu = {a: phase_card_vs_cpu(torch, np, args.seed, a)
               for a in ("fedadam_ssm", "fedadam_top")}
+    phase(8, "the CNN's baselines")
     cnn_base = {a: phase_cnn_baseline(torch, args.seed, a)
                 for a in CNN_BASELINES}
+    phase(9, "exact top-k masks")
     exact = phase_exact_topk(torch, np, args.seed)
     vs_cpu["fedadam_ssm_exact_topk"] = phase_card_vs_cpu(
         torch, np, args.seed, "fedadam_ssm", exact_topk=True)
     for a in ("efficient_adam", "onebit_adam"):
         vs_cpu[a] = phase_card_vs_cpu(torch, np, args.seed, a)
+    phase(11, "the CNN's drivers")
     cnn_drivers, captured = phase_cnn_drivers(torch, np, args.seed)
     phase_driver_kernels(torch, captured, kernels, "cnn_async_churn")
     del captured
+    phase(5, "starcoder2-3b's FedAdam-SSM rounds")
     lm, captured = phase_transformer(torch, args.seed, "fedadam_ssm")
     # ssm_apply has no caller on any path: it replays ssm_apply_ef's
     # inputs, the transformer's deltas at the same leaves
     captured["ssm_apply"] = {n: [(calls[0][0][:4], {})] for n, calls
                              in captured["ssm_apply_ef"].items()}
+    phase(6, "the per-leaf kernels against their plain versions")
     kernels += phase_lm_kernels(torch, captured, lm["launches"],
                                 LM_PATHS["fedadam_ssm"]["replayed"]
                                 + ("ssm_apply",))
@@ -4231,20 +4904,24 @@ def main(argv=None):
     host_cost = phase_host_cost(
         torch, captured["absmax"][LM_SHAPES["norm"]][0][0][0])
     del captured
+    phase(6, "starcoder2-3b's FedAdam-Top rounds")
     lm_top, captured = phase_transformer(torch, args.seed, "fedadam_top")
     kernels += phase_lm_kernels(torch, captured, lm_top["launches"],
                                 LM_PATHS["fedadam_top"]["replayed"])
     del captured
+    phase(10, "starcoder2-3b's baselines")
     lm_base, captured = {}, {}
     for a in ("efficient_adam", "onebit_adam"):
         lm_base[a], cap = phase_lm_baseline(torch, args.seed, a)
         captured.update(cap)
     phase_lm_baseline_kernels(torch, captured, kernels)
     del captured, cap
+    phase(12, "starcoder2-3b's drivers")
     lm_drivers, captured = phase_lm_drivers(torch, args.seed)
     phase_driver_kernels(torch, captured, kernels, "lm_vmap_wire")
     del captured
     # phase 13: each model built after the previous one is freed
+    phase(13, "the zoo's models at full width")
     zoo = {}
     for name in ZOO:
         zoo[name], captured = phase_zoo(torch, args.seed, name)
@@ -4258,6 +4935,7 @@ def main(argv=None):
         zoo[name]["block_card_vs_cpu"] = phase_zoo_block_vs_cpu(
             torch, args.seed, name)
     # phase 14: each model served whole after the previous one is freed
+    phase(14, "serving")
     t_serve = time.perf_counter()
     served = {name: phase_serve(torch, args.seed, name) for name in SERVE}
     for name in SERVE_CHECK:
@@ -4268,6 +4946,7 @@ def main(argv=None):
     log(f"phase 14 took {time.perf_counter() - t_serve:.1f} s")
     # phase 15: the multi-GPU spatial driver, (a) on a world-1 NCCL group,
     # (b) on gloo ranks sharing the card
+    phase(15, "the multi-GPU spatial driver")
     t_spatial = time.perf_counter()
     torch.cuda.empty_cache()
     spatial, cnn_inputs, lm_inputs = phase_spatial(torch, args.seed)
@@ -4283,6 +4962,7 @@ def main(argv=None):
         k["at_cnn_spatial_ranks"] = {"max_abs_err": err}
     log(f"phase 15 took {time.perf_counter() - t_spatial:.1f} s")
     # phase 16: tensor parallelism on a model axis, gloo ranks on the card
+    phase(16, "tensor parallelism on a model axis")
     t_tensor = time.perf_counter()
     torch.cuda.empty_cache()
     tensor = phase_tensor(torch, args.seed)
@@ -4342,8 +5022,35 @@ def main(argv=None):
                     k["name"], 0),
             "lm_async_trainer": lm_drivers["async_trainer"]["launches"].get(
                 k["name"], 0)}
+    # phase 17: the virtual clients and the FSDP leaves, gloo ranks on
+    # the card
+    phase(17, "the virtual clients and the FSDP leaves")
+    t_fsdp = time.perf_counter()
+    torch.cuda.empty_cache()
+    fsdp = phase_fsdp(torch, args.seed)
+    fsdp["phase_s"] = time.perf_counter() - t_fsdp
+    log(f"phase 17 took {fsdp['phase_s']:.1f} s")
+    fa, fa16, fb = (fsdp["ranks"][0]["a"]["float32"],
+                    fsdp["ranks"][0]["a"]["bfloat16"], fsdp["ranks"][0]["b"])
+    for label, rec in (("a_starcoder2", fa), ("b_mistral_embed", fb)):
+        for kname in FSDP_KERNELS:
+            shard = {lab: r for lab, r in rec["kernels"].items()
+                     if lab.split("/")[0] == kname}
+            k = next(k for k in kernels if k["name"] == kname)
+            k["max_abs_err"] = max(k["max_abs_err"], *(
+                r["max_abs_err"] for r in shard.values()))
+            k[f"at_fsdp_{label}"] = shard
+    for k in kernels:
+        # per rank and round of the virtual/fsdp round (2 clients), and
+        # of select_tau on the embedding gradient's shard
+        k["launches_fsdp"] = {
+            "a_starcoder2_float32": fa["launches"][k["name"]],
+            "a_starcoder2_bfloat16": fa16["launches"][k["name"]],
+            "b_mistral_select_tau": fb["select_launches"].get(k["name"],
+                                                              0)}
     require(sorted(k["name"] for k in kernels)
             == sorted((*KERNELS, *LM_KERNELS)), "a kernel was not measured")
+    phase(7, "starcoder2 smoke rounds card vs CPU")
     lm_vs_cpu = phase_lm_card_vs_cpu(torch, np, args.seed, "fedadam_ssm")
     lm_top_vs_cpu = phase_lm_card_vs_cpu(torch, np, args.seed,
                                          "fedadam_top")
@@ -4361,11 +5068,12 @@ def main(argv=None):
               "transformer_baselines": lm_base,
               "cnn_drivers": cnn_drivers, "transformer_drivers": lm_drivers,
               "zoo": zoo, "serve": served, "spatial": spatial,
-              "tensor": tensor,
+              "tensor": tensor, "fsdp": fsdp,
               "total_s": time.perf_counter() - t_start}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(record, indent=1))
+    log(f"total {record['total_s']:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {

@@ -213,6 +213,12 @@ class AsyncRoundDriver:
         if client_exec not in ("scan", "shardmap"):
             raise ValueError(f"client_exec={client_exec!r}: scan | "
                              "shardmap")
+        if mesh is not None and mesh.fsdp_axes:
+            from repro_torch.launch.mesh import FSDP_ITEM_REMAINDER
+            raise NotImplementedError(
+                "the async driver on a mesh with FSDP axes "
+                f"{mesh.fsdp_axes} (the virtual clients' leaves split over "
+                f"them) is not ported: {FSDP_ITEM_REMAINDER}")
         if client_exec == "shardmap":
             if not fed.client_axes or mesh is None:
                 raise ValueError("the shardmap cohort needs fed.client_axes "

@@ -14,10 +14,10 @@ mixed-dtype one the per-leaf kernels (the fused compress, or FedAdam-Top's
 threshold masks); the wire payload packs its bitmaps with the ``wirepack``
 kernel.
 
-On a model axis (``split``, a ``sparsify.LeafSplit`` that the spatial
-round sets) each leaf is this rank's shard: the masks keep the whole
-leaf's per-tensor threshold, always per leaf, and the diagnostics' norms
-are the whole tree's.
+On a model axis or FSDP axes (``split``, a ``sparsify.LeafSplit`` that
+the spatial and the virtual clients' rounds set) each leaf is this rank's
+shard: the masks keep the whole leaf's per-tensor threshold, always per
+leaf, and the diagnostics' norms are the whole tree's.
 """
 from __future__ import annotations
 

@@ -42,6 +42,15 @@ Client execution modes, as in the JAX package:
   runs its tensor-parallel layers, the masks keep each whole leaf's
   threshold (``sparsify.LeafSplit``), the transport packs each shard,
   and the bill counts the whole leaves.
+* ``scan`` on a mesh with no client axes (the virtual clients of the
+  ``fsdp`` plans, JAX's ``plan.clients == "virtual"``): every client one
+  after another on the whole mesh, each rank holding its shard of every
+  leaf (split over "model" and, along ``embed``, over the data[, pod]
+  axes) and its slice of each client's batch (:func:`local_batch`); the
+  loss gathers each leaf over the data group at its use, the masks keep
+  each whole leaf's threshold over the group that holds its shards, the
+  dense FedAvg folds each shard, and the bill and the metrics are the
+  whole leaves', the same on every rank.
 
 Partial participation draws the round's clients as the JAX round does,
 ``jax.random.permutation(fold_in(PRNGKey(17), round), C)`` (reproduced
@@ -167,12 +176,15 @@ def spatial(fed: FedConfig) -> bool:
 
 def check_ported(fed: FedConfig, mesh=None) -> None:
     """Raise for a configuration the port cannot run: an unknown client
-    mode; for the spatial round, a missing or mismatched client group,
-    or one with an axis beyond the client axes and "model" (FSDP:
-    ROADMAP §1.10(b))."""
+    mode; a mesh that ``ClientMesh.check`` refuses (an axis beyond the
+    client axes, "model" and a virtual mesh's FSDP axes: ROADMAP
+    §1.10(b)'s remainder); for the spatial round, a missing or
+    mismatched client group."""
     if fed.client_mode not in ("scan", "vmap"):
         raise ValueError(f"client_mode={fed.client_mode!r}: scan | vmap")
     if not spatial(fed):
+        if mesh is not None:
+            mesh.check()
         return
     if mesh is None:
         raise ValueError(f"client_axes={fed.client_axes!r}: the spatial "
@@ -188,26 +200,37 @@ def check_ported(fed: FedConfig, mesh=None) -> None:
 
 
 def _leaf_split(fed: FedConfig, comp, mesh, pspecs):
-    """The round's ``sparsify.LeafSplit`` on a model axis above 1 (else
-    ``None``), after checking that the configuration runs there."""
+    """The round's ``sparsify.LeafSplit`` on a model axis above 1 or FSDP
+    axes (else ``None``), after checking that the configuration runs
+    there: the spatial round on a model axis, the scan round on FSDP
+    axes, a threshold-mask sparse compressor."""
     from repro_torch.core import sparsify as S
-    from repro_torch.launch.mesh import TENSOR_ITEM
-    from repro_torch.models.params import model_split
-    model = None if mesh is None else mesh.model
-    if model is None:
+    from repro_torch.launch.mesh import FSDP_ITEM_REMAINDER, TENSOR_ITEM
+    from repro_torch.models.params import split_kinds
+    if mesh is None:
         return None
-    if not spatial(fed):
+    fsdp = mesh.data is not None
+    if mesh.model is None and not fsdp:
+        return None
+    if fsdp and fed.client_mode != "scan":
+        raise ValueError("leaves split over the FSDP axes need the scan "
+                         "round of the virtual clients (client_mode='scan')")
+    if not fsdp and not spatial(fed):
         raise ValueError("a model axis above 1 needs the spatial round "
                          "(client_mode='vmap' with client_axes)")
     if pspecs is None:
-        raise ValueError("a model axis above 1 needs the param specs "
-                         "(pspecs=)")
+        raise ValueError("split leaves need the param specs (pspecs=)")
     if comp.transport not in ("shared_sparse", "independent_sparse") \
-            or getattr(comp, "rule", "ssm_w") == "fairness_top":
+            or getattr(comp, "rule", "ssm_w") == "fairness_top" \
+            or fed.exact_topk:
         raise NotImplementedError(
-            f"{comp.name} on a model axis (its scales or norms over split "
-            f"leaves) is not ported: {TENSOR_ITEM}")
-    return S.LeafSplit(model, model_split(pspecs))
+            f"{comp.name}{' with exact masks' if fed.exact_topk else ''} "
+            "on split leaves (its scales, norms or sorts over a whole "
+            "leaf) is not ported: "
+            f"{FSDP_ITEM_REMAINDER if fsdp else TENSOR_ITEM}")
+    groups = {None: None, "model": mesh.model, "data": mesh.data,
+              "both": mesh.leaf}
+    return S.LeafSplit(tuple(groups[k] for k in split_kinds(pspecs, mesh)))
 
 
 def local_clients(tree, mesh):
@@ -219,6 +242,27 @@ def local_clients(tree, mesh):
         return None
     r = mesh.client_index
     return T.tree_map(lambda x: x[r:r + 1].clone(), tree)
+
+
+def local_batch(tree, mesh):
+    """This rank's slice of a virtual-client batch ``(C, global_batch,
+    ...)``: ``(C, global_batch / rows, ...)`` along dim 1, its row of the
+    mesh's (data[, pod]) rows in row-major order, the layout of JAX's
+    ``P(None, client_axes, None)`` (every model rank of a row takes the
+    same slice)."""
+    if tree is None:
+        return None
+    rows = mesh.world_size // mesh.model_size
+
+    def one(x):
+        if x.shape[1] % rows:
+            raise ValueError(f"a batch of {x.shape[1]} sequences on "
+                             f"{rows} rows")
+        n = x.shape[1] // rows
+        return x[:, mesh.client_index * n:(mesh.client_index + 1) * n] \
+            .clone()
+
+    return T.tree_map(one, tree)
 
 
 def gather_client_state(state: FedState, mesh) -> FedState:
@@ -488,14 +532,22 @@ def make_fl_round(fed: FedConfig, loss_fn: Callable,
     On a mesh with a model axis above 1, ``pspecs`` (the params'
     :class:`~repro_torch.models.params.Spec` tree) says which leaves are
     split: the state's leaves are this rank's shards, ``loss_fn`` runs
-    the split layers, and the metrics are the same on every model rank."""
+    the split layers, and the metrics are the same on every model rank.
+    The scan round on a mesh with FSDP axes (no client axes) likewise:
+    ``batches`` is then this rank's :func:`local_batch`, and ``loss_fn``
+    returns the whole batch's loss on every rank."""
     check_ported(fed, mesh)
     comp = compressors.make_compressor(fed)
     split = _leaf_split(fed, comp, mesh, pspecs)
     if split is not None:
         comp = dataclasses.replace(comp, split=split)
     n_active = active_client_count(fed)
-    client_step = make_client_step(fed, loss_fn, comp)
+    # on split leaves a payload would pack each shard with a shard's
+    # capacity, not the whole leaf's: the scan round's clients hand over
+    # the encoder's carriers instead (the round trip is bitwise where no
+    # capacity drops a value), as the spatial step does
+    client_step = make_client_step(fed, loss_fn, comp,
+                                   wire_roundtrip=split is None)
     # the spatial step skips the (bitwise) wire round trip and builds no
     # payload: its transport is the per-shard bitmap aggregate
     mesh_client_step = make_client_step(fed, loss_fn, comp,
@@ -627,7 +679,7 @@ def make_fl_round(fed: FedConfig, loss_fn: Callable,
                                            aW, aM, aV, wsum)
         # uplink accounting: the measured wire bytes when the compressor
         # ships a payload, else the paper-analytic count, times the
-        # participating clients; of the whole leaves on a model axis
+        # participating clients; of the whole leaves on a split mesh
         sizes = tuple(x.numel() for x in T.leaves(state.W)) \
             if split is None else split.sizes(state.W)
         per_client = comp.wire_bits_per_client(sizes)

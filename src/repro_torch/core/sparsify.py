@@ -31,13 +31,14 @@ on a mixed-dtype tree they are threshold MASKS (``tree_topk_masks``), which
 on the kernel backend run ``topk_mask`` per leaf: the selection passes and
 the ``apply_mask`` kernel.
 
-Leaves split over a model axis (:class:`LeafSplit`, the tensor-parallel
-round) keep the per-tensor threshold of the WHOLE leaf: ``k`` from its
-global size and the selection's counts reduced over the model group
-(``kernels/topk_mask/ops.select_tau``; the bisection reference the same
-way).  They always take the per-leaf path: the packed apply picks tau in
-its count's epilogue, where no reduction fits.  Exact masks and the
-``global`` scope raise there (ROADMAP §1.10(a)).
+Leaves split over a model axis or the FSDP axes (:class:`LeafSplit`, the
+tensor-parallel and the FSDP rounds) keep the per-tensor threshold of the
+WHOLE leaf: ``k`` from its global size and the selection's counts reduced
+over the group that holds its shards (``kernels/topk_mask/ops.select_tau``;
+the bisection reference the same way).  They always take the per-leaf
+path: the packed apply picks tau in its count's epilogue, where no
+reduction fits.  Exact masks and the ``global`` scope raise there
+(ROADMAP §1.10(a)).
 """
 from __future__ import annotations
 
@@ -96,20 +97,23 @@ def k_for(n: int, alpha: float) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class LeafSplit:
-    """How the leaves of a parameter-shaped tree lie on a model axis:
-    ``group`` the ``launch.mesh.ModelGroup``, ``split`` per leaf (flatten
-    order) whether the axis splits it (``models/params.model_split``); a
-    leaf it does not split is whole, and the same, on every rank."""
-    group: object
-    split: tuple
+    """How the leaves of a parameter-shaped tree lie on the mesh:
+    ``groups`` per leaf (flatten order) the ``launch.mesh.ModelGroup``
+    whose ranks hold its shards, one each (the model group, the FSDP
+    data group, or the leaf group of every rank for a leaf split over
+    both), or ``None`` for a leaf that is whole, and the same, on every
+    rank.  A leaf split over the data axes alone is reduced over its
+    data group only: the model ranks hold replicas of it."""
+    groups: tuple
 
     def model(self, i: int):
         """Leaf ``i``'s group, or ``None`` for a whole leaf."""
-        return self.group if self.split[i] else None
+        return self.groups[i]
 
     def numel(self, i: int, x: torch.Tensor) -> int:
         """Leaf ``i``'s whole size, ``x`` this rank's shard of it."""
-        return x.numel() * (self.group.size if self.split[i] else 1)
+        g = self.groups[i]
+        return x.numel() * (1 if g is None else g.size)
 
     def sizes(self, tree) -> tuple:
         return tuple(self.numel(i, x) for i, x in enumerate(T.leaves(tree)))
@@ -247,12 +251,15 @@ def tree_sparsify(tree, masks):
 
 def _root_of_sums(sq_leaves, split: Optional[LeafSplit]):
     """sqrt of the leaves' sums of squares added in leaf order; a split
-    leaf's sum is its shards' over the model group (one all-reduce)."""
+    leaf's sum is its shards' over its group (one all-reduce per group,
+    in the order the groups first hold a leaf)."""
     sq = list(sq_leaves)
-    idx = [] if split is None else [i for i, sp in enumerate(split.split)
-                                    if sp]
-    if idx:
-        red = split.group.all_reduce(torch.stack([sq[i] for i in idx]))
+    by_group = {}
+    for i, g in enumerate(() if split is None else split.groups):
+        if g is not None:
+            by_group.setdefault(g, []).append(i)
+    for g, idx in by_group.items():
+        red = g.all_reduce(torch.stack([sq[i] for i in idx]))
         for j, i in enumerate(idx):
             sq[i] = red[j]
     return torch.sqrt(sum(sq))

@@ -11,12 +11,15 @@ host.  :func:`select_tau` alone feeds the fused compress
 (``kernels/ssm_apply/ops.py``); :func:`topk_mask` adds the apply and
 gives the boolean mask, as ``topk_mask_kernel`` does.
 
-A leaf split over a model axis (``model``, a ``launch.mesh.ModelGroup``)
-is selected as the whole leaf: each pass runs its kernel on this rank's
-shard, then the group reduces the result before the next step reads it
-(the absmax by MAX, each count by a SUM in float64, exact where the
-float32 count of a shard is), and the tile padding is that of the whole
-leaf, counted once, on model index 0.  The kernels are the same.
+A leaf split over a model axis or the FSDP axes (``model``, the
+``launch.mesh.ModelGroup`` whose ranks hold its shards: the model group,
+the data group, or the leaf group of every rank) is selected as the whole
+leaf: each pass runs its kernel on this rank's shard, then the group
+reduces the result before the next step reads it (the absmax by MAX, each
+count by a SUM in float64, exact where the float32 count of a shard is),
+and the tile padding is that of the whole leaf, counted once, on the
+group's index 0 (the rank at 0 along every axis that splits the leaf).
+The kernels are the same.
 """
 from __future__ import annotations
 
@@ -125,9 +128,9 @@ def select_tau(x: torch.Tensor, k: int, *, model=None, n: int = None):
     ``(tau, achieved_count)``, float32 scalars on x's device.  Three
     launches on the card (absmax, two counts), as ``select_tau_kernel``.
 
-    ``model``: the model group of a leaf split over it, ``x`` this rank's
-    shard and ``n`` the whole leaf's size; tau and the count are then the
-    whole leaf's, on every rank (the module docstring).
+    ``model``: the group whose ranks hold a split leaf's shards, ``x``
+    this rank's shard and ``n`` the whole leaf's size; tau and the count
+    are then the whole leaf's, on every rank (the module docstring).
 
     The counts take in the zero padding the JAX wrapper adds up to a whole
     8192-element tile, as its kernels count it: the padding counts at every

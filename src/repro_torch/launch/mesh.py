@@ -20,9 +20,16 @@ over which the uplink and the metrics are all-gathered
 With a model axis of 1 the client group is the whole group and there is
 no model group.
 
-A mesh axis that is neither a client axis nor "model" (the ``fsdp``
-plans' sharding of the leaves over the data axes) raises
-``NotImplementedError`` naming ROADMAP §1.10(b).
+The ``virtual`` clients of the ``fsdp`` plans run on a mesh with no
+client axes: every client, one after another, on the whole mesh, its
+leaves split over "model" and, along their ``embed`` dim, over the data
+(and pod) axes (:attr:`ClientMesh.fsdp_axes`).  The groups are the same
+ranks: the group of a model index, over the data axes, is then the
+**data group** (:attr:`ClientMesh.data`, which carries the FSDP
+all-gathers and reduce-scatters), and the whole world is the **leaf
+group** (:attr:`ClientMesh.leaf`) of a leaf split over both.  Any other
+axis, and FSDP axes beside client axes, raise ``NotImplementedError``
+naming ``FSDP_ITEM_REMAINDER``.
 
 :func:`init` joins a group over a ``file://`` store (no network);
 :func:`make_test_group` is the CPU tests' gloo group, and
@@ -48,9 +55,14 @@ from repro_torch.device import DeviceLike, resolve_device
 
 #: The ROADMAP item of the tensor-parallel half: a model axis above 1.
 TENSOR_ITEM = "ROADMAP §1.10(a)"
-#: The ROADMAP item the port does not run yet: the ``virtual`` clients
-#: and the ``fsdp`` plans (the leaves sharded over the data axes).
-FSDP_ITEM = "ROADMAP §1.10(b)"
+#: What the port does not run of ROADMAP §1.10(b), the ``virtual``
+#: clients and the ``fsdp`` plans: FSDP leaves beside client axes (the
+#: spatial round), the async driver on an FSDP mesh, and the compressors
+#: whose scales, norms or sorts span a split leaf.
+FSDP_ITEM_REMAINDER = "ROADMAP §1.10(b) remainder"
+#: The axes the ``fsdp`` rules split a leaf's ``embed`` dim over, in
+#: their order there (``sharding.fsdp_axes``: data before pod).
+FSDP_AXES = ("data", "pod")
 #: The mesh axis the leaves are split on.
 MODEL_AXIS = "model"
 
@@ -94,7 +106,10 @@ def _gather_list(x: torch.Tensor, n: int, group) -> list:
 class ModelGroup:
     """The ranks that hold one client's leaves split on the model axis:
     this rank is ``index`` of ``size``.  The collectives here are plain
-    (no autograd); ``models/tensor.py`` wraps them for the layers.
+    (no autograd); ``models/tensor.py`` wraps them for the layers.  The
+    data and leaf groups of the FSDP plans are of this class too: there
+    ``index`` is this rank's shard along the split dim and ``order`` the
+    group's ranks in shard order (``None``: their rank order).
 
     A bfloat16 or float16 all-reduce runs in float32 and is cast back, on
     gloo (which refuses bfloat16) and on NCCL alike, so that the two
@@ -103,6 +118,7 @@ class ModelGroup:
     size: int
     index: int
     group: Any = None
+    order: Optional[Tuple[int, ...]] = None
 
     def chunk(self, n: int) -> Tuple[int, int]:
         """``[lo, hi)``: this rank's contiguous share of ``n`` items (as
@@ -120,8 +136,11 @@ class ModelGroup:
         return y.to(x.dtype)
 
     def all_gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
-        """The group's ``x`` concatenated along ``dim`` in rank order."""
-        return torch.cat(_gather_list(x, self.size, self.group), dim=dim)
+        """The group's ``x`` concatenated along ``dim`` in shard order."""
+        parts = _gather_list(x, self.size, self.group)
+        if self.order is not None:
+            parts = [parts[j] for j in self.order]
+        return torch.cat(parts, dim=dim)
 
     def reduce_scatter(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         """This rank's chunk along ``dim`` of ``x`` summed over the group:
@@ -133,15 +152,17 @@ class ModelGroup:
 
 @dataclasses.dataclass(frozen=True)
 class ClientMesh:
-    """One rank's view of the spatial clients' mesh.
+    """One rank's view of the clients' mesh.
 
     ``shape``: mesh axis -> size, in mesh order (JAX's ``mesh.shape``);
     the client axes' sizes multiply to the number of clients, and a
-    "model" axis splits each client's leaves.  ``group``: the client
-    group this rank all-gathers the uplink over (``None``: the default
-    group, when the model axis is 1); ``model_group``: the process group
-    of this rank's client's model ranks (``None`` with a model axis of
-    1)."""
+    "model" axis splits each client's leaves.  ``client_axes`` empty (the
+    virtual clients) makes the data[, pod] axes FSDP axes.  ``group``: the
+    ranks of this rank's model index across the rows (the client group
+    the uplink is all-gathered over, or the data group; ``None``: the
+    default group, when the model axis is 1); ``model_group``: the
+    process group of this rank's row's model ranks (``None`` with a model
+    axis of 1)."""
     shape: Dict[str, int]
     client_axes: Tuple[str, ...]
     rank: int
@@ -165,7 +186,8 @@ class ClientMesh:
 
     @property
     def client_index(self) -> int:
-        """This rank's client (row-major over the client axes)."""
+        """This rank's row: its client (row-major over the client axes),
+        or on a virtual mesh its slice of each client's batch."""
         return self.rank // self.model_size
 
     @property
@@ -181,21 +203,71 @@ class ClientMesh:
         return ModelGroup(self.model_size, self.model_index,
                           self.model_group)
 
+    @property
+    def fsdp_axes(self) -> Tuple[str, ...]:
+        """The axes the ``fsdp`` rules split a leaf's ``embed`` dim over
+        here, in their order there: the data[, pod] axes of a mesh with
+        no client axes, else none."""
+        if self.client_axes:
+            return ()
+        return tuple(a for a in FSDP_AXES if a in self.shape)
+
+    @property
+    def data(self) -> Optional[ModelGroup]:
+        """The data group: the ranks of this rank's model index over the
+        FSDP axes, ``index`` this rank's shard of a dim split over them
+        (row-major in :attr:`fsdp_axes`' order, JAX's ``("data", "pod")``,
+        not the mesh's), ``order`` the group's ranks in that order.
+        ``None`` without FSDP axes above 1."""
+        axes = self.fsdp_axes
+        size = math.prod(self.shape[a] for a in axes)
+        if size == 1:
+            return None
+        rows = [a for a in self.shape if a != MODEL_AXIS]
+
+        def shard_of(row: int) -> int:
+            c = {}
+            for a in reversed(rows):
+                c[a], row = row % self.shape[a], row // self.shape[a]
+            s = 0
+            for a in axes:
+                s = s * self.shape[a] + c[a]
+            return s
+
+        # the group's rank j is row j (the ranks ascend with the row)
+        shards = [shard_of(j) for j in range(size)]
+        order = tuple(sorted(range(size), key=shards.__getitem__))
+        return ModelGroup(size, shard_of(self.client_index), self.group,
+                          None if order == tuple(range(size)) else order)
+
+    @property
+    def leaf(self) -> Optional[ModelGroup]:
+        """The leaf group: every rank of the mesh (the default group),
+        which holds a shard of a leaf split over the data and the model
+        axes; index 0 is the rank at 0 along every axis.  Only its
+        reductions are used.  ``None`` on one rank."""
+        if self.world_size == 1:
+            return None
+        return ModelGroup(self.world_size, self.rank, None)
+
     def check(self) -> None:
         """Raise for a mesh the port does not run: client axes that are
         not axes of the mesh, or the model axis in front of one; an axis
-        beyond them and "model" (ROADMAP §1.10(b))."""
+        beyond them and "model", other than the FSDP axes of a mesh with
+        no client axes (``FSDP_ITEM_REMAINDER``)."""
         missing = [a for a in self.client_axes if a not in self.shape]
         if missing:
             raise ValueError(f"client axes {missing} are not axes of the "
                              f"mesh {self.shape}")
         other = {a: n for a, n in self.shape.items()
-                 if a not in self.client_axes and a != MODEL_AXIS and n > 1}
+                 if a not in self.client_axes and a != MODEL_AXIS
+                 and a not in self.fsdp_axes and n > 1}
         if other:
             raise NotImplementedError(
                 f"mesh axes {other} beyond the client axes "
-                f"{self.client_axes} and {MODEL_AXIS!r}: the FSDP "
-                f"sharding of the leaves is not ported yet: {FSDP_ITEM}")
+                f"{self.client_axes} and {MODEL_AXIS!r}: the leaves split "
+                f"over them (FSDP beside client axes, or another axis) are "
+                f"not ported: {FSDP_ITEM_REMAINDER}")
         axes = list(self.shape)
         if MODEL_AXIS in self.shape and self.model_size > 1 and \
                 axes[-1] != MODEL_AXIS:
@@ -223,15 +295,19 @@ def init(world_size: int, rank: int, *, store: str,
     file; it must not be left over from another group) and return this
     rank's :class:`ClientMesh`.  ``backend``: NCCL for a CUDA device,
     gloo for the CPU, unless named.  ``shape`` defaults to one client
-    axis of ``world_size``; with a model axis above 1 every rank then
-    makes the client groups (one per model index) and the model groups
-    (one per client) in the same order, and keeps its own two."""
+    axis of ``world_size``; ``client_axes=()`` is the virtual clients'
+    mesh, its data[, pod] axes FSDP axes.  With a model axis above 1
+    every rank then makes the groups of each model index across the rows
+    (client or data groups) and the model groups (one per row) in the
+    same order, and keeps its own two."""
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     if backend is None:
         backend = "nccl" if dev.type == "cuda" else "gloo"
     axes = tuple(client_axes)
+    if shape is None and not axes:
+        raise ValueError("a mesh with no client axes needs its shape")
     mesh = ClientMesh(shape=dict(shape or {axes[0]: world_size}),
                       client_axes=axes, rank=rank, device=dev)
     mesh.check()
@@ -244,15 +320,16 @@ def init(world_size: int, rank: int, *, store: str,
     dist.init_process_group(
         backend, init_method=f"file://{os.path.abspath(store)}",
         world_size=world_size, rank=rank, timeout=timeout)
-    M, C = mesh.model_size, mesh.n_clients
+    M = mesh.model_size
     if M == 1:
         return mesh
+    rows = world_size // M
     client_group = model_group = None
     for m in range(M):
-        g = dist.new_group([c * M + m for c in range(C)], timeout=timeout)
+        g = dist.new_group([c * M + m for c in range(rows)], timeout=timeout)
         if m == mesh.model_index:
             client_group = g
-    for c in range(C):
+    for c in range(rows):
         g = dist.new_group([c * M + m for m in range(M)], timeout=timeout)
         if c == mesh.client_index:
             model_group = g
@@ -261,12 +338,22 @@ def init(world_size: int, rank: int, *, store: str,
 
 
 def make_test_group(world_size: int, rank: int, store: str, *,
-                    shape: Optional[Dict[str, int]] = None) -> ClientMesh:
+                    shape: Optional[Dict[str, int]] = None,
+                    client_axes: Sequence[str] = ("data",)) -> ClientMesh:
     """The CPU tests' group: gloo over ``store``, the client axis
     ``("data",)`` (and a "model" axis where ``shape`` has one; e.g.
-    :func:`make_test_mesh`), a minute's timeout on every collective."""
+    :func:`make_test_mesh`; ``client_axes=()`` for the virtual clients),
+    a minute's timeout on every collective."""
     return init(world_size, rank, store=store, device="cpu", shape=shape,
-                timeout_s=60.0)
+                client_axes=client_axes, timeout_s=60.0)
+
+
+#: How often :func:`run_ranks` looks for a rank that ended without an
+#: answer, and how long it then waits for an answer still in the pipe (a
+#: process that has exited has written its answer there: a put into a
+#: full pipe keeps it from exiting).
+_POLL_S = 1.0
+_LAST_WORD_S = 1.0
 
 
 def _rank_main(fn, rank, world_size, store, args, results):
@@ -282,9 +369,10 @@ def run_ranks(fn: Callable, world_size: int, *, store: str,
     """``[fn(rank, world_size, store, *args) for rank in ranks]``, each
     rank in a process of its own (``spawn``), which joins the group over
     ``store`` itself.  ``fn`` must be importable by name and return
-    something picklable.  Raises with a rank's traceback if it fails, and
-    after ``timeout_s`` if a rank has not answered; every process is
-    ended before it returns."""
+    something picklable.  Raises with a rank's traceback if it fails, at
+    once when a rank's process ends without answering (killed, or a
+    native abort: its exit code named), and after ``timeout_s`` if a rank
+    has not answered; every process is ended before it returns."""
     ctx = multiprocessing.get_context("spawn")
     results = ctx.Queue()
     procs = [ctx.Process(target=_rank_main,
@@ -300,12 +388,25 @@ def run_ranks(fn: Callable, world_size: int, *, store: str,
         # its put has been read
         while len(out) < world_size and failure is None:
             left = (deadline - datetime.datetime.now()).total_seconds()
-            try:
-                rank, ok, res = results.get(timeout=max(left, 0.01))
-            except queue_mod.Empty:
+            if left <= 0:
                 failure = f"ranks {sorted(set(range(world_size)) - set(out))}"\
                           f" did not answer within {timeout_s} s"
                 break
+            try:
+                rank, ok, res = results.get(timeout=min(left, _POLL_S))
+            except queue_mod.Empty:
+                dead = [(r, p.exitcode) for r, p in enumerate(procs)
+                        if r not in out and p.exitcode is not None]
+                if not dead:
+                    continue
+                # an answer may still be on its way through the pipe
+                try:
+                    rank, ok, res = results.get(timeout=_LAST_WORD_S)
+                except queue_mod.Empty:
+                    r, code = dead[0]
+                    failure = f"rank {r} exited with code {code} without " \
+                              "answering"
+                    break
             if ok:
                 out[rank] = res
             else:

@@ -1,19 +1,28 @@
-"""Build the spatial train step of a model on the client group.
+"""Build the train step of a model on the mesh's ranks.
 
 Counterpart of ``repro/launch/steps.py``'s ``ShapeSpec``, ``SHAPES`` and
-``build_train_step`` for a spatial ``tp`` plan (``sharding.plan_for``):
-one FL client per row of a :class:`~repro_torch.launch.mesh.ClientMesh`
-(its ranks along the "model" axis hold its leaves split by
-``sharding.param_rules("tp")``, ``models/params.pspecs``), the round of
-``core/fed.py`` (``client_mode="vmap"`` over the client axes), the
-transport keyed on the compressor's ``transport`` tag (the per-shard
-bitmap aggregate for the sparse ones), threshold masks, and ``remat``
-(``"full"`` by default) in the loss, whose layers are the
-tensor-parallel ones on a model axis above 1.  The returned bundle's
-``fn(state, batch)`` runs one round on the rank.
+``build_train_step`` (``sharding.plan_for`` picks the plan):
 
-A ``virtual`` or ``fsdp`` plan is ROADMAP §1.10(b); the prefill and
-serve steps of the production mesh are §1.10(c).
+* a spatial ``tp`` plan: one FL client per row of a
+  :class:`~repro_torch.launch.mesh.ClientMesh` (its ranks along the
+  "model" axis hold its leaves split by ``sharding.param_rules("tp")``,
+  ``models/params.pspecs``), the round of ``core/fed.py``
+  (``client_mode="vmap"`` over the client axes), the transport keyed on
+  the compressor's ``transport`` tag (the per-shard bitmap aggregate for
+  the sparse ones);
+* a virtual ``fsdp`` plan, on a mesh with no client axes: ``n_virtual``
+  clients one after another (``client_mode="scan"``), each on the whole
+  mesh, the dense aggregate, every leaf split over "model" by the tp
+  rules and along its ``embed`` dim over the data[, pod] axes, and each
+  client's ``global_batch`` sequences split over the rows.
+
+Both use threshold masks and ``remat`` (``"full"`` by default) in the
+loss, whose layers are the tensor-parallel ones on a model axis above 1.
+The returned bundle's ``fn(state, batch)`` runs one round on the rank.
+
+The spatial/fsdp and virtual/tp pairs, which no plan uses, raise naming
+ROADMAP §1.10(b)'s remainder; the prefill and serve steps of the
+production mesh are §1.10(c).
 """
 from __future__ import annotations
 
@@ -25,9 +34,10 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.aggregate import make_shardmap_sparse_aggregate
 from repro_torch.core.compressors import transport_of
 from repro_torch.core.fed import FedConfig, fed_init, make_fl_round
-from repro_torch.launch.mesh import FSDP_ITEM
+from repro_torch.launch.mesh import FSDP_ITEM_REMAINDER
 from repro_torch.models import model as M
 from repro_torch.models import params as PM
+from repro_torch.models.tensor import FSDP
 from repro_torch.optim.adam import AdamHyper
 
 
@@ -50,10 +60,14 @@ SHAPES: Dict[str, ShapeSpec] = {
 @dataclasses.dataclass
 class StepBundle:
     """``fn(state, batch) -> (state, metrics)``: one round on this rank;
-    ``init(params)``: this rank's FedState from the whole params (its
-    shards of them and its ``(1, ...)`` client state); ``batch_shapes``:
-    this rank's batch, leading ``(1, per_client)``; ``static``: the
-    configuration's bookkeeping, with the params' specs (``"pspecs"``)."""
+    ``init(params, sharded=False)``: this rank's FedState from the whole
+    params (``sharded``: from this rank's shards of them, e.g.
+    ``models/params.materialize_shards``), with its client state (the
+    spatial plans' ``(1, ...)``, the virtual plans' ``(n_virtual,
+    ...)``); ``batch_shapes``: this rank's batch, leading ``(1,
+    per_client)`` (spatial) or ``(n_virtual, global_batch / rows)``
+    (virtual); ``static``: the configuration's bookkeeping, with the
+    params' specs (``"pspecs"``)."""
     fn: Callable
     init: Callable
     batch_shapes: Dict[str, tuple]
@@ -78,67 +92,94 @@ def build_train_step(cfg: ArchConfig, mesh, shape: ShapeSpec, *,
                      error_feedback: bool = False,
                      sparsify_backend: str = "auto",
                      participation: float = 1.0) -> StepBundle:
-    """The spatial train step of ``cfg`` at ``shape`` on ``mesh``: as many
+    """The train step of ``cfg`` at ``shape`` on ``mesh`` under ``plan``
+    (``sharding.plan_for(cfg.name)`` by default).  Spatial/tp: as many
     clients as the client axes hold, ``shape.global_batch // clients``
-    sequences each, each client's leaves split over the model axis."""
+    sequences each, each client's leaves split over the model axis.
+    Virtual/fsdp (``mesh`` with no client axes): ``plan.n_virtual``
+    clients of ``shape.global_batch`` sequences each, in turn on every
+    rank, each rank holding ``global_batch / rows`` of them and its
+    shard of every leaf."""
     plan = plan or shd.plan_for(cfg.name)
-    if plan.clients != "spatial" or plan.train_params != "tp":
+    pair = (plan.clients, plan.train_params)
+    if pair not in (("spatial", "tp"), ("virtual", "fsdp")):
         raise NotImplementedError(
-            f"{cfg.name}: the {plan.clients}/{plan.train_params} plan "
-            "needs the virtual clients and the FSDP sharding of the "
-            f"leaves, not ported yet: {FSDP_ITEM}")
+            f"{cfg.name}: the {plan.clients}/{plan.train_params} plan (no "
+            f"plan of the zoo uses it) is not ported: {FSDP_ITEM_REMAINDER}")
+    virtual = plan.clients == "virtual"
+    if virtual == bool(mesh.client_axes):
+        raise ValueError(f"the {plan.clients} clients take a mesh with "
+                         f"{'no ' if virtual else ''}client axes, got "
+                         f"{mesh.client_axes}")
     mesh.check()
     multi_pod = "pod" in mesh.shape
     caxes = shd.client_axes(multi_pod)
-    n_clients = mesh.n_clients
     tp = mesh.model
     pspec = PM.pspecs(M.abstract_params(cfg),
                       shd.param_rules(plan.train_params, multi_pod), mesh)
-    if aggregate is None:
-        # keyed on the compressor's transport tag: any sparse scheme gets
-        # the per-shard bitmap uplink
-        aggregate = ("sparse_gather" if transport_of(algorithm) in
-                     ("shared_sparse", "independent_sparse") else "dense")
+    rows = mesh.world_size // mesh.model_size
+    if virtual:
+        n_clients = plan.n_virtual
+        aggregate = aggregate or "dense"
+        if shape.global_batch % rows:
+            raise ValueError(f"a global batch of {shape.global_batch} on "
+                             f"{rows} rows")
+        batch_lead = (n_clients, shape.global_batch // rows)
+        dg = mesh.data
+        fsdp = None if dg is None else FSDP(dg, pspec, mesh.fsdp_axes)
+    else:
+        n_clients = mesh.n_clients
+        if aggregate is None:
+            # keyed on the compressor's transport tag: any sparse scheme
+            # gets the per-shard bitmap uplink
+            aggregate = ("sparse_gather" if transport_of(algorithm) in
+                         ("shared_sparse", "independent_sparse")
+                         else "dense")
+        batch_lead = (1, max(1, shape.global_batch // n_clients))
+        fsdp = None
     fed = FedConfig(
         algorithm=algorithm, alpha=alpha, local_epochs=local_epochs,
         n_clients=n_clients, adam=AdamHyper(lr=lr),
-        client_mode="vmap", aggregate=aggregate,
+        client_mode="scan" if virtual else "vmap", aggregate=aggregate,
         # production masks: the O(d) threshold selection, which the
         # backend sends through the kernels on the card
         exact_topk=False, mask_scope="per_tensor",
         sparsify_backend=sparsify_backend,
         error_feedback=error_feedback, participation=participation,
-        client_axes=caxes)
+        client_axes=None if virtual else caxes)
 
     n_front = _front_len(cfg, shape.seq_len)
     text_len = max(shape.seq_len - (n_front if cfg.encoder is None else 0),
                    32)
-    per_client = max(1, shape.global_batch // n_clients)
 
     def loss(params, batch):
         return M.loss_fn(cfg, params, batch["tokens"],
                          frontend_embeds=batch.get("embeds"), remat=remat,
-                         tp=tp)
+                         tp=tp, fsdp=fsdp)
 
     sparse_agg = None
-    if aggregate == "sparse_gather":
+    if aggregate == "sparse_gather" and not virtual:
         sparse_agg = make_shardmap_sparse_aggregate(
             mesh, pspec, caxes, alpha,
             shared=(transport_of(algorithm) == "shared_sparse"))
     round_fn = make_fl_round(fed, loss, sparse_agg, mesh=mesh, pspecs=pspec)
+    split = tp is not None or fsdp is not None
 
-    def init(params):
-        # every client's initial state is the same, so this rank's
-        # (1, ...) slice is a one-client cohort's, built on its shards
-        if tp is not None:
+    def init(params, sharded: bool = False):
+        # every client's initial state is the same: this rank's (1, ...)
+        # slice of the spatial cohort, or the virtual clients' stack,
+        # built on its shards
+        if split and not sharded:
             params = PM.shard(params, pspec, mesh)
-        return fed_init(dataclasses.replace(fed, n_clients=1), params)
+        return fed_init(dataclasses.replace(fed, n_clients=batch_lead[0]),
+                        params)
 
-    batch_shapes = {"tokens": (1, per_client, text_len)}
+    batch_shapes = {"tokens": batch_lead + (text_len,)}
     if n_front:
-        batch_shapes["embeds"] = (1, per_client, n_front, cfg.d_model)
+        batch_shapes["embeds"] = batch_lead + (n_front, cfg.d_model)
     return StepBundle(
         fn=round_fn, init=init, batch_shapes=batch_shapes,
         static=dict(kind="train", n_clients=n_clients, plan=plan, fed=fed,
+                    fsdp=fsdp,
                     text_len=text_len, n_front=n_front, remat=remat,
                     pspecs=pspec))

@@ -468,9 +468,10 @@ class _Dispatch(torch.autograd.Function):
         return acc, None, None, None
 
 
-def moe_fwd(p, m: MoESpec, x):
+def moe_fwd(p, m: MoESpec, x, fsdp=None):
     """x: (b, s, d) -> (y, aux), aux the load-balance loss
-    ``E * sum(frac_tokens * frac_probs)``.
+    ``E * sum(frac_tokens * frac_probs)`` (of the whole batch over the
+    data group with ``fsdp``, :func:`_route_fractions`).
 
     Dispatch is per batch row (capacity C per sequence), as in the JAX
     package: each kept slot gathers its token into an (E, C) buffer, the
@@ -495,10 +496,22 @@ def moe_fwd(p, m: MoESpec, x):
     out = out.to(x.dtype)
     if "shared" in p:
         out = out + mlp_fwd(p["shared"], x)
-    frac_tokens = _one_hot(r.eidx, E, _F32).mean(dim=(0, 1, 2))
-    frac_probs = r.probs.mean(dim=(0, 1))
+    frac_tokens, frac_probs = _route_fractions(r, E, fsdp)
     aux = E * (frac_tokens * frac_probs).sum()
     return out, aux
+
+
+def _route_fractions(r: Routing, E: int, fsdp=None):
+    """The load-balance loss's two means over the batch: the share of the
+    slots routed to each expert and each expert's mean probability.
+    ``fsdp`` (``models.tensor.FSDP``): this rank holds a slice of the
+    batch, and the means are the whole batch's, over the data group."""
+    frac_tokens = _one_hot(r.eidx, E, _F32).mean(dim=(0, 1, 2))
+    frac_probs = r.probs.mean(dim=(0, 1))
+    if fsdp is not None:
+        frac_tokens, frac_probs = fsdp.mean(frac_tokens), \
+            fsdp.mean(frac_probs)
+    return frac_tokens, frac_probs
 
 
 # ---------------------------------------------------------------------------
@@ -791,7 +804,7 @@ def mlp_fwd_tp(p, x, *, group, d_ff: int):
     return TP.reduce(torch.einsum("bsf,fd->bsd", h, p["w_down"]), group)
 
 
-def moe_fwd_tp(p, m: MoESpec, x, *, group):
+def moe_fwd_tp(p, m: MoESpec, x, *, group, fsdp=None):
     """:func:`moe_fwd` with the experts split over the model axis.
 
     The router is ("embed", "experts"): each rank's logits are its
@@ -800,14 +813,15 @@ def moe_fwd_tp(p, m: MoESpec, x, *, group):
     Each rank then fills and runs only its experts' slots (the dispatch's
     backward on those slots), combines them in slot order in float32,
     and the ranks' partial combines are summed (g).  The load-balance
-    loss is summed the same way, over each rank's experts.  The shared
-    experts follow :func:`mlp_fwd_tp`."""
+    loss is summed the same way, over each rank's experts (its means the
+    whole batch's with ``fsdp``).  The shared experts follow
+    :func:`mlp_fwd_tp`."""
     b, s, d = x.shape
     E, k = m.num_experts, m.top_k
     El = p["w_up"].shape[0]
     if El == E:
         out, aux = moe_fwd({kk: v for kk, v in p.items() if kk != "shared"},
-                           m, x)
+                           m, x, fsdp)
     else:
         x1 = TP.copy(x, group)
         logits = torch.einsum("bsd,de->bse", x1.to(_F32),
@@ -833,8 +847,7 @@ def moe_fwd_tp(p, m: MoESpec, x, *, group):
             gath = torch.where(here[:, j::k, None], gath.to(_F32), 0.0)
             part = part + gath * r.gates[:, :, j, None]
         out = TP.reduce(part, group).to(x.dtype)
-        frac_tokens = _one_hot(r.eidx, E, _F32).mean(dim=(0, 1, 2))
-        frac_probs = r.probs.mean(dim=(0, 1))
+        frac_tokens, frac_probs = _route_fractions(r, E, fsdp)
         aux = TP.reduce(E * (frac_tokens[e0:e0 + El]
                              * frac_probs[e0:e0 + El]).sum(), group)
     if "shared" in p:

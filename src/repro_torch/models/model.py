@@ -32,6 +32,14 @@ layers' ``*_tp`` forms, a vocabulary-split embedding (each rank looks up
 the tokens of its rows, zeros elsewhere, summed over the group), a
 vocabulary-split head (the tied head reads the split embedding) and a
 vocabulary-parallel cross-entropy (:func:`vocab_parallel_ce`).
+
+FSDP: with ``fsdp`` (a ``models.tensor.FSDP``) the leaves are also split
+along their ``embed`` dim over the data group, and this rank holds its
+slice of the batch.  Each leaf is gathered at its use: a layer's inside
+its pattern repeat's ``remat`` region (so the backward gathers it again
+and never holds every layer's whole weights), the embedding, final norm
+and head where they are read.  The loss is the whole batch's mean
+(``FSDP.mean``), the MoE load-balance loss the whole batch's too.
 """
 from __future__ import annotations
 
@@ -179,17 +187,18 @@ def caches_from_jax(np_caches, cfg: ArchConfig, batch: int, seq_len: int, *,
 
 def _block_fwd(cfg: ArchConfig, spec: LayerSpec, p, x, *, positions,
                enc_out=None, window_override=None, chunk=1024,
-               collect_cache=False, tp=None):
+               collect_cache=False, tp=None, fsdp=None):
     """Returns (x, aux, cache_entry): aux the MoE load-balance loss (None
     without an MoE); with ``collect_cache``, the layer's decode cache over
     the sequence (k and v, MLA's ckv, or the SSD's state and conv tail;
     with an encoder, the cross keys and values), else {}.  ``tp``: the
-    model group of split leaves (the training forward only)."""
+    model group of split leaves (the training forward only); ``fsdp``:
+    the batch split over the data group (``p`` gathered already)."""
     if tp is not None:
         return _block_fwd_tp(cfg, spec, p, x, positions=positions,
                              enc_out=enc_out,
                              window_override=window_override, chunk=chunk,
-                             tp=tp)
+                             tp=tp, fsdp=fsdp)
     h = L.rmsnorm(p["norm_mixer"], x, cfg.norm_eps)
     entry = {}
     if spec.kind == "attn":
@@ -226,13 +235,13 @@ def _block_fwd(cfg: ArchConfig, spec: LayerSpec, p, x, *, positions,
         x = x + L.mlp_fwd(p["ffn"], h)
     elif spec.moe:
         h = L.rmsnorm(p["norm_ffn"], x, cfg.norm_eps)
-        out, aux = L.moe_fwd(p["ffn"], spec.moe, h)
+        out, aux = L.moe_fwd(p["ffn"], spec.moe, h, fsdp)
         x = x + out
     return x, aux, entry
 
 
 def _block_fwd_tp(cfg: ArchConfig, spec: LayerSpec, p, x, *, positions,
-                  enc_out, window_override, chunk, tp):
+                  enc_out, window_override, chunk, tp, fsdp=None):
     """:func:`_block_fwd` on split leaves (the layers' ``*_tp`` forms)."""
     h = L.rmsnorm(p["norm_mixer"], x, cfg.norm_eps)
     if spec.kind == "attn":
@@ -257,12 +266,12 @@ def _block_fwd_tp(cfg: ArchConfig, spec: LayerSpec, p, x, *, positions,
         x = x + L.mlp_fwd_tp(p["ffn"], h, group=tp, d_ff=spec.d_ff)
     elif spec.moe:
         h = L.rmsnorm(p["norm_ffn"], x, cfg.norm_eps)
-        out, aux = L.moe_fwd_tp(p["ffn"], spec.moe, h, group=tp)
+        out, aux = L.moe_fwd_tp(p["ffn"], spec.moe, h, group=tp, fsdp=fsdp)
         x = x + out
     return x, aux, {}
 
 
-def _encoder_fwd(cfg: ArchConfig, enc_params, frames, tp=None):
+def _encoder_fwd(cfg: ArchConfig, enc_params, frames, tp=None, fsdp=None):
     """frames: (b, src, d) precomputed frame embeddings (the stub
     frontend).  Non-causal self-attention with rotary, then the GELU MLP,
     per encoder layer; the final norm."""
@@ -274,6 +283,8 @@ def _encoder_fwd(cfg: ArchConfig, enc_params, frames, tp=None):
     g = a.num_heads // a.num_kv_heads
     for i in range(cfg.encoder.num_layers):
         p = T.tree_map(lambda t: t[i], enc_params["blocks"])
+        if fsdp is not None:
+            p = fsdp.tree(p, fsdp.specs["encoder"]["blocks"], 1)
         h = L.rmsnorm(p["norm_mixer"], x, cfg.norm_eps)
         if tp is not None:
             out, _ = L.gqa_tp(p["mixer"], a, h, group=tp, positions=pos,
@@ -294,7 +305,19 @@ def _encoder_fwd(cfg: ArchConfig, enc_params, frames, tp=None):
                              p["mixer"]["wo"].reshape(-1, d))
         hf = L.rmsnorm(p["norm_ffn"], x, cfg.norm_eps)
         x = x + L.mlp_fwd(p["ffn"], hf)
-    return L.rmsnorm(enc_params["final_norm"], x, cfg.norm_eps)
+    return L.rmsnorm(_used(enc_params, "final_norm", fsdp,
+                           None if fsdp is None else fsdp.specs["encoder"]),
+                     x, cfg.norm_eps)
+
+
+def _used(params, name: str, fsdp, specs=None):
+    """``params[name]`` as its use takes it: gathered over the data group
+    with ``fsdp`` (``specs`` the spec tree beside ``params``; the whole
+    params' by default), else as it is."""
+    if fsdp is None:
+        return params[name]
+    specs = fsdp.specs if specs is None else specs
+    return fsdp.tree(params[name], specs[name])
 
 
 def _vocab_split(cfg: ArchConfig, params, tp) -> bool:
@@ -302,11 +325,11 @@ def _vocab_split(cfg: ArchConfig, params, tp) -> bool:
     return tp is not None and params["embed"].shape[0] != cfg.padded_vocab
 
 
-def _embed_tokens(cfg: ArchConfig, params, tokens, tp=None):
+def _embed_tokens(cfg: ArchConfig, params, tokens, tp=None, fsdp=None):
     """The token embeddings.  Vocabulary-split: each rank looks up the
     tokens of its rows (zeros for the others) and the group sums them, in
     float32, so the result is the whole lookup's bits."""
-    emb = params["embed"]
+    emb = _used(params, "embed", fsdp)
     tok = tokens.long()
     if not _vocab_split(cfg, params, tp):
         return emb[tok].to(DTYPES[cfg.dtype])
@@ -319,25 +342,30 @@ def _embed_tokens(cfg: ArchConfig, params, tokens, tp=None):
 
 
 def _embed_inputs(cfg: ArchConfig, params, tokens, frontend_embeds,
-                  tp=None):
+                  tp=None, fsdp=None):
     """(x, enc_out): the token embeddings, after the VLM's stub prefix
     where there is one, and the encoder's output (or None)."""
-    x = _embed_tokens(cfg, params, tokens, tp)
+    x = _embed_tokens(cfg, params, tokens, tp, fsdp)
     enc_out = None
     if cfg.encoder is not None:
-        enc_out = _encoder_fwd(cfg, params["encoder"], frontend_embeds, tp)
+        enc_out = _encoder_fwd(cfg, params["encoder"], frontend_embeds, tp,
+                               fsdp)
     elif cfg.stub_frontend and frontend_embeds is not None:
         x = torch.cat([frontend_embeds.to(x.dtype), x], dim=1)
     return x, enc_out
 
 
-def _repeat_layers(cfg: ArchConfig, params, r: int):
+def _repeat_layers(cfg: ArchConfig, params, r: int, fsdp=None):
     """(group, index in the group, spec, that layer's parameters) of
-    pattern repeat ``r``, in layer order."""
+    pattern repeat ``r``, in layer order; with ``fsdp`` each layer's
+    parameters gathered over the data group as it comes."""
     for gi, ((spec, count), gp) in enumerate(zip(pattern_groups(cfg),
                                                  params["blocks"])):
         for i in range(count):
-            yield gi, i, spec, T.tree_map(lambda a: a[r, i], gp)
+            p_one = T.tree_map(lambda a: a[r, i], gp)
+            if fsdp is not None:
+                p_one = fsdp.tree(p_one, fsdp.specs["blocks"][gi], 2)
+            yield gi, i, spec, p_one
 
 
 def _layers(cfg: ArchConfig, params):
@@ -374,13 +402,13 @@ def _remat(body, remat: str):
     return lambda *args: checkpoint(body, *args, use_reentrant=False, **kw)
 
 
-def _lm_head(cfg: ArchConfig, params, x, tp=None):
+def _lm_head(cfg: ArchConfig, params, x, tp=None, fsdp=None):
     """Logits; vocabulary-split under ``tp``: this rank's columns."""
     if _vocab_split(cfg, params, tp):
         x = TPX.copy(x, tp)
     if cfg.tie_embeddings:
-        return torch.einsum("bsd,vd->bsv", x, params["embed"])
-    return torch.einsum("bsd,dv->bsv", x, params["lm_head"])
+        return torch.einsum("bsd,vd->bsv", x, _used(params, "embed", fsdp))
+    return torch.einsum("bsd,dv->bsv", x, _used(params, "lm_head", fsdp))
 
 
 def _window_override(cfg: ArchConfig, spec: LayerSpec, long_mode: bool):
@@ -394,7 +422,7 @@ def _window_override(cfg: ArchConfig, spec: LayerSpec, long_mode: bool):
 
 def forward(cfg: ArchConfig, params, tokens, *, frontend_embeds=None,
             remat: str = "full", chunk: int = 1024,
-            long_mode: bool = False, tp=None):
+            long_mode: bool = False, tp=None, fsdp=None):
     """tokens: (b, s) integers.  frontend_embeds: (b, s_front, d) for a
     stub frontend (the VLM's prefix, prepended; the audio encoder's
     input).  Returns (logits (b, s_front + s or s, V), aux): aux the
@@ -404,18 +432,20 @@ def forward(cfg: ArchConfig, params, tokens, *, frontend_embeds=None,
     docstring).  ``long_mode``: the long shapes' window on a
     ``window_all`` model's full-attention layers (:func:`_window_override`).
     ``tp``: split leaves (the module docstring); the logits are then this
-    rank's vocabulary columns where the vocabulary is split."""
-    x, enc_out = _embed_inputs(cfg, params, tokens, frontend_embeds, tp)
+    rank's vocabulary columns where the vocabulary is split.  ``fsdp``:
+    leaves split over the data group too, and this rank's batch slice."""
+    x, enc_out = _embed_inputs(cfg, params, tokens, frontend_embeds, tp,
+                               fsdp)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
     wov = [_window_override(cfg, spec, long_mode)
            for spec, _ in pattern_groups(cfg)]
 
     def repeat(x, aux, r):
-        for gi, _, spec, p_one in _repeat_layers(cfg, params, r):
+        for gi, _, spec, p_one in _repeat_layers(cfg, params, r, fsdp):
             x, a, _ = _block_fwd(cfg, spec, p_one, x, positions=positions,
                                  enc_out=enc_out, window_override=wov[gi],
-                                 chunk=chunk, tp=tp)
+                                 chunk=chunk, tp=tp, fsdp=fsdp)
             if a is not None:
                 aux = aux + a
         return x, aux
@@ -424,8 +454,8 @@ def forward(cfg: ArchConfig, params, tokens, *, frontend_embeds=None,
     aux = torch.zeros((), dtype=_F32, device=x.device)
     for r in range(cfg.pattern_repeats):
         x, aux = body(x, aux, r)
-    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return _lm_head(cfg, params, x, tp), aux
+    x = L.rmsnorm(_used(params, "final_norm", fsdp), x, cfg.norm_eps)
+    return _lm_head(cfg, params, x, tp, fsdp), aux
 
 
 def vocab_parallel_ce(lg, tgt, tp):
@@ -447,15 +477,16 @@ def vocab_parallel_ce(lg, tgt, tp):
 
 
 def loss_fn(cfg: ArchConfig, params, tokens, *, frontend_embeds=None,
-            remat: str = "full", chunk: int = 1024, tp=None):
+            remat: str = "full", chunk: int = 1024, tp=None, fsdp=None):
     """Next-token cross-entropy over the tokens (a VLM's prefix positions
     sliced off) plus ``MOE_AUX_WEIGHT`` times the MoE load-balance loss
     (0 for a model without MoE layers).  ``tp``: split leaves, with the
     vocabulary-parallel cross-entropy where the vocabulary is split (the
-    same loss on every rank)."""
+    same loss on every rank).  ``fsdp``: this rank's batch slice, and the
+    loss the whole batch's mean over the data group."""
     logits, aux = forward(cfg, params, tokens,
                           frontend_embeds=frontend_embeds, remat=remat,
-                          chunk=chunk, tp=tp)
+                          chunk=chunk, tp=tp, fsdp=fsdp)
     n_front = 0
     if cfg.stub_frontend and frontend_embeds is not None \
             and cfg.encoder is None:
@@ -463,10 +494,13 @@ def loss_fn(cfg: ArchConfig, params, tokens, *, frontend_embeds=None,
     lg = logits[:, n_front:-1].to(_F32)
     tgt = tokens[:, 1:].long()
     if _vocab_split(cfg, params, tp):
-        return vocab_parallel_ce(lg, tgt, tp).mean() + MOE_AUX_WEIGHT * aux
-    lse = torch.logsumexp(lg, dim=-1)
-    picked = lg.gather(-1, tgt[..., None])[..., 0]
-    return (lse - picked).mean() + MOE_AUX_WEIGHT * aux
+        ce = vocab_parallel_ce(lg, tgt, tp).mean()
+    else:
+        lse = torch.logsumexp(lg, dim=-1)
+        ce = (lse - lg.gather(-1, tgt[..., None])[..., 0]).mean()
+    if fsdp is not None:
+        ce = fsdp.mean(ce)
+    return ce + MOE_AUX_WEIGHT * aux
 
 
 # ---------------------------------------------------------------------------

@@ -5,8 +5,11 @@ whose leaves are :class:`P`; :func:`materialize` turns such a tree into
 tensors.  :func:`pspecs` reads the logical axis names with a rule set
 (``sharding.param_rules``) into each leaf's :class:`Spec`, JAX's
 ``PartitionSpec`` as a plain tuple; :func:`shard` cuts a whole leaf to
-this rank's contiguous chunk (GSPMD's layout) and :func:`unshard`
-gathers it back over the model axis.
+this rank's contiguous chunk (GSPMD's layout), :func:`materialize_shards`
+draws :func:`materialize`'s numbers one whole leaf at a time and keeps
+only this rank's chunks, and :func:`unshard` gathers them back over the
+model and FSDP axes.  :func:`split_kinds` says per leaf which axes split
+it.
 """
 from __future__ import annotations
 
@@ -153,6 +156,26 @@ def _coords(mesh) -> Dict[str, int]:
     return out
 
 
+def _entry_axes(e) -> Tuple[str, ...]:
+    return (e,) if isinstance(e, str) else tuple(e)
+
+
+def split_kinds(specs, mesh) -> Tuple[Optional[str], ...]:
+    """Per leaf of a spec tree (flatten order), which axes of ``mesh`` (a
+    ``ClientMesh`` or a shape dict) above 1 split it: ``None`` (whole),
+    ``"model"``, ``"data"`` (the FSDP axes, data[, pod]) or ``"both"``."""
+    from repro_torch.launch.mesh import MODEL_AXIS
+    sizes = _mesh_sizes(mesh)
+    out = []
+    for s in T.leaves(specs):
+        axes = [a for a in s.axes() if sizes.get(a, 1) > 1]
+        model = MODEL_AXIS in axes
+        data = any(a != MODEL_AXIS for a in axes)
+        out.append("both" if model and data else "model" if model
+                   else "data" if data else None)
+    return tuple(out)
+
+
 def model_split(specs) -> Tuple[bool, ...]:
     """Per leaf of a spec tree (flatten order), whether the model axis
     splits it."""
@@ -160,43 +183,75 @@ def model_split(specs) -> Tuple[bool, ...]:
     return tuple(MODEL_AXIS in s.axes() for s in T.leaves(specs))
 
 
+def _block(spec, leaf_shape, shape: Dict[str, int],
+           coords: Dict[str, int]) -> Tuple[slice, ...]:
+    out = []
+    for dim, e in enumerate(spec):
+        n_ax, idx = 1, 0
+        for a in (() if e is None else _entry_axes(e)):
+            n = shape.get(a, 1)
+            n_ax, idx = n_ax * n, idx * n + coords.get(a, 0)
+        size = leaf_shape[dim] // n_ax
+        out.append(slice(idx * size, (idx + 1) * size))
+    return tuple(out)
+
+
+def shard_block(spec, leaf_shape, mesh) -> Tuple[slice, ...]:
+    """The slices of a whole leaf of ``leaf_shape`` that ``mesh.rank``
+    holds under ``spec`` (:func:`shard`'s layout)."""
+    return _block(spec, leaf_shape, mesh.shape, _coords(mesh))
+
+
+def _shard_leaf(x, spec, shape: Dict[str, int], coords: Dict[str, int]):
+    return x[_block(spec, x.shape, shape, coords)].contiguous()
+
+
 def shard(tree, specs, mesh):
     """This rank's contiguous chunk of every whole leaf of ``tree`` along
     each dim its :class:`Spec` names (a tuple entry row-major over its
-    axes), as GSPMD lays out a ``PartitionSpec``; replicated dims whole."""
+    axes: ``("data", "pod")`` is ``data * pod_size + pod``), as GSPMD lays
+    out a ``PartitionSpec``; replicated dims whole."""
     coords = _coords(mesh)
+    return T.tree_map(lambda x, sp: _shard_leaf(x, sp, mesh.shape, coords),
+                      tree, specs)
 
-    def one(x, spec):
-        for dim, e in enumerate(spec):
-            if e is None:
-                continue
-            axes = (e,) if isinstance(e, str) else tuple(e)
-            n_ax, idx = 1, 0
-            for a in axes:
-                n_ax, idx = n_ax * mesh.shape[a], idx * mesh.shape[a] \
-                    + coords[a]
-            size = x.shape[dim] // n_ax
-            x = x.narrow(dim, idx * size, size)
-        return x.contiguous()
 
-    return T.tree_map(one, tree, specs)
+def materialize_shards(tree, specs, mesh, seed: int,
+                       default_dtype: str = "float32",
+                       device=torch.device("cpu")):
+    """``shard(materialize(tree, seed, ...), specs, mesh)`` without the
+    whole tree: each leaf is drawn whole on ``device`` in leaf order from
+    the one generator (the same numbers), cut to this rank's chunk, and
+    freed before the next, so a rank holds its shards and one whole
+    leaf."""
+    device = torch.device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    coords = _coords(mesh)
+    return T.tree_map(lambda p, sp: _shard_leaf(
+        _init_one(p, gen, default_dtype, device), sp, mesh.shape,
+        coords).clone(), tree, specs)
 
 
 def unshard(tree, specs, mesh):
-    """The inverse of :func:`shard` over the model axis: every leaf
-    all-gathered along its model dim (every rank of the model group must
-    call it).  For tests, checkpoints and ``chip_smoke.py``."""
-    from repro_torch.launch.mesh import FSDP_ITEM, MODEL_AXIS
-    group = mesh.model
+    """The inverse of :func:`shard`: every leaf all-gathered along its
+    model dim over the model group and along its FSDP dim over the data
+    group (every rank must call it).  For tests, checkpoints and
+    ``chip_smoke.py``."""
+    from repro_torch.launch.mesh import FSDP_ITEM_REMAINDER, MODEL_AXIS
 
     def one(x, spec):
         for dim, e in enumerate(spec):
             if e is None:
                 continue
-            if e != MODEL_AXIS:
+            axes = _entry_axes(e)
+            if axes == (MODEL_AXIS,):
+                group = mesh.model
+            elif axes == tuple(a for a in mesh.fsdp_axes if a in axes):
+                group = mesh.data
+            else:
                 raise NotImplementedError(
-                    f"unshard over {e!r}: the FSDP sharding of the leaves "
-                    f"is not ported yet: {FSDP_ITEM}")
+                    f"unshard over {e!r} on a mesh with FSDP axes "
+                    f"{mesh.fsdp_axes}: {FSDP_ITEM_REMAINDER}")
             if group is not None:
                 x = group.all_gather(x, dim)
         return x

@@ -24,10 +24,23 @@ the identity that g needs.)  So between ``copy`` and ``reduce`` (or a
 ``gather``'s consumer), gradients are partial on each rank; outside, every
 rank holds the whole activation and its whole gradient, bit for bit the
 same.  A bfloat16 all-reduce adds in float32 (``ModelGroup``).
+
+The ``fsdp`` plans split the leaves' ``embed`` dim over the data group as
+well (:class:`FSDP`), where each rank holds its own slice of the batch:
+a leaf is all-gathered over the data group just before its layer uses it
+(:func:`gather`, whose backward reduce-scatters the gradient: the sum of
+every data rank's) and a leaf the data axes do not split goes through
+:func:`copy` (its gradient all-reduced over them), so every rank ends
+with its shard of the whole batch's gradient.
 """
 from __future__ import annotations
 
+import dataclasses
+from typing import Any, Tuple
+
 import torch
+
+from repro_torch import tree as T
 
 
 class _Copy(torch.autograd.Function):
@@ -114,3 +127,36 @@ def row(y: torch.Tensor, w: torch.Tensor, group, eq: str) -> torch.Tensor:
     if w.shape[0] == n:
         w = copy(w, group)[lo:hi]
     return reduce(torch.einsum(eq, y[..., lo:hi], w), group)
+
+
+@dataclasses.dataclass(frozen=True)
+class FSDP:
+    """The leaves' split over the FSDP axes: ``group`` the data group (a
+    ``launch.mesh.ModelGroup``), ``specs`` the params' ``Spec`` tree and
+    ``axes`` the FSDP axes, data[, pod]."""
+    group: Any
+    specs: Any
+    axes: Tuple[str, ...]
+
+    def use(self, x: torch.Tensor, spec, lead: int = 0) -> torch.Tensor:
+        """``x`` as the layers take it: gathered over the data group along
+        the dim its spec splits over the FSDP axes, else :func:`copy`.
+        ``lead``: leading dims of ``spec`` that ``x`` lacks (a layer's
+        slice of a stacked leaf)."""
+        for dim, e in enumerate(tuple(spec)[lead:]):
+            if e is not None and any(
+                    a in self.axes for a in ((e,) if isinstance(e, str)
+                                             else e)):
+                return gather(x, self.group, dim)
+        return copy(x, self.group)
+
+    def tree(self, tree, specs, lead: int = 0):
+        """:meth:`use` over a tree of leaves and its specs."""
+        return T.tree_map(lambda x, sp: self.use(x, sp, lead), tree, specs)
+
+    def mean(self, x: torch.Tensor) -> torch.Tensor:
+        """The mean over the data group of a per-rank mean ``x`` (each
+        rank's share of the batch the same size): ``x / size`` summed
+        forward, the identity backward (each rank's gradient is then its
+        share of the whole mean's, which the leaves' collectives sum)."""
+        return reduce(x / self.group.size, self.group)

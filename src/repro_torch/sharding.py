@@ -8,15 +8,16 @@ Counterpart of ``repro/sharding.py``, as data:
               everything else replicated (``models/params.pspecs`` turns
               the rules into each leaf's spec, ``models/tensor.py`` and
               the layers' tensor-parallel forms run them).
-``fsdp``    : tp + the d_model ("embed") dim over the data[, pod] axes.
-              Here as data: a train step with these rules raises naming
-              ROADMAP §1.10(b).
+``fsdp``    : tp + the d_model ("embed") dim over the data[, pod] axes,
+              each leaf gathered over the data group at its use
+              (``models/tensor.FSDP``).
 
 ``spatial`` : FL clients = the client axes of the mesh; each client's
               divergent replica on its own ranks (``core/fed.py``'s
               spatial round), split over its "model" ranks.
-``virtual`` : FL clients time-multiplexed over the whole group
-              (ROADMAP §1.10(b)).
+``virtual`` : FL clients time-multiplexed over the whole group (the
+              scan round on a mesh with no client axes), the leaves
+              split by the ``fsdp`` rules.
 
 :func:`cache_rules` is data only: sharded serving is ROADMAP §1.10(c).
 """

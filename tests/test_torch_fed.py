@@ -501,37 +501,50 @@ def _unknown_axis_mesh():
                       rank=0, device=torch.device("cpu"))
 
 
-def _fsdp_train_step(loss):
+def _fsdp_mesh():
+    """A virtual-client mesh view (no client axes) whose data axis splits
+    the leaves (no process group is needed to refuse it)."""
+    from repro_torch.launch.mesh import ClientMesh
+    return ClientMesh(shape={"data": 2, "model": 1}, client_axes=(),
+                      rank=0, device=torch.device("cpu"))
+
+
+def _quantized_fsdp_step(loss):
+    """Efficient-Adam's 8-bit codes on FSDP leaves: a quantizer's scale
+    spans a whole leaf."""
     from repro_torch.configs import get_config, reduce_for_smoke
     from repro_torch.launch import steps
-    from repro_torch.launch.mesh import ClientMesh
     from repro_torch.sharding import DeployPlan
     return steps.build_train_step(
-        reduce_for_smoke(get_config("mistral-large-123b")),
-        ClientMesh(shape={"data": 1}, client_axes=("data",), rank=0,
-                   device=torch.device("cpu")),
-        steps.SHAPES["train_4k"],
+        reduce_for_smoke(get_config("mistral-large-123b")), _fsdp_mesh(),
+        steps.SHAPES["train_4k"], algorithm="efficient_adam",
         plan=DeployPlan(clients="virtual", train_params="fsdp"))
 
 
 _SPATIAL = FedConfig(client_mode="vmap", client_axes=("data",),
                      n_clients=1)
+_REMAINDER = r"§1\.10\(b\) remainder"
 
 
 @pytest.mark.parametrize("build,what", [
     (lambda loss: make_fl_round(_SPATIAL, loss, mesh=_unknown_axis_mesh()),
-     r"§1\.10\(b\)"),
+     _REMAINDER),
     (lambda loss: make_async_round(_SPATIAL, loss, client_exec="shardmap",
                                    mesh=_model_axis_mesh()),
      r"§1\.10\(a\)"),
-    (_fsdp_train_step, r"§1\.10\(b\)"),
+    (lambda loss: make_async_round(FedConfig(n_clients=2), loss,
+                                   mesh=_fsdp_mesh()), _REMAINDER),
+    (_quantized_fsdp_step, _REMAINDER),
 ])
 def test_round_outside_the_slice_raises(build, what):
     """What stays outside the port raises naming its ROADMAP item: a mesh
-    axis beyond the client axes and "model" (the FSDP sharding, §1.10(b)),
-    the async driver's group cohort on a model axis above 1 (§1.10(a)),
-    and a virtual/FSDP plan's train step (§1.10(b)).  The spatial round
-    on a model axis itself runs (tests/test_torch_tensor.py)."""
+    axis beyond the client axes, "model" and a virtual mesh's FSDP axes
+    (§1.10(b)'s remainder), the async driver's group cohort on a model
+    axis above 1 (§1.10(a)), the async driver on a mesh whose data axes
+    split the leaves, and a quantized compressor on FSDP leaves (both
+    §1.10(b)'s remainder).  The spatial round on a model axis and the
+    virtual clients' FSDP round themselves run
+    (tests/test_torch_tensor.py, tests/test_torch_fsdp.py)."""
     with pytest.raises(NotImplementedError, match=what):
         build(lambda p, b: p["w"].sum())
 
