@@ -211,7 +211,37 @@ Phases:
    gradient's shard (100,663,296 elements a rank) bitwise the whole
    leaf's; absmax, count_ge and ssm_apply_ef bitwise their plain versions
    on that shard, with times; and the predicted peak of mistral's whole
-   round at this depth, in float32 and bfloat16 (not run).
+   round at this depth, in float32 and bfloat16 (not run);
+18. (after 17) sharded serving (``launch.steps.build_prefill_step`` and
+   ``build_serve_step`` on serving meshes with no client axes), gloo
+   processes with CUDA tensors sharing the card, each part's predicted
+   peak over its ranks and the whole model's checked against
+   ``SM_FIT`` of the card first (``sm_predict``), the weights and caches
+   drawn by block from a seed (``seeded_block``: any block of a leaf
+   without the whole), and each part then run whole in this process
+   from the same seeds and compared (logits and cache blocks within
+   ``SM_TOL`` of the whole's largest element, greedy picks equal where
+   the whole's top two lie apart): (a) 4 ranks, (data 2, model 2):
+   starcoder2-3b whole (30 repeats) in float32, batch 4 (2 a row), a
+   32-token prompt through the prefill step, the cache shards seated in
+   the serve step's, 16 greedy decode steps; 2 ranks, (data 1, model 2):
+   deepseek-v2-lite-16b whole (27 repeats, MLA + MoE) the same at batch
+   2; (b) gemma3-27b at full width, its first 6 of 31 specs (5 local, 1
+   global), 1 repeat, the long shape (batch 1, 524,288 positions,
+   ``kv_seq`` over "data": each rank attends over its half of the slots
+   and the softmax is combined over the data group), float32, from
+   seeded caches (no prefill), 4 decode steps at positions in each data
+   rank's half of the global cache and of the local rings; (c) kimi-k2-
+   1t-a32b at full width, 1 of 61 repeats, its ``fsdp`` plan's 2-D
+   serving in bfloat16 (the leaves' ``embed`` dims split over "data",
+   the activations gathered instead), a 16-token prompt at batch 2 and
+   16 greedy steps, within ``SM_TOL_BF16`` on every row the split run
+   routed as the whole did (a rerouted row: every flip of its experts
+   explained by a router near-tie, ``_reroutes``).  Each part prints
+   its cuts, predicted and measured peaks per rank, walls per step, the
+   bytes each group (model, data) moves per step and the elements
+   beyond its tolerance; records:
+   ``chiprun_out/phase18.json``.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.  Any failure
@@ -1016,40 +1046,55 @@ def measure(torch, name, args, kw, iters, plain_iters, cold=False):
     return rec
 
 
+#: the kernel of each launch kind of the packed wrappers (the pick is
+#: packed_apply's count)
+_PACKED_KERNELS = {"count": "packed_count_kernel",
+                   "pick": "packed_count_kernel",
+                   "apply": "packed_apply_kernel"}
+
+
 def launch_shapes(torch, name, fn, nb) -> dict:
-    """Grid, block and blocks per CTA of each kernel launch of one call of
-    a packed wrapper over ``nb`` blocks.  Grid and block are read from the
-    profiler's trace of the call and must equal the grid the launcher
-    computes (``ops.launch_shape``), which also gives the blocks per CTA
-    (a kernel argument, not in the trace)."""
+    """Grid, block and blocks per CTA of each kernel launch of a packed
+    wrapper over ``nb`` blocks.  Grid and block are read from the
+    profiler's trace of 20 calls and every traced launch of each
+    kind's kernel must equal the grid the launcher computes
+    (``ops.launch_shape``), which also gives the blocks per CTA (a kernel
+    argument, not in the trace).  The profiler drops records now and then
+    (``device_ms``), so a window of many calls needs only one launch of
+    each kernel to arrive, and a window with none is profiled again."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels.packed_topk import ops as P
     kinds = ("count",) if name == "packed_hist" else ("pick", "apply")
-    want = P.launch_shape(nb)
+    want, calls = P.launch_shape(nb), 20
     trace = ROOT / "build" / "launch_trace.json"
     trace.parent.mkdir(exist_ok=True)
-    for _ in range(PROFILER_WINDOWS):  # it drops a record now and then
+    for _ in range(PROFILER_WINDOWS):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
+            for _ in range(calls):
+                fn()
             torch.cuda.synchronize()
         prof.export_chrome_trace(str(trace))
-        launches = sorted((e for e in json.loads(trace.read_text())
-                           ["traceEvents"] if e.get("cat") == "kernel"),
-                          key=lambda e: e["ts"])
+        launches = [e for e in json.loads(trace.read_text())["traceEvents"]
+                    if e.get("cat") == "kernel"]
         trace.unlink()
-        if len(launches) == len(kinds):
+        if all(any(_PACKED_KERNELS[k] in e["name"] for e in launches)
+               for k in kinds):
             break
-    require(len(launches) == len(kinds),
-            f"{name}: {len(launches)} kernel launches in the trace")
     out = {}
-    for kind, e in zip(kinds, launches):
-        grid, block = e["args"]["grid"], e["args"]["block"]
+    for kind in kinds:
+        seen = [e for e in launches if _PACKED_KERNELS[kind] in e["name"]]
+        require(seen, f"{name}: no {_PACKED_KERNELS[kind]} launch in "
+                      f"{PROFILER_WINDOWS} traced windows of {calls} calls")
         g, c = want[kind]
-        require(grid == [g, 1, 1] and block[1:] == [1, 1],
-                f"{name} {kind}: grid {grid} block {block}, the launcher "
-                f"says grid {g}")
-        out[kind] = {"grid": g, "block": block[0], "blocks_per_cta": c}
+        grids = {(tuple(e["args"]["grid"]), tuple(e["args"]["block"]))
+                 for e in seen}
+        for grid, block in grids:
+            require(grid == (g, 1, 1) and block[1:] == (1, 1),
+                    f"{name} {kind}: grid {list(grid)} block "
+                    f"{list(block)}, the launcher says grid {g}")
+        out[kind] = {"grid": g, "block": next(iter(grids))[1][0],
+                     "blocks_per_cta": c}
     return out
 
 
@@ -4847,6 +4892,711 @@ def fsdp_round_prediction(ranks) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: sharded serving
+# ---------------------------------------------------------------------------
+
+SM_MESH = {"data": 2, "model": 2}
+SM_MESH_TP = {"data": 1, "model": 2}
+SM_WORLD = 4
+#: (a) (name, mesh, global batch): each whole, a 32-token prompt through
+#: the prefill step, then 16 greedy decode steps, in float32
+SM_A = (("starcoder2-3b", SM_MESH, 4), ("deepseek-v2-lite-16b", SM_MESH_TP,
+                                         2))
+SM_PROMPT, SM_GEN = 32, 16
+#: (b) gemma3-27b at full width, its first 6 specs (5 local, 1 global), 1
+#: repeat, long_500k (batch 1, 524,288 positions, kv_seq over "data"), in
+#: float32, decoding from seeded caches at positions in each data rank's
+#: half of the global cache (and of the local rings)
+SM_LONG_ARCH, SM_LONG_SPECS = "gemma3-27b", 6
+SM_LONG_POS = (262142, 262143, 262144, 524287)
+SM_CACHE_STD = 0.5
+#: (c) kimi-k2-1t-a32b at full width, 1 of 61 repeats, the 2-D serving of
+#: its fsdp plan, bfloat16: a 16-token prompt at batch 2, 16 greedy steps
+SM_C_ARCH, SM_C_REPEATS, SM_C_BATCH, SM_C_PROMPT, SM_C_GEN = \
+    "kimi-k2-1t-a32b", 1, 2, 16, 16
+#: logits and cache blocks against the whole model's: within this share of
+#: the whole's largest |element| (float32 parts), or SM_TOL_BF16 (c)
+SM_TOL = 1e-4
+SM_TOL_BF16 = 0.05
+SM_FIT = 0.9
+#: a rank's activations, collectives' staging and allocator slack beyond
+#: its shards and caches (the prediction's margin)
+SM_ACT_BYTES = 1 << 30
+#: the seeded weights' and caches' chunk: each drawn from its own
+#: generator, so that any block of a leaf is made without the whole
+SEED_CHUNK = 1 << 24
+
+
+def seeded_block(torch, p, block, seed, salt, dtype, dev, std=None):
+    """The elements at ``block`` (slices) of the whole leaf ``p`` (a ``P``)
+    drawn in flat chunks of ``SEED_CHUNK``, chunk j from a generator
+    seeded by (``seed``, ``salt``, j): N(0, std^2) by the leaf's init rule
+    (``std`` overrides it; zeros and ones otherwise as they are), cast to
+    ``dtype``.  Any block of the leaf, the whole one included, holds the
+    same numbers at the same places."""
+    shape = p.shape
+    bshape = tuple(s.stop - s.start for s in block)
+    if std is None:
+        if p.init in ("zeros", "ones"):
+            return torch.full(bshape, float(p.init == "ones"), dtype=dtype,
+                              device=dev)
+        fan_in = p.fan_in or (shape[-2] if len(shape) >= 2 else shape[-1])
+        std = 1.0 / math.sqrt(max(1, fan_in)) if p.init == "scaled" \
+            else 0.02
+    out = torch.empty(bshape, dtype=dtype, device=dev)
+    flat = out.view(-1)
+    n = math.prod(shape)
+    whole = bshape == tuple(shape)
+
+    def ravel(idx):
+        r = 0
+        for i, d in zip(idx, shape):
+            r = r * d + i
+        return r
+
+    first = ravel([s.start for s in block])
+    last = ravel([s.stop - 1 for s in block])
+    for j in range((n + SEED_CHUNK - 1) // SEED_CHUNK):
+        a, b = j * SEED_CHUNK, min(n, (j + 1) * SEED_CHUNK)
+        if b <= first or a > last:
+            continue
+        gen = torch.Generator(device=dev).manual_seed(
+            (seed * 1_000_003 + salt) * 1_000_003 + j)
+        x = torch.randn(b - a, generator=gen, dtype=torch.float32,
+                        device=dev).mul_(std).to(dtype)
+        if whole:
+            flat[a:b] = x
+            continue
+        idx = torch.arange(a, b, device=dev)
+        keep = torch.ones(b - a, dtype=torch.bool, device=dev)
+        local = torch.zeros_like(idx)
+        stride = 1
+        for d in reversed(range(len(shape))):
+            c = idx % shape[d]
+            idx = idx // shape[d]
+            keep &= (c >= block[d].start) & (c < block[d].stop)
+            local += (c - block[d].start) * stride
+            stride *= bshape[d]
+        flat[local[keep]] = x[keep]
+    return out
+
+
+def seeded_tree(torch, meta, specs, mesh, seed, dtype, dev, salt=0,
+                std=None):
+    """``seeded_block`` of every leaf of ``meta``: this rank's blocks under
+    ``specs`` on ``mesh``, or the whole leaves with ``mesh`` None."""
+    from repro_torch import tree as T
+    from repro_torch.models import params as PM
+    leaves, td = T.flatten(meta)
+    spec_leaves = T.leaves(specs) if specs is not None else \
+        [None] * len(leaves)
+    out = []
+    for i, (p, sp) in enumerate(zip(leaves, spec_leaves)):
+        block = tuple(slice(0, n) for n in p.shape) if mesh is None else \
+            PM.shard_block(sp, p.shape, mesh)
+        out.append(seeded_block(torch, p, block, seed, salt + i,
+                                PM.leaf_dtype(p, dtype), dev, std))
+    return td.unflatten(out)
+
+
+def _tree_bytes(meta, specs, shape, dtype) -> tuple:
+    """(bytes, the largest leaf's bytes) of a rank's blocks of ``meta``
+    under ``specs`` on a mesh of ``shape`` (the whole tree with ``specs``
+    None)."""
+    from repro_torch import tree as T
+    from repro_torch.models import params as PM
+    sizes = [math.prod(p.shape if specs is None else PM.shard_shape(
+        sp, p.shape, shape)) * {"float32": 4, "bfloat16": 2}[p.dtype or dtype]
+        for p, sp in zip(T.leaves(meta), T.leaves(specs) if specs is not None
+                         else [None] * len(T.leaves(meta)))]
+    return sum(sizes), max(sizes)
+
+
+def sm_cfg(name, smoke, dtype):
+    """The part's configuration: full width (the smoke config on the
+    CPU), whole unless cut as the part says."""
+    import dataclasses as dc
+    from repro_torch.configs import get_config, reduce_for_smoke
+    cfg = get_config(name)
+    if smoke:
+        cfg = reduce_for_smoke(cfg)
+    if name == SM_LONG_ARCH:
+        cfg = dc.replace(cfg, layer_pattern=cfg.layer_pattern[:SM_LONG_SPECS],
+                         pattern_repeats=1)
+    if name == SM_C_ARCH and not smoke:
+        cfg = dc.replace(cfg, pattern_repeats=SM_C_REPEATS)
+    return dc.replace(cfg, dtype=dtype)
+
+
+def sm_predict(cfg, pspecs, cmeta, cspecs, shape, world) -> dict:
+    """Predicted peak bytes of a rank: its parameter and cache blocks, two
+    float32 copies of its largest cache block (the attention's scores
+    read them so), and ``SM_ACT_BYTES``; and of the whole model on one
+    process afterwards, the same whole."""
+    from repro_torch import tree as T
+    from repro_torch.models import model as Mdl
+    meta = Mdl.abstract_params(cfg)
+    def one(ps, cs):
+        params, _ = _tree_bytes(meta, ps, shape, cfg.dtype)
+        caches, big = _tree_bytes(cmeta, cs, shape, cfg.dtype)
+        return {"params": params, "caches": caches,
+                "peak": params + caches + 2 * 2 * big + SM_ACT_BYTES}
+
+    rank, whole = one(pspecs, cspecs), one(None, None)
+    return {"rank": rank, "ranks": world * rank["peak"], "whole": whole,
+            "n_params": sum(math.prod(p.shape) for p in T.leaves(meta))}
+
+
+def _np32(x):
+    return x.detach().float().cpu().numpy()
+
+
+def _peak(torch, dev):
+    return torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" \
+        else None
+
+
+def _reset_peak(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+def _step_counts(MM, mesh, torch, fn):
+    """``fn()``'s result, its wall (synchronised) and the bytes each group
+    moved."""
+    with _count_collectives(MM, mesh) as cnt:
+        t0 = time.perf_counter()
+        out = fn()
+        _sync(torch, mesh.device)
+        wall = time.perf_counter() - t0
+    return out, wall, dict(cnt)
+
+
+class RouteLog:
+    """The MoE routings of the calls made while it is entered
+    (``layers._route`` wrapped): each call's experts and probabilities,
+    kept on the device until :meth:`take`."""
+
+    def __init__(self):
+        from repro_torch.models import layers as L
+        self.L, self.calls = L, []
+
+    def __enter__(self):
+        fn = self.fn = self.L._route
+
+        def rec(m, logits):
+            r = fn(m, logits)
+            self.calls.append((r.eidx, r.probs))
+            return r
+
+        self.L._route = rec
+        return self
+
+    def __exit__(self, *exc):
+        self.L._route = self.fn
+
+    def take(self):
+        """``(experts (b, calls, s, k), probabilities (b, calls, s, E))``
+        of the calls since the last take, on the host; ``(None, None)``
+        without an MoE."""
+        import numpy as np
+        calls, self.calls = self.calls, []
+        if not calls:
+            return None, None
+        return (np.stack([e.cpu().numpy() for e, _ in calls], 1),
+                np.stack([p.float().cpu().numpy() for _, p in calls], 1))
+
+
+def _mean_bytes(counts) -> dict:
+    keys = sorted({k for c in counts for k in c})
+    return {k: sum(c.get(k, 0) for c in counts) / len(counts) for k in keys}
+
+
+def sm_prompt(torch, cfg, batch, n, seed):
+    g = torch.Generator().manual_seed(seed + 11)
+    return torch.randint(0, cfg.vocab_size, (batch, n), generator=g,
+                         dtype=torch.int32)
+
+
+def sm_greedy_part(torch, MM, mesh, cfg, batch, prompt, gen, seed, card,
+                   world, cuts):
+    """(a) and (c) on this rank: the prefill step over ``prompt`` tokens
+    of this rank's rows, the caches seated in the serve step's, ``gen``
+    greedy decode steps; the logits, picks and cache blocks for the
+    comparison, walls, peak and bytes per group."""
+    from repro_torch import tree as T
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.serve import pick
+    from repro_torch.models import model as Mdl
+    from repro_torch.sharding import plan_for
+    dev = mesh.device
+    pre_shape = ST.ShapeSpec("prefill_32k", prompt, batch, "prefill")
+    dec_shape = ST.ShapeSpec("decode_32k", prompt + gen, batch, "decode")
+    # the model's own plan (a smoke config's name has none)
+    plan = plan_for(cfg.name.removesuffix("-smoke"))
+    prefill = ST.build_prefill_step(cfg, mesh, pre_shape, plan=plan)
+    serve = ST.build_serve_step(cfg, mesh, dec_shape, plan=plan)
+    pspecs, cspecs = serve.static["pspecs"], serve.static["cspecs"]
+    cmeta = Mdl.cache_meta(cfg, batch, prompt + gen)
+    pred = sm_predict(cfg, pspecs, cmeta, cspecs, mesh.shape, world)
+    pred["card_bytes"] = card
+    require(pred["ranks"] <= SM_FIT * card and pred["whole"]["peak"]
+            <= SM_FIT * card, f"phase 18 {cfg.name} predicted not to fit: "
+            f"{pred}")
+    rec = {"cfg": cfg.name, "dtype": cfg.dtype, "cuts": cuts,
+           "mesh": dict(mesh.shape), "predicted": pred,
+           "two_d": serve.static["fsdp"] is not None}
+    _reset_peak(torch, dev)
+    t0 = time.perf_counter()
+    params = seeded_tree(torch, Mdl.abstract_params(cfg), pspecs, mesh,
+                         seed, cfg.dtype, dev)
+    _sync(torch, dev)
+    rec["init_s"] = time.perf_counter() - t0
+    b_loc = serve.batch_shapes["token"][0]
+    rows = mesh.axis_group("data")
+    r0 = 0 if rows is None else rows.index * b_loc
+    toks = sm_prompt(torch, cfg, batch, prompt, 0)[r0:r0 + b_loc].to(dev)
+    routes = RouteLog()
+    with routes:
+        (logits, pre), rec["prefill_s"], rec["prefill_bytes"] = \
+            _step_counts(MM, mesh, torch,
+                         lambda: prefill.fn(params, {"tokens": toks}))
+        route = [routes.take()]
+        caches = Mdl.seat_caches(serve.new_caches(), pre)
+        del pre
+        rec["rows"] = [r0, b_loc]
+        rec["prefill_logits"] = _np32(logits)
+        picks, step_logits, walls, counts = [], [], [], []
+        for i in range(gen):
+            nxt = pick(logits, cfg.vocab_size)
+            picks.append(nxt)
+            (logits, _), wall, cnt = _step_counts(
+                MM, mesh, torch, lambda: serve.fn(params, caches,
+                                                  prompt + i, nxt))
+            walls.append(wall)
+            counts.append(cnt)
+            step_logits.append(_np32(logits))
+            route.append(routes.take())
+    rec.update(route_e=[e for e, _ in route], route_p=[p for _, p in route])
+    rec.update(peak_bytes=_peak(torch, dev), step_s=walls,
+               step_bytes=_mean_bytes(counts),
+               picks=torch.stack(picks, 1).cpu().numpy(),
+               step_logits=step_logits,
+               caches=[_np32(x) for x in T.leaves(caches)])
+    del params, caches
+    _free(torch)
+    return rec
+
+
+def sm_long_part(torch, MM, mesh, cfg, seed, card, world, cuts, seq):
+    """(b) on this rank: the long shape's serve step from seeded caches
+    (this rank's slots of each leaf), decoding at ``SM_LONG_POS``; the
+    logits and the written slots it holds."""
+    from repro_torch import tree as T
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import model as Mdl
+    dev = mesh.device
+    shape = ST.ShapeSpec("long_500k", seq, 1, "long")
+    serve = ST.build_serve_step(cfg, mesh, shape)
+    pspecs, cspecs = serve.static["pspecs"], serve.static["cspecs"]
+    cmeta = Mdl.cache_meta(cfg, 1, seq, True)
+    pred = sm_predict(cfg, pspecs, cmeta, cspecs, mesh.shape, world)
+    pred["card_bytes"] = card
+    require(pred["ranks"] <= SM_FIT * card and pred["whole"]["peak"]
+            <= SM_FIT * card, f"phase 18 (b) predicted not to fit: {pred}")
+    rec = {"cfg": cfg.name, "dtype": cfg.dtype, "cuts": cuts,
+           "mesh": dict(mesh.shape), "predicted": pred,
+           "kv_group": serve.static["kv"].group.size}
+    _reset_peak(torch, dev)
+    t0 = time.perf_counter()
+    params = seeded_tree(torch, Mdl.abstract_params(cfg), pspecs, mesh,
+                         seed, cfg.dtype, dev)
+    caches = seeded_tree(torch, cmeta, cspecs, mesh, seed, cfg.dtype, dev,
+                         salt=1 << 20, std=SM_CACHE_STD)
+    _sync(torch, dev)
+    rec["init_s"] = time.perf_counter() - t0
+    positions = sm_long_positions(seq)
+    toks = sm_prompt(torch, cfg, 1, len(positions), 0).to(dev)
+    logits, walls, counts = [], [], []
+    for i, pos in enumerate(positions):
+        (lg, _), wall, cnt = _step_counts(
+            MM, mesh, torch, lambda: serve.fn(params, caches, pos,
+                                              toks[:, i]))
+        logits.append(_np32(lg))
+        walls.append(wall)
+        counts.append(cnt)
+    layout = Mdl.decode_layout(cfg, seq, True)
+    held = {}
+    leaves = T.leaves(caches)
+    gi_of = [gi for gi, g in enumerate(caches) for _ in T.leaves(g)]
+    for j, x in enumerate(leaves):
+        _, ring, _, clen = layout[gi_of[j]]
+        n_loc = x.shape[3]
+        lo = 0 if n_loc == clen else \
+            serve.static["kv"].group.index * n_loc
+        for pos in positions:
+            slot = pos % clen if ring else pos
+            if lo <= slot < lo + n_loc:
+                held[(j, slot)] = _np32(x[:, :, :, slot - lo])
+    rec.update(peak_bytes=_peak(torch, dev), step_s=walls,
+               step_bytes=_mean_bytes(counts), step_logits=logits,
+               written=held, positions=positions)
+    del params, caches, leaves
+    _free(torch)
+    return rec
+
+
+def sm_long_positions(seq):
+    """``SM_LONG_POS`` at the full sequence; at a cut one, the same places
+    relative to its halves."""
+    if seq == 524288:
+        return SM_LONG_POS
+    h = seq // 2
+    return (h - 2, h - 1, h, seq - 1)
+
+
+def serve_mesh_rank(rank, world, store, seed, part, device="cuda",
+                    smoke=False):
+    """Phase 18 on one rank of a gloo group of CUDA tensors sharing the
+    card, a serving mesh (no client axes): ``part`` "a" (the 4 ranks'
+    starcoder2-3b, (b) and (c)) or "a_tp" (deepseek-v2-lite-16b's 2
+    ranks)."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    from repro_torch.device import exact_float32
+    from repro_torch.launch import mesh as MM
+
+    exact_float32()
+    dev = torch.device(device)
+    shape = SM_MESH if part == "a" else SM_MESH_TP
+    mesh = MM.init(world, rank, store=store, device=dev, backend="gloo",
+                   shape=shape, client_axes=(), timeout_s=300)
+    card = torch.cuda.get_device_properties(0).total_memory \
+        if dev.type == "cuda" else float("inf")
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    out = {"rank": rank}
+    reset_launches()
+    try:
+        t0 = time.perf_counter()
+        if part == "a_tp":
+            name, _, batch = SM_A[1]
+            out["a"] = {name: sm_greedy_part(
+                torch, MM, mesh, sm_cfg(name, smoke, "float32"), batch,
+                SM_PROMPT, SM_GEN, seed, card, world,
+                {"batch": batch, "prompt": SM_PROMPT, "gen": SM_GEN})}
+        else:
+            name, _, batch = SM_A[0]
+            out["a"] = {name: sm_greedy_part(
+                torch, MM, mesh, sm_cfg(name, smoke, "float32"), batch,
+                SM_PROMPT, SM_GEN, seed, card, world,
+                {"batch": batch, "prompt": SM_PROMPT, "gen": SM_GEN})}
+            cfg = sm_cfg(SM_LONG_ARCH, smoke, "float32")
+            seq = 256 if smoke else 524288
+            out["b"] = sm_long_part(
+                torch, MM, mesh, cfg, seed, card, world,
+                {"specs": f"first {SM_LONG_SPECS} of 31 (5 local, 1 "
+                 "global)", "repeats": "1 of 2",
+                 "batch": 1, "seq": seq, "caches": "seeded, no prefill",
+                 "steps": len(sm_long_positions(seq))}, seq)
+            cfg = sm_cfg(SM_C_ARCH, smoke, "bfloat16")
+            out["c"] = sm_greedy_part(
+                torch, MM, mesh, cfg, SM_C_BATCH, SM_C_PROMPT, SM_C_GEN,
+                seed, card, world,
+                {"repeats": f"{cfg.pattern_repeats} of 61",
+                 "batch": SM_C_BATCH, "prompt": SM_C_PROMPT,
+                 "gen": SM_C_GEN})
+        out["rank_s"] = time.perf_counter() - t0
+        out["launches"] = dict(LAUNCHES)
+        return out
+    finally:
+        mesh.close()
+
+
+def _assemble_rows(ranks, key, i=None):
+    """Every row of ``key`` from the ranks (model index 0 of each row)."""
+    import numpy as np
+    parts = {}
+    for rk in ranks:
+        x = rk[key] if i is None else rk[key][i]
+        parts.setdefault(rk["rows"][0], x)
+    return np.concatenate([parts[r] for r in sorted(parts)])
+
+
+def _beyond(got, want, tol, rows=None) -> tuple:
+    """(largest |got - want| over the largest |want|, elements beyond
+    ``tol`` of it, elements), over the rows (first dim) ``rows`` selects
+    (every row by default; the scale is every row's)."""
+    import numpy as np
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    scale = max(float(np.abs(want).max()), 1e-30)
+    d = np.abs(got - want)
+    if rows is not None:
+        d = d[rows]
+    if not d.size:
+        return 0.0, 0, 0
+    return float(d.max() / scale), int((d > tol * scale).sum()), int(d.size)
+
+
+def _reroutes(recs, i, whole, res):
+    """The batch rows whose MoE routing in phase ``i`` (0 the prefill,
+    then each step) differs between the split run and the whole, bool
+    (b,): a token whose set of experts differs at some layer.  Such a
+    flip needs the whole's k-th and (k+1)-th probabilities of the token
+    to lie within twice the largest difference between the two runs'
+    probabilities of the token (the rounding of the split's other order
+    of operations, a bfloat16 near-tie); ``res["rerouted"]`` counts the
+    rows and, third, the flips that no such near-tie explains."""
+    import numpy as np
+    we, wp = whole
+    if we is None:
+        return np.zeros(sum({rk["rows"][0]: rk["rows"][1]
+                             for rk in recs}.values()), bool)
+    se = _assemble_rows(recs, "route_e", i)
+    sp = _assemble_rows(recs, "route_p", i)
+    k = we.shape[-1]
+    differ = (np.sort(se, -1) != np.sort(we, -1)).any(-1)
+    top = -np.sort(-wp, -1)
+    gap = top[..., k - 1] - top[..., k]
+    noise = np.abs(sp - wp).max(-1)
+    res["rerouted"][2] += int((differ & (gap > 2 * noise)).sum())
+    moved = differ.reshape(len(differ), -1).any(1)
+    res["rerouted"][0] += int(moved.sum())
+    return moved
+
+
+def sm_whole_greedy(torch, recs, cfg, batch, prompt, gen, seed, dev, tol):
+    """The whole model on this process from the same seeds, teacher-forced
+    with the split run's picks, against the ranks' records: the prefill
+    and step logits, the greedy picks where the whole's top two lie more
+    than ``tol`` of its largest logit apart, each rank's cache blocks."""
+    import numpy as np
+    from repro_torch import tree as T
+    from repro_torch.launch import mesh as MM
+    from repro_torch.models import model as Mdl
+    from repro_torch.models import params as PM
+    from repro_torch.sharding import cache_rules
+    _reset_peak(torch, dev)
+    t0 = time.perf_counter()
+    params = seeded_tree(torch, Mdl.abstract_params(cfg), None, None, seed,
+                         cfg.dtype, dev)
+    _sync(torch, dev)
+    out = {"init_s": time.perf_counter() - t0}
+    toks = sm_prompt(torch, cfg, batch, prompt, 0).to(dev)
+    picks = torch.from_numpy(_assemble_rows(recs, "picks")).to(dev)
+    res = {"prefill": [], "steps": [], "picks_differ": 0,
+           "picks_clear": 0, "caches": [], "rerouted": [0, 0, 0]}
+    walls = []
+    routes = RouteLog()
+
+    def held(got, want, moved):
+        # rows the split run routed as the whole did are held to ``tol``;
+        # a rerouted row's elements beyond it are counted apart
+        res["rerouted"][1] += _beyond(got, want, tol, moved)[1]
+        return _beyond(got, want, tol, ~moved)
+
+    with torch.inference_mode(), routes:
+        t0 = time.perf_counter()
+        lg, pre = Mdl.prefill(cfg, params, toks)
+        _sync(torch, dev)
+        out["prefill_s"] = time.perf_counter() - t0
+        moved = _reroutes(recs, 0, routes.take(), res)
+        res["prefill"] = held(_assemble_rows(recs, "prefill_logits"),
+                              _np32(lg), moved)
+        caches = Mdl.seat_caches(PM.materialize(
+            Mdl.cache_meta(cfg, batch, prompt + gen), 0, cfg.dtype, dev),
+            pre)
+        del pre
+        for i in range(gen):
+            want = _np32(lg)
+            top2 = np.sort(want, axis=-1)[:, -2:]
+            clear = ((top2[:, 1] - top2[:, 0]) > tol * np.abs(want).max()) \
+                & ~moved
+            res["picks_clear"] += int(clear.sum())
+            res["picks_differ"] += int((want.argmax(-1) != picks[:, i].cpu()
+                                        .numpy())[clear].sum())
+            t0 = time.perf_counter()
+            lg, _ = Mdl.decode_step(cfg, params, caches, prompt + i,
+                                    picks[:, i], seq_len=prompt + gen)
+            _sync(torch, dev)
+            walls.append(time.perf_counter() - t0)
+            moved = _reroutes(recs, i + 1, routes.take(), res)
+            res["steps"].append(held(
+                _assemble_rows(recs, "step_logits", i), _np32(lg), moved))
+        cspecs = PM.pspecs(Mdl.cache_meta(cfg, batch, prompt + gen),
+                           cache_rules("decode", False), recs[0]["mesh"])
+        whole = T.leaves(caches)
+        for j, (w, sp) in enumerate(zip(whole, T.leaves(cspecs))):
+            worst = [0.0, 0, 0]
+            for rk in recs:
+                view = MM.ClientMesh(shape=rk["mesh"], client_axes=(),
+                                     rank=rk["rank"], device=dev)
+                blk = PM.shard_block(sp, tuple(w.shape), view)
+                e = _beyond(rk["caches"][j], _np32(w[blk]), tol)
+                worst = [max(worst[0], e[0]), worst[1] + e[1],
+                         worst[2] + e[2]]
+            res["caches"].append(worst)
+    out.update(peak_bytes=_peak(torch, dev), step_s=walls, vs_split=res)
+    del params, caches
+    _free(torch)
+    return out
+
+
+def sm_whole_long(torch, recs, cfg, seed, dev, seq, tol):
+    """(b)'s whole step on this process from the same seeded params and
+    caches: the logits at each position and the written slots against
+    the ranks'."""
+    from repro_torch import tree as T
+    from repro_torch.launch import mesh as MM
+    from repro_torch.models import model as Mdl
+    from repro_torch.models import params as PM
+    from repro_torch.sharding import cache_rules
+    _reset_peak(torch, dev)
+    params = seeded_tree(torch, Mdl.abstract_params(cfg), None, None, seed,
+                         cfg.dtype, dev)
+    cmeta = Mdl.cache_meta(cfg, 1, seq, True)
+    caches = seeded_tree(torch, cmeta, None, None, seed, cfg.dtype, dev,
+                         salt=1 << 20, std=SM_CACHE_STD)
+    positions = sm_long_positions(seq)
+    toks = sm_prompt(torch, cfg, 1, len(positions), 0).to(dev)
+    res = {"steps": [], "written": [0.0, 0, 0]}
+    walls = []
+    with torch.inference_mode():
+        for i, pos in enumerate(positions):
+            t0 = time.perf_counter()
+            lg, _ = Mdl.decode_step(cfg, params, caches, pos, toks[:, i],
+                                    seq_len=seq, long_mode=True)
+            _sync(torch, dev)
+            walls.append(time.perf_counter() - t0)
+            res["steps"].append(_beyond(recs[0]["step_logits"][i],
+                                        _np32(lg), tol))
+        leaves = T.leaves(caches)
+        for rk in recs:
+            view = MM.ClientMesh(shape=rk["mesh"], client_axes=(),
+                                 rank=rk["rank"], device=dev)
+            specs = T.leaves(PM.pspecs(cmeta, cache_rules("long", False),
+                                       rk["mesh"]))
+            for (j, slot), x in rk["written"].items():
+                blk = PM.shard_block(specs[j], tuple(leaves[j].shape), view)
+                w = leaves[j][:, :, :, slot][blk[:3] + blk[4:]]
+                e = _beyond(x, _np32(w), tol)
+                res["written"] = [max(res["written"][0], e[0]),
+                                  res["written"][1] + e[1],
+                                  res["written"][2] + e[2]]
+    out = {"peak_bytes": _peak(torch, dev), "step_s": walls,
+           "vs_split": res}
+    del params, caches, leaves
+    _free(torch)
+    return out
+
+
+def _sm_failures(label, res, tol) -> list:
+    """The checks of a part's comparison: logits (of the rows routed as
+    the whole routed them) and caches, no element beyond the tolerance;
+    every routing flip explained by a near-tie; greedy picks."""
+    out = []
+    for what in ("prefill", "steps", "caches", "written"):
+        items = res.get(what)
+        if not items:
+            continue
+        items = [items] if isinstance(items[0], (int, float)) else items
+        n_bad = sum(i[1] for i in items)
+        n = sum(i[2] for i in items)
+        if n_bad:
+            out.append(f"{label} {what}: {n_bad} of {n} elements beyond "
+                       f"{tol} of the whole's largest")
+    if res.get("rerouted", [0, 0, 0])[2]:
+        out.append(f"{label}: {res['rerouted'][2]} tokens routed to other "
+                   f"experts than the whole's where no near-tie explains it")
+    if res.get("picks_differ"):
+        out.append(f"{label}: {res['picks_differ']} greedy picks differ "
+                   f"where the whole's top two lie apart")
+    return out
+
+
+def phase_serve_mesh(torch, seed, device="cuda", smoke=False):
+    """Phase 18: gloo ranks of CUDA tensors sharing the card run the
+    sharded prefill and serve steps (``serve_mesh_rank``), then this
+    process runs each whole model from the same seeds and compares."""
+    import shutil
+    import tempfile
+    from repro_torch.launch import mesh as MM
+
+    log("phase 18: sharded serving, gloo ranks on the card")
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    out = {}
+    for part, world in (("a", SM_WORLD), ("a_tp", 2)):
+        tmp = tempfile.mkdtemp()
+        t0 = time.perf_counter()
+        try:
+            out[part] = MM.run_ranks(serve_mesh_rank, world,
+                                     store=os.path.join(tmp, "store"),
+                                     args=(seed, part, device, smoke),
+                                     timeout_s=600)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        log(f"phase 18 spawn {part}: {world} ranks in "
+            f"{time.perf_counter() - t0:.1f} s")
+    _free(torch)
+    failures, summary = [], {}
+    for (name, _, batch), part in zip(SM_A, ("a", "a_tp")):
+        recs = [rk["a"][name] | {"rank": rk["rank"]} for rk in out[part]]
+        cfg = sm_cfg(name, smoke, "float32")
+        whole = sm_whole_greedy(torch, recs, cfg, batch, SM_PROMPT, SM_GEN,
+                                seed, dev, SM_TOL)
+        failures += _sm_failures(f"(a) {name}", whole["vs_split"], SM_TOL)
+        summary[f"a_{name}"] = _sm_summary(recs, whole)
+    recs = [rk["b"] | {"rank": rk["rank"]} for rk in out["a"]]
+    seq = recs[0]["cuts"]["seq"]
+    whole = sm_whole_long(torch, recs, sm_cfg(SM_LONG_ARCH, smoke,
+                                              "float32"), seed, dev, seq,
+                          SM_TOL)
+    failures += _sm_failures("(b)", whole["vs_split"], SM_TOL)
+    summary["b"] = _sm_summary(recs, whole)
+    recs = [rk["c"] | {"rank": rk["rank"]} for rk in out["a"]]
+    require(all(r["two_d"] for r in recs), "(c) ran without the 2-D form")
+    whole = sm_whole_greedy(torch, recs, sm_cfg(SM_C_ARCH, smoke,
+                                                "bfloat16"),
+                            SM_C_BATCH, SM_C_PROMPT, SM_C_GEN, seed, dev,
+                            SM_TOL_BF16)
+    failures += _sm_failures("(c)", whole["vs_split"], SM_TOL_BF16)
+    summary["c"] = _sm_summary(recs, whole)
+    launches = collections.Counter()
+    for ranks in out.values():
+        for rk in ranks:
+            launches.update(rk["launches"])
+    summary["launches_per_rank_max"] = {
+        k: max(rk["launches"].get(k, 0) for ranks in out.values()
+               for rk in ranks) for k in launches}
+    wall = time.perf_counter() - t_phase
+    dump = ROOT / "chiprun_out" / "phase18.json"
+    dump.parent.mkdir(exist_ok=True)
+    dump.write_text(json.dumps(summary, indent=1, default=str))
+    log(f"phase 18 ({smi_line() if dev.type == 'cuda' else 'cpu'}) in "
+        f"{wall:.1f} s: " + json.dumps(summary, default=str))
+    require(not failures, "; ".join(failures))
+    return {"summary": summary, "wall_s": wall,
+            "launches": summary["launches_per_rank_max"]}
+
+
+def _sm_summary(recs, whole) -> dict:
+    """What phase 18 prints of a part: cuts, predicted and measured peaks
+    per rank, walls per step, bytes per group and step, the comparison."""
+    r0 = recs[0]
+    return {
+        "cfg": r0["cfg"], "dtype": r0["dtype"], "mesh": r0["mesh"],
+        "cuts": r0["cuts"], "predicted": r0["predicted"],
+        "peak_bytes": [r["peak_bytes"] for r in recs],
+        "init_s": [r["init_s"] for r in recs],
+        "prefill_s": r0.get("prefill_s"), "step_s": r0["step_s"],
+        "step_bytes": r0["step_bytes"],
+        "prefill_bytes": r0.get("prefill_bytes"),
+        "whole": {k: whole[k] for k in ("peak_bytes", "step_s")
+                  if k in whole},
+        "vs_whole": whole["vs_split"]}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5048,6 +5798,14 @@ def main(argv=None):
             "a_starcoder2_bfloat16": fa16["launches"][k["name"]],
             "b_mistral_select_tau": fb["select_launches"].get(k["name"],
                                                               0)}
+    # phase 18: sharded serving, gloo ranks on the card
+    phase(18, "sharded serving")
+    torch.cuda.empty_cache()
+    serve_mesh = phase_serve_mesh(torch, args.seed)
+    log(f"phase 18 took {serve_mesh['wall_s']:.1f} s")
+    for k in kernels:
+        # per rank over phase 18's parts (serving launches none)
+        k["launches_serve_mesh"] = serve_mesh["launches"].get(k["name"], 0)
     require(sorted(k["name"] for k in kernels)
             == sorted((*KERNELS, *LM_KERNELS)), "a kernel was not measured")
     phase(7, "starcoder2 smoke rounds card vs CPU")
@@ -5068,7 +5826,7 @@ def main(argv=None):
               "transformer_baselines": lm_base,
               "cnn_drivers": cnn_drivers, "transformer_drivers": lm_drivers,
               "zoo": zoo, "serve": served, "spatial": spatial,
-              "tensor": tensor, "fsdp": fsdp,
+              "tensor": tensor, "fsdp": fsdp, "serve_mesh": serve_mesh,
               "total_s": time.perf_counter() - t_start}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

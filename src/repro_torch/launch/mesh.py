@@ -169,6 +169,8 @@ class ClientMesh:
     device: torch.device
     group: Any = None
     model_group: Any = None
+    subgroups: Dict[frozenset, Any] = dataclasses.field(
+        default_factory=dict)
 
     @property
     def n_clients(self) -> int:
@@ -217,28 +219,9 @@ class ClientMesh:
         """The data group: the ranks of this rank's model index over the
         FSDP axes, ``index`` this rank's shard of a dim split over them
         (row-major in :attr:`fsdp_axes`' order, JAX's ``("data", "pod")``,
-        not the mesh's), ``order`` the group's ranks in that order.
-        ``None`` without FSDP axes above 1."""
-        axes = self.fsdp_axes
-        size = math.prod(self.shape[a] for a in axes)
-        if size == 1:
-            return None
-        rows = [a for a in self.shape if a != MODEL_AXIS]
-
-        def shard_of(row: int) -> int:
-            c = {}
-            for a in reversed(rows):
-                c[a], row = row % self.shape[a], row // self.shape[a]
-            s = 0
-            for a in axes:
-                s = s * self.shape[a] + c[a]
-            return s
-
-        # the group's rank j is row j (the ranks ascend with the row)
-        shards = [shard_of(j) for j in range(size)]
-        order = tuple(sorted(range(size), key=shards.__getitem__))
-        return ModelGroup(size, shard_of(self.client_index), self.group,
-                          None if order == tuple(range(size)) else order)
+        not the mesh's), ``order`` the group's ranks in that order
+        (:meth:`axis_group`).  ``None`` without FSDP axes above 1."""
+        return self.axis_group(self.fsdp_axes)
 
     @property
     def leaf(self) -> Optional[ModelGroup]:
@@ -249,6 +232,59 @@ class ClientMesh:
         if self.world_size == 1:
             return None
         return ModelGroup(self.world_size, self.rank, None)
+
+    def coords(self) -> Dict[str, int]:
+        """This rank's index along every axis (row-major device order)."""
+        out, r = {}, self.rank
+        for a, n in reversed(list(self.shape.items())):
+            out[a], r = r % n, r // n
+        return out
+
+    def axis_group(self, axes) -> Optional[ModelGroup]:
+        """The ranks that differ from this one only along ``axes`` (a
+        name or a tuple; names the mesh lacks count as 1), as a
+        :class:`ModelGroup` whose ``index`` is this rank's shard of a dim
+        split over them: row-major in ``axes``' order, as JAX lays out a
+        ``PartitionSpec`` entry (``("pod", "data")``, the batch's, and
+        ``("data", "pod")``, the FSDP dims', differ).  ``None`` where the
+        axes' sizes multiply to 1."""
+        axes = tuple(a for a in ((axes,) if isinstance(axes, str)
+                                 else axes) if a in self.shape)
+        size = math.prod(self.shape[a] for a in axes)
+        if size == 1:
+            return None
+        names = list(self.shape)
+        me = self.coords()
+
+        def shard_of(c) -> int:
+            s = 0
+            for a in axes:
+                s = s * self.shape[a] + c[a]
+            return s
+
+        # the group's ranks ascend with the global rank
+        members = [shard_of(c) for c in (
+            dataclasses.replace(self, rank=r).coords()
+            for r in range(self.world_size))
+            if all(c[a] == me[a] for a in names if a not in axes)]
+        order = tuple(sorted(range(size), key=members.__getitem__))
+        big = [a for a in names if self.shape[a] > 1]
+        key = frozenset(a for a in axes if self.shape[a] > 1)
+        if key == frozenset(big):
+            pg = None
+        elif key == frozenset({MODEL_AXIS}):
+            pg = self.model_group
+        elif key == frozenset(a for a in big if a != MODEL_AXIS):
+            pg = self.group
+        elif key in self.subgroups:
+            pg = self.subgroups[key]
+        else:
+            raise NotImplementedError(
+                f"a group over {sorted(key)} on the mesh {self.shape}: "
+                f"the port makes the model, row and whole groups and, on "
+                f"a mesh with no client axes, one per row axis")
+        return ModelGroup(size, shard_of(me), pg,
+                          None if order == tuple(range(size)) else order)
 
     def check(self) -> None:
         """Raise for a mesh the port does not run: client axes that are
@@ -322,7 +358,7 @@ def init(world_size: int, rank: int, *, store: str,
         world_size=world_size, rank=rank, timeout=timeout)
     M = mesh.model_size
     if M == 1:
-        return mesh
+        return dataclasses.replace(mesh, subgroups=_subgroups(mesh, timeout))
     rows = world_size // M
     client_group = model_group = None
     for m in range(M):
@@ -334,7 +370,33 @@ def init(world_size: int, rank: int, *, store: str,
         if c == mesh.client_index:
             model_group = g
     return dataclasses.replace(mesh, group=client_group,
-                               model_group=model_group)
+                               model_group=model_group,
+                               subgroups=_subgroups(mesh, timeout))
+
+
+def _subgroups(mesh: ClientMesh, timeout) -> Dict[frozenset, Any]:
+    """The process groups of :meth:`ClientMesh.axis_group` beyond the
+    model, row and whole groups: on a mesh with no client axes and more
+    than one row axis above 1 (a serving (pod, data, model) mesh), one
+    per row axis alone ("data": the long shapes' split-KV cache; "pod"),
+    made by every rank in the same order; this rank's of each."""
+    names = list(mesh.shape)
+    rows = [a for a in names if a != MODEL_AXIS and mesh.shape[a] > 1]
+    if mesh.client_axes or len(rows) < 2:
+        return {}
+    out = {}
+    for axis in rows:
+        # full groups: keyed by the coordinates along the other axes
+        classes: Dict[tuple, list] = {}
+        for r in range(mesh.world_size):
+            c = dataclasses.replace(mesh, rank=r).coords()
+            classes.setdefault(tuple(c[a] for a in names if a != axis),
+                               []).append(r)
+        for ranks in sorted(classes.values()):
+            g = dist.new_group(ranks, timeout=timeout)
+            if mesh.rank in ranks:
+                out[frozenset({axis})] = g
+    return out
 
 
 def make_test_group(world_size: int, rank: int, store: str, *,

@@ -16,6 +16,13 @@ the parameter names of the whole layer and each leaf this rank's shard as
 out.  A layer whose leaves the axis does not split (JAX's divisibility
 fallback) runs whole on every rank.
 
+The decode forms take split leaves and a sharded cache too (its batch
+rows, its kv or SSD heads, and with a ``models.tensor.KVSplit`` its
+slice of the slots, whose partial softmaxes :func:`decode_attention`
+combines over the split's group); with no group they are the whole
+layer's.  Every product of an activation and a leaf goes through
+``models.tensor.mm``, the 2-D serving's hook.
+
 The decode functions take one new token against a cache and write the
 cache IN PLACE (at ``pos``, or ``pos % S`` for a ring), where the JAX
 package returns an updated copy (``dynamic_update_slice`` under
@@ -133,28 +140,58 @@ def chunked_attention(q, k, v, *, causal=True, window=None, q_offset=0,
     return torch.movedim(out, 3, 1).to(q.dtype)
 
 
+def _valid_slots(lo: int, held: int, S: int, pos: int, *, window=None,
+                 ring=False, device=None):
+    """The mask over slots ``[lo, lo + held)`` of a cache of ``S`` slots:
+    for a ring, slot s holds global position pos - ((pos - s) mod S),
+    valid if >= 0; else the slots up to ``pos`` (and after ``pos -
+    window``)."""
+    slots = lo + torch.arange(held, device=device)
+    if ring:
+        return pos - torch.remainder(pos - slots, S) >= 0
+    valid = slots <= pos
+    if window is not None:
+        valid &= slots > pos - window
+    return valid
+
+
+def _softmax_ctx(s, vals, eq: str, group):
+    """``einsum(eq, softmax(s), vals)`` over the last dim of the float32
+    scores ``s`` (masked with NEG_INF).  ``group``: the ranks that hold
+    the other slots; each rank's exponentials are taken against the
+    group's running max (an all-reduce max), and the sums of exponentials
+    and the unnormalised contexts are all-reduced before the one
+    division.  ``None``: the whole cache's softmax."""
+    if group is None:
+        p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+        p = p / torch.clamp_min(p.sum(dim=-1, keepdim=True), 1e-30)
+        return torch.einsum(eq, p, vals)
+    m = group.all_reduce(s.amax(dim=-1, keepdim=True), "max")
+    p = torch.exp(s - m)
+    l = group.all_reduce(p.sum(dim=-1, keepdim=True))
+    ctx = group.all_reduce(torch.einsum(eq, p, vals))
+    return ctx / torch.clamp_min(l, 1e-30)
+
+
 def decode_attention(q, k_cache, v_cache, *, pos: int, window=None,
-                     ring: bool = False):
+                     ring: bool = False, S: Optional[int] = None,
+                     lo: int = 0, group=None):
     """One-token attention against a cache, softmax in float32.
 
-    q: (b, nkv, g, hd); caches: (b, S, nkv, hd); pos: the index of the
-    current token (already written into the cache).  ``ring``: the cache
-    is a ring buffer of S = window slots written at ``t % S``."""
-    S, hd = k_cache.shape[1], k_cache.shape[3]
+    q: (b, nkv, g, hd); caches: (b, S_loc, nkv, hd), slots ``[lo, lo +
+    S_loc)`` of a cache of ``S`` slots (all of them by default); pos: the
+    index of the current token (already written into the cache).
+    ``ring``: the cache is a ring buffer of S = window slots written at
+    ``t % S``.  ``group``: the ranks that hold the other slots (the
+    split-KV decode), over which the softmax is combined
+    (:func:`_softmax_ctx`)."""
+    held, hd = k_cache.shape[1], k_cache.shape[3]
     s = torch.einsum("bkgh,bskh->bkgs", q.to(_F32) * (1.0 / math.sqrt(hd)),
                      k_cache.to(_F32))
-    slots = torch.arange(S, device=q.device)
-    if ring:
-        # slot s holds global position pos - ((pos - s) mod S); valid if >= 0
-        valid = pos - torch.remainder(pos - slots, S) >= 0
-    else:
-        valid = slots <= pos
-        if window is not None:
-            valid &= slots > pos - window
+    valid = _valid_slots(lo, held, held if S is None else S, pos,
+                         window=window, ring=ring, device=q.device)
     s = torch.where(valid, s, NEG_INF)
-    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    p = p / torch.clamp_min(p.sum(dim=-1, keepdim=True), 1e-30)
-    out = torch.einsum("bkgs,bskh->bkgh", p, v_cache.to(_F32))
+    out = _softmax_ctx(s, v_cache.to(_F32), "bkgs,bskh->bkgh", group)
     return out.to(q.dtype)
 
 
@@ -189,9 +226,9 @@ def attention_fwd(p, a: AttentionSpec, x, *, positions, window_override=None,
     b, s, _ = x.shape
     cross = kv is not None
     src = kv if cross else x
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", src, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", src, p["wv"])
+    q = TP.mm("bsd,dhk->bshk", x, p["wq"])
+    k = TP.mm("bsd,dhk->bshk", src, p["wk"])
+    v = TP.mm("bsd,dhk->bshk", src, p["wv"])
     if not cross:
         q = rope(q, positions, a.rope_theta)
         k = rope(k, positions, a.rope_theta)
@@ -202,34 +239,127 @@ def attention_fwd(p, a: AttentionSpec, x, *, positions, window_override=None,
                             kv_valid_len=kv_valid_len, chunk=chunk)
     out = out.reshape(b, s, a.num_heads * a.head_dim)
     wo = p["wo"].reshape(a.num_heads * a.head_dim, -1)
-    return torch.einsum("bsk,kd->bsd", out, wo), (k, v)
+    return TP.mm("bsk,kd->bsd", out, wo), (k, v)
+
+
+def _seq_slice(cache_len: int, held: int, kv):
+    """``(lo, group)``: the first slot of this rank's slice of a cache
+    leaf of ``cache_len`` slots of which it holds ``held``, and the group
+    that holds the others (``None``: the leaf is whole here)."""
+    if held == cache_len:
+        return 0, None
+    return kv.group.index * held, kv.group
+
+
+def _query_heads(q, group, kv_model: bool, H: int):
+    """``(q, h0)``: the query heads this rank attends with and the first
+    of them.  Its own (``q`` as it is) unless a cache split over the
+    model axis makes every rank attend with every head (gathered)."""
+    if group is None:
+        return q, 0
+    if kv_model:
+        return group.all_gather(q, 1), 0
+    return q, (H // group.size) * group.index
+
+
+def _cache_heads(k, v, h0: int, Hq: int, g: int, k0: int):
+    """The cache heads (b, S, nkv, hd) that query heads ``[h0, h0 + Hq)``
+    read, from a cache holding kv heads ``[k0, k0 + held)``, and their
+    ``(nkv, g)`` layout: whole groups of contiguous kv heads, one kv head
+    for all, or one kv head per query head (``gqa_tp``'s three cases)."""
+    kv0, kv1 = h0 // g, (h0 + Hq - 1) // g + 1
+    if h0 % g == 0 and (kv1 - kv0) * g == Hq:
+        return k[:, :, kv0 - k0:kv1 - k0], v[:, :, kv0 - k0:kv1 - k0], \
+            kv1 - kv0, g
+    if kv1 - kv0 == 1:
+        return k[:, :, kv0 - k0:kv1 - k0], v[:, :, kv0 - k0:kv1 - k0], 1, Hq
+    idx = torch.arange(h0, h0 + Hq, device=k.device) // g - k0
+    return k[:, :, idx], v[:, :, idx], Hq, 1
+
+
+def _own_heads(out, group, kv_model: bool, Hl: int):
+    """Back from every query head to this rank's (``out``: (b, H, ...))."""
+    if group is None or not kv_model:
+        return out
+    return out[:, Hl * group.index:Hl * (group.index + 1)]
 
 
 def attention_decode(p, a: AttentionSpec, x, cache, *, pos: int,
-                     window_override=None, ring=False):
+                     window_override=None, ring=False, group=None,
+                     cache_len: Optional[int] = None, kv=None):
     """x: (b, 1, d); cache: {"k", "v"} (b, S, nkv, hd), or MLA's
     {"ckv"}.  Writes the current token's k and v into the cache (at pos,
-    or pos % S for a ring), then attends.  Returns (out, cache)."""
+    or pos % S for a ring), then attends.  Returns (out, cache).
+
+    Sharded (serving): ``wq``/``wo`` split on heads over ``group`` (the
+    model group) and ``wk``/``wv`` on kv_heads where the axis divides
+    them; the cache (b_loc, S_loc, Kc, hd) holds this rank's batch rows,
+    its kv heads (or every kv head, the query heads' taken as
+    :func:`gqa_tp` takes them) and, with ``kv`` (a ``KVSplit``), its
+    slice of the ``cache_len`` slots.  The token's k and v are written on
+    the rank that holds their slot; each rank attends over its slots and
+    the softmax is combined over ``kv.group``; the row-split ``wo`` is
+    summed over ``group``."""
     if a.is_mla:
-        return mla_decode(p, a, x, cache, pos=pos)
+        return mla_decode(p, a, x, cache, pos=pos, group=group,
+                          cache_len=cache_len, kv=kv)
+    H, K, hd = a.num_heads, a.num_kv_heads, a.head_dim
+    Hl = p["wq"].shape[1]
+    if Hl == H:
+        group = None
     b = x.shape[0]
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])        # (b, 1, H, hd)
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    q = TP.mm("bsd,dhk->bshk", x, p["wq"])
+    k = TP.mm("bsd,dhk->bshk", x, p["wk"])
+    v = TP.mm("bsd,dhk->bshk", x, p["wv"])[:, 0]
     posv = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
     q = rope(q, posv, a.rope_theta)[:, 0]
     k = rope(k, posv, a.rope_theta)[:, 0]
-    slot = pos % cache["k"].shape[1] if ring else pos
-    cache["k"][:, slot] = k
-    cache["v"][:, slot] = v[:, 0]
-    g = a.num_heads // a.num_kv_heads
-    qg = q.reshape(b, a.num_kv_heads, g, a.head_dim)
+    kc, vc = cache["k"], cache["v"]
+    held, Kc = kc.shape[1], kc.shape[2]
+    cache_len = held if cache_len is None else cache_len
+    if Kc != k.shape[1]:
+        # the cache holds every kv head; wk is split
+        k, v = group.all_gather(k, 1), group.all_gather(v, 1)
+    lo, sg = _seq_slice(cache_len, held, kv)
+    slot = pos % cache_len if ring else pos
+    if lo <= slot < lo + held:
+        kc[:, slot - lo] = k
+        vc[:, slot - lo] = v
+    kv_model = sg is not None and kv.model
     window = a.window if window_override is None else window_override
-    out = decode_attention(qg, cache["k"], cache["v"], pos=pos,
-                           window=None if ring else window, ring=ring)
-    out = out.reshape(b, 1, a.num_heads * a.head_dim)
-    wo = p["wo"].reshape(a.num_heads * a.head_dim, -1)
-    return torch.einsum("bsk,kd->bsd", out, wo), cache
+    q, h0 = _query_heads(q, group, kv_model, H)
+    k0 = (K // group.size) * group.index if Kc != K else 0
+    ks, vs, nkv, gl = _cache_heads(kc, vc, h0, q.shape[1], H // K, k0)
+    out = decode_attention(q.reshape(b, nkv, gl, hd), ks, vs, pos=pos,
+                           window=window, ring=ring, S=cache_len, lo=lo,
+                           group=sg)
+    out = _own_heads(out.reshape(b, -1, hd), group, kv_model, Hl)
+    out = out.reshape(b, 1, Hl * hd)
+    wo = p["wo"].reshape(Hl * hd, -1)
+    return TP.reduce(TP.mm("bsk,kd->bsd", out, wo), group), cache
+
+
+def cross_decode(p, a: AttentionSpec, x, cache, *, group=None):
+    """The decode step's cross-attention against the encoder's caches
+    {"cross_k", "cross_v"} (b_loc, src, Kc, hd), the leaves split over
+    ``group`` as :func:`attention_decode` takes them (no rotary, every
+    source position valid)."""
+    H, K, hd = a.num_heads, a.num_kv_heads, a.head_dim
+    Hl = p["wq"].shape[1]
+    if Hl == H:
+        group = None
+    b = x.shape[0]
+    q = TP.mm("bsd,dhk->bshk", x, p["wq"])[:, 0]
+    kc, vc = cache["cross_k"], cache["cross_v"]
+    Kc = kc.shape[2]
+    h0 = 0 if group is None else Hl * group.index
+    k0 = (K // group.size) * group.index if Kc != K else 0
+    ks, vs, nkv, gl = _cache_heads(kc, vc, h0, Hl, H // K, k0)
+    out = decode_attention(q.reshape(b, nkv, gl, hd), ks, vs,
+                           pos=kc.shape[1] - 1)
+    out = out.reshape(b, 1, Hl * hd)
+    wo = p["wo"].reshape(Hl * hd, -1)
+    return TP.reduce(TP.mm("bsk,kd->bsd", out, wo), group)
 
 
 def attention_cache(a: AttentionSpec, batch: int, cache_len: int, dtype):
@@ -271,40 +401,57 @@ def mla_fwd(p, a: AttentionSpec, x, *, positions, chunk=1024):
     prefill keeps ckv as the cache that :func:`mla_decode` reads."""
     del positions                       # NoPE: no position enters
     b, s, _ = x.shape
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    ckv = torch.einsum("bsd,dr->bsr", x, p["w_dkv"])
+    q = TP.mm("bsd,dhk->bshk", x, p["wq"])
+    ckv = TP.mm("bsd,dr->bsr", x, p["w_dkv"])
     k = torch.einsum("bsr,rhk->bshk", ckv, p["w_uk"])
     v = torch.einsum("bsr,rhk->bshk", ckv, p["w_uv"])
     qg = q.reshape(b, s, a.num_heads, 1, a.head_dim)      # g = 1 per head
     out = chunked_attention(qg, k, v, causal=True, chunk=chunk)
     out = out.reshape(b, s, a.num_heads * a.head_dim)
     wo = p["wo"].reshape(a.num_heads * a.head_dim, -1)
-    return torch.einsum("bsk,kd->bsd", out, wo), (ckv,)
+    return TP.mm("bsk,kd->bsd", out, wo), (ckv,)
 
 
-def mla_decode(p, a: AttentionSpec, x, cache, *, pos: int):
+def mla_decode(p, a: AttentionSpec, x, cache, *, pos: int, group=None,
+               cache_len: Optional[int] = None, kv=None):
     """Decode in the absorbed form: scores and context live in the latent
     space, in float32, so the cache holds only ckv (b, S, kv_lora_rank).
     NoPE, as :func:`mla_fwd` (the JAX package's convention: the released
-    DeepSeek models split each head into a rotary and a NoPE part)."""
+    DeepSeek models split each head into a rotary and a NoPE part).
+
+    Sharded: ``wq``, ``w_uk``, ``w_uv`` split on heads over ``group`` and
+    ``wo`` by rows; the latent ``ckv`` (``w_dkv`` replicated) is computed
+    whole on every rank, the ``ckv`` cache is replicated over "model"
+    (and, with ``kv``, this rank's slice of the ``cache_len`` slots), each
+    rank scores its heads and the softmax is combined over
+    ``kv.group``."""
+    H = a.num_heads
+    Hl = p["wq"].shape[1]
+    if Hl == H:
+        group = None
     b = x.shape[0]
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])[:, 0]   # (b, H, hd)
-    ckv = torch.einsum("bsd,dr->bsr", x, p["w_dkv"])
-    cache["ckv"][:, pos] = ckv[:, 0]
-    c = cache["ckv"].to(_F32)
-    # absorb: q_lat[h] = w_uk[., h, :]^T q[h]  -> (b, H, r)
+    q = TP.mm("bsd,dhk->bshk", x, p["wq"])[:, 0]
+    ckv = TP.mm("bsd,dr->bsr", x, p["w_dkv"])[:, 0]
+    cache_c = cache["ckv"]
+    held = cache_c.shape[1]
+    cache_len = held if cache_len is None else cache_len
+    lo, sg = _seq_slice(cache_len, held, kv)
+    if lo <= pos < lo + held:
+        cache_c[:, pos - lo] = ckv
+    c = cache_c.to(_F32)
     q_lat = torch.einsum("bhk,rhk->bhr", q.to(_F32), p["w_uk"].to(_F32))
+    kv_model = sg is not None and kv.model
+    q_lat, _ = _query_heads(q_lat, group, kv_model, H)
     s = torch.einsum("bhr,bsr->bhs", q_lat * (1.0 / math.sqrt(a.head_dim)),
                      c)
-    valid = torch.arange(c.shape[1], device=x.device) <= pos
-    s = torch.where(valid, s, NEG_INF)
-    pr = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    pr = pr / torch.clamp_min(pr.sum(dim=-1, keepdim=True), 1e-30)
-    ctx_lat = torch.einsum("bhs,bsr->bhr", pr, c)
+    s = torch.where(_valid_slots(lo, held, cache_len, pos, device=x.device),
+                    s, NEG_INF)
+    ctx_lat = _own_heads(_softmax_ctx(s, c, "bhs,bsr->bhr", sg), group,
+                         kv_model, Hl)
     out = torch.einsum("bhr,rhk->bhk", ctx_lat, p["w_uv"].to(_F32))
-    out = out.reshape(b, 1, a.num_heads * a.head_dim).to(x.dtype)
-    wo = p["wo"].reshape(a.num_heads * a.head_dim, -1)
-    return torch.einsum("bsk,kd->bsd", out, wo), cache
+    out = out.reshape(b, 1, Hl * a.head_dim).to(x.dtype)
+    wo = p["wo"].reshape(Hl * a.head_dim, -1)
+    return TP.reduce(TP.mm("bsk,kd->bsd", out, wo), group), cache
 
 
 # ---------------------------------------------------------------------------
@@ -327,14 +474,14 @@ def mlp_params(d: int, d_ff: int, gated: bool = True):
 
 
 def mlp_fwd(p, x):
-    h = torch.einsum("bsd,df->bsf", x, p["w_up"])
+    h = TP.mm("bsd,df->bsf", x, p["w_up"])
     if "w_gate" in p:
-        gate = torch.einsum("bsd,df->bsf", x, p["w_gate"])
+        gate = TP.mm("bsd,df->bsf", x, p["w_gate"])
         h = F.silu(gate) * h
     else:
         # jax.nn.gelu defaults to the tanh approximation
         h = F.gelu(h, approximate="tanh")
-    return torch.einsum("bsf,fd->bsd", h, p["w_down"])
+    return TP.mm("bsf,fd->bsd", h, p["w_down"])
 
 
 # ---------------------------------------------------------------------------
@@ -393,7 +540,7 @@ def moe_route(p, m: MoESpec, x) -> Routing:
     position in its expert is the int32 count of earlier slots (token
     major, then slot) routed to the same expert; a slot at position >= C
     is dropped."""
-    logits = torch.einsum("bsd,de->bse", x.to(_F32), p["router"].to(_F32))
+    logits = TP.mm("bsd,de->bse", x.to(_F32), p["router"].to(_F32))
     return _route(m, logits)
 
 
@@ -483,9 +630,9 @@ def moe_fwd(p, m: MoESpec, x, fsdp=None):
     C = moe_capacity(m, s)
     buf = _Dispatch.apply(x, r.slot_tok, r.dst, k)
     buf = buf.reshape(b, E, C, d)
-    h = torch.einsum("becd,edf->becf", buf, p["w_up"])
-    g = torch.einsum("becd,edf->becf", buf, p["w_gate"])
-    y = torch.einsum("becf,efd->becd", F.silu(g) * h, p["w_down"])
+    h = TP.mm("becd,edf->becf", buf, p["w_up"])
+    g = TP.mm("becd,edf->becf", buf, p["w_gate"])
+    y = TP.mm("becf,efd->becd", F.silu(g) * h, p["w_down"])
     y_flat = y.reshape(b, E * C, d)
     out = torch.zeros((b, s, d), dtype=_F32, device=x.device)
     for j in range(k):
@@ -622,7 +769,7 @@ def ssm_fwd(p, spec: SSMSpec, x, *, norm_eps=1e-6):
     d_inner = spec.expand * d
     n = spec.d_state
     h = spec.num_heads(d)
-    zxbcdt = torch.einsum("bsd,de->bse", x, p["in_proj"])
+    zxbcdt = TP.mm("bsd,de->bse", x, p["in_proj"])
     z, xin, Braw, Craw, dtraw = torch.split(
         zxbcdt, [d_inner, d_inner, n, n, h], dim=-1)
     xbc_raw = torch.cat([xin, Braw, Craw], dim=-1)         # (b, s, ch)
@@ -638,42 +785,64 @@ def ssm_fwd(p, spec: SSMSpec, x, *, norm_eps=1e-6):
     y = y.reshape(b, s, d_inner).to(x.dtype)
     y = y * F.silu(z)
     y = rmsnorm({"scale": p["norm"]}, y, norm_eps)
-    out = torch.einsum("bse,ed->bsd", y, p["out_proj"])
+    out = TP.mm("bse,ed->bsd", y, p["out_proj"])
     return out, {"state": final_state,
                  "conv": xbc_raw[:, -(spec.d_conv - 1):, :]}
 
 
-def ssm_decode(p, spec: SSMSpec, x, cache, *, norm_eps=1e-6):
+def ssm_decode(p, spec: SSMSpec, x, cache, *, group=None, norm_eps=1e-6):
     """One-token Mamba-2 step.  x: (b, 1, d); cache: {"conv": (b, d_conv
     - 1, ch) the last raw conv inputs, "state": (b, h, p, n) float32},
-    both updated in place.  Returns (out, cache)."""
+    both updated in place.  Returns (out, cache).
+
+    Sharded: the leaves split over ``group`` (the model group) and the
+    cache in the cache specs' layout, the conv tail (b_loc, d_conv - 1,
+    ch_loc) this rank's channels of ``[x, B, C]`` and the state (b_loc,
+    h_loc, p, n) its heads, where the axis divides them.  ``in_proj``'s
+    split output is gathered (as :func:`ssm_fwd_tp`), each rank runs the
+    depthwise conv on its channels and the recurrence on its heads, the
+    conv's and the heads' outputs are gathered for the gated norm over
+    the whole d_inner, and ``out_proj``'s rows are summed over
+    ``group``."""
     b, _, d = x.shape
     d_inner = spec.expand * d
     n = spec.d_state
     h = spec.num_heads(d)
-    zxbcdt = torch.einsum("bsd,de->bse", x, p["in_proj"])[:, 0]
+    ch = d_inner + 2 * n
+    zxbcdt = TP.column(x, p["in_proj"], group, 2 * d_inner + 2 * n + h,
+                       "bsd,de->bse")[:, 0]
     z, xin, Braw, Craw, dtraw = torch.split(
         zxbcdt, [d_inner, d_inner, n, n, h], dim=-1)
     xbc = torch.cat([xin, Braw, Craw], dim=-1)             # (b, ch)
-    window = torch.cat([cache["conv"], xbc[:, None]], dim=1)  # (b, w, ch)
+    conv = cache["conv"]
+    split_ch = conv.shape[-1] != ch
+    if split_ch:
+        lo, hi = group.chunk(ch)
+        xbc = xbc[:, lo:hi]
+    window = torch.cat([conv, xbc[:, None]], dim=1)
     conv_out = F.silu(torch.einsum("bwc,wc->bc", window, p["conv_w"])
                       + p["conv_b"])
-    cache["conv"].copy_(window[:, 1:])
+    conv.copy_(window[:, 1:])
+    if split_ch:
+        conv_out = group.all_gather(conv_out, 1)
     xin, Braw, Craw = torch.split(conv_out, [d_inner, n, n], dim=-1)
+    state = cache["state"]
+    h0, h1 = (0, h) if state.shape[1] == h else group.chunk(h)
     A = -torch.exp(p["a_log"].to(_F32))
-    u = dtraw.to(_F32) + p["dt_bias"].to(_F32)
+    u = dtraw[:, h0:h1].to(_F32) + p["dt_bias"].to(_F32)
     dt = torch.logaddexp(u, torch.zeros((), dtype=_F32, device=x.device))
-    xh = xin.reshape(b, h, spec.head_dim).to(_F32)
-    # "bh,bhp,bn->bhpn": (dt * x) outer B
+    xh = xin.reshape(b, h, spec.head_dim)[:, h0:h1].to(_F32)
     inc = (dt[..., None] * xh)[..., None] * Braw.to(_F32)[:, None, None]
-    state = cache["state"] * torch.exp(dt * A)[..., None, None] + inc
-    cache["state"].copy_(state)
-    y = torch.einsum("bn,bhpn->bhp", Craw.to(_F32), state)
+    new = state * torch.exp(dt * A)[..., None, None] + inc
+    state.copy_(new)
+    y = torch.einsum("bn,bhpn->bhp", Craw.to(_F32), new)
     y = y + xh * p["d_skip"].to(_F32)[:, None]
+    if h1 - h0 != h:
+        y = group.all_gather(y, 1)
     y = y.reshape(b, 1, d_inner).to(x.dtype)
     y = y * F.silu(z[:, None])
     y = rmsnorm({"scale": p["norm"]}, y, norm_eps)
-    return torch.einsum("bse,ed->bsd", y, p["out_proj"]), cache
+    return TP.row(y, p["out_proj"], group, "bse,ed->bsd"), cache
 
 
 def ssm_cache(spec: SSMSpec, d: int, batch: int, dtype):
@@ -713,7 +882,8 @@ def gqa_tp(p, a: AttentionSpec, x, *, group, positions, kv=None,
     per query head where its heads cut a group).  Without a head split
     the layer runs whole, as :func:`attention_fwd`.  ``kv``: the
     cross-attention source (whole on every rank).  Returns (out, (k, v))
-    with this rank's k and v."""
+    with k and v as this rank's cache holds them: its kv heads where they
+    are split, else every kv head."""
     H, K, hd = a.num_heads, a.num_kv_heads, a.head_dim
     Hl = p["wq"].shape[1]
     if Hl == H:
@@ -722,16 +892,17 @@ def gqa_tp(p, a: AttentionSpec, x, *, group, positions, kv=None,
     b, s, _ = x.shape
     x1 = TP.copy(x, group)
     src = x1 if kv is None else TP.copy(kv, group)
-    q = torch.einsum("bsd,dhk->bshk", x1, p["wq"])
+    q = TP.mm("bsd,dhk->bshk", x1, p["wq"])
     if p["wk"].shape[1] != K:
         wk, wv = p["wk"], p["wv"]
     else:
         wk, wv = TP.copy(p["wk"], group), TP.copy(p["wv"], group)
-    k = torch.einsum("bsd,dhk->bshk", src, wk)
-    v = torch.einsum("bsd,dhk->bshk", src, wv)
+    k = TP.mm("bsd,dhk->bshk", src, wk)
+    v = TP.mm("bsd,dhk->bshk", src, wv)
     if rotary:
         q = rope(q, positions, a.rope_theta)
         k = rope(k, positions, a.rope_theta)
+    kv_held = (k, v)
     g = H // K
     if k.shape[2] != K or Hl == H:
         nkv, gl = k.shape[2], Hl // k.shape[2]
@@ -750,7 +921,7 @@ def gqa_tp(p, a: AttentionSpec, x, *, group, positions, kv=None,
                             kv_valid_len=kv_valid_len, chunk=chunk)
     out = out.reshape(b, s, Hl * hd)
     wo = p["wo"].reshape(Hl * hd, -1)
-    return TP.reduce(torch.einsum("bsk,kd->bsd", out, wo), group), (k, v)
+    return TP.reduce(TP.mm("bsk,kd->bsd", out, wo), group), kv_held
 
 
 def attention_fwd_tp(p, a: AttentionSpec, x, *, group, positions,
@@ -778,15 +949,15 @@ def mla_fwd_tp(p, a: AttentionSpec, x, *, group, positions, chunk=1024):
         return mla_fwd(p, a, x, positions=None, chunk=chunk)
     b, s, _ = x.shape
     x1 = TP.copy(x, group)
-    q = torch.einsum("bsd,dhk->bshk", x1, p["wq"])
-    ckv = torch.einsum("bsd,dr->bsr", x1, TP.copy(p["w_dkv"], group))
+    q = TP.mm("bsd,dhk->bshk", x1, p["wq"])
+    ckv = TP.mm("bsd,dr->bsr", x1, TP.copy(p["w_dkv"], group))
     k = torch.einsum("bsr,rhk->bshk", ckv, p["w_uk"])
     v = torch.einsum("bsr,rhk->bshk", ckv, p["w_uv"])
     out = chunked_attention(q.reshape(b, s, Hl, 1, a.head_dim), k, v,
                             causal=True, chunk=chunk)
     out = out.reshape(b, s, Hl * a.head_dim)
     wo = p["wo"].reshape(Hl * a.head_dim, -1)
-    return TP.reduce(torch.einsum("bsk,kd->bsd", out, wo), group), (ckv,)
+    return TP.reduce(TP.mm("bsk,kd->bsd", out, wo), group), (ckv,)
 
 
 def mlp_fwd_tp(p, x, *, group, d_ff: int):
@@ -796,12 +967,12 @@ def mlp_fwd_tp(p, x, *, group, d_ff: int):
     if p["w_up"].shape[-1] == d_ff:
         return mlp_fwd(p, x)
     x1 = TP.copy(x, group)
-    h = torch.einsum("bsd,df->bsf", x1, p["w_up"])
+    h = TP.mm("bsd,df->bsf", x1, p["w_up"])
     if "w_gate" in p:
-        h = F.silu(torch.einsum("bsd,df->bsf", x1, p["w_gate"])) * h
+        h = F.silu(TP.mm("bsd,df->bsf", x1, p["w_gate"])) * h
     else:
         h = F.gelu(h, approximate="tanh")
-    return TP.reduce(torch.einsum("bsf,fd->bsd", h, p["w_down"]), group)
+    return TP.reduce(TP.mm("bsf,fd->bsd", h, p["w_down"]), group)
 
 
 def moe_fwd_tp(p, m: MoESpec, x, *, group, fsdp=None):
@@ -824,7 +995,7 @@ def moe_fwd_tp(p, m: MoESpec, x, *, group, fsdp=None):
                            m, x, fsdp)
     else:
         x1 = TP.copy(x, group)
-        logits = torch.einsum("bsd,de->bse", x1.to(_F32),
+        logits = TP.mm("bsd,de->bse", x1.to(_F32),
                               p["router"].to(_F32))
         r = _route(m, TP.gather(logits, group, 2))
         C = moe_capacity(m, s)
@@ -835,9 +1006,9 @@ def moe_fwd_tp(p, m: MoESpec, x, *, group, fsdp=None):
         buf = _Dispatch.apply(x1, r.slot_tok[:, lo:hi], dst, k)
         buf = _moe_hint(buf.reshape(b, El, C, d), "data", "model", None,
                         None)
-        h = torch.einsum("becd,edf->becf", buf, p["w_up"])
-        gt = torch.einsum("becd,edf->becf", buf, p["w_gate"])
-        y = torch.einsum("becf,efd->becd", F.silu(gt) * h, p["w_down"])
+        h = TP.mm("becd,edf->becf", buf, p["w_up"])
+        gt = TP.mm("becd,edf->becf", buf, p["w_gate"])
+        y = TP.mm("becf,efd->becd", F.silu(gt) * h, p["w_down"])
         y_flat = _moe_hint(y, "data", "model", None, None) \
             .reshape(b, El * C, d)
         part = torch.zeros((b, s, d), dtype=_F32, device=x.device)

@@ -24,6 +24,13 @@ everything; the losses and gradients are the same bits.
 The decode caches (:func:`cache_meta`) are stacked the same way, one dict
 per group; :func:`decode_step` writes them in place.
 
+Sharded serving (``launch/steps.build_prefill_step``, ``build_serve_step``):
+:func:`prefill` and :func:`decode_step` take ``tp`` (split leaves, this
+rank's batch rows, its cache shards under ``sharding.cache_rules``, the
+logits gathered over the vocabulary), ``fsdp`` (the 2-D serving's
+``models.tensor.Serve2D``) and, at decode, ``kv`` (the split-KV cache's
+``models.tensor.KVSplit``).
+
 Tensor parallelism: with ``tp`` (a ``launch.mesh.ModelGroup``, which
 ``launch/steps.build_train_step`` closes over; no global state) the
 training forward and loss take each leaf as this rank's shard
@@ -44,7 +51,7 @@ and head where they are read.  The loss is the whole batch's mean
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -55,7 +62,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import tensor as TPX
 from repro_torch.models.params import (DTYPES, P, leaf_dtype, materialize,
-                                       stack_tree)
+                                       shard, stack_tree)
 
 # the matrix products whose outputs remat="dots" keeps (JAX's
 # dots_with_no_batch_dims_saveable; einsum lowers to bmm)
@@ -172,12 +179,18 @@ def params_from_jax(np_params, cfg: ArchConfig, device: DeviceLike = None):
 
 
 def caches_from_jax(np_caches, cfg: ArchConfig, batch: int, seq_len: int, *,
-                    long_mode: bool = False, device: DeviceLike = None):
+                    long_mode: bool = False, device: DeviceLike = None,
+                    specs=None, mesh=None):
     """The JAX package's decode caches (numpy leaves, ``cache_meta(cfg,
-    batch, seq_len, long_mode)``'s tree and shapes) as the port's."""
-    return _from_jax(cache_meta(cfg, batch, seq_len, long_mode), np_caches,
-                     cfg.dtype, resolve_device(device),
-                     f"{cfg.name}'s cache")
+    batch, seq_len, long_mode)``'s tree and shapes) as the port's; with
+    ``specs`` (``pspecs`` of the caches under ``sharding.cache_rules``)
+    and ``mesh``, cut to this rank's shards (``models/params.shard``)."""
+    dev = resolve_device(device)
+    whole = _from_jax(cache_meta(cfg, batch, seq_len, long_mode), np_caches,
+                      cfg.dtype, torch.device("cpu"), f"{cfg.name}'s cache")
+    if specs is not None:
+        whole = shard(whole, specs, mesh)
+    return T.tree_map(lambda x: x.to(dev), whole)
 
 
 # ---------------------------------------------------------------------------
@@ -192,13 +205,14 @@ def _block_fwd(cfg: ArchConfig, spec: LayerSpec, p, x, *, positions,
     without an MoE); with ``collect_cache``, the layer's decode cache over
     the sequence (k and v, MLA's ckv, or the SSD's state and conv tail;
     with an encoder, the cross keys and values), else {}.  ``tp``: the
-    model group of split leaves (the training forward only); ``fsdp``:
-    the batch split over the data group (``p`` gathered already)."""
+    model group of split leaves (the cache entry then this rank's shard
+    of it); ``fsdp``: the batch split over the data group (``p`` gathered
+    already), for the MoE load-balance loss."""
     if tp is not None:
         return _block_fwd_tp(cfg, spec, p, x, positions=positions,
                              enc_out=enc_out,
                              window_override=window_override, chunk=chunk,
-                             tp=tp, fsdp=fsdp)
+                             tp=tp, fsdp=fsdp, collect_cache=collect_cache)
     h = L.rmsnorm(p["norm_mixer"], x, cfg.norm_eps)
     entry = {}
     if spec.kind == "attn":
@@ -219,9 +233,9 @@ def _block_fwd(cfg: ArchConfig, spec: LayerSpec, p, x, *, positions,
                                      chunk=chunk)
             x = x + out
         if collect_cache and cfg.encoder is not None:
-            entry["cross_k"] = torch.einsum("bsd,dhk->bshk", enc_out,
+            entry["cross_k"] = TPX.mm("bsd,dhk->bshk", enc_out,
                                             p["cross"]["wk"])
-            entry["cross_v"] = torch.einsum("bsd,dhk->bshk", enc_out,
+            entry["cross_v"] = TPX.mm("bsd,dhk->bshk", enc_out,
                                             p["cross"]["wv"])
     else:
         out, ssm_cache = L.ssm_fwd(p["mixer"], spec.ssm, h,
@@ -241,14 +255,25 @@ def _block_fwd(cfg: ArchConfig, spec: LayerSpec, p, x, *, positions,
 
 
 def _block_fwd_tp(cfg: ArchConfig, spec: LayerSpec, p, x, *, positions,
-                  enc_out, window_override, chunk, tp, fsdp=None):
-    """:func:`_block_fwd` on split leaves (the layers' ``*_tp`` forms)."""
+                  enc_out, window_override, chunk, tp, fsdp=None,
+                  collect_cache=False):
+    """:func:`_block_fwd` on split leaves (the layers' ``*_tp`` forms);
+    with ``collect_cache``, the layer's cache entry in the cache specs'
+    layout: its kv heads where the model axis splits them (else every
+    one), the MLA latent whole, the SSD state's heads and the conv tail's
+    channels where it splits them."""
     h = L.rmsnorm(p["norm_mixer"], x, cfg.norm_eps)
+    entry = {}
     if spec.kind == "attn":
-        out, _ = L.attention_fwd_tp(p["mixer"], spec.attention, h, group=tp,
-                                    positions=positions,
-                                    window_override=window_override,
-                                    chunk=chunk)
+        out, kv = L.attention_fwd_tp(p["mixer"], spec.attention, h,
+                                     group=tp, positions=positions,
+                                     window_override=window_override,
+                                     chunk=chunk)
+        if collect_cache:
+            if spec.attention.is_mla:
+                entry["ckv"] = kv[0]
+            else:
+                entry["k"], entry["v"] = kv
         x = x + out
         if enc_out is not None and "cross" in p:
             hc = L.rmsnorm(p["norm_cross"], x, cfg.norm_eps)
@@ -256,9 +281,16 @@ def _block_fwd_tp(cfg: ArchConfig, spec: LayerSpec, p, x, *, positions,
                                         group=tp, positions=positions,
                                         kv=enc_out, chunk=chunk)
             x = x + out
+        if collect_cache and cfg.encoder is not None:
+            entry["cross_k"] = TPX.mm("bsd,dhk->bshk", enc_out,
+                                      p["cross"]["wk"])
+            entry["cross_v"] = TPX.mm("bsd,dhk->bshk", enc_out,
+                                      p["cross"]["wv"])
     else:
-        out, _ = L.ssm_fwd_tp(p["mixer"], spec.ssm, h, group=tp,
-                              norm_eps=cfg.norm_eps)
+        out, sc = L.ssm_fwd_tp(p["mixer"], spec.ssm, h, group=tp,
+                               norm_eps=cfg.norm_eps)
+        if collect_cache:
+            entry = _ssm_entry_shard(sc, tp)
         x = x + out
     aux = None
     if spec.d_ff:
@@ -268,7 +300,21 @@ def _block_fwd_tp(cfg: ArchConfig, spec: LayerSpec, p, x, *, positions,
         h = L.rmsnorm(p["norm_ffn"], x, cfg.norm_eps)
         out, aux = L.moe_fwd_tp(p["ffn"], spec.moe, h, group=tp, fsdp=fsdp)
         x = x + out
-    return x, aux, {}
+    return x, aux, entry
+
+
+def _ssm_entry_shard(entry, tp):
+    """The SSD's whole cache entry (every rank runs the scan whole) cut to
+    this rank's share where the model axis divides it: the state's heads
+    (dim 1), the conv tail's channels (dim 2)."""
+    out = {}
+    for k, dim in (("state", 1), ("conv", 2)):
+        x = entry[k]
+        if x.shape[dim] % tp.size == 0:
+            lo, hi = tp.chunk(x.shape[dim])
+            x = x.narrow(dim, lo, hi - lo)
+        out[k] = x
+    return out
 
 
 def _encoder_fwd(cfg: ArchConfig, enc_params, frames, tp=None, fsdp=None):
@@ -293,15 +339,15 @@ def _encoder_fwd(cfg: ArchConfig, enc_params, frames, tp=None, fsdp=None):
             hf = L.rmsnorm(p["norm_ffn"], x, cfg.norm_eps)
             x = x + L.mlp_fwd_tp(p["ffn"], hf, group=tp, d_ff=4 * d)
             continue
-        q = torch.einsum("bsd,dhk->bshk", h, p["mixer"]["wq"])
-        k = torch.einsum("bsd,dhk->bshk", h, p["mixer"]["wk"])
-        v = torch.einsum("bsd,dhk->bshk", h, p["mixer"]["wv"])
+        q = TPX.mm("bsd,dhk->bshk", h, p["mixer"]["wq"])
+        k = TPX.mm("bsd,dhk->bshk", h, p["mixer"]["wk"])
+        v = TPX.mm("bsd,dhk->bshk", h, p["mixer"]["wv"])
         q = L.rope(q, pos, a.rope_theta)
         k = L.rope(k, pos, a.rope_theta)
         qg = q.reshape(b, src, a.num_kv_heads, g, a.head_dim)
         out = L.chunked_attention(qg, k, v, causal=False, chunk=src)
         out = out.reshape(b, src, a.num_heads * a.head_dim)
-        x = x + torch.einsum("bsk,kd->bsd", out,
+        x = x + TPX.mm("bsk,kd->bsd", out,
                              p["mixer"]["wo"].reshape(-1, d))
         hf = L.rmsnorm(p["norm_ffn"], x, cfg.norm_eps)
         x = x + L.mlp_fwd(p["ffn"], hf)
@@ -331,6 +377,9 @@ def _embed_tokens(cfg: ArchConfig, params, tokens, tp=None, fsdp=None):
     float32, so the result is the whole lookup's bits."""
     emb = _used(params, "embed", fsdp)
     tok = tokens.long()
+    if isinstance(emb, TPX.Split2D):
+        return _embed_2d(cfg, emb, tok,
+                         tp if _vocab_split(cfg, params, tp) else None)
     if not _vocab_split(cfg, params, tp):
         return emb[tok].to(DTYPES[cfg.dtype])
     v0 = emb.shape[0] * tp.index
@@ -339,6 +388,30 @@ def _embed_tokens(cfg: ArchConfig, params, tokens, tp=None, fsdp=None):
     rows = torch.where(local[..., None], rows,
                        torch.zeros((), dtype=rows.dtype, device=rows.device))
     return TPX.reduce(rows, tp).to(DTYPES[cfg.dtype])
+
+
+def _embed_2d(cfg: ArchConfig, emb, tok, tp):
+    """The 2-D serving's lookup in an embedding split along ``embed`` over
+    the data group (and on the vocabulary over ``tp``): the tokens of the
+    data group's rows are looked up in this rank's block (zeros for rows
+    of another rank's vocabulary, summed over ``tp`` in float32, the
+    whole lookup's bits), gathered along ``embed``, and this rank's rows
+    kept."""
+    ctx, shard = emb.ctx, emb.shard
+    ta = tok if ctx.rows is None else ctx.rows.all_gather(tok, 0)
+    if tp is None:
+        rows = shard[ta]
+    else:
+        v0 = shard.shape[0] * tp.index
+        local = (ta >= v0) & (ta < v0 + shard.shape[0])
+        rows = shard[(ta - v0).clamp(0, shard.shape[0] - 1)]
+        rows = tp.all_reduce(torch.where(
+            local[..., None], rows,
+            torch.zeros((), dtype=rows.dtype, device=rows.device)))
+    rows = ctx.group.all_gather(rows, rows.dim() - 1)
+    if ctx.rows is not None:
+        rows = rows.narrow(0, ctx.rows.index * tok.shape[0], tok.shape[0])
+    return rows.to(DTYPES[cfg.dtype])
 
 
 def _embed_inputs(cfg: ArchConfig, params, tokens, frontend_embeds,
@@ -366,14 +439,6 @@ def _repeat_layers(cfg: ArchConfig, params, r: int, fsdp=None):
             if fsdp is not None:
                 p_one = fsdp.tree(p_one, fsdp.specs["blocks"][gi], 2)
             yield gi, i, spec, p_one
-
-
-def _layers(cfg: ArchConfig, params):
-    """(repeat, group, index in the group, spec, that layer's parameters)
-    in layer order."""
-    for r in range(cfg.pattern_repeats):
-        for layer in _repeat_layers(cfg, params, r):
-            yield (r, *layer)
 
 
 def _dots_policy(ctx, op, *args, **kwargs):
@@ -407,8 +472,8 @@ def _lm_head(cfg: ArchConfig, params, x, tp=None, fsdp=None):
     if _vocab_split(cfg, params, tp):
         x = TPX.copy(x, tp)
     if cfg.tie_embeddings:
-        return torch.einsum("bsd,vd->bsv", x, _used(params, "embed", fsdp))
-    return torch.einsum("bsd,dv->bsv", x, _used(params, "lm_head", fsdp))
+        return TPX.mm("bsd,vd->bsv", x, _used(params, "embed", fsdp))
+    return TPX.mm("bsd,dv->bsv", x, _used(params, "lm_head", fsdp))
 
 
 def _window_override(cfg: ArchConfig, spec: LayerSpec, long_mode: bool):
@@ -519,24 +584,63 @@ def _stack_caches(cfg: ArchConfig, entries):
     return tuple(out)
 
 
+def _whole_vocab(cfg: ArchConfig, params, logits, tp):
+    """Logits of this rank's vocabulary columns gathered over ``tp`` where
+    the vocabulary is split (the serving steps return the whole
+    vocabulary's)."""
+    if _vocab_split(cfg, params, tp):
+        return tp.all_gather(logits, logits.dim() - 1)
+    return logits
+
+
 def prefill(cfg: ArchConfig, params, tokens, *, frontend_embeds=None,
-            chunk: int = 1024):
+            chunk: int = 1024, tp=None, fsdp=None):
     """The forward over the prompt (a VLM's prefix first): (the last
     position's logits (b, V), the caches), each cache leaf stacked
     ``(repeats, count, b, ...)`` as :func:`cache_meta` lays it out, over
     the prompt's length (k, v, ckv) or whole (the SSD's state and conv
-    tail, the cross keys and values)."""
-    x, enc_out = _embed_inputs(cfg, params, tokens, frontend_embeds)
+    tail, the cross keys and values).
+
+    ``tp``: split leaves (:func:`forward`) and this rank's rows of the
+    batch; each cache leaf is then this rank's shard under
+    ``sharding.cache_rules("decode")`` and the logits the whole
+    vocabulary's.  ``fsdp``: the 2-D serving of the ``fsdp`` plans
+    (``models.tensor.Serve2D``): leaves split along ``embed`` over the
+    data group too, multiplied without being gathered."""
+    x, enc_out = _embed_inputs(cfg, params, tokens, frontend_embeds, tp,
+                               fsdp)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
     entries = [[] for _ in pattern_groups(cfg)]
-    for _, gi, _, spec, p_one in _layers(cfg, params):
-        x, _, entry = _block_fwd(cfg, spec, p_one, x, positions=positions,
-                                 enc_out=enc_out, chunk=chunk,
-                                 collect_cache=True)
-        entries[gi].append(entry)
-    x = L.rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
-    return _lm_head(cfg, params, x)[:, 0], _stack_caches(cfg, entries)
+    for r in range(cfg.pattern_repeats):
+        for gi, _, spec, p_one in _repeat_layers(cfg, params, r, fsdp):
+            x, _, entry = _block_fwd(cfg, spec, p_one, x,
+                                     positions=positions, enc_out=enc_out,
+                                     chunk=chunk, collect_cache=True, tp=tp)
+            entries[gi].append(entry)
+    x = L.rmsnorm(_used(params, "final_norm", fsdp), x[:, -1:],
+                  cfg.norm_eps)
+    logits = _lm_head(cfg, params, x, tp, fsdp)[:, 0]
+    return _whole_vocab(cfg, params, logits, tp), _stack_caches(cfg, entries)
+
+
+def seat_caches(caches, pre):
+    """Write prefill caches ``pre`` (over a prompt of n positions) into
+    decode caches of the same tree: a leaf of the same shape whole, else
+    along its kv_seq dim (3 of (repeat, count, b, S, ...)): position t
+    into slot t, or, where S < n (a ring), the last S positions into
+    slots t % S.  Returns ``caches``."""
+    for z, p in zip(T.leaves(caches), T.leaves(pre)):
+        if z.shape == p.shape:
+            z.copy_(p)
+            continue
+        n, S = p.shape[3], z.shape[3]
+        if n <= S:
+            z[:, :, :, :n] = p
+        else:
+            t = torch.arange(n - S, n, device=z.device)
+            z[:, :, :, t % S] = p[:, :, :, t]
+    return caches
 
 
 def decode_layout(cfg: ArchConfig, seq_len: int, long_mode: bool):
@@ -580,52 +684,70 @@ def cache_meta(cfg: ArchConfig, batch: int, seq_len: int,
         for (spec, count), lay in zip(pattern_groups(cfg), layout))
 
 
+def prefill_cache_meta(cfg: ArchConfig, batch: int, prompt: int):
+    """The tree of :class:`P` of :func:`prefill`'s caches over a prompt of
+    ``prompt`` positions (a VLM's prefix included): :func:`cache_meta`'s,
+    with every attention layer's over the whole prompt (no ring)."""
+    return tuple(
+        stack_tree(stack_tree(_layer_cache_meta(cfg, spec, batch, prompt),
+                              count), cfg.pattern_repeats)
+        for spec, count in pattern_groups(cfg))
+
+
 def _block_decode(cfg: ArchConfig, spec: LayerSpec, p, x, c, *, pos: int,
-                  ring: bool, window_eff):
+                  ring: bool, window_eff, cache_len: Optional[int] = None,
+                  tp=None, kv=None):
     """One layer's decode step: x (b, 1, d) against its cache c (written
-    in place).  Returns the new x."""
+    in place).  Returns the new x.  ``tp``, ``kv``: split leaves and
+    sharded caches (the layers' decode forms take them; the MLP and MoE
+    their ``*_fwd_tp`` forms at one token); ``cache_len``: the whole
+    cache's slots (by default the slots ``c`` holds)."""
     h = L.rmsnorm(p["norm_mixer"], x, cfg.norm_eps)
     if spec.kind == "attn":
         a = spec.attention
         self_c = {k: v for k, v in c.items() if k in ("k", "v", "ckv")}
         out, _ = L.attention_decode(p["mixer"], a, h, self_c, pos=pos,
-                                    window_override=window_eff, ring=ring)
+                                    window_override=window_eff, ring=ring,
+                                    group=tp, cache_len=cache_len, kv=kv)
         x = x + out
         if "cross_k" in c:
             hc = L.rmsnorm(p["norm_cross"], x, cfg.norm_eps)
-            g = a.num_heads // a.num_kv_heads
-            q = torch.einsum("bsd,dhk->bshk", hc, p["cross"]["wq"])[:, 0]
-            qg = q.reshape(q.shape[0], a.num_kv_heads, g, a.head_dim)
-            src = c["cross_k"].shape[1]
-            outc = L.decode_attention(qg, c["cross_k"], c["cross_v"],
-                                      pos=src - 1)
-            outc = outc.reshape(x.shape[0], 1, -1)
-            wo = p["cross"]["wo"].reshape(-1, cfg.d_model)
-            x = x + torch.einsum("bsk,kd->bsd", outc, wo)
+            x = x + L.cross_decode(p["cross"], a, hc, c, group=tp)
     else:
-        out, _ = L.ssm_decode(p["mixer"], spec.ssm, h, c,
+        out, _ = L.ssm_decode(p["mixer"], spec.ssm, h, c, group=tp,
                               norm_eps=cfg.norm_eps)
         x = x + out
     if spec.d_ff:
         hf = L.rmsnorm(p["norm_ffn"], x, cfg.norm_eps)
-        x = x + L.mlp_fwd(p["ffn"], hf)
+        x = x + L.mlp_fwd_tp(p["ffn"], hf, group=tp, d_ff=spec.d_ff)
     elif spec.moe:
         hf = L.rmsnorm(p["norm_ffn"], x, cfg.norm_eps)
-        x = x + L.moe_fwd(p["ffn"], spec.moe, hf)[0]
+        x = x + L.moe_fwd_tp(p["ffn"], spec.moe, hf, group=tp)[0]
     return x
 
 
 def decode_step(cfg: ArchConfig, params, caches, pos: int, token, *,
-                seq_len: int, long_mode: bool = False):
+                seq_len: int, long_mode: bool = False, tp=None, fsdp=None,
+                kv=None):
     """One decoding step.  caches per :func:`cache_meta`, written in place;
     pos: the index of the current token (a Python int); token: (b,)
-    integers on the caches' device.  Returns (logits (b, V), caches)."""
+    integers on the caches' device.  Returns (logits (b, V), caches).
+
+    Sharded (``launch/steps.build_serve_step``): ``tp`` the model group
+    of split leaves, ``fsdp`` the 2-D serving's ``Serve2D`` (as
+    :func:`prefill`), ``kv`` the split-KV decode's ``KVSplit`` (the
+    caches' sequence split over its group); ``params``, ``caches`` and
+    ``token`` this rank's shards and rows (``sharding.param_rules``,
+    ``cache_rules``), the logits the whole vocabulary's."""
     layout = decode_layout(cfg, seq_len, long_mode)
-    x = params["embed"][token.long()][:, None].to(DTYPES[cfg.dtype])
-    for r, gi, i, spec, p_one in _layers(cfg, params):
-        _, ring, window_eff, _ = layout[gi]
-        c_one = {k: v[r, i] for k, v in caches[gi].items()}
-        x = _block_decode(cfg, spec, p_one, x, c_one, pos=pos, ring=ring,
-                          window_eff=window_eff)
-    x = L.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return _lm_head(cfg, params, x)[:, 0], caches
+    x = _embed_tokens(cfg, params, token[:, None], tp, fsdp)
+    for r in range(cfg.pattern_repeats):
+        for gi, i, spec, p_one in _repeat_layers(cfg, params, r, fsdp):
+            _, ring, window_eff, cache_len = layout[gi]
+            c_one = {k: v[r, i] for k, v in caches[gi].items()}
+            x = _block_decode(cfg, spec, p_one, x, c_one, pos=pos,
+                              ring=ring, window_eff=window_eff,
+                              cache_len=cache_len, tp=tp, kv=kv)
+    x = L.rmsnorm(_used(params, "final_norm", fsdp), x, cfg.norm_eps)
+    logits = _lm_head(cfg, params, x, tp, fsdp)[:, 0]
+    return _whole_vocab(cfg, params, logits, tp), caches

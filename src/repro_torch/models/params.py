@@ -7,9 +7,11 @@ tensors.  :func:`pspecs` reads the logical axis names with a rule set
 ``PartitionSpec`` as a plain tuple; :func:`shard` cuts a whole leaf to
 this rank's contiguous chunk (GSPMD's layout), :func:`materialize_shards`
 draws :func:`materialize`'s numbers one whole leaf at a time and keeps
-only this rank's chunks, and :func:`unshard` gathers them back over the
-model and FSDP axes.  :func:`split_kinds` says per leaf which axes split
-it.
+only this rank's chunks, :func:`zeros_shards` allocates zero blocks (the
+decode caches) at their size, and :func:`unshard` gathers them back over
+the axes of each split dim.  The same functions take the decode caches'
+trees (``cache_meta``) under ``sharding.cache_rules``.
+:func:`split_kinds` says per leaf which axes split it.
 """
 from __future__ import annotations
 
@@ -232,26 +234,40 @@ def materialize_shards(tree, specs, mesh, seed: int,
         coords).clone(), tree, specs)
 
 
+def shard_shape(spec, leaf_shape, shape: Dict[str, int]) -> Tuple[int, ...]:
+    """The shape of a rank's block of a leaf of ``leaf_shape`` under
+    ``spec`` on a mesh of ``shape`` (axis -> size)."""
+    return tuple(n // math.prod(shape.get(a, 1) for a in _entry_axes(e))
+                 if e is not None else n for n, e in zip(leaf_shape, spec))
+
+
+def zeros_shards(tree, specs, mesh, default_dtype: str = "float32",
+                 device=torch.device("cpu")):
+    """This rank's blocks of a tree of zero-initialised :class:`P` (the
+    decode caches of ``models/model.cache_meta``), allocated at the
+    block's size: no whole leaf is made."""
+    def one(p: P, spec):
+        if p.init != "zeros":
+            raise ValueError(f"{p.init} leaf: only zeros are made by block")
+        return torch.zeros(shard_shape(spec, p.shape, mesh.shape),
+                           dtype=leaf_dtype(p, default_dtype),
+                           device=torch.device(device))
+
+    return T.tree_map(one, tree, specs)
+
+
 def unshard(tree, specs, mesh):
-    """The inverse of :func:`shard`: every leaf all-gathered along its
-    model dim over the model group and along its FSDP dim over the data
-    group (every rank must call it).  For tests, checkpoints and
-    ``chip_smoke.py``."""
-    from repro_torch.launch.mesh import FSDP_ITEM_REMAINDER, MODEL_AXIS
+    """The inverse of :func:`shard`: every leaf all-gathered along each
+    dim its spec splits, over the ranks of that dim's axes
+    (``ClientMesh.axis_group``, in the entry's order), every rank
+    calling it.  Parameter and cache trees alike.  For tests, checkpoints
+    and ``chip_smoke.py``."""
 
     def one(x, spec):
         for dim, e in enumerate(spec):
             if e is None:
                 continue
-            axes = _entry_axes(e)
-            if axes == (MODEL_AXIS,):
-                group = mesh.model
-            elif axes == tuple(a for a in mesh.fsdp_axes if a in axes):
-                group = mesh.data
-            else:
-                raise NotImplementedError(
-                    f"unshard over {e!r} on a mesh with FSDP axes "
-                    f"{mesh.fsdp_axes}: {FSDP_ITEM_REMAINDER}")
+            group = mesh.axis_group(_entry_axes(e))
             if group is not None:
                 x = group.all_gather(x, dim)
         return x

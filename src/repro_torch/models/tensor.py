@@ -19,6 +19,17 @@ out, Megatron-style, as autograd functions of its own over a
   (the SSD's scan between a column- and a row-split product), gets
   partial gradients back: their sum, chunked, is the split output's.
 
+Every product of an activation and a leaf goes through :func:`mm`, a
+plain ``einsum`` on a tensor.  The 2-D serving of the ``fsdp`` plans
+(:class:`Serve2D`) hands the layers each matrix leaf split along its
+``embed`` dim over the data group as a :class:`Split2D`, which
+:func:`mm` multiplies without gathering the leaf: the activations of
+every batch row of the data group are gathered instead, each rank
+multiplies them by its ``embed`` shard, and the partial products are
+summed (``embed`` contracted) or gathered along ``embed`` (an output
+dim) over the data group before each rank keeps its own rows.  A rank
+never holds more of a leaf than its shard.
+
 (``torch.distributed.nn``'s all-reduce has an all-reduce backward, not
 the identity that g needs.)  So between ``copy`` and ``reduce`` (or a
 ``gather``'s consumer), gradients are partial on each rank; outside, every
@@ -77,8 +88,11 @@ class _Gather(torch.autograd.Function):
 
 def copy(x: torch.Tensor, group) -> torch.Tensor:
     """Identity forward, gradient all-reduced backward (f); ``group``
-    ``None`` (no model axis): ``x``."""
-    return x if group is None else _Copy.apply(x, group)
+    ``None`` (no model axis), or a :class:`Split2D` leaf (served, no
+    gradient): ``x``."""
+    if group is None or isinstance(x, Split2D):
+        return x
+    return _Copy.apply(x, group)
 
 
 def reduce(x: torch.Tensor, group) -> torch.Tensor:
@@ -110,10 +124,10 @@ def column(x: torch.Tensor, w: torch.Tensor, group, full: int,
     the whole product.  ``x`` must already be inside the split region
     (:func:`copy`); a replicated ``w`` is multiplied whole."""
     if group is None:
-        return torch.einsum(eq, x, w)
+        return mm(eq, x, w)
     if w.shape[-1] != full:
-        return gather(torch.einsum(eq, x, w), group, -1 % x.dim())
-    return torch.einsum(eq, x, copy(w, group))
+        return gather(mm(eq, x, w), group, -1 % x.dim())
+    return mm(eq, x, copy(w, group))
 
 
 def row(y: torch.Tensor, w: torch.Tensor, group, eq: str) -> torch.Tensor:
@@ -121,12 +135,12 @@ def row(y: torch.Tensor, w: torch.Tensor, group, eq: str) -> torch.Tensor:
     whole on every rank) and its rows of ``w`` (split on dim 0, or the
     same rows of a replicated ``w``), summed over the group (g)."""
     if group is None:
-        return torch.einsum(eq, y, w)
+        return mm(eq, y, w)
     n = y.shape[-1]
     lo, hi = group.chunk(n)
     if w.shape[0] == n:
         w = copy(w, group)[lo:hi]
-    return reduce(torch.einsum(eq, y[..., lo:hi], w), group)
+    return reduce(mm(eq, y[..., lo:hi], w), group)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -160,3 +174,104 @@ class FSDP:
         forward, the identity backward (each rank's gradient is then its
         share of the whole mean's, which the leaves' collectives sum)."""
         return reduce(x / self.group.size, self.group)
+
+
+def mm(eq: str, x: torch.Tensor, w) -> torch.Tensor:
+    """``einsum(eq, x, w)`` of an activation ``x`` (batch first) and a
+    leaf ``w``: a :class:`Split2D` leaf by :meth:`Split2D.mm`."""
+    if isinstance(w, Split2D):
+        return w.mm(eq, x)
+    return torch.einsum(eq, x, w)
+
+
+class Split2D:
+    """A matrix leaf of the 2-D serving form: ``shard``, this rank's shard
+    (its model split, if any, as the tp layers take it), split along
+    ``dim`` over ``ctx``'s data group.  The layers read its ``shape`` and
+    ``dtype`` (the shard's), cast it (``to``) and merge its leading dims
+    (``reshape``, the split dim last); :func:`mm` multiplies it."""
+
+    def __init__(self, shard: torch.Tensor, dim: int, ctx: "Serve2D"):
+        self.shard, self.dim, self.ctx = shard, dim, ctx
+
+    @property
+    def shape(self):
+        return self.shard.shape
+
+    @property
+    def dtype(self):
+        return self.shard.dtype
+
+    def to(self, dtype) -> "Split2D":
+        return Split2D(self.shard.to(dtype), self.dim, self.ctx)
+
+    def reshape(self, *shape) -> "Split2D":
+        last = self.shard.dim() - 1
+        out = self.shard.reshape(*shape)
+        if self.dim != last or out.shape[-1] != self.shard.shape[-1]:
+            raise NotImplementedError(
+                f"a reshape of a leaf split along dim {self.dim} to {shape}")
+        return Split2D(out, out.dim() - 1, self.ctx)
+
+    def mm(self, eq: str, x: torch.Tensor) -> torch.Tensor:
+        """``einsum(eq, x, whole leaf)`` for this rank's batch rows: the
+        rows of the data group gathered (none with the batch whole on
+        every rank), multiplied by the shard, and then summed over the
+        data group where ``eq`` contracts the split dim (this rank's
+        slice of ``x`` along it), or gathered along it where it is an
+        output dim; this rank's rows kept."""
+        ins, out = eq.split("->")
+        xs, ws = ins.split(",")
+        c = ws[self.dim]
+        data, rows = self.ctx.group, self.ctx.rows
+        xa = x if rows is None else rows.all_gather(x, 0)
+        if c in out:
+            y = data.all_gather(torch.einsum(eq, xa, self.shard),
+                                out.index(c))
+        else:
+            n = self.shard.shape[self.dim]
+            y = data.all_reduce(torch.einsum(
+                eq, xa.narrow(xs.index(c), n * data.index, n), self.shard))
+        if rows is None:
+            return y
+        return y.narrow(0, rows.index * x.shape[0], x.shape[0])
+
+
+@dataclasses.dataclass(frozen=True)
+class Serve2D:
+    """The 2-D serving of the ``fsdp`` plans: ``group`` the data group,
+    ``specs`` the params' ``Spec`` tree, ``axes`` the FSDP axes, and
+    ``rows`` the group over which the batch rows are split (JAX's
+    ``("pod", "data")`` order; the same ranks as ``group``), or ``None``
+    where every data rank holds the whole batch (the long shapes).  Its
+    :meth:`use` and :meth:`tree` stand where :class:`FSDP`'s gather the
+    leaves in training: a 1-D leaf (a norm scale) is gathered whole, a
+    matrix leaf stays this rank's shard, as a :class:`Split2D`."""
+    group: Any
+    specs: Any
+    axes: Tuple[str, ...]
+    rows: Any = None
+
+    def use(self, x: torch.Tensor, spec, lead: int = 0):
+        for dim, e in enumerate(tuple(spec)[lead:]):
+            if e is not None and any(
+                    a in self.axes for a in ((e,) if isinstance(e, str)
+                                             else e)):
+                if x.dim() == 1:
+                    return self.group.all_gather(x, 0)
+                return Split2D(x, dim, self)
+        return x
+
+    def tree(self, tree, specs, lead: int = 0):
+        return T.tree_map(lambda x, sp: self.use(x, sp, lead), tree, specs)
+
+
+@dataclasses.dataclass(frozen=True)
+class KVSplit:
+    """The split-KV decode's cache sequence split: ``group`` the ranks of
+    the cache's ``kv_seq`` axes (this rank holds slots ``[index * S_loc,
+    (index + 1) * S_loc)`` of a leaf the axes split), ``model`` whether
+    they include the model axis (then every rank attends with every query
+    head, and keeps its own heads after the combine)."""
+    group: Any
+    model: bool = False

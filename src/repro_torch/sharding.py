@@ -19,7 +19,14 @@ Counterpart of ``repro/sharding.py``, as data:
               scan round on a mesh with no client axes), the leaves
               split by the ``fsdp`` rules.
 
-:func:`cache_rules` is data only: sharded serving is ROADMAP §1.10(c).
+:func:`cache_rules` lays out the decode caches of the sharded serve steps
+(``launch/steps.build_serve_step``): the batch over the client axes, kv
+and SSD heads over "model", and for the long shapes (or
+``cache_seq_shard``) the cache's sequence over "data", the split-KV
+decode whose softmax the ranks combine (``models/layers.py``).  A
+serving plan's ``fsdp`` params are the 2-D serving of
+``models/tensor.Serve2D``: each leaf's ``embed`` dim stays split over
+the data axes, and the activations move instead.
 """
 from __future__ import annotations
 

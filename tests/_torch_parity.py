@@ -8,6 +8,12 @@ import numpy as np
 import pytest
 import torch
 
+# The port's CPU tests run on one torch thread: the suite's workers share
+# the machine's cores, and PyTorch's default of a thread per core in each
+# of them oversubscribes it (every port test file imports this module,
+# and so does each worker's collection).
+torch.set_num_threads(1)
+
 
 def rand_leaves(seed, shapes, scale=1.0):
     rng = np.random.default_rng(seed)
@@ -281,3 +287,65 @@ def shuffle_blocks(xp, seg_ids, seed):
         seg_ids.numel())).to(xp.device)
     blocks = xp.reshape(-1, 1024)[perm]
     return blocks.reshape(-1, 128).contiguous(), seg_ids[perm].contiguous()
+
+
+class ThreadGroup:
+    """``n`` ranks of one process, each a thread, and their collectives
+    (``launch.mesh.ModelGroup``'s ``all_reduce`` and ``all_gather``) by
+    exchange through a barrier: the split-KV combine on one device, card
+    or CPU, without a process group.  :meth:`run` calls ``fn(member)`` on
+    every member at once."""
+
+    def __init__(self, n: int):
+        import threading
+        self.n = n
+        self._barrier = threading.Barrier(n, timeout=60)
+        self._slots = [None] * n
+
+    def run(self, fn):
+        import threading
+        out, errors = [None] * self.n, []
+
+        def one(i):
+            try:
+                out[i] = fn(_ThreadMember(self, i))
+            except BaseException as e:      # re-raised below
+                errors.append(e)
+                self._barrier.abort()
+
+        threads = [threading.Thread(target=one, args=(i,))
+                   for i in range(self.n)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if errors:
+            raise errors[0]
+        return out
+
+
+class _ThreadMember:
+    def __init__(self, group: ThreadGroup, index: int):
+        self._g, self.size, self.index = group, group.n, index
+
+    def chunk(self, n: int):
+        return (self.index * n) // self.size, \
+            ((self.index + 1) * n) // self.size
+
+    def _exchange(self, x):
+        g = self._g
+        g._slots[self.index] = x
+        g._barrier.wait()
+        vals = list(g._slots)
+        g._barrier.wait()
+        return vals
+
+    def all_reduce(self, x, op: str = "sum"):
+        vals = self._exchange(x)
+        out = vals[0]
+        for v in vals[1:]:
+            out = out + v if op == "sum" else torch.maximum(out, v)
+        return out.clone()
+
+    def all_gather(self, x, dim: int):
+        return torch.cat(self._exchange(x), dim=dim)

@@ -19,8 +19,9 @@ import pytest
 import torch
 
 from _torch_parity import assert_bitwise, cuda_device  # noqa: F401
-from _torch_parity import (COUNT_CASES, count_edge_cases, packed_edge_cases,
-                           rand_leaves, shuffle_blocks, taus_sorted)
+from _torch_parity import (COUNT_CASES, ThreadGroup, count_edge_cases,
+                           packed_edge_cases, rand_leaves, shuffle_blocks,
+                           taus_sorted)
 from repro_torch.core import sparsify as S
 from repro_torch.kernels import LAUNCHES, reset_launches
 from repro_torch.kernels.packed_topk import ops as P
@@ -1138,3 +1139,39 @@ def test_cuda_vocab_parallel_loss_matches_cpu(cuda_device):
     g = torch.cat([g0, g1], dim=-1).numpy()
     np.testing.assert_allclose(g, gref.numpy(), rtol=0,
                                atol=2e-6 * float(gref.abs().max()))
+
+
+#: the split-KV combine on the card against the whole softmax on the card,
+#: float32, of its largest element
+SPLIT_KV_TOL = 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ring", [False, True])
+@pytest.mark.parametrize("n", [2, 4])
+def test_cuda_split_kv_combine_matches_whole(cuda_device, n, ring):
+    """``decode_attention`` split over ranks on the card: ``n`` ranks (threads of
+    this process sharing the card) each attending over its slice of a
+    65,536-slot cache (a ring wrapped past it), combined by the
+    all-reduced max, sums and contexts, within ``SPLIT_KV_TOL`` of
+    ``decode_attention`` over the whole cache on the card; a position in
+    the first rank's slice leaves the others' slots all masked."""
+    from repro_torch.models import layers as L
+    S, hd = 65536, 128
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    q = torch.randn((1, 8, 2, hd), generator=g, device=cuda_device)
+    k = torch.randn((1, S, 8, hd), generator=g, device=cuda_device)
+    v = torch.randn((1, S, 8, hd), generator=g, device=cuda_device)
+    held = S // n
+    for pos in ((S + 777, 3 * S - 5) if ring else (100, S - 1)):
+        want = L.decode_attention(q, k, v, pos=pos, ring=ring)
+
+        def rank(grp):
+            lo = grp.index * held
+            return L.decode_attention(
+                q, k[:, lo:lo + held], v[:, lo:lo + held], pos=pos, S=S,
+                lo=lo, group=grp, ring=ring)
+
+        for got in ThreadGroup(n).run(rank):
+            err = (got - want).abs().max() / want.abs().max()
+            assert float(err) <= SPLIT_KV_TOL, (pos, float(err))

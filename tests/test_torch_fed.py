@@ -521,6 +521,19 @@ def _quantized_fsdp_step(loss):
         plan=DeployPlan(clients="virtual", train_params="fsdp"))
 
 
+def _serve_on_unknown_axis(loss):
+    """A serve step on a serving mesh with an axis beyond "model" and the
+    data[, pod] axes that split its batch (and the 2-D leaves)."""
+    from repro_torch.configs import get_config, reduce_for_smoke
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import ClientMesh
+    mesh = ClientMesh(shape={"data": 1, "expert": 2, "model": 1},
+                      client_axes=(), rank=0, device=torch.device("cpu"))
+    return steps.build_serve_step(
+        reduce_for_smoke(get_config("starcoder2-3b")), mesh,
+        steps.SHAPES["decode_32k"])
+
+
 _SPATIAL = FedConfig(client_mode="vmap", client_axes=("data",),
                      n_clients=1)
 _REMAINDER = r"§1\.10\(b\) remainder"
@@ -535,16 +548,19 @@ _REMAINDER = r"§1\.10\(b\) remainder"
     (lambda loss: make_async_round(FedConfig(n_clients=2), loss,
                                    mesh=_fsdp_mesh()), _REMAINDER),
     (_quantized_fsdp_step, _REMAINDER),
+    (_serve_on_unknown_axis, _REMAINDER),
 ])
 def test_round_outside_the_slice_raises(build, what):
     """What stays outside the port raises naming its ROADMAP item: a mesh
     axis beyond the client axes, "model" and a virtual mesh's FSDP axes
     (§1.10(b)'s remainder), the async driver's group cohort on a model
     axis above 1 (§1.10(a)), the async driver on a mesh whose data axes
-    split the leaves, and a quantized compressor on FSDP leaves (both
-    §1.10(b)'s remainder).  The spatial round on a model axis and the
-    virtual clients' FSDP round themselves run
-    (tests/test_torch_tensor.py, tests/test_torch_fsdp.py)."""
+    split the leaves, a quantized compressor on FSDP leaves, and a serve
+    step on a mesh with such an axis (all three §1.10(b)'s remainder).
+    The spatial round on a model axis, the virtual clients' FSDP round
+    and the sharded prefill and serve steps themselves run
+    (tests/test_torch_tensor.py, tests/test_torch_fsdp.py,
+    tests/test_torch_serve_mesh.py)."""
     with pytest.raises(NotImplementedError, match=what):
         build(lambda p, b: p["w"].sum())
 

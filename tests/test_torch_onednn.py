@@ -35,6 +35,9 @@ from repro_torch.data import (client_batches, dirichlet_partition,
 from repro_torch.models import vision
 from repro_torch.optim import adam
 
+# one torch thread, as tests/_torch_parity.py sets for the port's tests
+torch.set_num_threads(1)
+
 
 def _grads(loss_fn, W, batch, dtype=torch.float32, onednn=None):
     """conv1/conv2 weight gradients at ``W`` (numpy) on ``batch``; with
