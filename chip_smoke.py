@@ -241,7 +241,28 @@ Phases:
    its cuts, predicted and measured peaks per rank, walls per step, the
    bytes each group (model, data) moves per step and the elements
    beyond its tolerance; records:
-   ``chiprun_out/phase18.json``.
+   ``chiprun_out/phase18.json``;
+19. (after 18) the dry run (``launch/dryrun.py``) and rank 0's real step
+   held to it: (a) ``DRY_COMBOS`` (starcoder2-3b train_4k and
+   decode_32k, mamba2-1-3b train_4k, deepseek-v2-lite-16b decode_32k,
+   gemma3-27b long_500k) on pod1, each dry run a process of its own
+   tracing fake CUDA tensors on the 256-rank fake world, all started
+   together; every record ok, or skip with the JAX package's reason, one
+   line each; (b) beside them, as the predictions appear, one spawned
+   process, rank 0 of the fake world with its collectives standing in
+   for its peers (``launch/mesh.stand_in``), runs each combo whose
+   predicted peak fits ``DRY_FIT_BYTES`` for real on the card, its
+   weights drawn by block from the seed (``seeded_tree``): FLOPs
+   (``FlopCounterMode``), kernel launches and collective bytes equal to
+   the prediction, ``max_memory_allocated`` within 10% or 2 GiB of the
+   predicted peak, a decode's logits finite (a train combo's loss and
+   state recorded: the stand-in's sums compound through a deep split
+   backward), a train combo's absmax, count_ge and ssm_apply_ef bitwise
+   their plain versions on its first inputs at its largest leaf; a
+   decode step again without counters for its wall (a train step's wall
+   is the counted run's), and the achieved share of the dtype's peak
+   FLOP/s; the combos that do not fit listed with their predictions;
+   records: ``chiprun_out/phase19.json`` and ``chiprun_out/dryrun/``.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.  Any failure
@@ -264,12 +285,13 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
 
-#: H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and float32 outside
-#: the tensor cores; the bound of a kernel is the larger of bytes over the
-#: first and operations over the second.
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
+#: H100 SXM peaks (the port's roofline, from the data sheet): HBM3
+#: bandwidth and float32 outside the tensor cores; the bound of a kernel is
+#: the larger of bytes over the first and operations over the second.
+from repro_torch.roofline import (  # noqa: E402
+    F32_FLOPS as F32_OPS_PER_S, HBM_BW as HBM_BYTES_PER_S)
 
 CNN_WIRE_BYTES_PER_CLIENT = 346_880
 CLIENTS = 20
@@ -832,8 +854,8 @@ def time_ms(torch, fn, iters: int) -> float:
 
 
 #: Profiler windows a measurement tries before it gives up: the profiler
-#: on the H100 drops a record now and then, sometimes a whole window, and
-#: once three windows in a row.
+#: on the H100 loses device records (``device_ms``), in some windows all
+#: of them.
 PROFILER_WINDOWS = 10
 
 
@@ -841,30 +863,54 @@ def device_ms(torch, fn, iters: int, kernel_names=("",)):
     """(device time per call, device operations per call) of the named
     CUDA kernels (by default every device operation the call makes:
     kernels, fills, copies), from torch.profiler over ``iters`` calls.
-    The profiler drops a record now and then (one of a window's 10 or 50
-    on the H100, sometimes all of them), so each operation counts
-    ``round(records / iters)`` times per call at its mean recorded time,
-    and a window that saw no device time is profiled again, at most
-    ``PROFILER_WINDOWS`` times in all."""
+
+    The profiler on the H100 loses device records.  In one process that
+    profiled windows of 10 calls for 200 s (an H100 80GB, torch 2.11),
+    windows lost k records, k growing by about one every 9 s whatever the
+    calls took; past the first minute every other window mostly lost none,
+    and from about 150 s the others came back empty (the whole script once
+    saw ten empty windows in a row).  So the first window that kept every
+    record (each operation's count a multiple of the calls) counts; after
+    four windows without one, the one with the most records does, each
+    operation counting ``round(records / calls)`` times per call at its
+    mean recorded time; two windows in a row that saw none of the named
+    kernels make the next ones four times as long, at most
+    ``PROFILER_WINDOWS`` windows in all."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    for _ in range(PROFILER_WINDOWS):
+    best, n = None, iters
+    for w in range(PROFILER_WINDOWS):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
+            for _ in range(n):
                 fn()
             torch.cuda.synchronize()
-        ev = [e for e in prof.key_averages()
+        ev = [(e.count, e.self_device_time_total) for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA and e.count
               and any(k in e.key for k in kernel_names)]
-        per_call = [(round(e.count / iters), e.self_device_time_total
-                     / e.count) for e in ev]
-        if sum(c for c, _ in per_call):
-            return (sum(c * us for c, us in per_call) / 1e3,
-                    sum(c for c, _ in per_call))
-    raise RuntimeError(f"chip_smoke: the profiler saw no device time of "
-                       f"{kernel_names} in {PROFILER_WINDOWS} windows")
+        per_call = [(round(c / n), us / c) for c, us in ev]
+        if ev and all(c % n == 0 for c, _ in ev):
+            best = (None, per_call)
+            break
+        records = sum(c for c, _ in ev) / n
+        if sum(c for c, _ in per_call) and (best is None
+                                            or records > best[0]):
+            best = (records, per_call)
+        if w % 2 and best is None:
+            log(f"device_ms: no device time of {kernel_names} in two "
+                f"windows of {n} calls")
+            n *= 4
+        elif w >= 3 and best is not None:
+            log(f"device_ms: no window of {kernel_names} kept every record;"
+                f" the best kept {best[0]:.2f} per call of {n}")
+            break
+    if best is None:
+        raise RuntimeError(f"chip_smoke: the profiler saw no device time of "
+                           f"{kernel_names} in {PROFILER_WINDOWS} windows")
+    per_call = best[1]
+    return (sum(c * us for c, us in per_call) / 1e3,
+            sum(c for c, _ in per_call))
 
 
 def max_abs_err(torch, a, b) -> float:
@@ -3733,43 +3779,25 @@ TENSOR_KERNELS = ("absmax", "count_ge", "ssm_apply_ef", "apply_mask")
 
 
 @contextlib.contextmanager
-def _count_collectives(MM, mesh):
-    """Bytes this rank's groups move (its sends, as the backend moves
-    them: bfloat16 reductions in float32) while the block runs, by kind
-    and group: the model group's all-reduces and all-gathers, the data
-    and leaf groups' of the FSDP leaves, and the client group's uplink
-    all-gathers; and each group's count of collectives."""
-    counts = collections.Counter()
-    ar, ag, cg = MM.ModelGroup.all_reduce, MM.ModelGroup.all_gather, \
-        MM.ClientMesh.all_gather
-
-    def label(g):
-        return ("model" if g.group is mesh.model_group else
-                "data" if g.group is mesh.group else "leaf")
-
-    def all_reduce(self, x, op="sum"):
-        e = 4 if x.element_size() == 2 else x.element_size()
-        counts[f"{label(self)}_all_reduce"] += x.numel() * e
-        counts[f"{label(self)}_collectives"] += 1
-        return ar(self, x, op)
-
-    def all_gather(self, x, dim):
-        counts[f"{label(self)}_all_gather"] += x.numel() * x.element_size()
-        counts[f"{label(self)}_collectives"] += 1
-        return ag(self, x, dim)
-
-    def client_gather(self, x):
-        counts["client_all_gather"] += x.numel() * x.element_size()
-        return cg(self, x)
-
-    MM.ModelGroup.all_reduce, MM.ModelGroup.all_gather = all_reduce, \
-        all_gather
-    MM.ClientMesh.all_gather = client_gather
+def _collectives(MM):
+    """The collectives this rank makes while the block runs, read off
+    ``launch/mesh``'s counters (``COLLECTIVES``; each call's bytes are
+    those of its result as the backend moves it: an all-gather's every
+    part, a reduction's tensor in float32 for the 2-byte types, a
+    reduce-scatter's whole tensor): ``"<group>/<kind>"`` -> bytes,
+    ``"<group>/calls"`` -> calls and ``"total"`` -> bytes, a group named
+    by the mesh axes it spans (``model``; ``data``, the client or the
+    data group; ``data+model``, the leaf group)."""
+    MM.reset_collectives()
+    out = {}
     try:
-        yield counts
+        yield out
     finally:
-        MM.ModelGroup.all_reduce, MM.ModelGroup.all_gather = ar, ag
-        MM.ClientMesh.all_gather = cg
+        for (kind, group), (nbytes, calls) in sorted(
+                MM.COLLECTIVES.items()):
+            out[f"{group}/{kind}"] = nbytes
+            out[f"{group}/calls"] = out.get(f"{group}/calls", 0) + calls
+        out["total"] = sum(b for b, _ in MM.COLLECTIVES.values())
 
 
 def _host_params(cfg, seed, dev):
@@ -3896,7 +3924,7 @@ def tensor_round(torch, mesh, cfg, algorithm, params, tokens, *, seq,
     _sync(torch, dev)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
-    with _count_collectives(MM, mesh) as moved, \
+    with _collectives(MM) as moved, \
             _count_overflow(aggregate) as dropped:
         reset_launches()
         t0 = time.perf_counter()
@@ -4450,7 +4478,7 @@ def fsdp_round(torch, mesh, cfg, seed, tokens, *, gather=True,
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated() if dev.type == "cuda" else None
-    with _count_collectives(MM, mesh) as moved:
+    with _collectives(MM) as moved:
         reset_launches()
         t0 = time.perf_counter()
         st, mets = bundle.fn(state, batch)
@@ -5065,7 +5093,7 @@ def _reset_peak(torch, dev):
 def _step_counts(MM, mesh, torch, fn):
     """``fn()``'s result, its wall (synchronised) and the bytes each group
     moved."""
-    with _count_collectives(MM, mesh) as cnt:
+    with _collectives(MM) as cnt:
         t0 = time.perf_counter()
         out = fn()
         _sync(torch, mesh.device)
@@ -5597,6 +5625,309 @@ def _sm_summary(recs, whole) -> dict:
         "vs_whole": whole["vs_split"]}
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: the dry run's prediction, and rank 0's real step held to it
+# ---------------------------------------------------------------------------
+
+#: (a) the combos ``launch/dryrun.py`` predicts on ``DRY_MESH``, each in a
+#: process of its own, all started together (``--all`` takes longer than
+#: the phase may)
+DRY_COMBOS = (("starcoder2-3b", "train_4k"), ("starcoder2-3b", "decode_32k"),
+              ("mamba2-1-3b", "train_4k"),
+              ("deepseek-v2-lite-16b", "decode_32k"),
+              ("gemma3-27b", "long_500k"))
+DRY_MESH = "pod1"
+#: (b) a combo's rank 0 runs on the card where its predicted peak is at
+#: most this
+DRY_FIT_BYTES = 72 * 2 ** 30
+#: its ``max_memory_allocated`` within the larger of these of the
+#: predicted peak
+DRY_PEAK_SHARE, DRY_PEAK_SLACK = 0.10, 2 * 2 ** 30
+#: the kernels whose first inputs a train combo's step replays
+DRY_KERNELS = ("absmax", "count_ge", "ssm_apply_ef")
+#: how long (b) waits for a prediction
+DRY_WAIT_S = 400
+
+
+def _dry_name(arch, shape):
+    return f"{arch}__{shape}__{DRY_MESH}"
+
+
+def dry_card_step(torch, mesh, arch, shape_name, pred, seed, dev):
+    """Rank 0's real step of a combo on the card, the fake world's
+    collectives in stand-in mode with bounded sums, under the dry run's
+    counters: its weights drawn by block from ``seed`` (``seeded_tree``),
+    a train step's tokens in rank 0's vocabulary shard
+    (``_rank_vocab_tokens``), its peak, FLOPs, kernel launches and
+    collectives against the prediction ``pred``; a decode step again
+    without counters for its wall (a train step's wall is the counted
+    run's: ``wall_run``); a train step's kernels bitwise their plain
+    versions on its first inputs at its largest leaf, which must be
+    finite, as its loss and state must.  Returns the record and its
+    failures."""
+    from repro_torch import roofline as RL
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import mesh as MM
+    from repro_torch.launch import steps as ST
+    from repro_torch.models import model as Mdl
+    cfg = get_config(arch)
+    shape = ST.SHAPES[shape_name]
+    t0 = time.perf_counter()
+    bundle = D.build(cfg, shape, mesh)
+    params = seeded_tree(torch, Mdl.abstract_params(cfg),
+                         bundle.static["pspecs"], mesh, seed, cfg.dtype, dev)
+    torch.manual_seed(seed)
+    args = bundle.args(params, dev)
+    del params
+    train = shape.kind == "train"
+    if train:
+        args[1]["tokens"] = _rank_vocab_tokens(mesh, cfg, args[1]["tokens"])
+    _free(torch)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    cap = Capture(host=True) if train else None
+    if cap is not None:
+        # the first calls at the largest leaf this rank holds
+        entry = _lm_entry_points()
+        n = max(t.numel() for t in D._tensors(args[0].W))
+        for k in DRY_KERNELS:
+            cap.wrap(*entry[k], k, LM_KERNELS[k][2], (n,),
+                     len(LM_PASSES.get(k, ("",))))
+    try:
+        with MM.stand_in(bounded=True):
+            res = D.count_step(bundle.fn, args, device_type="cuda")
+        torch.cuda.synchronize()
+    finally:
+        if cap is not None:
+            cap.restore()
+    peak = torch.cuda.max_memory_allocated()
+    out = res.pop("out")
+    # a decode step's logits, a train step's loss and state: finite
+    finite = bool(torch.isfinite(
+        (out[1]["loss"] if train else out[0]).float()).all())
+    state_finite = all(bool(torch.isfinite(t.float()).all())
+                        for t in D._tensors(out) if t.is_floating_point())
+    del out
+    _free(torch)
+    wall = res["t_run_s"]
+    if not train:
+        # a decode step's counted run is the counters' host time; a train
+        # step's is the card's (mamba2 on an H100 80GB: 25.6 s counted,
+        # 21.6 s without), and a second one would not fit the phase
+        with MM.stand_in(bounded=True):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = bundle.fn(*args)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        del out
+    del args
+    _free(torch)
+    rec = {"predicted_peak_bytes": pred["memory"]["peak_per_device_bytes"],
+           "peak_bytes": peak, "tracked_peak_bytes": res["peak_bytes"],
+           "flops": res["flops"], "predicted_flops": pred["flops"],
+           "launches": res["launches"],
+           "launches_predicted": pred["launches_predicted"],
+           "collective_bytes": res["collectives"]["total"],
+           "init_s": init_s, "counted_step_s": res["t_run_s"],
+           "wall_s": wall, "wall_run": "counted" if train else "uncounted",
+           "finite": finite, "state_finite": state_finite,
+           "flops_share_of_peak": res["flops"] / wall
+           / RL.PEAK_FLOPS[cfg.dtype]}
+    if cap is not None:
+        captured = {k: [c for calls in cap.args[k].values() for c in calls]
+                    for k in cap.args}
+        require(sorted(captured) == sorted(DRY_KERNELS),
+                f"{arch} {shape_name}: captured {sorted(captured)}")
+        rec["kernel_inputs_finite"] = {
+            k: all(bool(torch.isfinite(x.float()).all())
+                   for args_, _ in calls for x in args_
+                   if isinstance(x, torch.Tensor) and x.is_floating_point())
+            for k, calls in captured.items()}
+        rec["kernels"] = _replay_tensor_kernels(torch, captured, True,
+                                                False)
+        del captured
+    tol = max(DRY_PEAK_SHARE * rec["predicted_peak_bytes"], DRY_PEAK_SLACK)
+    failures = [f"{arch} {shape_name}: {what}" for what, bad in (
+        (f"peak {peak} off the prediction "
+         f"{rec['predicted_peak_bytes']} by more than {tol:.0f}",
+         abs(peak - rec["predicted_peak_bytes"]) > tol),
+        (f"FLOPs {res['flops']} != {pred['flops']}",
+         res["flops"] != pred["flops"]),
+        (f"launches {res['launches']} != {pred['launches_predicted']}",
+         res["launches"] != pred["launches_predicted"]),
+        ("collectives differ from the prediction's",
+         res["collectives"] != pred["collectives"]),
+        ("a kernel differs from its plain version", any(
+            r["max_abs_err"] != 0 for r in rec.get("kernels", {}).values())),
+        ("a non-finite loss or logits", not finite),
+        ("a non-finite state", train and not state_finite),
+        (f"non-finite kernel inputs {rec.get('kernel_inputs_finite')}",
+         not all(rec.get("kernel_inputs_finite", {}).values()))) if bad]
+    if train:
+        require(rec["launches"], f"{arch} {shape_name}: no kernel launched")
+    return rec, failures
+
+
+def _rank_vocab_tokens(mesh, cfg, tokens):
+    """``tokens`` folded into rank 0's vocabulary shard (the model
+    group's first chunk; the whole vocabulary with no model axis).  Under
+    the stand-in every rank holds rank 0's shard, so a token outside it
+    embeds to zeros, and the RMS norm of a zero row scales its gradient
+    by 1/sqrt(eps) at every layer: mamba2's 48 overflow."""
+    lo, hi = mesh.model.chunk(cfg.vocab_size) if mesh.model is not None \
+        else (0, cfg.vocab_size)
+    return lo + tokens % (hi - lo)
+
+
+def dryrun_card_rank(rank, world, store, seed, out_dir, combos):
+    """(b) in a process of its own: rank 0 of the fake ``DRY_MESH`` world
+    on the card; each combo whose prediction has appeared under
+    ``out_dir`` (as they appear) and whose predicted peak fits
+    ``DRY_FIT_BYTES`` through ``dry_card_step``; the others listed with
+    their predictions."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    from repro_torch.device import exact_float32
+    from repro_torch.launch import dryrun as D
+    torch.backends.cudnn.deterministic = True
+    exact_float32()
+    dev = torch.device("cuda", 0)
+    mesh = D.world(DRY_MESH, dev)
+    pending, out, failures = list(combos), {}, []
+    deadline = time.perf_counter() + DRY_WAIT_S
+    while pending:
+        ready = [c for c in pending
+                 if (Path(out_dir) / f"{_dry_name(*c)}.json").exists()]
+        if not ready:
+            require(time.perf_counter() < deadline,
+                    f"no prediction for {pending} in {DRY_WAIT_S} s")
+            time.sleep(0.2)
+            continue
+        arch, shape = ready[0]
+        pending.remove(ready[0])
+        pred = json.loads((Path(out_dir) / f"{_dry_name(arch, shape)}"
+                           ".json").read_text())
+        name = _dry_name(arch, shape)
+        if pred["status"] != "ok":
+            out[name] = {"ran": False, "status": pred["status"]}
+            continue
+        peak = pred["memory"]["peak_per_device_bytes"]
+        if peak > DRY_FIT_BYTES:
+            out[name] = {"ran": False, "predicted_peak_bytes": peak}
+            continue
+        rec, bad = dry_card_step(torch, mesh, arch, shape, pred, seed, dev)
+        out[name] = {"ran": True, **rec}
+        failures += bad
+    return {"combos": out, "failures": failures}
+
+
+def phase_dryrun(torch, seed):
+    """Phase 19: (a) the dry run of ``DRY_COMBOS`` on ``DRY_MESH``, each
+    combo in a process of its own, all started together; every record
+    must be ok, or skip with the JAX package's reason.  (b) beside them,
+    as the predictions appear, rank 0's real step of each combo that fits
+    (``dryrun_card_rank``) held to its prediction."""
+    import shutil
+    import tempfile
+    import threading
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as MM
+    from repro_torch.launch import steps as ST
+    t_phase = time.perf_counter()
+    out_dir = ROOT / "chiprun_out" / "dryrun"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = {c: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", c[0],
+         "--shape", c[1], "--mesh", DRY_MESH, "--out", str(out_dir)],
+        env=env, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for c in DRY_COMBOS}
+    card, errors = {}, []
+
+    def run_card():
+        tmp = tempfile.mkdtemp()
+        try:
+            card["res"] = MM.run_ranks(
+                dryrun_card_rank, 1, store=os.path.join(tmp, "store"),
+                args=(seed, str(out_dir), DRY_COMBOS),
+                timeout_s=DRY_WAIT_S + 200)[0]
+        except BaseException as e:      # re-raised below
+            errors.append(e)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+
+    thread = threading.Thread(target=run_card)
+    thread.start()
+    records, failures = {}, []
+    try:
+        for c, proc in procs.items():
+            text, _ = proc.communicate(timeout=DRY_WAIT_S)
+            lines = [ln for ln in text.splitlines()
+                     if ln.startswith("[dryrun]")]
+            log("phase 19 (a) " + (lines[-1] if lines else
+                                   f"{c}: no record line:\n{text[-2000:]}"))
+            path = out_dir / f"{_dry_name(*c)}.json"
+            rec = json.loads(path.read_text()) if path.exists() else \
+                {"status": "missing"}
+            records[_dry_name(*c)] = rec
+            reason = ST.skip_reason(get_config(c[0]), ST.SHAPES[c[1]])
+            if not (rec["status"] == "ok" or (rec["status"] == "skip"
+                                               and rec["reason"] == reason)):
+                failures.append(f"{c}: {rec['status']} "
+                                f"{rec.get('error', '')[:300]}")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        thread.join()
+    t_a = max(r.get("t_build_s", 0) + r.get("t_run_s", 0)
+              for r in records.values())
+    if errors:
+        raise errors[0]
+    res = card["res"]
+    failures += res["failures"]
+    ran = [n for n, r in res["combos"].items() if r["ran"]]
+    kinds = {records[n]["shape"] for n in ran}
+    require(any(ST.SHAPES[k].kind == "train" for k in kinds)
+            and any(ST.SHAPES[k].kind in ("decode", "long") for k in kinds),
+            f"phase 19 (b) ran no train or no decode combo: {ran}")
+    summary = {}
+    for name, rec in records.items():
+        row = {"status": rec["status"]}
+        if rec["status"] == "ok":
+            roof = rec["roofline"]
+            row.update(
+                flops=rec["flops"],
+                predicted_peak_bytes=rec["memory"]["peak_per_device_bytes"],
+                argument_bytes=rec["memory"]["argument_bytes"],
+                collectives={k: v["bytes"] for k, v in
+                             rec["collectives"]["by_kind"].items()},
+                launches_predicted=rec["launches_predicted"],
+                t_compute=roof["t_compute"], t_memory=roof["t_memory"],
+                t_collective=roof["t_collective"],
+                bottleneck=roof["bottleneck"],
+                trace_s=rec["t_build_s"] + rec["t_run_s"])
+        row["card"] = res["combos"].get(name)
+        summary[name] = row
+        log(f"phase 19 {name}: {json.dumps(row, default=str)}")
+    wall = time.perf_counter() - t_phase
+    (ROOT / "chiprun_out" / "phase19.json").write_text(
+        json.dumps(summary, indent=1, default=str))
+    log(f"phase 19 ({smi_line()}) in {wall:.1f} s (the slowest trace "
+        f"{t_a:.1f} s)")
+    require(not failures, "; ".join(failures))
+    launches = collections.Counter()
+    for r in res["combos"].values():
+        if r["ran"]:
+            launches.update(r["launches"])
+    return {"summary": summary, "wall_s": wall, "launches": launches}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5676,8 +6007,9 @@ def main(argv=None):
     for name in ZOO:
         zoo[name], captured = phase_zoo(torch, args.seed, name)
         # the model's rounds leave the allocator holding nearly the whole
-        # card, and there the profiler recorded no device activity in ten
-        # windows (on an H100 80GB): the cache goes back to the driver
+        # card: the cache goes back to the driver before the timings (the
+        # empty profiler windows once blamed on it come from the process's
+        # age, see device_ms)
         torch.cuda.empty_cache()
         phase_zoo_kernels(torch, name, captured, zoo[name]["launches"],
                           kernels)
@@ -5806,6 +6138,13 @@ def main(argv=None):
     for k in kernels:
         # per rank over phase 18's parts (serving launches none)
         k["launches_serve_mesh"] = serve_mesh["launches"].get(k["name"], 0)
+    # phase 19: the dry run's prediction and rank 0's real step on the card
+    phase(19, "the dry run and rank 0's step against it")
+    _free(torch)
+    dry = phase_dryrun(torch, args.seed)
+    for k in kernels:
+        # rank 0 of the production mesh, one step of each combo it ran
+        k["launches_dryrun_rank0"] = dry["launches"].get(k["name"], 0)
     require(sorted(k["name"] for k in kernels)
             == sorted((*KERNELS, *LM_KERNELS)), "a kernel was not measured")
     phase(7, "starcoder2 smoke rounds card vs CPU")
@@ -5827,6 +6166,7 @@ def main(argv=None):
               "cnn_drivers": cnn_drivers, "transformer_drivers": lm_drivers,
               "zoo": zoo, "serve": served, "spatial": spatial,
               "tensor": tensor, "fsdp": fsdp, "serve_mesh": serve_mesh,
+              "dryrun": dry,
               "total_s": time.perf_counter() - t_start}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -27,3 +27,18 @@ from repro_torch.configs import (  # noqa: F401,E402
     starcoder2_7b,
     whisper_base,
 )
+
+#: The architectures every (arch x shape x mesh) dry run covers, in the
+#: JAX package's order.
+ASSIGNED_ARCHS = (
+    "kimi-k2-1t-a32b",
+    "deepseek-v2-lite-16b",
+    "gemma3-27b",
+    "starcoder2-7b",
+    "llava-next-mistral-7b",
+    "jamba-1-5-large-398b",
+    "mamba2-1-3b",
+    "whisper-base",
+    "mistral-large-123b",
+    "starcoder2-3b",
+)

@@ -51,6 +51,7 @@ import numpy as np
 import torch
 
 from repro_torch import tree as T
+from repro_torch.device import device_cache
 from repro_torch.kernels.packed_topk.ops import (
     BLOCK_ELEMS as PACK_BLOCK_ELEMS, LANES as PACK_LANES, packed_apply,
     packed_hist)
@@ -283,7 +284,7 @@ def tree_norm(tree, split: Optional[LeafSplit] = None):
 # ---------------------------------------------------------------------------
 
 
-@functools.lru_cache(maxsize=64)
+@device_cache(64)
 def _device_constants(padded: tuple, seg_of_leaf: tuple, seg_sizes: tuple,
                       alpha: Optional[float], device: torch.device):
     """seg_ids, and ks/ns for ``alpha``, built once per layout and device

@@ -6,6 +6,7 @@ they raise instead of quietly running elsewhere.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Union
 
 import torch
@@ -32,3 +33,22 @@ def exact_float32() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
         False
+
+
+def device_cache(maxsize: int):
+    """``functools.lru_cache(maxsize)`` for a function that builds constant
+    tensors on a device, passed by while a ``FakeTensorMode`` is entered:
+    a fake constant must not outlive its trace, nor a real one enter it."""
+    def wrap(fn):
+        cached = functools.lru_cache(maxsize=maxsize)(fn)
+
+        @functools.wraps(fn)
+        def call(*args):
+            fake = torch._C._get_dispatch_mode(
+                torch._C._TorchDispatchModeKey.FAKE) is not None
+            return fn(*args) if fake else cached(*args)
+
+        call.cache_info, call.cache_clear = cached.cache_info, \
+            cached.cache_clear
+        return call
+    return wrap

@@ -15,18 +15,17 @@ ignored.
 """
 from __future__ import annotations
 
-import functools
-
 import torch
 
-from repro_torch.kernels import LAUNCHES, _lib
-from repro_torch.kernels._check import (cuda_arg, leaf_dtype_code, on_cpu,
-                                        ptr, stream)
+from repro_torch.device import device_cache
+from repro_torch.kernels import LAUNCHES, _lib, predict
+from repro_torch.kernels._check import (cuda_arg, is_fake, leaf_dtype_code,
+                                        on_cpu, ptr, stream)
 
 _F32 = torch.float32
 
 
-@functools.lru_cache(maxsize=16)
+@device_cache(16)
 def _constant_scalars(lr: float, b1: float, b2: float, eps: float,
                       device: torch.device) -> torch.Tensor:
     # one host-to-device copy per hyper-parameter set and device: a copy
@@ -75,6 +74,9 @@ def fused_adam_apply(scalars, w, g, m, v):
     for name, x in (("w", w), ("g", g), ("m", m), ("v", v)):
         cuda_arg(name, x, w.dtype, w.shape, dev, aligned=False)
     wo, mo, vo = (torch.empty_like(x) for x in (w, m, v))
+    if is_fake(w):
+        predict("fused_adam", (scalars, w, g, m, v), (wo, mo, vo))
+        return wo, mo, vo
     _lib.launch("repro_fused_adam", ptr(scalars), ptr(w), ptr(g), ptr(m),
                 ptr(v), ptr(wo), ptr(mo), ptr(vo), w.numel(), code,
                 stream(dev))

@@ -24,8 +24,8 @@ from typing import Optional, Sequence
 
 import torch
 
-from repro_torch.kernels import LAUNCHES, _lib
-from repro_torch.kernels._check import cuda_arg, on_cpu, ptr, stream
+from repro_torch.kernels import LAUNCHES, _lib, predict
+from repro_torch.kernels._check import cuda_arg, is_fake, on_cpu, ptr, stream
 from repro_torch.kernels.topk_mask.ref import N_BINS
 
 LANES = 128
@@ -148,6 +148,10 @@ def _count(xp, seg_ids, edges, out=None, pick=None) -> None:
     cuda_arg("seg_ids", seg_ids, torch.int32, (nb,), dev)
     cuda_arg("edges", edges, torch.float32, (L, N_BINS), dev)
     ks, ns, taus, counts = pick or (None,) * 4
+    if is_fake(xp):
+        predict("packed_hist", (xp, seg_ids, edges, ks, ns),
+                (out, taus, counts))
+        return
     st = stream(dev)
     _lib.launch("repro_packed_hist", ptr(xp), ptr(seg_ids), ptr(edges),
                 _workspace(dev, st, L), ptr(out), ptr(ks), ptr(ns),
@@ -199,6 +203,11 @@ def packed_apply(taus2, seg_ids, ks, ns, streams: Sequence,
            pick=(ks, ns, taus, counts))
     outs = [torch.empty_like(x) for x in streams]
     err = torch.empty_like(streams[0]) if with_residual else None
+    if is_fake(streams[0]):
+        predict("packed_apply", (taus, seg_ids, score, *streams),
+                (*outs, err))
+        return tuple(outs) + ((err,) if with_residual else ()) + \
+            (taus, counts)
     x1, x2 = (streams[1], streams[2]) if len(streams) == 3 else (None, None)
     s1, s2 = (outs[1], outs[2]) if len(streams) == 3 else (None, None)
     _lib.launch("repro_packed_apply", ptr(taus), ptr(seg_ids), ptr(score),

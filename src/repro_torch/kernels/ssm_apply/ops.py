@@ -21,9 +21,9 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import LAUNCHES, _lib
-from repro_torch.kernels._check import (cuda_arg, leaf_dtype_code, on_cpu,
-                                        ptr, stream)
+from repro_torch.kernels import LAUNCHES, _lib, predict
+from repro_torch.kernels._check import (cuda_arg, is_fake, leaf_dtype_code,
+                                        on_cpu, ptr, stream)
 from repro_torch.kernels.packed_topk.ops import _value_code
 
 _F32 = torch.float32
@@ -69,6 +69,9 @@ def ssm_apply_ef(tau: torch.Tensor, dw, dm, dv,
             cuda_arg(name, x, dw.dtype, dw.shape, dev, aligned=False)
     outs = [torch.empty_like(x) for x in (dw, dm, dv)]
     err = torch.empty_like(dw) if with_residual else None
+    if is_fake(dw):
+        predict("ssm_apply_ef", (tau, score, dw, dm, dv), (*outs, err))
+        return tuple(outs) + ((err,) if with_residual else ())
     _lib.launch("repro_ssm_apply_ef", ptr(tau), ptr(score), ptr(dw),
                 ptr(dm), ptr(dv), ptr(outs[0]), ptr(outs[1]), ptr(outs[2]),
                 ptr(err), dw.numel(), code, vdt, stream(dev))
@@ -94,6 +97,9 @@ def ssm_apply(tau: torch.Tensor, dw, dm, dv):
         codes.append(leaf_dtype_code(name, x))
         cuda_arg(name, x, x.dtype, dw.shape, dev, aligned=False)
     outs = [torch.empty_like(x) for x in (dw, dm, dv)]
+    if is_fake(dw):
+        predict("ssm_apply", (tau, dw, dm, dv), outs)
+        return tuple(outs)
     _lib.launch("repro_ssm_apply", ptr(tau), ptr(dw), ptr(dm), ptr(dv),
                 ptr(outs[0]), ptr(outs[1]), ptr(outs[2]), dw.numel(), *codes,
                 stream(dev))

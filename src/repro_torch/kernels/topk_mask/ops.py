@@ -25,9 +25,9 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import LAUNCHES, _lib
-from repro_torch.kernels._check import (cuda_arg, leaf_dtype_code, on_cpu,
-                                        ptr, stream)
+from repro_torch.kernels import LAUNCHES, _lib, predict
+from repro_torch.kernels._check import (cuda_arg, is_fake, leaf_dtype_code,
+                                        on_cpu, ptr, stream)
 from repro_torch.kernels.topk_mask.ref import N_BINS, linear_taus, log2_taus
 
 _F32 = torch.float32
@@ -88,8 +88,11 @@ def absmax(x: torch.Tensor) -> torch.Tensor:
         return absmax_plain(x)
     code = _leaf_arg(x)
     dev = x.device
-    st = stream(dev)
     out = torch.empty((), dtype=_F32, device=dev)
+    if is_fake(x):
+        predict("absmax", (x,), (out,))
+        return out
+    st = stream(dev)
     _lib.launch("repro_absmax", ptr(x), _workspace(dev, st), ptr(out),
                 x.numel(), code, st)
     LAUNCHES["absmax"] += 1
@@ -106,8 +109,11 @@ def count_ge(taus: torch.Tensor, x: torch.Tensor,
     code = _leaf_arg(x)
     dev = x.device
     cuda_arg("taus", taus, _F32, (N_BINS,), dev)
-    st = stream(dev)
     out = torch.empty((N_BINS,), dtype=_F32, device=dev)
+    if is_fake(x):
+        predict("count_ge", (taus, x), (out,))
+        return out
+    st = stream(dev)
     _lib.launch("repro_count_ge", ptr(taus), ptr(x), _workspace(dev, st),
                 ptr(out), x.numel(), pad, code, st)
     LAUNCHES["count_ge"] += 1
@@ -170,6 +176,9 @@ def apply_mask(tau: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     code = _leaf_arg(x)
     cuda_arg("tau", tau, _F32, (), x.device, aligned=False)
     out = torch.empty(x.shape, dtype=torch.bool, device=x.device)
+    if is_fake(x):
+        predict("apply_mask", (tau, x), (out,))
+        return out
     _lib.launch("repro_apply_mask", ptr(tau), ptr(x), ptr(out), x.numel(),
                 code, stream(x.device))
     LAUNCHES["apply_mask"] += 1

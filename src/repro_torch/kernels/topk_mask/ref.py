@@ -19,10 +19,10 @@ bit for bit:
 """
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import torch
+
+from repro_torch.device import device_cache
 
 N_BINS = 32
 
@@ -30,7 +30,7 @@ _LOG2_FACTORS = np.asarray([2.0 ** (-j / 2.0) for j in range(N_BINS)],
                            np.float32)
 
 
-@functools.lru_cache(maxsize=8)
+@device_cache(8)
 def _log2_factors(device: torch.device) -> torch.Tensor:
     return torch.from_numpy(_LOG2_FACTORS).to(device)
 

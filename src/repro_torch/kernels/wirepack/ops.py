@@ -24,8 +24,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import LAUNCHES, _lib
-from repro_torch.kernels._check import cuda_arg, on_cpu, ptr, stream
+from repro_torch.kernels import LAUNCHES, _lib, predict
+from repro_torch.kernels._check import cuda_arg, is_fake, on_cpu, ptr, stream
 
 LANES = 128
 CODE_SUBLANES = 32
@@ -79,7 +79,9 @@ def pack_words(codes: torch.Tensor, bits: int) -> torch.Tensor:
     cuda_arg("codes", codes, torch.int32)
     out = torch.empty((R * bits // CODE_SUBLANES, LANES), dtype=torch.int32,
                       device=codes.device)
-    if out.numel():
+    if out.numel() and is_fake(codes):
+        predict("pack_words", (codes,), (out,))
+    elif out.numel():
         _lib.launch("repro_pack_words", ptr(codes), ptr(out), out.numel(),
                     bits, stream(codes.device))
         LAUNCHES["pack_words"] += 1
@@ -99,7 +101,9 @@ def unpack_words(words: torch.Tensor, bits: int) -> torch.Tensor:
     cuda_arg("words", words, torch.uint32)
     out = torch.empty((Rw // bits * CODE_SUBLANES, LANES), dtype=torch.int32,
                       device=words.device)
-    if words.numel():
+    if words.numel() and is_fake(words):
+        predict("unpack_words", (words,), (out,))
+    elif words.numel():
         _lib.launch("repro_unpack_words", ptr(words), ptr(out),
                     words.numel(), bits, stream(words.device))
         LAUNCHES["unpack_words"] += 1

@@ -31,14 +31,34 @@ group** (:attr:`ClientMesh.leaf`) of a leaf split over both.  Any other
 axis, and FSDP axes beside client axes, raise ``NotImplementedError``
 naming ``FSDP_ITEM_REMAINDER``.
 
-:func:`init` joins a group over a ``file://`` store (no network);
-:func:`make_test_group` is the CPU tests' gloo group, and
+:func:`init` joins a group over a ``file://`` store (no network), or,
+with ``backend="fake"``, a world of any size in this one process over
+PyTorch's fake process group (``launch/dryrun.py``'s production meshes:
+every group is made as in a real world, and no collective may reach
+it); :func:`make_test_group` is the CPU tests' gloo group, and
 :func:`run_ranks` runs a function on every rank of such a group, each in
 a process of its own.  CUDA tensors take NCCL unless the caller names
 another backend, CPU tensors gloo; a failed collective raises.
+
+Every collective of the port goes through this module (``_gather_list``,
+:class:`ModelGroup`'s three and :meth:`ClientMesh.all_gather`), and each
+call adds to :data:`COLLECTIVES`, by kind and group, the bytes of its
+result on this rank in the dtype the backend moves (JAX's
+``roofline.collective_bytes`` convention: an all-gather's ``n`` views
+of the input, an all-reduce's tensor, float32 for the 2-byte types; the
+port's reduce-scatter is an all-reduce of the whole tensor, and counts
+it).  Under :func:`stand_in` no collective reaches ``torch.distributed``:
+each returns what it would if every rank of its group held this rank's
+tensors, so one rank's step runs without its peers (the dry run and its
+check on the card).  Its sums are ``size`` times this rank's part at
+every split layer, and compound through a deep split backward: a
+stand-in train step's gradients may overflow where the real step's do
+not.  ``stand_in(bounded=True)`` gives a sum this rank's part instead
+(the card check's mode), with the same allocations and counts.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
 import math
@@ -88,15 +108,77 @@ _GATHER_VIEWS = {torch.uint32: torch.int32, torch.bfloat16: torch.uint8,
 _REDUCE_IN_F32 = (torch.bfloat16, torch.float16)
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
+#: Collectives since the last :func:`reset_collectives`: ``(kind, group)``
+#: -> ``[bytes, calls]``, kind ``all_reduce``, ``all_gather`` or
+#: ``reduce_scatter``, group the mesh axes it spans joined by "+" (the
+#: module docstring says which bytes).
+COLLECTIVES: Dict[Tuple[str, str], list] = {}
+#: The global ranks of each group counted in :data:`COLLECTIVES` (its
+#: span decides its link: ``roofline.group_rate``).
+GROUP_RANKS: Dict[str, Tuple[int, ...]] = {}
+#: None, or the :func:`stand_in` mode entered: "size" or "bounded"
+_STAND_IN: list = [None]
 
-def _gather_list(x: torch.Tensor, n: int, group) -> list:
+
+def reset_collectives() -> None:
+    COLLECTIVES.clear()
+    GROUP_RANKS.clear()
+
+
+def collective_summary() -> dict:
+    """:data:`COLLECTIVES` as JSON: per kind and per group the bytes and
+    calls, each group's ranks, and the total bytes."""
+    out: dict = {"by_kind": {}, "by_group": {}, "groups": {}}
+    for (kind, group), (nbytes, calls) in sorted(COLLECTIVES.items()):
+        for key, name in (("by_kind", kind), ("by_group", group)):
+            agg = out[key].setdefault(name, {"bytes": 0, "calls": 0})
+            agg["bytes"] += nbytes
+            agg["calls"] += calls
+        out["groups"][group] = list(GROUP_RANKS.get(group, ()))
+    out["total"] = sum(b for b, _ in COLLECTIVES.values())
+    return out
+
+
+@contextlib.contextmanager
+def stand_in(bounded: bool = False):
+    """While entered, every collective of this module returns what it
+    would if every rank of its group held this rank's tensors, and calls
+    nothing of ``torch.distributed``: a sum gives ``size * x``, a max
+    ``x``, a gather ``size`` copies, a reduce-scatter ``size`` times this
+    rank's chunk.  Each allocates what the collective does, and is
+    counted as it is.  With ``bounded`` a sum gives ``x`` (the mean of
+    the ``size`` copies) and a reduce-scatter this rank's chunk: where
+    ``size * x`` compounds through a deep split backward and overflows,
+    the step's values stay bounded, and it allocates, launches and
+    counts the same."""
+    prev, _STAND_IN[0] = _STAND_IN[0], "bounded" if bounded else "size"
+    try:
+        yield
+    finally:
+        _STAND_IN[0] = prev
+
+
+def _count(kind: str, name: str, ranks, nbytes: int) -> None:
+    entry = COLLECTIVES.setdefault((kind, name), [0, 0])
+    entry[0] += nbytes
+    entry[1] += 1
+    GROUP_RANKS.setdefault(name, tuple(ranks))
+
+
+def _gather_list(x: torch.Tensor, n: int, group, name: str = "",
+                 ranks=()) -> list:
     """Every rank's ``x`` of ``group`` (``n`` ranks), in rank order, as
     tensors of ``x``'s dtype and shape (moved through ``_GATHER_VIEWS``)."""
     view = _GATHER_VIEWS.get(x.dtype)
     src = x.contiguous() if view is None else \
         x.contiguous().reshape(-1).view(view)
     out = [torch.empty_like(src) for _ in range(n)]
-    dist.all_gather(out, src, group=group)
+    _count("all_gather", name, ranks, n * src.numel() * src.element_size())
+    if _STAND_IN[0]:
+        for o in out:
+            o.copy_(src)
+    else:
+        dist.all_gather(out, src, group=group)
     if view is None:
         return out
     return [o.view(x.dtype).reshape(x.shape) for o in out]
@@ -119,6 +201,10 @@ class ModelGroup:
     index: int
     group: Any = None
     order: Optional[Tuple[int, ...]] = None
+    #: the mesh axes it spans joined by "+", and its global ranks (the
+    #: collective counters' keys)
+    name: str = ""
+    ranks: Tuple[int, ...] = ()
 
     def chunk(self, n: int) -> Tuple[int, int]:
         """``[lo, hi)``: this rank's contiguous share of ``n`` items (as
@@ -130,14 +216,22 @@ class ModelGroup:
     def all_reduce(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
         """A new tensor: ``x`` reduced (``"sum"`` or ``"max"``) over the
         group."""
+        return self._reduce(x, op, "all_reduce")
+
+    def _reduce(self, x: torch.Tensor, op: str, kind: str) -> torch.Tensor:
         y = x.to(torch.float32) if x.dtype in _REDUCE_IN_F32 \
             else x.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(y, op=_OPS[op], group=self.group)
+        _count(kind, self.name, self.ranks, y.numel() * y.element_size())
+        if not _STAND_IN[0]:
+            dist.all_reduce(y, op=_OPS[op], group=self.group)
+        elif op == "sum" and _STAND_IN[0] == "size":
+            y.mul_(self.size)
         return y.to(x.dtype)
 
     def all_gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         """The group's ``x`` concatenated along ``dim`` in shard order."""
-        parts = _gather_list(x, self.size, self.group)
+        parts = _gather_list(x, self.size, self.group, self.name,
+                             self.ranks)
         if self.order is not None:
             parts = [parts[j] for j in self.order]
         return torch.cat(parts, dim=dim)
@@ -147,7 +241,8 @@ class ModelGroup:
         an all-reduce, then the chunk (gloo has no reduce-scatter; the
         same bits on NCCL)."""
         lo, hi = self.chunk(x.shape[dim])
-        return self.all_reduce(x).narrow(dim, lo, hi - lo).contiguous()
+        return self._reduce(x, "sum", "reduce_scatter").narrow(
+            dim, lo, hi - lo).contiguous()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -203,7 +298,8 @@ class ClientMesh:
         if self.model_size == 1:
             return None
         return ModelGroup(self.model_size, self.model_index,
-                          self.model_group)
+                          self.model_group, name=MODEL_AXIS,
+                          ranks=self._ranks_along((MODEL_AXIS,)))
 
     @property
     def fsdp_axes(self) -> Tuple[str, ...]:
@@ -231,7 +327,27 @@ class ClientMesh:
         reductions are used.  ``None`` on one rank."""
         if self.world_size == 1:
             return None
-        return ModelGroup(self.world_size, self.rank, None)
+        return ModelGroup(self.world_size, self.rank, None,
+                          name=self._name(self.shape),
+                          ranks=tuple(range(self.world_size)))
+
+    def _name(self, axes) -> str:
+        """A group's counter key: its axes above 1 in mesh order (all its
+        axes where each is 1)."""
+        mine = [a for a in self.shape if a in axes]
+        return "+".join([a for a in mine if self.shape[a] > 1] or mine)
+
+    def _ranks_along(self, axes) -> Tuple[int, ...]:
+        """The global ranks that differ from this one only along
+        ``axes``, ascending."""
+        me, stride, base, steps = self.coords(), 1, 0, [0]
+        for a, n in reversed(list(self.shape.items())):
+            if a in axes:
+                steps = [s + i * stride for i in range(n) for s in steps]
+            else:
+                base += me[a] * stride
+            stride *= n
+        return tuple(sorted(base + s for s in steps))
 
     def coords(self) -> Dict[str, int]:
         """This rank's index along every axis (row-major device order)."""
@@ -284,7 +400,9 @@ class ClientMesh:
                 f"the port makes the model, row and whole groups and, on "
                 f"a mesh with no client axes, one per row axis")
         return ModelGroup(size, shard_of(me), pg,
-                          None if order == tuple(range(size)) else order)
+                          None if order == tuple(range(size)) else order,
+                          name=self._name(axes),
+                          ranks=self._ranks_along(axes))
 
     def check(self) -> None:
         """Raise for a mesh the port does not run: client axes that are
@@ -313,7 +431,9 @@ class ClientMesh:
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
         """``(C, *x.shape)``: every client's ``x`` over this rank's client
         group, in client order."""
-        return torch.stack(_gather_list(x, self.n_clients, self.group))
+        return torch.stack(_gather_list(
+            x, self.n_clients, self.group, self._name(self.client_axes),
+            self._ranks_along(self.client_axes)))
 
     def close(self) -> None:
         """Leave the group (every process group of this process)."""
@@ -321,7 +441,7 @@ class ClientMesh:
             dist.destroy_process_group()
 
 
-def init(world_size: int, rank: int, *, store: str,
+def init(world_size: int, rank: int, *, store: Optional[str] = None,
          device: DeviceLike = None, backend: Optional[str] = None,
          client_axes: Sequence[str] = ("data",),
          shape: Optional[Dict[str, int]] = None,
@@ -330,14 +450,20 @@ def init(world_size: int, rank: int, *, store: str,
     the ``file://`` store at path ``store`` (every rank names the same
     file; it must not be left over from another group) and return this
     rank's :class:`ClientMesh`.  ``backend``: NCCL for a CUDA device,
-    gloo for the CPU, unless named.  ``shape`` defaults to one client
-    axis of ``world_size``; ``client_axes=()`` is the virtual clients'
-    mesh, its data[, pod] axes FSDP axes.  With a model axis above 1
+    gloo for the CPU, unless named; ``"fake"`` joins PyTorch's fake
+    process group over a ``FakeStore`` (no ``store``) as ``rank`` of a
+    world of any size in this one process, and takes a CUDA ``device``
+    without a card (the dry run's fake tensors).  ``shape`` defaults to
+    one client axis of ``world_size``; ``client_axes=()`` is the virtual
+    clients' mesh, its data[, pod] axes FSDP axes.  With a model axis above 1
     every rank then makes the groups of each model index across the rows
     (client or data groups) and the model groups (one per row) in the
     same order, and keeps its own two."""
-    dev = resolve_device(device)
-    if dev.type == "cuda" and dev.index is None:
+    fake = backend == "fake"
+    dev = torch.device("cuda" if device is None else device) if fake \
+        else resolve_device(device)
+    card = dev.type == "cuda" and torch.cuda.is_available()
+    if card and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     if backend is None:
         backend = "nccl" if dev.type == "cuda" else "gloo"
@@ -350,12 +476,19 @@ def init(world_size: int, rank: int, *, store: str,
     if mesh.world_size != world_size:
         raise ValueError(f"mesh {mesh.shape} has {mesh.world_size} ranks "
                          f"for a world of {world_size}")
-    if dev.type == "cuda":
+    if card:
         torch.cuda.set_device(dev)
     timeout = datetime.timedelta(seconds=timeout_s)
-    dist.init_process_group(
-        backend, init_method=f"file://{os.path.abspath(store)}",
-        world_size=world_size, rank=rank, timeout=timeout)
+    if fake:
+        # importing it registers the "fake" backend
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+        dist.init_process_group("fake", store=FakeStore(),
+                                world_size=world_size, rank=rank,
+                                timeout=timeout)
+    else:
+        dist.init_process_group(
+            backend, init_method=f"file://{os.path.abspath(store)}",
+            world_size=world_size, rank=rank, timeout=timeout)
     M = mesh.model_size
     if M == 1:
         return dataclasses.replace(mesh, subgroups=_subgroups(mesh, timeout))

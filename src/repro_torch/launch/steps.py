@@ -87,12 +87,34 @@ class StepBundle:
     are with ``sharded``); ``batch_shapes``: this rank's batch (prefill)
     or token (decode); ``new_caches(device=None)`` (decode): this rank's
     zeroed cache shards; ``static``: the params' and the caches' specs
-    (``"pspecs"``, ``"cspecs"``) and ``loop_trips``."""
+    (``"pspecs"``, ``"cspecs"``) and ``loop_trips``.
+
+    ``args(params, device)``: this rank's arguments of ``fn`` from its
+    parameter shards ``params``: ``(state, batch)`` (train), ``(params,
+    batch)`` (prefill) or ``(params, caches, pos, token)`` (decode, at
+    the shape's last position); tokens drawn from PyTorch's global
+    generator, a frontend's embeddings normal, caches zeroed.  Under a
+    ``FakeTensorMode`` with ``models/params.abstract_shards``' params it
+    is JAX's ``args_sds``: nothing is allocated (``launch/dryrun.py``).
+    Every ``static`` holds ``kind``, ``fed`` and ``n_clients`` (``None``
+    for serving), ``plan`` and ``loop_trips``."""
     fn: Callable
     init: Callable
     batch_shapes: Dict[str, tuple]
     static: Dict[str, Any]
+    args: Callable
     new_caches: Optional[Callable] = None
+
+
+def _batch(cfg: ArchConfig, shapes: Dict[str, tuple], device) -> dict:
+    """A batch of ``shapes``: int32 tokens below the vocabulary, a
+    frontend's ``embeds`` in the model's dtype."""
+    out = {"tokens": torch.randint(0, cfg.vocab_size, shapes["tokens"],
+                                   dtype=torch.int32, device=device)}
+    if "embeds" in shapes:
+        out["embeds"] = torch.randn(shapes["embeds"], device=device,
+                                    dtype=PM.DTYPES[cfg.dtype])
+    return out
 
 
 def _front_len(cfg: ArchConfig, seq_len: int) -> int:
@@ -226,6 +248,8 @@ def build_train_step(cfg: ArchConfig, mesh, shape: ShapeSpec, *,
         batch_shapes["embeds"] = batch_lead + (n_front, cfg.d_model)
     return StepBundle(
         fn=round_fn, init=init, batch_shapes=batch_shapes,
+        args=lambda params, device: (init(params, sharded=True),
+                                     _batch(cfg, batch_shapes, device)),
         static=dict(kind="train", n_clients=n_clients, plan=plan, fed=fed,
                     fsdp=fsdp,
                     text_len=text_len, n_front=n_front, remat=remat,
@@ -312,7 +336,10 @@ def build_prefill_step(cfg: ArchConfig, mesh, shape: ShapeSpec, *,
         batch_shapes["embeds"] = (b_loc, n_front, cfg.d_model)
     return StepBundle(
         fn=prefill_step, init=_init(sv, mesh), batch_shapes=batch_shapes,
+        args=lambda params, device: (params,
+                                     _batch(cfg, batch_shapes, device)),
         static=dict(kind="prefill", plan=sv.plan, text_len=text_len,
+                    fed=None, n_clients=None,
                     n_front=n_front, pspecs=sv.pspec, cspecs=cspec,
                     fsdp=sv.fsdp,
                     loop_trips=_loop_trips(cfg, "prefill",
@@ -356,11 +383,16 @@ def build_serve_step(cfg: ArchConfig, mesh, shape: ShapeSpec, *,
         return PM.zeros_shards(cmeta, cspec, mesh, cfg.dtype,
                                mesh.device if device is None else device)
 
+    batch_shapes = {"token": (_local_batch(b, sv.rows),)}
     return StepBundle(
-        fn=serve_step, init=_init(sv, mesh),
-        batch_shapes={"token": (_local_batch(b, sv.rows),)},
+        fn=serve_step, init=_init(sv, mesh), batch_shapes=batch_shapes,
+        args=lambda params, device: (
+            params, new_caches(device), shape.seq_len - 1,
+            _batch(cfg, {"tokens": batch_shapes["token"]},
+                   device)["tokens"]),
         new_caches=new_caches,
         static=dict(kind="long" if long_mode else "decode", plan=sv.plan,
+                    fed=None, n_clients=None,
                     pspecs=sv.pspec, cspecs=cspec, kv=kv, fsdp=sv.fsdp,
                     loop_trips=_loop_trips(cfg, "decode")))
 

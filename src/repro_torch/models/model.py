@@ -61,8 +61,8 @@ from repro_torch.configs.base import ArchConfig, LayerSpec
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import tensor as TPX
-from repro_torch.models.params import (DTYPES, P, leaf_dtype, materialize,
-                                       shard, stack_tree)
+from repro_torch.models.params import (DTYPES, P, abstract, leaf_dtype,
+                                       materialize, shard, stack_tree)
 
 # the matrix products whose outputs remat="dots" keeps (JAX's
 # dots_with_no_batch_dims_saveable; einsum lowers to bmm)
@@ -139,6 +139,14 @@ def abstract_params(cfg: ArchConfig):
             "final_norm": L.rmsnorm_params(d),
         }
     return tree
+
+
+def abstract_params_sds(cfg: ArchConfig, *, mode=None, device="cuda"):
+    """The params of ``cfg`` as fake tensors on ``device`` under the
+    ``FakeTensorMode`` ``mode`` (``models/params.abstract``): JAX's
+    ``ShapeDtypeStruct`` tree, nothing allocated."""
+    return abstract(abstract_params(cfg), cfg.dtype, mode=mode,
+                    device=device)
 
 
 def init_params(cfg: ArchConfig, seed: int = 0, device: DeviceLike = None):

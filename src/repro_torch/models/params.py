@@ -9,8 +9,11 @@ this rank's contiguous chunk (GSPMD's layout), :func:`materialize_shards`
 draws :func:`materialize`'s numbers one whole leaf at a time and keeps
 only this rank's chunks, :func:`zeros_shards` allocates zero blocks (the
 decode caches) at their size, and :func:`unshard` gathers them back over
-the axes of each split dim.  The same functions take the decode caches'
-trees (``cache_meta``) under ``sharding.cache_rules``.
+the axes of each split dim.  :func:`abstract` and
+:func:`abstract_shards` are the dry run's: fake tensors of the whole
+leaves or of this rank's blocks (JAX's ``ShapeDtypeStruct``), made under
+a ``FakeTensorMode``, so nothing is allocated.  The same functions take
+the decode caches' trees (``cache_meta``) under ``sharding.cache_rules``.
 :func:`split_kinds` says per leaf which axes split it.
 """
 from __future__ import annotations
@@ -20,6 +23,7 @@ import math
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro_torch import tree as T
 
@@ -85,6 +89,17 @@ def materialize(tree, seed: int, default_dtype: str = "float32",
     gen = torch.Generator(device=device).manual_seed(seed)
     return T.tree_map(lambda p: _init_one(p, gen, default_dtype, device),
                       tree)
+
+
+def abstract(tree, default_dtype: str = "float32", *,
+             mode: Optional[FakeTensorMode] = None, device="cuda"):
+    """Fake tensors for a tree of :class:`P` on ``device``, made under
+    ``mode`` (a new ``FakeTensorMode`` if None): each leaf's shape and
+    dtype, no storage (JAX's ``abstract``)."""
+    with mode or FakeTensorMode():
+        return T.tree_map(lambda p: torch.empty(
+            p.shape, dtype=leaf_dtype(p, default_dtype), device=device),
+            tree)
 
 
 def count_params(tree) -> int:
@@ -239,6 +254,18 @@ def shard_shape(spec, leaf_shape, shape: Dict[str, int]) -> Tuple[int, ...]:
     ``spec`` on a mesh of ``shape`` (axis -> size)."""
     return tuple(n // math.prod(shape.get(a, 1) for a in _entry_axes(e))
                  if e is not None else n for n, e in zip(leaf_shape, spec))
+
+
+def abstract_shards(tree, specs, mesh, default_dtype: str = "float32", *,
+                    mode: Optional[FakeTensorMode] = None, device="cuda"):
+    """This rank's block of every leaf of ``tree`` under ``specs`` on
+    ``mesh`` (a ``ClientMesh``) as fake tensors on ``device``, made under
+    ``mode`` (:func:`abstract`'s; the counterpart of
+    :func:`materialize_shards`, which draws whole leaves)."""
+    with mode or FakeTensorMode():
+        return T.tree_map(lambda p, sp: torch.empty(
+            shard_shape(sp, p.shape, mesh.shape),
+            dtype=leaf_dtype(p, default_dtype), device=device), tree, specs)
 
 
 def zeros_shards(tree, specs, mesh, default_dtype: str = "float32",
