@@ -3849,7 +3849,8 @@ def _to_first(torch, x, group):
         [o.view(x.dtype).reshape(x.shape) for o in out]
 
 
-def _state_at_rank0(torch, state, specs, mesh, on_device=False):
+def _state_at_rank0(torch, state, specs, mesh, on_device=False,
+                    parts=("W", "M", "V")):
     """W, M, V whole and every client's residual whole (C, ...), on the
     host of global rank 0 (``None`` at every other rank): each leaf's
     shards gathered to its client's model index 0, then the residuals
@@ -3877,13 +3878,16 @@ def _state_at_rank0(torch, state, specs, mesh, on_device=False):
         return torch.cat(parts, dims[0], out=torch.empty(
             shape, dtype=x.dtype, pin_memory=x.is_cuda))
 
-    out = {}
-    for part in ("W", "M", "V"):
+    out = {p: [] for p in ("W", "M", "V")}
+    for part in parts:
         leaves = [whole(x, sp, first, on_device) for x, sp in zip(
             T.leaves(getattr(state, part)), specs)]
         out[part] = leaves if first else None
     out["err"] = []
-    for x, sp in zip(T.leaves(state.client_state["comp"]["err"]), specs):
+    cs = state.client_state
+    errs = [] if cs is None or "comp" not in cs else \
+        T.leaves(cs["comp"]["err"])
+    for x, sp in zip(errs, specs):
         w = whole(x[0], sp, True)
         if mesh.model_index == 0:
             parts = _to_first(torch, w, mesh.group)
@@ -3894,15 +3898,17 @@ def _state_at_rank0(torch, state, specs, mesh, on_device=False):
 
 def tensor_round(torch, mesh, cfg, algorithm, params, tokens, *, seq,
                  per_client, capture=None, drops=None, gather=True,
-                 on_device=False):
-    """One round of ``launch.steps.build_train_step`` (error feedback) on
-    ``mesh`` from the whole ``params`` (host) and every client's
-    ``tokens`` (host, (C, per_client, seq)): its wall, peak, launches and
-    the collectives' bytes, with ``gather`` the state whole on global
-    rank 0's host (``_state_at_rank0``; ``None`` elsewhere; a whole-leaf
-    round's W, M, V kept on the card with ``on_device``), and at the rank
-    ``capture`` names the per-leaf kernels' first inputs at the largest
-    leaf's shard.  The peak is the round's (from after the build)."""
+                 on_device=False, parts=("W", "M", "V"), **build_kw):
+    """One round of ``launch.steps.build_train_step`` (error feedback;
+    ``build_kw``: more of its keywords) on ``mesh`` from the whole
+    ``params`` (host) and every client's ``tokens`` (host, (C,
+    per_client, seq)): its wall, peak, launches and the collectives'
+    bytes, with ``gather`` the state whole on global rank 0's host
+    (``_state_at_rank0``; ``None`` elsewhere; a whole-leaf round's W, M,
+    V kept on the card with ``on_device``), and at the rank ``capture``
+    names the per-leaf kernels' first inputs at the largest leaf's shard.
+    The peak is the round's (from after the build).  ``parts``: the
+    server state's parts gathered (the others left out as empty)."""
     import dataclasses
     from repro_torch import tree as T
     from repro_torch.core import aggregate
@@ -3915,7 +3921,7 @@ def tensor_round(torch, mesh, cfg, algorithm, params, tokens, *, seq,
     shape = dataclasses.replace(steps.SHAPES["train_4k"], seq_len=seq,
                                 global_batch=per_client * mesh.n_clients)
     bundle = steps.build_train_step(cfg, mesh, shape, algorithm=algorithm,
-                                    error_feedback=True)
+                                    error_feedback=True, **build_kw)
     require(bundle.batch_shapes["tokens"] == (1, per_client, seq),
             f"batch {bundle.batch_shapes}")
     state = bundle.init(T.tree_map(lambda x: x.to(dev), params))
@@ -3942,7 +3948,7 @@ def tensor_round(torch, mesh, cfg, algorithm, params, tokens, *, seq,
         drops.extend(int(d) for d in dropped)
     t0 = time.perf_counter()
     host = _state_at_rank0(torch, st, bundle.static["pspecs"], mesh,
-                           on_device) if gather else None
+                           on_device, parts) if gather else None
     rec["state_gather_s"] = time.perf_counter() - t0
     # the round's result is not needed past here: the capture round
     # below holds its own (four ranks' peaks then fit the card)
@@ -3995,12 +4001,12 @@ def _tensor_vs_whole(torch, split, whole, drops, what):
         for i in range(L):
             per_leaf[i] += sum(d[i * k:(i + 1) * k])
     support = [int(((a.to(dev) == 0) != (b.to(dev) == 0)).sum())
-               for a, b in zip(split["err"], whole["err"])]
+               for a, b in zip(split["err"], whole["err"])] or [0] * L
     out = {"support_differs": sum(support),
            "dropped": sum(per_leaf), "beyond": {}, "beyond_10x": {},
            "max_rel_err": {}, "elements": sum(x.numel() for x in whole["W"]),
            "failures": []}
-    total = sum(x.numel() for x in whole["err"])
+    total = sum(x.numel() for x in whole["err"]) or 1
     for part, t in (("W", TENSOR_TOL), ("M", TENSOR_TOL), ("V", TENSOR_TOL),
                     ("err", TENSOR_ERR_TOL)):
         beyond, rel = [], []
@@ -4438,9 +4444,11 @@ def _whole_at_rank0(torch, leaves, specs, mesh):
 
 
 def fsdp_round(torch, mesh, cfg, seed, tokens, *, gather=True,
-               capture=None):
+               capture=None, algorithm="fedadam_ssm",
+               parts=("W", "M", "V"), kernels=FSDP_KERNELS, **build_kw):
     """One virtual/fsdp round of ``launch.steps.build_train_step``
-    (FedAdam-SSM, error feedback) on ``mesh`` from ``cfg``'s random
+    (``algorithm``, error feedback; ``build_kw``: more of its keywords)
+    on ``mesh`` from ``cfg``'s random
     weights (this rank's shards drawn leaf by leaf on the card,
     ``models/params.materialize_shards``) and every client's ``tokens``
     (host, (C, global batch, seq)): wall, peak, launches, the bytes each
@@ -4461,9 +4469,9 @@ def fsdp_round(torch, mesh, cfg, seed, tokens, *, gather=True,
     dev = mesh.device
     shape = dc.replace(steps.SHAPES["train_4k"], seq_len=tokens.shape[2],
                        global_batch=tokens.shape[1])
-    bundle = steps.build_train_step(cfg, mesh, shape,
-                                    algorithm="fedadam_ssm",
-                                    error_feedback=True, plan=fsdp_plan())
+    bundle = steps.build_train_step(cfg, mesh, shape, algorithm=algorithm,
+                                    error_feedback=True, plan=fsdp_plan(),
+                                    **build_kw)
     specs = bundle.static["pspecs"]
     shards = PM.materialize_shards(abstract_params(cfg), specs, mesh, seed,
                                    cfg.dtype, dev)
@@ -4498,9 +4506,11 @@ def fsdp_round(torch, mesh, cfg, seed, tokens, *, gather=True,
         cs_specs = [PM.Spec((None,) + tuple(sp)) for sp in T.leaves(specs)]
         host = {part: _whole_at_rank0(torch, T.leaves(getattr(st, part)),
                                       T.leaves(specs), mesh)
-                for part in ("W", "M", "V")}
-        host["err"] = _whole_at_rank0(
-            torch, T.leaves(st.client_state["comp"]["err"]), cs_specs, mesh)
+                if part in parts else [] for part in ("W", "M", "V")}
+        cs = st.client_state
+        host["err"] = [] if cs is None or "comp" not in cs else \
+            _whole_at_rank0(torch, T.leaves(cs["comp"]["err"]), cs_specs,
+                            mesh)
         if mesh.rank != 0:
             host = None
     rec["state_gather_s"] = time.perf_counter() - t0
@@ -4511,7 +4521,7 @@ def fsdp_round(torch, mesh, cfg, seed, tokens, *, gather=True,
         cap = Capture() if mesh.rank == capture else None
         if cap is not None:
             entry = _lm_entry_points()
-            for k in FSDP_KERNELS:
+            for k in kernels:
                 passes = len(LM_PASSES.get(k, ("",)))
                 cap.wrap(*entry[k], k, LM_KERNELS[k][2], (max(sizes),),
                          passes)
@@ -4531,13 +4541,16 @@ def fsdp_round(torch, mesh, cfg, seed, tokens, *, gather=True,
     return rec, host, captured
 
 
-def fsdp_whole_round(torch, cfg, seed, tokens, dev):
+def fsdp_whole_round(torch, cfg, seed, tokens, dev,
+                     algorithm="fedadam_ssm", **build_kw):
     """The whole-leaf scan round of the same plan on one rank (a world-1
     virtual mesh, no collective), from the same weights (drawn whole on
-    the card) and batch: its record and its state (W, M, V on the card,
-    the residuals on the host)."""
+    the card) and batch (``build_kw``: more keywords of the step): its
+    record and its state (W, M, V on the card, the residuals on the
+    host)."""
     import dataclasses as dc
     from repro_torch import tree as T
+    from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.launch import mesh as MM
     from repro_torch.launch import steps
     from repro_torch.models.model import init_params
@@ -4545,25 +4558,27 @@ def fsdp_whole_round(torch, cfg, seed, tokens, dev):
                         device=dev)
     shape = dc.replace(steps.SHAPES["train_4k"], seq_len=tokens.shape[2],
                        global_batch=tokens.shape[1])
-    bundle = steps.build_train_step(cfg, one, shape,
-                                    algorithm="fedadam_ssm",
-                                    error_feedback=True, plan=fsdp_plan())
+    bundle = steps.build_train_step(cfg, one, shape, algorithm=algorithm,
+                                    error_feedback=True, plan=fsdp_plan(),
+                                    **build_kw)
     state = bundle.init(init_params(cfg, seed=seed, device=dev))
     batch = {"tokens": tokens.to(dev)}
     _sync(torch, dev)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
+    reset_launches()
     t0 = time.perf_counter()
     st, mets = bundle.fn(state, batch)
     _sync(torch, dev)
     rec = {"wall_s": time.perf_counter() - t0,
            "peak_bytes": torch.cuda.max_memory_allocated()
-           if dev.type == "cuda" else None,
+           if dev.type == "cuda" else None, "launches": dict(LAUNCHES),
            "loss": mets["loss"].cpu().tolist(),
            "uplink_bits": float(mets["uplink_bits"])}
     whole = {p: T.leaves(getattr(st, p)) for p in ("W", "M", "V")}
-    whole["err"] = [_pinned(torch, x) for x in
-                    T.leaves(st.client_state["comp"]["err"])]
+    cs = st.client_state
+    whole["err"] = [] if cs is None or "comp" not in cs else \
+        [_pinned(torch, x) for x in T.leaves(cs["comp"]["err"])]
     del st, state, bundle
     _free(torch)
     return rec, whole
@@ -5928,6 +5943,447 @@ def phase_dryrun(torch, seed):
     return {"summary": summary, "wall_s": wall, "launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: every compressor on split leaves (gloo ranks on the card)
+# ---------------------------------------------------------------------------
+
+#: (a) the tp plan on a (data 2, model 2) mesh: starcoder2-3b at phase 16's
+#: width and cut (float32, sequence 128, 2 sequences a client), one round
+#: with error feedback of each baseline and of ``fairness_top``, each
+#: against the whole-leaf round of the same 2 clients (``p20_tp_case``).
+P20_TP = (("fedadam", {}), ("fedsgd", {}), ("efficient_adam", {}),
+          ("onebit_adam", {}), ("fairness_top", {}))
+#: (b) the virtual/fsdp plan at phase 17 (a)'s cut, against the
+#: whole-leaf scan round rank 0 runs after the split ranks; FedAdam-Top
+#: with the global mask scope (one tau over the whole model: the path of
+#: kernel rows 6-8) here, where the fold is local, not on the tp plan,
+#: whose dense fold would gather 5.9 GB a rank through gloo.
+P20_FSDP = (("fedadam", {}), ("efficient_adam", {}),
+            ("fedadam_top", {"mask_scope": "global"}))
+#: One local epoch a round (phases 16-17 take the builder's 2): the split
+#: rounds' and references' collectives and walls are what phase 20 pays.
+P20_EPOCHS = 1
+#: Bytes a client and round at the 2-repeat cut (PERF.md §2; FedSGD ships
+#: FedAdam's W plane alone, a third of its bytes): the bills must be these.
+P20_BILL_BYTES = {"fedadam": 5_926_735_872, "fedsgd": 1_975_578_624,
+                  "efficient_adam": 495_824_956, "onebit_adam": 63_666_240,
+                  "fairness_top": 375_854_948}
+#: The repeats tried, most first: a case runs at the first whose peaks,
+#: predicted by the dry run (``launch/dryrun.run_one`` on fake tensors:
+#: 4 split ranks, and the whole-leaf round's 2 ranks (tp) or 1 (fsdp)),
+#: fit ``P20_FIT`` of the card; widths are never cut.
+P20_REPEATS = (2, 1)
+P20_FIT = 0.9
+#: A quantizer's split round against the whole-leaf one: a code may move
+#: one step (or a 1-bit sign flip at an input within ulps of 0) where the
+#: split products' other summation order moves its input by ulps, at no
+#: more than this share of a leaf's elements besides ``TENSOR_SHARE``;
+#: the residual within one quantization step everywhere.
+P20_QUANT_SHARE = 5e-4
+#: The cases whose round, run again, captures the per-leaf kernels'
+#: first inputs (at the largest leaf's shard) for a replay against their
+#: plain versions, and those kernels.
+P20_CAPTURE = {"fairness_top": TENSOR_KERNELS,
+               "fedadam_top": ("absmax", "count_ge", "apply_mask")}
+#: How long a rank waits for a case's prediction.
+P20_WAIT_S = 300
+
+
+def p20_cases():
+    """``(key, plan, algorithm, build keywords)`` of every case, in the
+    order the ranks run them and the predictor predicts them."""
+    return [(f"{plan}_{a}" + ("_global" if kw.get("mask_scope") ==
+                              "global" else ""), plan, a,
+             dict(kw, local_epochs=P20_EPOCHS))
+            for plan, cases in (("tp", P20_TP), ("fsdp", P20_FSDP))
+            for a, kw in cases]
+
+
+def p20_predict(rank, world, store, out_dir, smoke=False):
+    """In a process of its own: each case's dry run (``run_one`` on fake
+    tensors, rank 0 of the fake (2, 2) world, then of the whole-leaf
+    reference's mesh) at the most of ``P20_REPEATS`` that fits, written
+    to ``out_dir/<key>.json`` as it is made: the repeats, the cuts made,
+    each side's predicted peak, FLOPs, collectives and launches."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import dataclasses as dc
+    import torch
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import steps as ST
+    # the references' mesh: the clients' scan round on one rank
+    D.MESHES.update(p20_one={"data": 1, "model": 1})
+    card = torch.cuda.get_device_properties(0).total_memory \
+        if torch.cuda.is_available() else float("inf")
+    seq = 32 if smoke else TENSOR_SEQ
+    keep = ("memory", "flops", "collectives", "launches_predicted",
+            "t_build_s", "t_run_s", "status", "error")
+    for key, plan, alg, kw in p20_cases():
+        tp = plan == "tp"
+        shape = dc.replace(ST.SHAPES["train_4k"], seq_len=seq,
+                           global_batch=(TENSOR_PER_CLIENT * 2 if tp
+                                         else FSDP_GLOBAL_BATCH))
+        build = dict(kw, algorithm=alg, error_feedback=True)
+        if not tp:
+            build["plan"] = fsdp_plan()
+        # the whole-leaf reference: the clients' scan round on one rank
+        ref = dict(build, plan=fsdp_plan(), aggregate="dense")
+        ref_shape = dc.replace(shape, global_batch=TENSOR_PER_CLIENT) \
+            if tp else shape
+        cuts, rec = [], None
+        for repeats in ((2,) if smoke else P20_REPEATS):
+            cfg = _tensor_cfg(TENSOR_ARCH, repeats, "float32", smoke)
+            split = D.run_one(TENSOR_ARCH, "train_4k", "test", cfg=cfg,
+                              shape=shape, **build)
+            whole = D.run_one(TENSOR_ARCH, "train_4k", "p20_one", cfg=cfg,
+                              shape=ref_shape, **ref)
+            peak = lambda r: r["memory"]["peak_per_device_bytes"] \
+                if r["status"] == "ok" else float("inf")
+            need = max(FSDP_WORLD * peak(split), peak(whole))
+            rec = {"repeats": repeats, "card_bytes": card,
+                   "needed_bytes": need, "fits": need <= P20_FIT * card,
+                   "split": {k: split.get(k) for k in keep},
+                   "whole": {k: whole.get(k) for k in keep}}
+            if rec["fits"]:
+                break
+            cuts.append(f"{repeats} repeats: {need} bytes > {P20_FIT} of "
+                        f"{card}")
+        rec["cuts"] = cuts
+        tmp = Path(out_dir) / f".{key}.json"
+        tmp.write_text(json.dumps(rec, default=str))
+        os.replace(tmp, Path(out_dir) / f"{key}.json")
+    return True
+
+
+def _p20_prediction(out_dir, key):
+    path = Path(out_dir) / f"{key}.json"
+    t0 = time.perf_counter()
+    while not path.exists():
+        require(time.perf_counter() - t0 < P20_WAIT_S,
+                f"phase 20: no prediction of {key} in {P20_WAIT_S} s")
+        time.sleep(0.5)
+    return json.loads(path.read_text())
+
+
+def _quant_vs_whole(torch, split, whole, what):
+    """A quantizer's split state against the whole-leaf one, leaf by
+    leaf: W, M, V beyond ``TENSOR_TOL`` of the leaf's largest element at
+    no more than ``P20_QUANT_SHARE + TENSOR_SHARE`` of its elements (a
+    code moved one step, a sign flipped at a tie), the residual within one
+    quantization step (twice the leaf's largest residual) everywhere.
+    Returns the counts, the largest errors and the failures."""
+    dev = torch.device("cuda") if torch.cuda.is_available() else \
+        torch.device("cpu")
+    out = {"beyond": {}, "max_rel_err": {}, "failures": []}
+    share = P20_QUANT_SHARE + TENSOR_SHARE
+    for part in ("W", "M", "V", "err"):
+        beyond, rel = [], []
+        for i, (a, b) in enumerate(zip(split[part], whole[part])):
+            a, b = a.to(dev).double(), b.to(dev).double()
+            top = float(b.abs().max().clamp_min(1e-30))
+            d = (a - b).abs() / top
+            rel.append(float(d.max()))
+            n = int((d > TENSOR_TOL).sum())
+            beyond.append(n)
+            if part == "err" and rel[-1] > 2.02:
+                out["failures"].append(f"{what}: err[{i}] {rel[-1]} of "
+                                       "its largest residual")
+            elif part != "err" and n > share * b.numel():
+                out["failures"].append(f"{what}: {part}[{i}] beyond "
+                                       f"{TENSOR_TOL} at {n} of "
+                                       f"{b.numel()}")
+        out["beyond"][part], out["max_rel_err"][part] = beyond, rel
+    return out
+
+
+def _p20_parts(alg):
+    """The server state's parts a round of ``alg`` changes (the others
+    stay the zeros they start as, and are not gathered)."""
+    from repro_torch.core.compressors import make_compressor
+    from repro_torch.core.fed import FedConfig
+    return {"w_only": ("W",), "precond_m": ("W", "M")}.get(
+        make_compressor(FedConfig(algorithm=alg)).server_update,
+        ("W", "M", "V"))
+
+
+def _p20_compare(torch, alg, split, whole, drops, what):
+    if alg in ("efficient_adam", "onebit_adam"):
+        return _quant_vs_whole(torch, split, whole, what)
+    return _tensor_vs_whole(torch, split, whole, drops, what)
+
+
+def _p20_bill(alg, clients):
+    """The bill of a round: ``clients`` x the client's bytes in bits, as
+    the float32 scalar the round reports (None: no fixed number)."""
+    import torch
+    if alg not in P20_BILL_BYTES:
+        return None
+    return float(torch.tensor(8.0 * clients * P20_BILL_BYTES[alg],
+                              dtype=torch.float32))
+
+
+def _p20_check(rec, pred, card):
+    """The launches against the prediction's, and the peak at most
+    ``DRY_PEAK_SHARE`` or ``DRY_PEAK_SLACK`` above it (on the card)."""
+    rec["predicted_peak_bytes"] = pred["memory"]["peak_per_device_bytes"]
+    rec["launches_predicted"] = pred["launches_predicted"]
+    if not card:
+        return
+    got = {k: v for k, v in rec["launches"].items() if v}
+    require(got == pred["launches_predicted"],
+            f"phase 20 {rec['case']}: launches {got} against the "
+            f"prediction {pred['launches_predicted']}")
+    p = rec["predicted_peak_bytes"]
+    require(rec["peak_bytes"] - p <= max(DRY_PEAK_SHARE * p,
+                                         DRY_PEAK_SLACK),
+            f"phase 20 {rec['case']}: peak {rec['peak_bytes']} above "
+            f"the predicted {p}")
+
+
+def p20_tp_case(torch, dist, mesh, cfg, alg, kw, pred, params, tokens,
+                seq, key, fixed_bill, seed):
+    """(a): one split round of ``alg`` on the (data 2, model 2) mesh, then
+    on global rank 0 the whole-leaf round of the same clients and the
+    comparison; the kernels' first inputs at the largest leaf's shard
+    replayed for ``P20_CAPTURE``.  The reference is the clients' scan
+    round (``fsdp_whole_round`` on one rank): the spatial round's dense
+    fold is bitwise its fold in client order, and what the split round's
+    per-shard bitmap transport drops is counted; a whole-leaf spatial
+    round would gather two whole models through gloo's host staging (10
+    s a case, chip run 1 of PR 26)."""
+    dev, card = mesh.device, mesh.device.type == "cuda"
+    drops = []
+    rec, split, captured = tensor_round(
+        torch, mesh, cfg, alg, params, tokens, seq=seq,
+        per_client=TENSOR_PER_CLIENT, drops=drops,
+        capture=0 if alg in P20_CAPTURE else None, parts=_p20_parts(alg),
+        **kw)
+    rec["case"] = key
+    _p20_check(rec, pred["split"], card)
+    drops_all = _world_drops(torch, dist, drops, mesh.world_size) \
+        if drops else []
+    dist.barrier()
+    if mesh.rank == 0:
+        wrec, whole = fsdp_whole_round(
+            torch, cfg, seed, tokens, dev, algorithm=alg,
+            **{k: v for k, v in kw.items() if k != "aggregate"})
+        wrec["case"] = key + "_whole"
+        _p20_check(wrec, pred["whole"], card)
+        rec["whole_leaf"] = wrec
+        _p20_whole_checks(rec, wrec, alg, mesh.n_clients, fixed_bill, key)
+        rec["vs_whole_leaf"] = _p20_compare(torch, alg, split, whole,
+                                            drops_all,
+                                            f"{key} split vs whole")
+        del whole
+    dist.barrier()
+    if captured is not None:
+        rec["kernels"] = _replay_tensor_kernels(torch, captured, card, False)
+    del split, captured
+    _free(torch)
+    return rec
+
+
+def _p20_whole_checks(rec, wrec, alg, clients, fixed_bill, key):
+    """The split round's bill equal to the whole-leaf round's and (at the
+    2-repeat cut) PERF.md §2's, its losses within 1e-5 of it."""
+    bill = _p20_bill(alg, clients)
+    require(wrec["uplink_bits"] == rec["uplink_bits"] and (
+        bill is None or not fixed_bill or rec["uplink_bits"] == bill),
+        f"{key}: bill {rec['uplink_bits']} against the whole-leaf "
+        f"round's {wrec['uplink_bits']} and {bill}")
+    require(max(abs(a - b) for a, b in zip(rec["loss"], wrec["loss"]))
+            <= 1e-5 * max(abs(b) for b in wrec["loss"]),
+            f"{key}: losses {rec['loss']} against {wrec['loss']}")
+
+
+def p20_fsdp_case(torch, dist, mesh, cfg, alg, kw, pred, seed, seq, key,
+                  fixed_bill):
+    """(b): one virtual/fsdp round of ``alg``, then on global rank 0 the
+    whole-leaf scan round and the comparison; the kernels' first inputs
+    replayed for ``P20_CAPTURE``."""
+    from repro_torch.launch import train
+    dev, card = mesh.device, mesh.device.type == "cuda"
+    tokens = train.build_client_batches(
+        cfg, FSDP_N_VIRTUAL, FSDP_GLOBAL_BATCH, seq, seed=seed,
+        device="cpu")["tokens"]
+    rec, split, captured = fsdp_round(
+        torch, mesh, cfg, seed, tokens, algorithm=alg,
+        parts=_p20_parts(alg), capture=0 if alg in P20_CAPTURE else None,
+        kernels=P20_CAPTURE.get(alg, ()), **kw)
+    rec["case"] = key
+    _p20_check(rec, pred["split"], card)
+    dist.barrier()
+    if mesh.rank == 0:
+        wrec, whole = fsdp_whole_round(torch, cfg, seed, tokens, dev,
+                                       algorithm=alg, **kw)
+        wrec["case"] = key + "_whole"
+        _p20_check(wrec, pred["whole"], card)
+        rec["whole_leaf"] = wrec
+        _p20_whole_checks(rec, wrec, alg, FSDP_N_VIRTUAL, fixed_bill, key)
+        rec["vs_whole_leaf"] = _p20_compare(torch, alg, split, whole, [],
+                                            f"{key} split vs whole")
+        del whole
+    dist.barrier()
+    if captured is not None:
+        rec["kernels"] = _replay_tensor_kernels(torch, captured, card, False)
+    del split, captured
+    _free(torch)
+    return rec
+
+
+def p20_run(torch, dist, mesh, seed, pred_dir, smoke=False):
+    """Phase 20's cases on this rank of a (data 2, model 2) gloo group
+    (``mesh``: any view of it): (a) ``P20_TP`` on its spatial view (client
+    axis "data"), (b) ``P20_FSDP`` on its virtual view (no client axes:
+    the client group is the data group).  Each case waits for its
+    prediction and runs at its repeats.  Returns the cases' records and
+    ``phase_s``."""
+    import dataclasses as dc
+    from repro_torch.launch import train
+    tmesh = dc.replace(mesh, client_axes=("data",))
+    vmesh = dc.replace(mesh, client_axes=())
+    dev = mesh.device
+    out = {}
+    t_phase = time.perf_counter()
+    C = tmesh.n_clients
+    seq = 32 if smoke else TENSOR_SEQ
+    host = {}
+    for key, plan, alg, kw in p20_cases():
+        pred = _p20_prediction(pred_dir, key)
+        require(pred["fits"], f"phase 20 {key}: predicted not to fit at "
+                f"any of {P20_REPEATS} repeats: {pred['cuts']}")
+        cfg = _tensor_cfg(TENSOR_ARCH, pred["repeats"], "float32", smoke)
+        # PERF.md §2's bills are the 2-repeat cut's
+        fixed = not smoke and pred["repeats"] == 2
+        t0 = time.perf_counter()
+        if plan == "tp":
+            if pred["repeats"] not in host:
+                host.clear()
+                host[pred["repeats"]] = (
+                    _host_params(cfg, seed, dev),
+                    train.build_client_batches(
+                        cfg, C, TENSOR_PER_CLIENT, seq, seed=seed,
+                        device="cpu")["tokens"])
+            params, tokens = host[pred["repeats"]]
+            rec = p20_tp_case(torch, dist, tmesh, cfg, alg, kw, pred,
+                              params, tokens, seq, key, fixed, seed)
+        else:
+            host.clear()
+            rec = p20_fsdp_case(torch, dist, vmesh, cfg, alg, kw, pred,
+                                seed, seq, key, fixed)
+        rec.update(repeats=pred["repeats"], cuts=pred["cuts"],
+                   case_s=time.perf_counter() - t0)
+        out[key] = rec
+        if mesh.rank == 0:
+            log(f"phase 20 {key}: " + json.dumps(
+                {k: v for k, v in rec.items() if k != "kernels"}))
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def p20_rank(rank, world, store, seed, pred_dir, device="cuda",
+             smoke=False):
+    """Phase 20 alone on one rank of a gloo group of CUDA tensors sharing
+    the card, a (data 2, model 2) mesh (``p20_run``)."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+    from repro_torch.device import exact_float32
+    from repro_torch.launch import mesh as MM
+
+    exact_float32()
+    mesh = MM.init(world, rank, store=store, device=torch.device(device),
+                   backend="gloo", shape=FSDP_MESH, timeout_s=180)
+    try:
+        return p20_run(torch, dist, mesh, seed, pred_dir, smoke)
+    finally:
+        mesh.close()
+
+
+def _p20_predictor(smoke):
+    """The predictor (``p20_predict``) started in a thread: ``(pred_dir,
+    join)``, ``join()`` waiting for it (and raising its failure)."""
+    import shutil
+    import tempfile
+    import threading
+    from repro_torch.launch import mesh as MM
+    pred_dir = ROOT / "chiprun_out" / "phase20_pred"
+    shutil.rmtree(pred_dir, ignore_errors=True)
+    pred_dir.mkdir(parents=True)
+    errors, tmp = [], tempfile.mkdtemp()
+
+    def predict():
+        try:
+            MM.run_ranks(p20_predict, 1, store=os.path.join(tmp, "pred"),
+                         args=(str(pred_dir), smoke),
+                         timeout_s=P20_WAIT_S + 700)
+        except BaseException as e:      # re-raised by join
+            errors.append(e)
+
+    thread = threading.Thread(target=predict)
+    thread.start()
+
+    def join():
+        thread.join()
+        shutil.rmtree(tmp, ignore_errors=True)
+        if errors:
+            raise errors[0]
+
+    return pred_dir, join
+
+
+def _p20_record(ranks, pred_dir, wall):
+    """Phase 20's record from every rank's ``p20_run`` result
+    (``chiprun_out/phase20.json``), its log line, and its checks."""
+    preds = {k: json.loads((pred_dir / f"{k}.json").read_text())
+             for k, *_ in p20_cases()}
+    (ROOT / "chiprun_out" / "phase20.json").write_text(json.dumps(
+        {"ranks": ranks, "predictions": preds}, indent=1, default=str))
+    r0 = ranks[0]
+    keys = [k for k, *_ in p20_cases()]
+    summary = {k: {kk: r0[k].get(kk) for kk in (
+        "repeats", "cuts", "wall_s", "peak_bytes", "predicted_peak_bytes",
+        "uplink_bits", "collective_bytes", "launches_predicted",
+        "case_s")} for k in keys}
+    for k in keys:
+        summary[k]["whole_leaf_wall_s"] = r0[k].get("whole_leaf", {}).get(
+            "wall_s")
+        vs = r0[k].get("vs_whole_leaf", {})
+        summary[k]["max_rel_err"] = vs.get("max_rel_err")
+    log(f"phase 20: {FSDP_WORLD} gloo ranks on the card ({smi_line()}) "
+        f"in {wall:.1f} s, cuts "
+        f"{ {k: r0[k]['cuts'] for k in keys} }: " + json.dumps(summary))
+    failures = [f for k in keys
+                for f in r0[k].get("vs_whole_leaf", {}).get("failures", [])]
+    require(not failures, "; ".join(failures))
+    launches = {k: {n: v for n, v in r0[k]["launches"].items() if v}
+                for k in keys}
+    kernels = {k: r0[k]["kernels"] for k in keys if "kernels" in r0[k]}
+    return {"summary": summary, "wall_s": wall, "launches": launches,
+            "kernels": kernels, "predictions": preds}
+
+
+def phase_compressors(torch, seed, device="cuda", smoke=False):
+    """Phase 20 alone: the predictor beside 4 gloo processes of CUDA
+    tensors on the one card (``p20_rank``), each rank's case waiting for
+    its prediction; a failure in any fails the phase.  Returns
+    ``_p20_record``'s."""
+    import shutil
+    import tempfile
+    from repro_torch.launch import mesh as MM
+    t_phase = time.perf_counter()
+    pred_dir, join = _p20_predictor(smoke)
+    tmp = tempfile.mkdtemp()
+    try:
+        ranks = MM.run_ranks(p20_rank, FSDP_WORLD,
+                             store=os.path.join(tmp, "store"),
+                             args=(seed, str(pred_dir), device, smoke),
+                             timeout_s=900)
+    finally:
+        join()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return _p20_record(ranks, pred_dir, time.perf_counter() - t_phase)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6145,6 +6601,22 @@ def main(argv=None):
     for k in kernels:
         # rank 0 of the production mesh, one step of each combo it ran
         k["launches_dryrun_rank0"] = dry["launches"].get(k["name"], 0)
+    # phase 20: every compressor on split leaves, gloo ranks on the card
+    phase(20, "every compressor on split leaves")
+    _free(torch)
+    compressors = phase_compressors(torch, args.seed)
+    log(f"phase 20 took {compressors['wall_s']:.1f} s")
+    for k in kernels:
+        # per rank and round of each case (rank 0; every rank the same)
+        k["launches_phase20"] = {c: n.get(k["name"], 0) for c, n in
+                                 compressors["launches"].items()}
+        for case, recs in compressors["kernels"].items():
+            shard = {lab: r for lab, r in recs.items()
+                     if lab.split("/")[0] == k["name"]}
+            if shard:
+                k["max_abs_err"] = max(k["max_abs_err"], *(
+                    r["max_abs_err"] for r in shard.values()))
+                k[f"at_phase20_{case}"] = shard
     require(sorted(k["name"] for k in kernels)
             == sorted((*KERNELS, *LM_KERNELS)), "a kernel was not measured")
     phase(7, "starcoder2 smoke rounds card vs CPU")
@@ -6166,7 +6638,7 @@ def main(argv=None):
               "cnn_drivers": cnn_drivers, "transformer_drivers": lm_drivers,
               "zoo": zoo, "serve": served, "spatial": spatial,
               "tensor": tensor, "fsdp": fsdp, "serve_mesh": serve_mesh,
-              "dryrun": dry,
+              "dryrun": dry, "compressors": compressors,
               "total_s": time.perf_counter() - t_start}
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -11,10 +11,14 @@ Counterpart of ``repro/core/compressors/base.py``:
   ``unpack_wire``,
   the accounting methods, and the declarative tags ``transport``,
   ``local_update`` and ``server_update`` that ``core/fed.py`` dispatches
-  on.
+  on; ``split``, set by the round on a model axis or FSDP axes (a
+  ``sparsify.LeafSplit``): each leaf the compressor sees is then this
+  rank's shard, and what it computes is the whole leaf's (its masks,
+  scales and norms; the bill of the whole leaves).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -64,30 +68,43 @@ def tree_size(t) -> int:
     return sum(x.numel() for x in T.leaves(t))
 
 
-def diag_metrics(deltas: Deltas, recon: Deltas) -> Dict[str, torch.Tensor]:
+def diag_metrics(deltas: Deltas, recon: Deltas,
+                 split: Optional[S.LeafSplit] = None
+                 ) -> Dict[str, torch.Tensor]:
     """Default diagnostics: per-tensor compression error ``||d - C(d)||_2``
     (the Theorem-1 divergence terms) and the input norms; ``deltas`` is
-    the error-feedback adjusted encoder input."""
-    nd = lambda d, r: S.tree_norm(tree_sub(d, r))
+    the error-feedback adjusted encoder input.  ``split``: the leaves are
+    shards, and the norms the whole tree's (``sparsify.tree_norm``)."""
+    nd = lambda d, r: S.tree_norm(tree_sub(d, r), split)
     return {
         "err_w": nd(deltas.W, recon.W),
         "err_m": nd(deltas.M, recon.M),
         "err_v": nd(deltas.V, recon.V),
-        "norm_dw": S.tree_norm(deltas.W),
-        "norm_dm": S.tree_norm(deltas.M),
-        "norm_dv": S.tree_norm(deltas.V),
+        "norm_dw": S.tree_norm(deltas.W, split),
+        "norm_dm": S.tree_norm(deltas.M, split),
+        "norm_dv": S.tree_norm(deltas.V, split),
     }
 
 
+@dataclasses.dataclass(frozen=True)
 class Compressor:
     """Base class / protocol; see ``repro/core/compressors/base.py`` for
-    the full contract."""
+    the full contract.  The tags are class attributes; ``split`` is the
+    one field every compressor has (the module docstring)."""
 
-    name: str = "base"
-    transport: str = "dense"
-    local_update: str = "adam"
-    server_update: str = "wmv"
-    wire_layout: Optional[str] = None
+    name = "base"
+    transport = "dense"
+    local_update = "adam"
+    server_update = "wmv"
+    wire_layout = None
+    split: Optional[S.LeafSplit] = dataclasses.field(default=None,
+                                                     kw_only=True)
+
+    def _whole_size(self, tree) -> int:
+        """The size of ``tree``'s whole leaves (its shards' on a split
+        mesh)."""
+        return tree_size(tree) if self.split is None \
+            else sum(self.split.sizes(tree))
 
     def init_state(self, params) -> Optional[Any]:
         """Per-client state for ONE client (``None``: stateless)."""

@@ -7,7 +7,9 @@ Ndq bits per round.  Decoding is the identity, so the round skips the wire
 round trip for this transport, as the JAX round does, and ``compress``
 builds no payload (the jitted JAX round drops its unused one); the
 uplink bits come from the layout (``wire_bits_per_client``), and
-``pack_wire`` builds the payload on request.
+``pack_wire`` builds the payload on request.  On split leaves (``split``)
+the carriers are the shards, folded as they lie, and the diagnostics'
+norms the whole tree's.
 """
 from __future__ import annotations
 
@@ -15,8 +17,7 @@ import dataclasses
 
 from repro_torch.core import comm, wire
 from repro_torch.core.compressors.base import (
-    Compressor, Deltas, Packed, diag_metrics, register, tree_size,
-    tree_zeros_like)
+    Compressor, Deltas, Packed, diag_metrics, register, tree_zeros_like)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,8 +39,9 @@ class DenseCompressor(Compressor):
 
     def compress(self, deltas: Deltas, state, *, emit_wire: bool = True):
         packed = Packed(deltas.W, deltas.M, deltas.V,
-                        diag_metrics(deltas, deltas), None)
-        return packed, state, self.bits_per_client(tree_size(deltas.W))
+                        diag_metrics(deltas, deltas, self.split), None)
+        return packed, state, self.bits_per_client(
+            self._whole_size(deltas.W))
 
     def pack_wire(self, carriers: Deltas):
         if not self._wire_ok():

@@ -17,6 +17,12 @@ the residual ``d - Q(d)`` is added back into the next round's input, so
 On the card each payload is one ``pack_words`` launch and its decode one
 ``unpack_words`` launch (``kernels/wirepack``); the quantizers around them
 are plain PyTorch, as they are jnp in the JAX package.
+
+On split leaves (``split``) each leaf is this rank's shard, quantized on
+the whole leaf's blocks (``core/quantize.ShardBlocks``: one all-reduce
+of the ``(nb,)`` block partials per leaf over its group); the residuals
+stay shards, and no payload is built (the split rounds fold the
+carriers).
 """
 from __future__ import annotations
 
@@ -25,8 +31,17 @@ import dataclasses
 from repro_torch import tree as T
 from repro_torch.core import comm, quantize, wire
 from repro_torch.core.compressors.base import (
-    Compressor, Deltas, Packed, diag_metrics, register, tree_add,
-    tree_size, tree_sub, tree_zeros_like)
+    Compressor, Deltas, Packed, diag_metrics, register, tree_add, tree_sub,
+    tree_zeros_like)
+
+
+def _views(split, tree, block: int) -> list:
+    """Per leaf of ``tree`` its ``quantize.ShardBlocks`` on a split mesh,
+    else ``None``."""
+    leaves = T.leaves(tree)
+    if split is None:
+        return [None] * len(leaves)
+    return [split.blocks(i, x, block) for i, x in enumerate(leaves)]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,14 +69,16 @@ class OneBitAdamCompressor(Compressor):
     def compress(self, deltas: Deltas, state, *, emit_wire: bool = True):
         assert state is not None, "1-bit Adam requires error-feedback state"
         dM = tree_add(deltas.M, state["err"])
-        q = quantize.tree_sign_quant(dM, self.block)
+        q = quantize.tree_sign_quant(dM, self.block,
+                                     _views(self.split, dM, self.block))
         ef = Deltas(deltas.W, dM, deltas.V)
         packed = Packed(tree_zeros_like(q), q, tree_zeros_like(deltas.V),
-                        diag_metrics(ef, Deltas(deltas.W, q, deltas.V)),
+                        diag_metrics(ef, Deltas(deltas.W, q, deltas.V),
+                                     self.split),
                         wire.pack_sign(q) if emit_wire and self._wire_ok()
                         else None)
         return packed, {"err": tree_sub(dM, q)}, \
-            self.bits_per_client(tree_size(deltas.W))
+            self.bits_per_client(self._whole_size(deltas.W))
 
     def pack_wire(self, carriers: Deltas):
         # the M carrier is two-valued per block, so re-encoding a decoded
@@ -108,8 +125,9 @@ class EfficientAdamCompressor(Compressor):
 
     def _encode(self, tree):
         leaves, td = T.flatten(tree)
-        return [quantize.uniform_encode(x, self.quant_bits, self.block)
-                for x in leaves], leaves, td
+        views = _views(self.split, tree, self.block)
+        return [quantize.uniform_encode(x, self.quant_bits, self.block, v)
+                for x, v in zip(leaves, views)], leaves, td, views
 
     def _payload(self, enc):
         if not self._wire_ok():
@@ -123,17 +141,18 @@ class EfficientAdamCompressor(Compressor):
         dW = tree_add(deltas.W, state["err"])
         # encode (codes and scales: the wire's arrays) and decode (the
         # dense carrier): the JAX package's tree_uniform_quant, bitwise
-        enc, leaves, td = self._encode(dW)
+        enc, leaves, td, views = self._encode(dW)
         q = td.unflatten([
-            quantize.uniform_decode(c, s, self.block).to(x.dtype)
-            for (c, s), x in zip(enc, leaves)])
+            quantize.uniform_decode(c, s, self.block, v).to(x.dtype)
+            for (c, s), x, v in zip(enc, leaves, views)])
         ef = Deltas(dW, deltas.M, deltas.V)
         packed = Packed(q, tree_zeros_like(deltas.M),
                         tree_zeros_like(deltas.V),
-                        diag_metrics(ef, Deltas(q, deltas.M, deltas.V)),
+                        diag_metrics(ef, Deltas(q, deltas.M, deltas.V),
+                                     self.split),
                         self._payload(enc) if emit_wire else None)
         return packed, {"err": tree_sub(dW, q)}, \
-            self.bits_per_client(tree_size(deltas.W))
+            self.bits_per_client(self._whole_size(deltas.W))
 
     def pack_wire(self, carriers: Deltas):
         return self._payload(self._encode(carriers.W)[0])

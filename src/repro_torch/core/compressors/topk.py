@@ -16,8 +16,10 @@ kernel.
 
 On a model axis or FSDP axes (``split``, a ``sparsify.LeafSplit`` that
 the spatial and the virtual clients' rounds set) each leaf is this rank's
-shard: the masks keep the whole leaf's per-tensor threshold, always per
-leaf, and the diagnostics' norms are the whole tree's.
+shard: the masks are the whole leaves' (a per-tensor or the ``global``
+threshold, exact masks from the gathered scores, ``fairness_top``'s norms
+reduced over each leaf's group), always per leaf, and the diagnostics'
+norms are the whole tree's.
 """
 from __future__ import annotations
 
@@ -30,7 +32,7 @@ from repro_torch import tree as T
 from repro_torch.core import comm, masks, wire
 from repro_torch.core import sparsify as S
 from repro_torch.core.compressors.base import (
-    Compressor, Deltas, Packed, register, tree_add, tree_size, tree_sub)
+    Compressor, Deltas, Packed, register, tree_add, tree_sub)
 
 _VALUE_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16}
 
@@ -52,7 +54,6 @@ class _TopKBase(Compressor):
     value_dtype: Optional[str] = None
     q_bits: int = 32
     sparsify_backend: str = "auto"        # auto | kernel | reference
-    split: Optional[S.LeafSplit] = None   # leaves split over a model axis
 
     def init_state(self, params):
         if not self.error_feedback:
@@ -112,8 +113,8 @@ class _TopKBase(Compressor):
         packed = Packed(sW, sM, sV, diag,
                         self.pack_wire(Deltas(sW, sM, sV)) if emit_wire
                         else None)
-        d = tree_size(deltas.W) if sp is None else sum(sp.sizes(deltas.W))
-        return packed, new_state, self.bits_per_client(d)
+        return packed, new_state, self.bits_per_client(
+            self._whole_size(deltas.W))
 
     def pack_wire(self, carriers: Deltas):
         if not self._wire_ok():
@@ -140,7 +141,13 @@ class SharedTopKCompressor(_TopKBase):
         return m, m, m
 
     def _fused_compress(self, dW, dM, dV, with_residual):
-        score = masks.shared_score_tree(self.rule, dW, dM, dV)
+        # fairness_top's score is float32 and the fused apply reads a
+        # score of its leaf's type: another tree takes the masks (the
+        # selection passes, then apply_mask per leaf)
+        if self.rule == "fairness_top" and any(
+                x.dtype != torch.float32 for x in T.leaves(dW)):
+            return None
+        score = masks.shared_score_tree(self.rule, dW, dM, dV, self.split)
         return S.tree_shared_compress_fused(
             score, dW, dM, dV, self.alpha, self.mask_scope,
             value_dtype=self.value_dtype, with_residual=with_residual,

@@ -39,18 +39,20 @@ Client execution modes, as in the JAX package:
   model axis above 1 (the ``tp`` plans) a client's ranks each hold their
   shard of every leaf (``pspecs``: W, M, V, the EF residual and the
   ``local_adam`` moments alike, :func:`client_state_pspecs`), the loss
-  runs its tensor-parallel layers, the masks keep each whole leaf's
-  threshold (``sparsify.LeafSplit``), the transport packs each shard,
-  and the bill counts the whole leaves.
+  runs its tensor-parallel layers, every compressor's masks, quantizer
+  scales and norms are the whole leaves' (``sparsify.LeafSplit``), the
+  transport packs each shard (or the dense fold gathers them), and the
+  bill counts the whole leaves.
 * ``scan`` on a mesh with no client axes (the virtual clients of the
   ``fsdp`` plans, JAX's ``plan.clients == "virtual"``): every client one
   after another on the whole mesh, each rank holding its shard of every
   leaf (split over "model" and, along ``embed``, over the data[, pod]
   axes) and its slice of each client's batch (:func:`local_batch`); the
-  loss gathers each leaf over the data group at its use, the masks keep
-  each whole leaf's threshold over the group that holds its shards, the
-  dense FedAvg folds each shard, and the bill and the metrics are the
-  whole leaves', the same on every rank.
+  loss gathers each leaf over the data group at its use, the
+  compressor's masks, scales and norms are the whole leaves' (reduced
+  over the group that holds each leaf's shards), the dense FedAvg folds
+  each shard, and the bill and the metrics are the whole leaves', the
+  same on every rank.
 
 Partial participation draws the round's clients as the JAX round does,
 ``jax.random.permutation(fold_in(PRNGKey(17), round), C)`` (reproduced
@@ -199,14 +201,14 @@ def check_ported(fed: FedConfig, mesh=None) -> None:
                          "model group on a model axis)")
 
 
-def _leaf_split(fed: FedConfig, comp, mesh, pspecs):
+def _leaf_split(fed: FedConfig, mesh, pspecs):
     """The round's ``sparsify.LeafSplit`` on a model axis above 1 or FSDP
     axes (else ``None``), after checking that the configuration runs
     there: the spatial round on a model axis, the scan round on FSDP
-    axes, a threshold-mask sparse compressor."""
+    axes, and the param specs.  Every compressor, mask and scope runs on
+    split leaves: each leaf's group and the groups of its split dims."""
     from repro_torch.core import sparsify as S
-    from repro_torch.launch.mesh import FSDP_ITEM_REMAINDER, TENSOR_ITEM
-    from repro_torch.models.params import split_kinds
+    from repro_torch.models.params import entry_axes, split_kinds
     if mesh is None:
         return None
     fsdp = mesh.data is not None
@@ -220,17 +222,13 @@ def _leaf_split(fed: FedConfig, comp, mesh, pspecs):
                          "(client_mode='vmap' with client_axes)")
     if pspecs is None:
         raise ValueError("split leaves need the param specs (pspecs=)")
-    if comp.transport not in ("shared_sparse", "independent_sparse") \
-            or getattr(comp, "rule", "ssm_w") == "fairness_top" \
-            or fed.exact_topk:
-        raise NotImplementedError(
-            f"{comp.name}{' with exact masks' if fed.exact_topk else ''} "
-            "on split leaves (its scales, norms or sorts over a whole "
-            "leaf) is not ported: "
-            f"{FSDP_ITEM_REMAINDER if fsdp else TENSOR_ITEM}")
     groups = {None: None, "model": mesh.model, "data": mesh.data,
               "both": mesh.leaf}
-    return S.LeafSplit(tuple(groups[k] for k in split_kinds(pspecs, mesh)))
+    kinds = split_kinds(pspecs, mesh)
+    dims = tuple(None if k is None else tuple(
+        None if e is None else mesh.axis_group(entry_axes(e)) for e in spec)
+        for k, spec in zip(kinds, T.leaves(pspecs)))
+    return S.LeafSplit(tuple(groups[k] for k in kinds), dims)
 
 
 def local_clients(tree, mesh):
@@ -538,7 +536,7 @@ def make_fl_round(fed: FedConfig, loss_fn: Callable,
     returns the whole batch's loss on every rank."""
     check_ported(fed, mesh)
     comp = compressors.make_compressor(fed)
-    split = _leaf_split(fed, comp, mesh, pspecs)
+    split = _leaf_split(fed, mesh, pspecs)
     if split is not None:
         comp = dataclasses.replace(comp, split=split)
     n_active = active_client_count(fed)

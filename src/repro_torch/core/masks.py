@@ -22,10 +22,18 @@ _F32 = torch.float32
 SHARED_RULES = ("ssm_w", "ssm_m", "ssm_v", "fairness_top")
 
 
-def shared_score_tree(rule: str, dW, dM, dV):
+def shared_score_tree(rule: str, dW, dM, dV, split=None):
     """Score tensors whose |.| the shared mask thresholds; ``None`` for
     ``ssm_w``, whose score is dW itself (the packed apply then reads the
-    dW stream it already streams instead of a separate score)."""
+    dW stream it already streams instead of a separate score).
+
+    ``fairness_top`` divides each tensor by its leaf's L2 norm (plus
+    1e-30): the squares are summed in float64, so that the sum, rounded
+    once to float32, does not depend on the order of the additions, and a
+    leaf split over a model axis or the FSDP axes (``split``, a
+    ``sparsify.LeafSplit``) takes its shards' sums reduced over its group
+    (one all-reduce per group): its norm, and so its scores, are the
+    whole leaf's bit for bit."""
     if rule == "ssm_w":
         return None
     if rule == "ssm_m":
@@ -33,23 +41,26 @@ def shared_score_tree(rule: str, dW, dM, dV):
     if rule == "ssm_v":
         return dV
     if rule == "fairness_top":
-        def norm(x):
-            n = torch.sqrt((x.to(_F32) ** 2).sum()) + 1e-30
-            return x.to(_F32).abs() / n
-
-        return T.tree_map(
-            lambda w, m, v: torch.maximum(norm(w),
-                                          torch.maximum(norm(m), norm(v))),
-            dW, dM, dV)
+        trees = (T.leaves(dW), T.leaves(dM), T.leaves(dV))
+        sq = [torch.stack([(x.to(_F32) ** 2).sum(dtype=torch.float64)
+                           for x in xs]) for xs in zip(*trees)]
+        if split is not None:
+            sq = S.reduce_leaves(sq, split.groups)
+        out = []
+        for xs, s in zip(zip(*trees), sq):
+            n = torch.sqrt(s.to(_F32)) + 1e-30
+            a = [x.to(_F32).abs() / n[j] for j, x in enumerate(xs)]
+            out.append(torch.maximum(a[0], torch.maximum(a[1], a[2])))
+        return T.flatten(dW)[1].unflatten(out)
     raise ValueError(f"unknown shared mask rule {rule!r}")
 
 
 def shared_mask(rule: str, dW, dM, dV, alpha: float,
                 scope: str = "per_tensor", exact: bool = True,
                 backend=None, split=None):
-    """``split``: leaves split over a model axis (``sparsify.LeafSplit``),
-    masked with their whole leaves' thresholds."""
-    score = shared_score_tree(rule, dW, dM, dV)
+    """``split``: leaves split over a model axis or the FSDP axes
+    (``sparsify.LeafSplit``), masked as the whole leaves."""
+    score = shared_score_tree(rule, dW, dM, dV, split)
     score = T.tree_map(torch.abs, dW if score is None else score)
     return S.tree_topk_masks(score, alpha, scope=scope, exact=exact,
                              backend=backend, split=split)

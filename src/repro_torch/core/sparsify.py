@@ -32,13 +32,25 @@ on the kernel backend run ``topk_mask`` per leaf: the selection passes and
 the ``apply_mask`` kernel.
 
 Leaves split over a model axis or the FSDP axes (:class:`LeafSplit`, the
-tensor-parallel and the FSDP rounds) keep the per-tensor threshold of the
-WHOLE leaf: ``k`` from its global size and the selection's counts reduced
-over the group that holds its shards (``kernels/topk_mask/ops.select_tau``;
-the bisection reference the same way).  They always take the per-leaf
-path: the packed apply picks tau in its count's epilogue, where no
-reduction fits.  Exact masks and the ``global`` scope raise there
-(ROADMAP §1.10(a)).
+tensor-parallel and the FSDP rounds) keep the masks of the WHOLE leaves:
+
+* per-tensor threshold masks: ``k`` from the leaf's global size and the
+  selection's counts reduced over the group that holds its shards
+  (``kernels/topk_mask/ops.select_tau``; the bisection reference the same
+  way);
+* the ``global`` scope's threshold: ONE tau over every leaf, the max and
+  each count a sum over the whole leaves (counted once: every rank holds
+  them) and each group's shards, reduced over that group
+  (``select_tau_leaves``, :func:`topk_mask_threshold_leaves`), so tau is
+  bitwise the raveled model's;
+* exact masks: each split leaf's scores are all-gathered over the groups
+  of its split dims (:meth:`LeafSplit.gather`), masked whole (the raveled
+  model with the ``global`` scope), and this rank keeps its block.  This
+  gathers a whole leaf on every rank; a distributed select is not
+  ported.
+
+They always take the per-leaf path: the packed apply picks tau in its
+count's epilogue, where no reduction fits.
 """
 from __future__ import annotations
 
@@ -51,13 +63,16 @@ import numpy as np
 import torch
 
 from repro_torch import tree as T
+from repro_torch.core.quantize import ShardBlocks
 from repro_torch.device import device_cache
 from repro_torch.kernels.packed_topk.ops import (
     BLOCK_ELEMS as PACK_BLOCK_ELEMS, LANES as PACK_LANES, packed_apply,
     packed_hist)
 from repro_torch.kernels.packed_topk.ref import refine_taus
 from repro_torch.kernels.ssm_apply.ops import ssm_apply_ef
-from repro_torch.kernels.topk_mask.ops import select_tau, topk_mask
+from repro_torch.kernels.topk_mask.ops import (
+    reduce_leaves, select_tau, select_tau_leaves, topk_mask,
+    topk_mask_leaves)
 from repro_torch.kernels.topk_mask.ref import log2_taus
 
 _F32 = torch.float32
@@ -104,8 +119,14 @@ class LeafSplit:
     data group, or the leaf group of every rank for a leaf split over
     both), or ``None`` for a leaf that is whole, and the same, on every
     rank.  A leaf split over the data axes alone is reduced over its
-    data group only: the model ranks hold replicas of it."""
+    data group only: the model ranks hold replicas of it.  ``dims`` per
+    leaf its placement: ``None`` for a whole leaf, else per dim the
+    ``ModelGroup`` of the axes that split the dim (``None``: the dim is
+    whole), whose ``index`` is this rank's chunk of it (the layout of
+    ``models/params.shard_block``), from which each element's place in
+    the whole leaf follows."""
     groups: tuple
+    dims: tuple = ()
 
     def model(self, i: int):
         """Leaf ``i``'s group, or ``None`` for a whole leaf."""
@@ -119,13 +140,38 @@ class LeafSplit:
     def sizes(self, tree) -> tuple:
         return tuple(self.numel(i, x) for i, x in enumerate(T.leaves(tree)))
 
+    def place(self, i: int) -> tuple:
+        """Per dim of leaf ``i``: ``(index, parts)``, this rank's chunk."""
+        return tuple((0, 1) if g is None else (g.index, g.size)
+                     for g in self.dims[i])
 
-def _whole_leaf_only(split, exact: bool, scope: str) -> None:
-    if split is not None and (exact or scope != "per_tensor"):
-        from repro_torch.launch.mesh import TENSOR_ITEM
-        raise NotImplementedError(
-            "on a model axis the masks are per-tensor threshold masks; "
-            f"exact={exact}, scope={scope!r} are not ported: {TENSOR_ITEM}")
+    def gather(self, i: int, x: torch.Tensor) -> torch.Tensor:
+        """The whole leaf ``i`` from this rank's shard ``x``, all-gathered
+        along each split dim over its group (``params.unshard``'s order);
+        every rank of the leaf's group calls it."""
+        if self.groups[i] is None:
+            return x
+        for dim, g in enumerate(self.dims[i]):
+            if g is not None:
+                x = g.all_gather(x, dim)
+        return x
+
+    def shard(self, i: int, whole: torch.Tensor) -> torch.Tensor:
+        """This rank's block of the whole leaf ``i``."""
+        if self.groups[i] is None:
+            return whole
+        return whole[tuple(slice(j * (n // p), (j + 1) * (n // p))
+                           for n, (j, p) in zip(whole.shape,
+                                                self.place(i)))]
+
+    def blocks(self, i: int, x: torch.Tensor, block: int):
+        """Leaf ``i``'s shard ``x`` on the whole leaf's quantizer blocks
+        (a ``core/quantize.ShardBlocks``), or ``None`` for a whole
+        leaf."""
+        if self.groups[i] is None:
+            return None
+        return ShardBlocks(self.groups[i], self.place(i), tuple(x.shape),
+                           block, x.device)
 
 
 #: Leaves above BLOCK elements take exact top-k per BLOCK-sized tile.
@@ -166,6 +212,17 @@ def topk_mask_exact(x: torch.Tensor, k: int) -> torch.Tensor:
     return _topk_rows(x.reshape(-1).abs(), k).reshape(x.shape)
 
 
+def _bisect(hi: torch.Tensor, count, k: int, iters: int) -> torch.Tensor:
+    """tau in [0, hi] by bisection with ``count(tau)`` (float32) ~ k."""
+    lo = torch.zeros((), dtype=_F32, device=hi.device)
+    kf = torch.full((), float(k), dtype=_F32, device=hi.device)
+    for _ in range(iters):
+        mid = 0.5 * (lo + hi)
+        more = count(mid) > kf
+        lo, hi = torch.where(more, mid, lo), torch.where(more, hi, mid)
+    return torch.where(count(lo) >= kf, lo, hi)
+
+
 def topk_mask_threshold(x: torch.Tensor, k: int, iters: int = 24, *,
                         model=None) -> torch.Tensor:
     """Bisection threshold mask (ties may push the count above k): tau in
@@ -173,22 +230,30 @@ def topk_mask_threshold(x: torch.Tensor, k: int, iters: int = 24, *,
     leaf split over a model axis, ``x`` this rank's shard: the max and
     each count are reduced over it (the counts as exact float64 sums), so
     tau is the whole leaf's."""
+    if model is not None:
+        return topk_mask_threshold_leaves([x], k, [model], iters)[0]
     a = x.abs().to(_F32)
-    hi = a.max()
-    lo = torch.zeros((), dtype=_F32, device=x.device)
-    kf = torch.full((), float(k), dtype=_F32, device=x.device)
-    if model is None:
-        count = lambda t: (a >= t).to(_F32).sum()
-    else:
-        hi = model.all_reduce(hi, "max")
-        count = lambda t: model.all_reduce(
-            (a >= t).sum(dtype=torch.float64)).to(_F32)
-    for _ in range(iters):
-        mid = 0.5 * (lo + hi)
-        more = count(mid) > kf
-        lo, hi = torch.where(more, mid, lo), torch.where(more, hi, mid)
-    tau = torch.where(count(lo) >= kf, lo, hi)
-    return a >= tau
+    return a >= _bisect(a.max(), lambda t: (a >= t).to(_F32).sum(), k,
+                        iters)
+
+
+def topk_mask_threshold_leaves(xs, k: int, groups, iters: int = 24) -> list:
+    """:func:`topk_mask_threshold` of the leaves ``xs`` raveled into one
+    (each whole, or this rank's shard of a leaf split over ``groups[i]``):
+    the max and each count are the whole model's, the counts exact
+    float64 sums, so tau is bitwise the raveled whole model's.  One mask
+    per leaf."""
+    a = [x.abs().to(_F32) for x in xs]
+    hi = torch.stack(reduce_leaves([t.max() for t in a], groups,
+                                   "max")).max()
+
+    def count(t):
+        return torch.stack(reduce_leaves(
+            [(x >= t).sum(dtype=torch.float64) for x in a], groups)) \
+            .sum().to(_F32)
+
+    tau = _bisect(hi, count, k, iters)
+    return [x >= tau for x in a]
 
 
 def sparsify(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -219,7 +284,8 @@ def tree_topk_masks(score_tree, alpha: float, scope: str = "per_tensor",
     magnitude, per tensor or over the whole flattened model.  Threshold
     masks (``exact=False``) run :func:`topk_mask` on the kernel backend and
     the bisection reference elsewhere.  ``split``: leaves split over a
-    model axis, each masked with its whole leaf's threshold."""
+    model axis or the FSDP axes, masked as the whole leaves (the module
+    docstring)."""
     def mk(s, k, model=None, n=None):
         if not exact:
             if use_kernel_path(backend, s.device):
@@ -231,19 +297,44 @@ def tree_topk_masks(score_tree, alpha: float, scope: str = "per_tensor",
             return blocked_topk_mask(s, alpha)
         return topk_mask_exact(s, k)
 
-    _whole_leaf_only(split, exact, scope)
     if split is not None:
-        leaves, td = T.flatten(score_tree)
-        out = []
-        for i, s in enumerate(leaves):
-            n = split.numel(i, s)
-            out.append(mk(s, k_for(n, alpha), split.model(i), n))
-        return td.unflatten(out)
+        return _split_topk_masks(score_tree, alpha, scope, exact, backend,
+                                 split, mk)
     if scope == "per_tensor":
         return T.tree_map(lambda s: mk(s, k_for(s.numel(), alpha)),
                           score_tree)
     flat = torch.cat([x.reshape(-1) for x in T.leaves(score_tree)])
     return _unravel_bool(mk(flat, k_for(flat.numel(), alpha)), score_tree)
+
+
+def _split_topk_masks(score_tree, alpha, scope, exact, backend,
+                      split: LeafSplit, mk):
+    """:func:`tree_topk_masks` on split leaves."""
+    leaves, td = T.flatten(score_tree)
+    if scope == "global":
+        n = sum(split.sizes(score_tree))
+        k = k_for(n, alpha)
+        if exact:
+            # the split leaves gathered whole: the raveled model's sort
+            whole = [split.gather(i, s) for i, s in enumerate(leaves)]
+            m = _unravel_bool(mk(torch.cat([w.reshape(-1) for w in whole]),
+                                 k), whole)
+            return td.unflatten([split.shard(i, x) for i, x in enumerate(m)])
+        if use_kernel_path(backend, leaves[0].device):
+            return td.unflatten(topk_mask_leaves(leaves, k, split.groups,
+                                                 n)[0])
+        return td.unflatten(topk_mask_threshold_leaves(leaves, k,
+                                                       split.groups))
+    out = []
+    for i, s in enumerate(leaves):
+        n = split.numel(i, s)
+        g = split.model(i)
+        if exact and g is not None:
+            out.append(split.shard(i, mk(split.gather(i, s),
+                                         k_for(n, alpha))))
+        else:
+            out.append(mk(s, k_for(n, alpha), g, n))
+    return td.unflatten(out)
 
 
 def tree_sparsify(tree, masks):
@@ -252,17 +343,10 @@ def tree_sparsify(tree, masks):
 
 def _root_of_sums(sq_leaves, split: Optional[LeafSplit]):
     """sqrt of the leaves' sums of squares added in leaf order; a split
-    leaf's sum is its shards' over its group (one all-reduce per group,
-    in the order the groups first hold a leaf)."""
+    leaf's sum is its shards' over its group (:func:`reduce_leaves`)."""
     sq = list(sq_leaves)
-    by_group = {}
-    for i, g in enumerate(() if split is None else split.groups):
-        if g is not None:
-            by_group.setdefault(g, []).append(i)
-    for g, idx in by_group.items():
-        red = g.all_reduce(torch.stack([sq[i] for i in idx]))
-        for j, i in enumerate(idx):
-            sq[i] = red[j]
+    if split is not None:
+        sq = reduce_leaves(sq, split.groups)
     return torch.sqrt(sum(sq))
 
 
@@ -480,15 +564,17 @@ def tree_independent_compress_packed(dW, dM, dV, alpha: float,
 
 
 def _fused_leaf(score, w, m, v, k: int, value_dtype, with_residual: bool,
-                model=None, n: Optional[int] = None):
+                model=None, n: Optional[int] = None, tau=None):
     """One leaf of the fused compress: the selection passes on the score
     (``w`` when ``score`` is None), then ONE apply/cast/residual pass.
     Returns ``(sw, sm, sv, err | None, mask)``; the mask is recomputed
     from tau for the diagnostics only.  ``model``, ``n``: a shard of a
-    leaf split over a model axis (``select_tau``)."""
+    leaf split over a model axis (``select_tau``); ``tau``: given, no
+    selection (the global scope's over split leaves)."""
     s = w if score is None else score
-    tau, _ = select_tau(s, k) if model is None else \
-        select_tau(s, k, model=model, n=n)
+    if tau is None:
+        tau, _ = select_tau(s, k) if model is None else \
+            select_tau(s, k, model=model, n=n)
     outs = ssm_apply_ef(tau, w, m, v, score, with_residual=with_residual,
                         value_dtype=value_dtype)
     err = outs[3] if with_residual else None
@@ -526,15 +612,24 @@ def tree_shared_compress_fused(score_tree, dW, dM, dV, alpha: float,
     take the per-leaf loop: for each leaf (or the raveled model when
     ``scope == "global"``) :func:`_fused_leaf`.  ``score_tree=None`` means
     the scores are dW (the ssm_w rule).  ``split``: leaves split over a
-    model axis, always per leaf, with their whole leaves' thresholds.
-    Returns ``(sW, sM, sV, err_tree | None, mask_tree)``; given the same
-    tau the arithmetic is that of the composed reference ops."""
-    _whole_leaf_only(split, False, scope)
+    model axis or the FSDP axes, always per leaf, with their whole
+    leaves' thresholds (the ``global`` scope's one tau from
+    ``select_tau_leaves``).  Returns ``(sW, sM, sV, err_tree | None,
+    mask_tree)``; given the same tau the arithmetic is that of the
+    composed reference ops."""
     if packed and split is None and _uniform_dtype(score_tree, dW, dM, dV):
         return tree_shared_compress_packed(
             score_tree, dW, dM, dV, alpha, scope,
             value_dtype=value_dtype, with_residual=with_residual)
-    if scope == "global":
+    w_leaves, td = T.flatten(dW)
+    s_leaves = ([None] * len(w_leaves) if score_tree is None
+                else T.leaves(score_tree))
+    if scope == "global" and split is not None:
+        n = sum(split.sizes(dW))
+        tau, _ = select_tau_leaves(
+            [w if s is None else s for s, w in zip(s_leaves, w_leaves)],
+            k_for(n, alpha), split.groups, n)
+    elif scope == "global":
         flat_w, unravel = _ravel(dW)
         flat_m, _ = _ravel(dM)
         flat_v, _ = _ravel(dV)
@@ -545,9 +640,8 @@ def tree_shared_compress_fused(score_tree, dW, dM, dV, alpha: float,
         return (unravel(sw), unravel(sm), unravel(sv),
                 None if err is None else unravel(err),
                 _unravel_bool(mask, dW))
-    w_leaves, td = T.flatten(dW)
-    s_leaves = ([None] * len(w_leaves) if score_tree is None
-                else T.leaves(score_tree))
+    else:
+        tau = None
     outs = []
     for i, (s, w, m, v) in enumerate(zip(s_leaves, w_leaves, T.leaves(dM),
                                          T.leaves(dV))):
@@ -555,7 +649,7 @@ def tree_shared_compress_fused(score_tree, dW, dM, dV, alpha: float,
         outs.append(_fused_leaf(s, w, m, v, k_for(n, alpha), value_dtype,
                                 with_residual,
                                 None if split is None else split.model(i),
-                                n))
+                                n, tau))
     unflat = lambda i: td.unflatten([o[i] for o in outs])
     return (unflat(0), unflat(1), unflat(2),
             unflat(3) if with_residual else None, unflat(4))

@@ -129,6 +129,26 @@ def _count_sum(counts: torch.Tensor, model) -> torch.Tensor:
     return model.all_reduce(counts.to(torch.float64)).to(_F32)
 
 
+def _two_passes(k: int, n: int, am: torch.Tensor, count):
+    """The log2 pass and the linear refine from the absmax ``am`` and
+    ``count(taus) -> float32[32]``: ``(tau, achieved_count)``."""
+    taus1 = log2_taus(am)
+    counts1 = count(taus1)
+    idx = torch.argmax((counts1 >= k).to(torch.uint8))
+    above = taus1.gather(0, (idx - 1).clamp(min=0).reshape(1))[0]
+    hi = torch.where(idx > 0, above, am)
+    lo = taus1.gather(0, idx.reshape(1))[0]
+    taus2 = linear_taus(lo, hi)
+    counts2 = count(taus2)
+    idx2 = torch.argmax((counts2 >= k).to(torch.uint8)).reshape(1)
+    tau = taus2.gather(0, idx2)[0]
+    count = counts2.gather(0, idx2)[0]
+    if k >= n:                          # degenerate: keep everything
+        tau = torch.zeros_like(tau)
+        count = torch.full_like(count, float(n))
+    return tau, count
+
+
 def select_tau(x: torch.Tensor, k: int, *, model=None, n: int = None):
     """Threshold selection over ``x`` (any shape) for ``k`` kept elements:
     ``(tau, achieved_count)``, float32 scalars on x's device.  Three
@@ -150,21 +170,48 @@ def select_tau(x: torch.Tensor, k: int, *, model=None, n: int = None):
     am = absmax(x)
     if model is not None:
         am = model.all_reduce(am, "max")
-    taus1 = log2_taus(am)
-    counts1 = _count_sum(count_ge(taus1, x, pad), model)
-    idx = torch.argmax((counts1 >= k).to(torch.uint8))
-    above = taus1.gather(0, (idx - 1).clamp(min=0).reshape(1))[0]
-    hi = torch.where(idx > 0, above, am)
-    lo = taus1.gather(0, idx.reshape(1))[0]
-    taus2 = linear_taus(lo, hi)
-    counts2 = _count_sum(count_ge(taus2, x, pad), model)
-    idx2 = torch.argmax((counts2 >= k).to(torch.uint8)).reshape(1)
-    tau = taus2.gather(0, idx2)[0]
-    count = counts2.gather(0, idx2)[0]
-    if k >= n:                          # degenerate: keep everything
-        tau = torch.zeros_like(tau)
-        count = torch.full_like(count, float(n))
-    return tau, count
+    return _two_passes(k, n, am, lambda taus: _count_sum(
+        count_ge(taus, x, pad), model))
+
+
+def reduce_leaves(vals, groups, op: str = "sum") -> list:
+    """``vals`` (one tensor per leaf, all of one shape) with each split
+    leaf's value reduced (``op``) over its group (``groups`` per leaf,
+    ``None`` for a whole leaf): one all-reduce per group, in the order the
+    groups first hold a leaf, of that group's values stacked."""
+    vals = list(vals)
+    by_group = {}
+    for i, g in enumerate(groups):
+        if g is not None:
+            by_group.setdefault(g, []).append(i)
+    for g, idx in by_group.items():
+        red = g.all_reduce(torch.stack([vals[i] for i in idx]), op)
+        for j, i in enumerate(idx):
+            vals[i] = red[j]
+    return vals
+
+
+def select_tau_leaves(xs, k: int, groups, n: int):
+    """:func:`select_tau` over the tensors ``xs`` raveled into one of
+    ``n`` elements, ``groups[i]`` the group whose ranks hold the shards of
+    ``xs[i]`` (``None``: a whole tensor, the same on every rank): the
+    ``global`` mask scope over split leaves.  Each pass launches its
+    kernel on every tensor; the absmaxes are reduced by MAX and the counts
+    by a float64 SUM within each group (one all-reduce per group and
+    pass), then over the groups and the whole tensors, so tau and the
+    count are the raveled whole model's (its tile padding counted once).
+    ``3 * len(xs)`` launches on the card."""
+    pad = (-n) % _TILE
+    am = torch.stack(reduce_leaves([absmax(x) for x in xs], groups,
+                                   "max")).max()
+
+    def count(taus):
+        total = torch.stack(reduce_leaves(
+            [count_ge(taus, x).to(torch.float64) for x in xs], groups)) \
+            .sum(dim=0)
+        return (total + pad * (taus <= 0)).to(_F32)
+
+    return _two_passes(k, n, am, count)
 
 
 def apply_mask(tau: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -183,6 +230,14 @@ def apply_mask(tau: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
                 code, stream(x.device))
     LAUNCHES["apply_mask"] += 1
     return out
+
+
+def topk_mask_leaves(xs, k: int, groups, n: int):
+    """Threshold top-k masks of the tensors ``xs`` raveled into one
+    (:func:`select_tau_leaves`'s arguments): ``(masks, tau,
+    achieved_count)``, one :func:`apply_mask` launch a tensor."""
+    tau, count = select_tau_leaves(xs, k, groups, n)
+    return [apply_mask(tau, x) for x in xs], tau, count
 
 
 def topk_mask(x: torch.Tensor, k: int, *, model=None, n: int = None):

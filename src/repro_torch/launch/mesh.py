@@ -73,12 +73,14 @@ import torch.distributed as dist
 
 from repro_torch.device import DeviceLike, resolve_device
 
-#: The ROADMAP item of the tensor-parallel half: a model axis above 1.
+#: The ROADMAP item of the tensor-parallel half: a model axis above 1
+#: (what is left of it: the async driver's group cohort there).
 TENSOR_ITEM = "ROADMAP §1.10(a)"
 #: What the port does not run of ROADMAP §1.10(b), the ``virtual``
 #: clients and the ``fsdp`` plans: FSDP leaves beside client axes (the
-#: spatial round), the async driver on an FSDP mesh, and the compressors
-#: whose scales, norms or sorts span a split leaf.
+#: spatial round), the async driver on an FSDP mesh, and the
+#: spatial/fsdp and virtual/tp plan pairs, which no plan of the zoo uses.
+#: Every compressor runs on split leaves (``core/sparsify.LeafSplit``).
 FSDP_ITEM_REMAINDER = "ROADMAP §1.10(b) remainder"
 #: The axes the ``fsdp`` rules split a leaf's ``embed`` dim over, in
 #: their order there (``sharding.fsdp_axes``: data before pod).

@@ -31,8 +31,10 @@ plan, ``build_step`` the builder by the shape's kind):
   whole vocabulary and its prefill cache shards; ``fn(params, caches,
   pos, token)`` one decode step, its cache shards written in place.
 
-The spatial/fsdp and virtual/tp train plan pairs, which no plan uses,
-raise naming ROADMAP §1.10(b)'s remainder.
+Every registered compressor runs on both train plans (its masks, scales
+and norms the whole leaves', ``core/sparsify.LeafSplit``).  The
+spatial/fsdp and virtual/tp train plan pairs, which no plan uses, raise
+naming ROADMAP §1.10(b)'s remainder.
 """
 from __future__ import annotations
 
@@ -160,7 +162,9 @@ def build_train_step(cfg: ArchConfig, mesh, shape: ShapeSpec, *,
                      lr: float = 1e-3,
                      error_feedback: bool = False,
                      sparsify_backend: str = "auto",
-                     participation: float = 1.0) -> StepBundle:
+                     participation: float = 1.0,
+                     exact_topk: bool = False,
+                     mask_scope: str = "per_tensor") -> StepBundle:
     """The train step of ``cfg`` at ``shape`` on ``mesh`` under ``plan``
     (``sharding.plan_for(cfg.name)`` by default).  Spatial/tp: as many
     clients as the client axes hold, ``shape.global_batch // clients``
@@ -168,7 +172,11 @@ def build_train_step(cfg: ArchConfig, mesh, shape: ShapeSpec, *,
     Virtual/fsdp (``mesh`` with no client axes): ``plan.n_virtual``
     clients of ``shape.global_batch`` sequences each, in turn on every
     rank, each rank holding ``global_batch / rows`` of them and its
-    shard of every leaf."""
+    shard of every leaf.  ``algorithm``: any registered compressor, on
+    either plan.  ``exact_topk``, ``mask_scope``: the masks (JAX's
+    builder fixes the production ones, threshold and per tensor; the
+    per-shard bitmap transport keeps alpha of each shard, so pass
+    ``aggregate="dense"`` where a shard may select more)."""
     plan = plan or shd.plan_for(cfg.name)
     pair = (plan.clients, plan.train_params)
     if pair not in (("spatial", "tp"), ("virtual", "fsdp")):
@@ -210,9 +218,9 @@ def build_train_step(cfg: ArchConfig, mesh, shape: ShapeSpec, *,
         algorithm=algorithm, alpha=alpha, local_epochs=local_epochs,
         n_clients=n_clients, adam=AdamHyper(lr=lr),
         client_mode="scan" if virtual else "vmap", aggregate=aggregate,
-        # production masks: the O(d) threshold selection, which the
-        # backend sends through the kernels on the card
-        exact_topk=False, mask_scope="per_tensor",
+        # production masks by default: the O(d) threshold selection,
+        # which the backend sends through the kernels on the card
+        exact_topk=exact_topk, mask_scope=mask_scope,
         sparsify_backend=sparsify_backend,
         error_feedback=error_feedback, participation=participation,
         client_axes=None if virtual else caxes)

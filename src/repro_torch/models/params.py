@@ -173,7 +173,8 @@ def _coords(mesh) -> Dict[str, int]:
     return out
 
 
-def _entry_axes(e) -> Tuple[str, ...]:
+def entry_axes(e) -> Tuple[str, ...]:
+    """The mesh axes of one :class:`Spec` entry (a name or a tuple)."""
     return (e,) if isinstance(e, str) else tuple(e)
 
 
@@ -205,7 +206,7 @@ def _block(spec, leaf_shape, shape: Dict[str, int],
     out = []
     for dim, e in enumerate(spec):
         n_ax, idx = 1, 0
-        for a in (() if e is None else _entry_axes(e)):
+        for a in (() if e is None else entry_axes(e)):
             n = shape.get(a, 1)
             n_ax, idx = n_ax * n, idx * n + coords.get(a, 0)
         size = leaf_shape[dim] // n_ax
@@ -252,7 +253,7 @@ def materialize_shards(tree, specs, mesh, seed: int,
 def shard_shape(spec, leaf_shape, shape: Dict[str, int]) -> Tuple[int, ...]:
     """The shape of a rank's block of a leaf of ``leaf_shape`` under
     ``spec`` on a mesh of ``shape`` (axis -> size)."""
-    return tuple(n // math.prod(shape.get(a, 1) for a in _entry_axes(e))
+    return tuple(n // math.prod(shape.get(a, 1) for a in entry_axes(e))
                  if e is not None else n for n, e in zip(leaf_shape, spec))
 
 
@@ -294,7 +295,7 @@ def unshard(tree, specs, mesh):
         for dim, e in enumerate(spec):
             if e is None:
                 continue
-            group = mesh.axis_group(_entry_axes(e))
+            group = mesh.axis_group(entry_axes(e))
             if group is not None:
                 x = group.all_gather(x, dim)
         return x

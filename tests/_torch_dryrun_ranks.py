@@ -17,6 +17,16 @@ MESH = {"data": 2, "model": 2}
 WORLD = 4
 SEED = 3
 
+#: (arch, algorithm) of the dry run per algorithm: every compressor on
+#: the tp plan's split leaves, two on the fsdp plan's, at the smoke
+#: configs and a cut train shape (ALG_SEQ, ALG_BATCH), one local epoch,
+#: error feedback.
+ALG_CASES = tuple(("starcoder2-3b", a) for a in (
+    "fedadam", "fedsgd", "efficient_adam", "onebit_adam", "fairness_top")) \
+    + (("mistral-large-123b", "fedadam"),
+       ("mistral-large-123b", "efficient_adam"))
+ALG_SEQ, ALG_BATCH = 32, 4
+
 #: name -> (arch, shape name, seq_len, global_batch)
 CASES = {
     "train": ("starcoder2-3b", "train_4k", 32, 4),
@@ -96,4 +106,25 @@ def gloo_rank(rank, world, store, names):
         res = D.count_step(bundle.fn, args, device_type="cpu")
         out[name] = _counted(res)
     MM.dist.barrier()
+    return out
+
+
+def algorithms(rank, world, store, cases):
+    """In a process of its own: rank 0 of the fake (2, 2) world; per
+    (arch, algorithm) of ``cases`` the dry run's record of the smoke
+    config's train step on fake tensors standing for the card's (the
+    kernels' fake branch: predicted launches)."""
+    torch.set_num_threads(1)
+    from repro_torch import sharding as shd
+    from repro_torch.configs import get_config, reduce_for_smoke
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch import steps as ST
+    shape = dataclasses.replace(ST.SHAPES["train_4k"], seq_len=ALG_SEQ,
+                                global_batch=ALG_BATCH)
+    out = {}
+    for arch, alg in cases:
+        out[(arch, alg)] = D.run_one(
+            arch, shape.name, "test", cfg=reduce_for_smoke(get_config(arch)),
+            shape=shape, plan=shd.plan_for(arch), algorithm=alg,
+            local_epochs=1, error_feedback=True)
     return out

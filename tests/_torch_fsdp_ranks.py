@@ -13,8 +13,11 @@ Cases, all in one spawn (:func:`on_group`):
   FSDP+tp shards and this rank's batch slice against the whole layer;
 * ``steps``: ``build_train_step`` with the virtual/fsdp plan, two rounds
   with error feedback of mistral-large-123b's smoke config (held against
-  JAX's jitted step), and one of kimi-k2-1t-a32b's against the port's
-  whole-leaf scan round.
+  JAX's jitted step; FedAdam-SSM, then one local epoch of each of
+  :data:`ALGORITHMS`), and one of kimi-k2-1t-a32b's against the port's
+  whole-leaf scan round;
+* ``compress``: every compressor's compress on leaves split over the data
+  axes alone and over both (``_torch_tensor_ranks.compress_cases``).
 """
 from __future__ import annotations
 
@@ -25,7 +28,8 @@ import time
 import numpy as np
 import torch
 
-from _torch_tensor_ranks import _np, _rel_err, _torch, draw_params
+from _torch_tensor_ranks import (_np, _rel_err, _torch, compress_cases,
+                                 draw_params)
 
 MESH = {"data": 2, "model": 2}
 WORLD = 4
@@ -41,6 +45,20 @@ JAX_MODEL = "mistral-large-123b"
 MOE_MODEL = "kimi-k2-1t-a32b"
 FSDP_MODELS = ("kimi-k2-1t-a32b", "jamba-1-5-large-398b",
                "mistral-large-123b", "gemma3-27b")
+#: The compressors held against JAX's jitted virtual step on FSDP leaves,
+#: with one local epoch.
+ALGORITHMS = ("fedadam", "fedsgd", "efficient_adam", "onebit_adam",
+              "fairness_top")
+NEW_EPOCHS = 1
+#: name -> (shape, spec) of the compress cases: split over both axes
+#: (rows of 1536 and 2560 halved over "model": quantizer blocks straddle
+#: the model ranks), over the data axis alone, and whole.
+COMPRESS_LEAVES = {
+    "a_both": ((8, 1536), ("data", "model")),
+    "b_both_uneven": ((10, 2560), ("data", "model")),
+    "c_data": ((3000,), ("data",)),
+    "d_whole": ((7, 5), (None, None)),
+}
 
 
 def smoke_cfg(name):
@@ -78,6 +96,7 @@ def on_group(rank, world, store, params_np):
     try:
         return {"roundtrip": roundtrip(mesh),
                 "select": select(mesh),
+                "compress": compress_cases(mesh, COMPRESS_LEAVES),
                 "layers": layers(mesh),
                 "steps": steps(mesh, params_np)}
     finally:
@@ -299,13 +318,14 @@ def _whole_state(state, specs, mesh):
     cs_specs = T.tree_map(lambda sp: PM.Spec((None,) + tuple(sp)), specs)
     rec = {k: _np(PM.unshard(getattr(state, k), specs, mesh))
            for k in ("W", "M", "V")}
-    rec["err"] = _np(PM.unshard(state.client_state["comp"]["err"], cs_specs,
-                                mesh))
+    cs = state.client_state
+    rec["err"] = [] if cs is None or "comp" not in cs else \
+        _np(PM.unshard(cs["comp"]["err"], cs_specs, mesh))
     return rec
 
 
 def run_step(mesh, cfg, params, tokens, algorithm="fedadam_ssm",
-             rounds=ROUNDS):
+             rounds=ROUNDS, local_epochs=LOCAL_EPOCHS):
     """``rounds`` virtual/fsdp rounds of ``build_train_step`` with error
     feedback from the whole ``params`` and every client's ``tokens``
     (C, BATCH, SEQ): per round the whole state, the losses, the
@@ -316,7 +336,7 @@ def run_step(mesh, cfg, params, tokens, algorithm="fedadam_ssm",
     shape = dataclasses.replace(steps.SHAPES["train_4k"], seq_len=SEQ,
                                 global_batch=BATCH)
     bundle = steps.build_train_step(cfg, mesh, shape, algorithm=algorithm,
-                                    local_epochs=LOCAL_EPOCHS, alpha=ALPHA,
+                                    local_epochs=local_epochs, alpha=ALPHA,
                                     error_feedback=True, plan=plan())
     state = bundle.init(params)
     batch = local_batch({"tokens": torch.from_numpy(tokens)}, mesh)
@@ -343,9 +363,12 @@ def steps(mesh, params_np):
     from repro_torch.launch import mesh as MM
     from repro_torch.models import model as TM
     cfg = smoke_cfg(JAX_MODEL)
-    out = {JAX_MODEL: run_step(
-        mesh, cfg, TM.params_from_jax(params_np, cfg, "cpu"),
-        batch_tokens(cfg))}
+    params = TM.params_from_jax(params_np, cfg, "cpu")
+    out = {JAX_MODEL: run_step(mesh, cfg, params, batch_tokens(cfg))}
+    for alg in ALGORITHMS:
+        out[(JAX_MODEL, alg)] = run_step(mesh, cfg, params,
+                                         batch_tokens(cfg), alg,
+                                         local_epochs=NEW_EPOCHS)
     cfg = smoke_cfg(MOE_MODEL)
     params = TM.params_from_jax(draw_params(TM.abstract_params(cfg), 9),
                                 cfg, "cpu")

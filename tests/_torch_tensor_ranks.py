@@ -12,7 +12,10 @@ Cases, all in one spawn (:func:`on_group`):
   leaf's;
 * ``steps``: ``build_train_step`` rounds with error feedback, the
   starcoder2 and mamba2 ones for the JAX comparison, deepseek's against
-  the whole-leaf spatial step on the client group.
+  the whole-leaf spatial step on the client group;
+* ``compress``: every compressor's compress on split leaves against the
+  whole leaves' (:func:`compress_cases`, shared with
+  ``tests/_torch_fsdp_ranks.py``).
 """
 from __future__ import annotations
 
@@ -43,6 +46,29 @@ ROUNDS = 2
 SEQ, BATCH = 64, 4
 ALPHA = 0.05
 LOCAL_EPOCHS = 2
+#: (model, algorithm, build keywords) of the rounds held against JAX's
+#: whole-leaf scan round of the same clients and batches (JAX's jitted tp
+#: step fails at its dense fold on this jax, ROADMAP §3), and the one held
+#: against JAX's jitted tp step; one local epoch each.  The exact-mask and
+#: global-scope rounds fold the dense carriers: the per-shard bitmap
+#: transport's capacity (alpha of each shard) would drop what a shard
+#: selects beyond it.
+SCAN_STEPS = (("starcoder2-3b", "fedadam", {}),
+              ("starcoder2-3b", "fedsgd", {}),
+              ("starcoder2-3b", "efficient_adam", {}),
+              ("starcoder2-3b", "onebit_adam", {}),
+              ("starcoder2-3b", "fedadam_ssm",
+               dict(exact_topk=True, aggregate="dense")),
+              ("starcoder2-3b", "fedadam_top",
+               dict(mask_scope="global", aggregate="dense")))
+TP_STEPS = (("starcoder2-3b", "fairness_top", {}),)
+NEW_EPOCHS = 1
+
+
+def step_key(name, alg, kw) -> tuple:
+    return (name, alg) + tuple(sorted(kw.items()))
+
+
 #: The families whose whole loss runs split against whole.
 LOSS_MODELS = ("starcoder2-3b", "mamba2-1-3b", "deepseek-v2-lite-16b",
                "whisper-base", "llava-next-mistral-7b")
@@ -98,6 +124,7 @@ def on_group(rank, world, store, params_np):
     try:
         return {"transport": transport(mesh),
                 "select": select(mesh),
+                "compress": compress_cases(mesh, COMPRESS_LEAVES),
                 "roundtrip": roundtrip(mesh),
                 "layers": layers(mesh),
                 "steps": steps(mesh, params_np)}
@@ -393,17 +420,19 @@ def _whole_state(state, specs, mesh):
     return rec
 
 
-def run_step(mesh, cfg, params, tokens, algorithm, rounds=ROUNDS):
+def run_step(mesh, cfg, params, tokens, algorithm, rounds=ROUNDS,
+             local_epochs=LOCAL_EPOCHS, **kw):
     """``rounds`` rounds of ``build_train_step`` with error feedback from
-    the whole ``params``: per round the whole state, the losses, the
-    diagnostics and the bill; the shapes of this rank's leaves."""
+    the whole ``params`` (``kw``: more of its keywords): per round the
+    whole state, the losses, the diagnostics and the bill; the shapes of
+    this rank's leaves."""
     from repro_torch.core.fed import local_clients
     from repro_torch.launch import steps
     shape = dataclasses.replace(steps.SHAPES["train_4k"], seq_len=SEQ,
                                 global_batch=BATCH)
     bundle = steps.build_train_step(cfg, mesh, shape, algorithm=algorithm,
-                                    local_epochs=LOCAL_EPOCHS, alpha=ALPHA,
-                                    error_feedback=True)
+                                    local_epochs=local_epochs, alpha=ALPHA,
+                                    error_feedback=True, **kw)
     state = bundle.init(params)
     batch = local_clients({"tokens": torch.from_numpy(tokens)}, mesh)
     out = []
@@ -438,6 +467,12 @@ def steps(mesh, params_np):
         params = TM.params_from_jax(params_np[name], cfg, "cpu")
         out[(name, alg)] = run_step(mesh, cfg, params, batch_tokens(cfg),
                                     alg)
+    for name, alg, kw in SCAN_STEPS + TP_STEPS:
+        cfg = smoke_cfg(name)
+        params = TM.params_from_jax(params_np[name], cfg, "cpu")
+        out[step_key(name, alg, kw)] = run_step(
+            mesh, cfg, params, batch_tokens(cfg), alg,
+            local_epochs=NEW_EPOCHS, **kw)
     cfg = smoke_cfg("deepseek-v2-lite-16b")
     params = TM.params_from_jax(draw_params(TM.abstract_params(cfg), 7),
                                 cfg, "cpu")
@@ -469,4 +504,172 @@ def roundtrip(mesh):
             _leaves(back), _leaves(p))),
             "shapes": [tuple(x.shape) for x in _leaves(sh)],
             "first": [x.reshape(-1)[:4].numpy() for x in _leaves(sh)]}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# every compressor's compress on split leaves
+# ---------------------------------------------------------------------------
+
+#: name -> (shape, spec): a row of 1536 elements split in two is 768 a
+#: rank, so every second 1024-block of the whole leaf straddles the model
+#: ranks; rows of 2560 put a rank's runs at unevenly spaced places of the
+#: blocks it touches; one leaf is whole.
+COMPRESS_LEAVES = {
+    "a_straddle": ((6, 1536), (None, "model")),
+    "b_uneven": ((5, 2560), (None, "model")),
+    "c_rows": ((3000,), ("model",)),
+    "d_whole": ((7, 5), (None, None)),
+}
+#: case -> FedConfig keywords (threshold masks on the reference backend
+#: unless ``exact_topk`` or ``sparsify_backend`` say otherwise).
+COMPRESS_CASES = {
+    "fedadam": dict(algorithm="fedadam"),
+    "fedsgd": dict(algorithm="fedsgd"),
+    "efficient_adam": dict(algorithm="efficient_adam"),
+    "onebit_adam": dict(algorithm="onebit_adam"),
+    "fairness_top": dict(algorithm="fairness_top"),
+    "fairness_top_kernel": dict(algorithm="fairness_top",
+                                sparsify_backend="kernel"),
+    "exact_ssm": dict(algorithm="fedadam_ssm", exact_topk=True),
+    "exact_top": dict(algorithm="fedadam_top", exact_topk=True),
+    "global_ssm": dict(algorithm="fedadam_ssm", mask_scope="global"),
+    "global_top": dict(algorithm="fedadam_top", mask_scope="global"),
+    "global_ssm_kernel": dict(algorithm="fedadam_ssm", mask_scope="global",
+                              sparsify_backend="kernel"),
+    "global_top_kernel": dict(algorithm="fedadam_top", mask_scope="global",
+                              sparsify_backend="kernel"),
+    "global_exact_ssm": dict(algorithm="fedadam_ssm", mask_scope="global",
+                             exact_topk=True),
+}
+#: The ulps 1-bit Adam's block scale may take on a split leaf (its L1 sum
+#: adds a straddling block's parts in another order; ROADMAP §3's bound).
+SIGN_ULPS = 8
+
+
+def _ulps(a, b):
+    """Per element |a - b| in units of b's float32 ulp."""
+    a, b = (np.asarray(x, np.float64) for x in (a, b))
+    return np.abs(a - b) / np.spacing(np.abs(b).astype(np.float32))
+
+
+def compress_deltas(leaves, seed: int = 11):
+    """Whole numpy (dW, dM, dV, err) trees of ``leaves`` (V >= 0)."""
+    rng = np.random.default_rng(seed)
+    draw = lambda f: {k: f(shape).astype(np.float32)
+                      for k, (shape, _) in leaves.items()}
+    dW = draw(lambda sh: rng.standard_normal(sh) * 1e-3)
+    dM = draw(lambda sh: rng.standard_normal(sh) * 1e-2)
+    dV = draw(lambda sh: np.abs(rng.standard_normal(sh)) * 1e-4)
+    err = draw(lambda sh: rng.standard_normal(sh) * 1e-4)
+    return dW, dM, dV, err
+
+
+def compress_cases(mesh, leaves, fed_kw=None):
+    """Per case of :data:`COMPRESS_CASES`: the compressor on this rank's
+    shards of ``leaves`` (``split`` from ``core/fed._leaf_split`` on the
+    leaves' specs) against the same compressor on the whole leaves, cut
+    to this rank's block: whether the carriers and the EF residual are
+    bitwise (1-bit Adam: their largest distance in ulps), the diagnostics'
+    largest relative error; for the threshold cases the selection's tau
+    (``select_tau``/``select_tau_leaves`` and the bisection) against the
+    whole leaf's or the raveled model's; for Efficient-Adam the codes and
+    scales."""
+    import torch
+    from repro_torch import tree as T
+    from repro_torch.core import masks, quantize
+    from repro_torch.core import sparsify as S
+    from repro_torch.core.compressors import Deltas, make_compressor
+    from repro_torch.core.fed import FedConfig, _leaf_split
+    from repro_torch.kernels.topk_mask.ops import (select_tau,
+                                                   select_tau_leaves)
+    from repro_torch.launch import mesh as MM
+    from repro_torch.models import params as PM
+    specs = {k: PM.Spec(sp) for k, (_, sp) in leaves.items()}
+    fed_kw = fed_kw or (dict(client_mode="vmap", client_axes=("data",),
+                             n_clients=mesh.n_clients)
+                        if mesh.client_axes else {})
+    dW, dM, dV, err = (_torch(t) for t in compress_deltas(leaves))
+    mine = lambda t: PM.shard(t, specs, mesh)
+    same = lambda a, b: all(torch.equal(x.view(torch.int32) if
+                                        x.dtype == torch.float32 else x,
+                                        y.view(torch.int32) if
+                                        y.dtype == torch.float32 else y)
+                            for x, y in zip(T.leaves(a), T.leaves(b)))
+    out = {}
+    for case, kw in COMPRESS_CASES.items():
+        fed = FedConfig(**{**dict(alpha=0.05, error_feedback=True,
+                                  exact_topk=False), **fed_kw, **kw})
+        split = _leaf_split(fed, mesh, specs)
+        whole = make_compressor(fed)
+        comp = dataclasses.replace(whole, split=split)
+        st = lambda e: None if whole.init_state(e) is None else {"err": e}
+        pw, sw, _ = whole.compress(Deltas(dW, dM, dV), st(err),
+                                   emit_wire=False)
+        MM.reset_collectives()
+        ps, ss, _ = comp.compress(Deltas(mine(dW), mine(dM), mine(dV)),
+                                  st(mine(err)), emit_wire=False)
+        gathered = MM.collective_summary()["by_kind"].get(
+            "all_gather", {"bytes": 0})["bytes"]
+        want = [mine(t) for t in (pw.W, pw.M, pw.V)]
+        rec = {"kinds": PM.split_kinds(T.leaves(specs), mesh),
+               "gathered_bytes": gathered,
+               "diag": max(abs(float(ps.diag[k]) - float(pw.diag[k]))
+                           / max(abs(float(pw.diag[k])), 1e-30)
+                           for k in pw.diag)}
+        if kw["algorithm"] == "onebit_adam":
+            q, q0 = (T.leaves(t) for t in (ps.M, want[1]))
+            rec["carrier_ulps"] = max(float(_ulps(a, b).max())
+                                      for a, b in zip(q, q0))
+            rec["signs"] = all(torch.equal(a >= 0, b >= 0)
+                               for a, b in zip(q, q0))
+            rec["err_ulps"] = max(float((np.abs(a.numpy().astype(
+                np.float64) - b.numpy()) / np.spacing(np.abs(
+                    c.numpy()))).max()) for a, b, c in zip(
+                T.leaves(ss["err"]), T.leaves(mine(sw["err"])), q0))
+        else:
+            rec["carriers"] = all(same(a, b) for a, b in
+                                  zip((ps.W, ps.M, ps.V), want))
+            rec["err"] = ss is None or same(ss["err"], mine(sw["err"]))
+        if kw["algorithm"] == "efficient_adam":
+            x = T.tree_map(lambda a, b: a + b, dW, err)
+            xs = mine(x)
+            enc0 = {k: quantize.uniform_encode(v, 8) for k, v in x.items()}
+            codes0 = mine({k: c for k, (c, _) in enc0.items()})
+            ok = True
+            for i, k in enumerate(sorted(x)):
+                c1, s1 = quantize.uniform_encode(
+                    xs[k], 8, 1024, split.blocks(i, xs[k], 1024))
+                ok &= torch.equal(c1, codes0[k]) and torch.equal(
+                    s1.view(torch.int32), enc0[k][1].view(torch.int32))
+            rec["codes_scales"] = ok
+        if case.startswith("fairness_top"):
+            sc0 = masks.shared_score_tree("fairness_top", dW, dM, dV)
+            sc1 = masks.shared_score_tree("fairness_top", mine(dW),
+                                          mine(dM), mine(dV), split)
+            rec["scores"] = same(sc1, mine(sc0))
+            taus = []
+            for i, (k, s0) in enumerate(sorted(sc0.items())):
+                n = s0.numel()
+                kk = S.k_for(n, 0.05)
+                t1 = select_tau(sc1[k], kk, model=split.model(i), n=n)[0]
+                t0 = select_tau(s0, kk)[0]
+                taus.append(torch.equal(t1.view(torch.int32),
+                                        t0.view(torch.int32)))
+            rec["tau"] = all(taus)
+        if case.startswith("global") and not kw.get("exact_topk"):
+            n = sum(x.numel() for x in T.leaves(dW))
+            kk = S.k_for(n, 0.05)
+            flat = torch.cat([x.reshape(-1) for x in T.leaves(dW)])
+            t1 = select_tau_leaves(T.leaves(mine(dW)), kk, split.groups,
+                                   n)[0]
+            t0 = select_tau(flat, kk)[0]
+            b1 = S.topk_mask_threshold_leaves(T.leaves(mine(dW)), kk,
+                                              split.groups)
+            b0 = S._unravel_bool(S.topk_mask_threshold(flat, kk), dW)
+            rec["tau"] = torch.equal(t1.view(torch.int32),
+                                     t0.view(torch.int32)) and all(
+                torch.equal(a, b) for a, b in
+                zip(b1, T.leaves(mine(b0))))
+        out[case] = rec
     return out

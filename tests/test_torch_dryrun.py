@@ -22,6 +22,7 @@ CPU.
   takes the plain version.
 """
 import json
+import math
 import os
 import subprocess
 import sys
@@ -57,11 +58,11 @@ def runs(tmp_path_factory):
     out, errors = {}, []
     out_dir = tmp_path_factory.mktemp("dryrun")
 
-    def spawn(key, fn, world):
+    def spawn(key, fn, world, cases=tuple(R.CASES)):
         try:
             out[key] = MM.run_ranks(
                 fn, world, store=str(tmp_path_factory.mktemp(key) / "store"),
-                args=(list(R.CASES),), timeout_s=300)[0]
+                args=(list(cases),), timeout_s=300)[0]
         except BaseException as e:      # re-raised below
             errors.append(e)
 
@@ -79,6 +80,8 @@ def runs(tmp_path_factory):
                                 args=("fake", R.fake_vs_real, 1)),
                threading.Thread(target=spawn, args=("gloo", R.gloo_rank,
                                                     R.WORLD)),
+               threading.Thread(target=spawn, args=(
+                   "algorithms", R.algorithms, 1, R.ALG_CASES)),
                threading.Thread(target=cli)]
     for t in threads:
         t.start()
@@ -118,6 +121,87 @@ def test_predicted_collectives_equal_a_real_gloo_rank(runs, name):
     assert groups == ({"data", "model"})
     assert pred["groups"]["model"] == [0, 1] and \
         pred["groups"]["data"] == [0, 2]
+
+
+def _leaf_blocks(arch):
+    """Per split kind of the smoke config's leaves on the (2, 2) mesh
+    under its plan's train rules: the leaves, and the 4-byte words of
+    their whole leaves' 1024-element quantizer blocks."""
+    from repro_torch import sharding as shd
+    from repro_torch import tree as T
+    from repro_torch.configs import get_config, reduce_for_smoke
+    from repro_torch.models import model as M
+    from repro_torch.models import params as PM
+    meta = M.abstract_params(reduce_for_smoke(get_config(arch)))
+    specs = PM.pspecs(meta, shd.param_rules(
+        shd.plan_for(arch).train_params, False), R.MESH)
+    out = {}
+    for p, kind in zip(T.leaves(meta), PM.split_kinds(specs, R.MESH)):
+        n, words = out.get(kind, (0, 0))
+        out[kind] = (n + 1, words + -(-math.prod(p.shape) // 1024))
+    return out
+
+
+def _group(rec, name):
+    return rec["collectives"]["by_group"].get(name, {"bytes": 0, "calls": 0})
+
+
+@pytest.mark.parametrize("case", [f"{a}:{b}" for a, b in R.ALG_CASES])
+def test_dry_run_predicts_every_algorithm(runs, case):
+    """Every compressor's train step on split leaves gives a dry-run
+    record (the smoke configs on the fake (2, 2) world, tracing fake
+    tensors that stand for the card's), whose collectives are the
+    analytic count beside FedAdam's on the same plan:
+
+    * the tp plan's dense fold all-gathers C x 3 carriers of this rank's
+      shards over the client group, and the 7 metrics;
+    * Efficient-Adam and 1-bit Adam add, per client and split leaf, one
+      all-reduce of the whole leaf's (nb,) float32 block partials over
+      the leaf's group; FedSGD adds nothing (one local epoch: the same
+      loss);
+    * ``fairness_top`` adds one all-reduce of every model-split leaf's
+      three float64 sums of squares, and per such leaf ``select_tau``'s
+      absmax (float32) and two 32-candidate float64 counts; its kernels
+      launch once per leaf and pass (absmax, two counts, apply_mask)."""
+    arch, alg = case.split(":")
+    rec = runs["algorithms"][(arch, alg)]
+    assert rec["status"] == "ok", rec.get("traceback", rec)
+    assert rec["memory"]["peak_per_device_bytes"] > 0
+    base = runs["algorithms"][(arch, "fedadam")]
+    kinds = _leaf_blocks(arch)
+    if arch == "starcoder2-3b":
+        n_model, words = kinds["model"]
+        L = sum(n for n, _ in kinds.values())
+        if alg != "fairness_top":
+            shard = rec["memory"]["argument_bytes"]["params"]
+            C = R.MESH["data"]
+            assert _group(rec, "data") == {
+                "bytes": C * 3 * shard + 7 * C * 4, "calls": 3 * L + 7}
+        extra = {"fedadam": (0, 0), "fedsgd": (0, 0),
+                 "efficient_adam": (4 * words, n_model),
+                 "onebit_adam": (4 * words, n_model),
+                 "fairness_top": (24 * n_model + 516 * n_model,
+                                  1 + 3 * n_model)}[alg]
+        got, ref = _group(rec, "model"), _group(base, "model")
+        assert (got["bytes"] - ref["bytes"], got["calls"] - ref["calls"]) \
+            == extra
+        if alg == "fairness_top":
+            # a bfloat16 tree: its float32 scores take the selection
+            # passes and apply_mask on every shard (the fused apply reads
+            # a score of its leaf's type)
+            assert rec["launches_predicted"] == {
+                "absmax": L, "count_ge": 2 * L, "apply_mask": L}
+        return
+    from repro_torch import sharding as shd
+    n_virtual = shd.plan_for(arch).n_virtual
+    for kind, group in (("data", "data"), ("both", "data+model"),
+                        ("model", "model")):
+        n, words = kinds.get(kind, (0, 0))
+        extra = (0, 0) if alg == "fedadam" else \
+            (4 * words * n_virtual, n * n_virtual)
+        got, ref = _group(rec, group), _group(base, group)
+        assert (got["bytes"] - ref["bytes"], got["calls"] - ref["calls"]) \
+            == extra, (kind, got, ref)
 
 
 def test_cli_record_on_the_production_mesh(runs):

@@ -296,6 +296,21 @@ def test_exact_topk_round_matches_jitted_jax_on_cnn():
         3 * wire.mask_wire_bits(sizes, 0.05, exact_topk=True)))
 
 
+@pytest.mark.parametrize("algorithm,over", [
+    ("ssm_m", {}), ("ssm_v", {}), ("fairness_top", {}),
+    ("fairness_top", {"exact_topk": True}),
+    ("fedadam_ssm", {"mask_scope": "global"}),
+    ("fedadam_top", {"mask_scope": "global"})])
+def test_mask_rules_and_scopes_match_jitted_jax_on_cnn(
+        jax_packed_oracles, algorithm, over):
+    """The shared-mask rules beside ``ssm_w`` (``ssm_m``, ``ssm_v``,
+    ``fairness_top`` with threshold and exact masks) and the ``global``
+    mask scope (FedAdam-SSM, FedAdam-Top): 3 rounds of the width-0.25 CNN
+    against JAX's jitted round, to the FedAdam-SSM round's tolerances.
+    These are the whole-leaf baselines of the split leaves' masks."""
+    _cnn_rounds_match_jitted_jax(algorithm, **over)
+
+
 @pytest.mark.parametrize("algorithm,n_tensors", [("fedadam", 3),
                                                  ("fedsgd", 1)])
 def test_dense_rounds_match_jitted_jax_on_cnn(algorithm, n_tensors):
@@ -509,18 +524,6 @@ def _fsdp_mesh():
                       rank=0, device=torch.device("cpu"))
 
 
-def _quantized_fsdp_step(loss):
-    """Efficient-Adam's 8-bit codes on FSDP leaves: a quantizer's scale
-    spans a whole leaf."""
-    from repro_torch.configs import get_config, reduce_for_smoke
-    from repro_torch.launch import steps
-    from repro_torch.sharding import DeployPlan
-    return steps.build_train_step(
-        reduce_for_smoke(get_config("mistral-large-123b")), _fsdp_mesh(),
-        steps.SHAPES["train_4k"], algorithm="efficient_adam",
-        plan=DeployPlan(clients="virtual", train_params="fsdp"))
-
-
 def _serve_on_unknown_axis(loss):
     """A serve step on a serving mesh with an axis beyond "model" and the
     data[, pod] axes that split its batch (and the 2-D leaves)."""
@@ -547,7 +550,6 @@ _REMAINDER = r"§1\.10\(b\) remainder"
      r"§1\.10\(a\)"),
     (lambda loss: make_async_round(FedConfig(n_clients=2), loss,
                                    mesh=_fsdp_mesh()), _REMAINDER),
-    (_quantized_fsdp_step, _REMAINDER),
     (_serve_on_unknown_axis, _REMAINDER),
 ])
 def test_round_outside_the_slice_raises(build, what):
@@ -555,14 +557,56 @@ def test_round_outside_the_slice_raises(build, what):
     axis beyond the client axes, "model" and a virtual mesh's FSDP axes
     (§1.10(b)'s remainder), the async driver's group cohort on a model
     axis above 1 (§1.10(a)), the async driver on a mesh whose data axes
-    split the leaves, a quantized compressor on FSDP leaves, and a serve
-    step on a mesh with such an axis (all three §1.10(b)'s remainder).
-    The spatial round on a model axis, the virtual clients' FSDP round
-    and the sharded prefill and serve steps themselves run
-    (tests/test_torch_tensor.py, tests/test_torch_fsdp.py,
-    tests/test_torch_serve_mesh.py)."""
+    split the leaves, and a serve step on a mesh with such an axis (both
+    §1.10(b)'s remainder).  The spatial round on a model axis, the
+    virtual clients' FSDP round with every compressor and the sharded
+    prefill and serve steps themselves run (tests/test_torch_tensor.py,
+    tests/test_torch_fsdp.py, tests/test_torch_serve_mesh.py, and
+    :func:`test_quantized_step_runs_on_fsdp_leaves`)."""
     with pytest.raises(NotImplementedError, match=what):
         build(lambda p, b: p["w"].sum())
+
+
+def test_quantized_step_runs_on_fsdp_leaves():
+    """Efficient-Adam's step on FSDP leaves (mistral-large-123b's smoke
+    config, the virtual/fsdp plan on a (data 2) view, its peer standing
+    in: ``launch.mesh.stand_in``) builds and runs one round: the 8-bit
+    codes' block scales reduced over the data group, the residuals and
+    the persistent moments this rank's shards, the state finite, and the
+    bill the whole leaves' (JAX's: 7,434,432 bits for 2 virtual clients,
+    tests/test_torch_fsdp.py)."""
+    import dataclasses
+    from repro_torch import tree as T
+    from repro_torch.configs import get_config, reduce_for_smoke
+    from repro_torch.launch import mesh as MM
+    from repro_torch.launch import steps
+    from repro_torch.models import model as M
+    from repro_torch.models import params as PM
+    from repro_torch.sharding import DeployPlan
+    cfg = reduce_for_smoke(get_config("mistral-large-123b"))
+    mesh = _fsdp_mesh()
+    shape = dataclasses.replace(steps.SHAPES["train_4k"], seq_len=32,
+                                global_batch=2)
+    bundle = steps.build_train_step(
+        cfg, mesh, shape, algorithm="efficient_adam", local_epochs=1,
+        error_feedback=True,
+        plan=DeployPlan(clients="virtual", train_params="fsdp",
+                        n_virtual=2))
+    specs = bundle.static["pspecs"]
+    params = PM.materialize_shards(M.abstract_params(cfg), specs, mesh, 0,
+                                   cfg.dtype)
+    torch.manual_seed(0)
+    MM.reset_collectives()
+    with MM.stand_in(bounded=True):
+        state, batch = bundle.args(params, torch.device("cpu"))
+        new, mets = bundle.fn(state, batch)
+    assert float(mets["uplink_bits"]) == 7_434_432
+    assert "data/all_reduce" in {f"{g}/{k}" for k, g in MM.COLLECTIVES}
+    for x, p in zip(T.leaves(new.client_state["comp"]["err"]),
+                    T.leaves(params)):
+        assert tuple(x.shape) == (2,) + tuple(p.shape)
+    assert all(bool(torch.isfinite(x.float()).all())
+               for x in T.leaves((new.W, new.client_state)))
 
 
 def test_port_registers_every_jax_algorithm():

@@ -43,6 +43,7 @@ import torch
 from jax.sharding import PartitionSpec
 
 import _torch_fsdp_ranks as R
+from _torch_tensor_ranks import COMPRESS_CASES
 from _torch_parity import bits
 from _torch_tensor_ranks import draw_params
 from repro.configs import get_config as jget_config
@@ -53,7 +54,8 @@ from repro_torch.launch import mesh as MM
 from repro_torch.models import model as TM
 from repro_torch.models import params as PM
 from test_torch_tensor import (ERR_TOL, LAYER_TOL, STEP_TOL, SUPPORT_SHARE,
-                               _leaf_errors, _Shape)
+                               _leaf_errors, _Shape, assert_rounds_match,
+                               check_compress)
 
 _TESTS = Path(__file__).resolve().parent
 _REPO = _TESTS.parent
@@ -197,28 +199,39 @@ _JAX_SUB = textwrap.dedent("""
         error_feedback=True,
         plan=shd.DeployPlan(clients="virtual", train_params="fsdp",
                             n_virtual=R.N_VIRTUAL))
-    state = fed_init(bundle.static["fed"],
-                     jax.tree.map(jnp.asarray, params_np))
-    batch = {"tokens": jnp.asarray(R.batch_tokens(cfg))}
-    rounds = []
-    with compat.set_mesh(mesh):
-        jfn = compat.jit(bundle.fn, in_shardings=bundle.in_shardings,
-                         out_shardings=bundle.out_shardings)
-        for _ in range(R.ROUNDS):
-            state, mets = jfn(state, batch)
-            # host arrays between rounds: a second round fed the first
-            # round's sharded output fails at the embedding gather on
-            # this jax (ROADMAP §3)
-            state = jax.tree.map(
-                lambda a: jnp.asarray(jax.device_get(a)), state)
-            rounds.append(dict(
-                W=leaves(state.W), M=leaves(state.M), V=leaves(state.V),
-                err=leaves(state.client_state["comp"]["err"]),
-                loss=np.asarray(mets["loss"]),
-                uplink_bits=float(mets["uplink_bits"]),
-                diag={k: np.asarray(v) for k, v in mets.items()
-                      if k not in ("loss", "uplink_bits")}))
-    out["steps"] = rounds
+    def run(bundle):
+        state = fed_init(bundle.static["fed"],
+                         jax.tree.map(jnp.asarray, params_np))
+        batch = {"tokens": jnp.asarray(R.batch_tokens(cfg))}
+        rounds = []
+        with compat.set_mesh(mesh):
+            jfn = compat.jit(bundle.fn, in_shardings=bundle.in_shardings,
+                             out_shardings=bundle.out_shardings)
+            for _ in range(R.ROUNDS):
+                state, mets = jfn(state, batch)
+                # host arrays between rounds: a second round fed the
+                # first round's sharded output fails at the embedding
+                # gather on this jax (ROADMAP §3)
+                state = jax.tree.map(
+                    lambda a: jnp.asarray(jax.device_get(a)), state)
+                rounds.append(dict(
+                    W=leaves(state.W), M=leaves(state.M),
+                    V=leaves(state.V),
+                    err=[] if state.client_state is None else
+                    leaves(state.client_state["comp"]["err"]),
+                    loss=np.asarray(mets["loss"]),
+                    uplink_bits=float(mets["uplink_bits"]),
+                    diag={k: np.asarray(v) for k, v in mets.items()
+                          if k not in ("loss", "uplink_bits")}))
+        return rounds
+
+    out["steps"] = run(bundle)
+    for alg in R.ALGORITHMS:
+        out[alg] = run(ST.build_train_step(
+            cfg, mesh, shape, algorithm=alg, local_epochs=R.NEW_EPOCHS,
+            alpha=R.ALPHA, error_feedback=True,
+            plan=shd.DeployPlan(clients="virtual", train_params="fsdp",
+                                n_virtual=R.N_VIRTUAL)))
     with open(sys.argv[3], "wb") as f:
         pickle.dump(out, f)
 """)
@@ -351,6 +364,42 @@ def test_virtual_fsdp_step_matches_jax(spawn):
             for part in ("W", "M", "V", "err"):
                 for x, y in zip(other[r][part], port[r][part]):
                     np.testing.assert_array_equal(bits(x), bits(y))
+
+
+#: The bills of mistral-large-123b's smoke config a round (2 virtual
+#: clients): JAX's jitted virtual step's.
+JAX_BILLS = {"fedadam": 88_203_264, "fedsgd": 29_401_088,
+             "efficient_adam": 7_434_432, "onebit_adam": 954_624,
+             "fairness_top": 5_617_600}
+
+
+@pytest.mark.parametrize("alg", R.ALGORITHMS)
+def test_every_compressor_on_fsdp_leaves_matches_jax(spawn, alg):
+    """FedAdam, FedSGD, Efficient-Adam, 1-bit Adam (from zero V) and
+    ``fairness_top`` through ``build_train_step`` with the virtual/fsdp
+    plan on the (data 2, model 2) group, two rounds with error feedback
+    and one local epoch, against JAX's jitted virtual step: the bounds of
+    :func:`test_virtual_fsdp_step_matches_jax` (a quantizer's those of
+    ``test_torch_tensor.assert_quantized_round``), the bill exactly JAX's;
+    every rank returns the same whole state."""
+    key = (R.JAX_MODEL, alg)
+    assert spawn[1][0]["steps"][key]["rounds"][0]["uplink_bits"] == \
+        JAX_BILLS[alg]
+    assert_rounds_match(spawn[1], key, spawn[0][alg], "quantized" if alg in (
+        "efficient_adam", "onebit_adam") else "strict")
+
+
+@pytest.mark.parametrize("case", sorted(COMPRESS_CASES))
+def test_compress_on_fsdp_leaves_is_the_whole_leaf(spawn, case):
+    """Every compressor's compress on this rank's shards of leaves split
+    over the data and the model axes (quantizer blocks straddling the
+    model ranks), over the data axis alone, and whole, against the same
+    compressor on the whole leaves: bitwise the whole leaves' block on
+    every rank (``test_torch_tensor.check_compress``)."""
+    for r, rk in enumerate(spawn[1]):
+        rec = rk["compress"][case]
+        assert {"both", "data", None} <= set(rec["kinds"])
+        check_compress(rec, case, (case, r))
 
 
 def test_virtual_fsdp_step_holds_jax_layout(spawn):
