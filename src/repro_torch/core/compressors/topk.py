@@ -141,12 +141,6 @@ class SharedTopKCompressor(_TopKBase):
         return m, m, m
 
     def _fused_compress(self, dW, dM, dV, with_residual):
-        # fairness_top's score is float32 and the fused apply reads a
-        # score of its leaf's type: another tree takes the masks (the
-        # selection passes, then apply_mask per leaf)
-        if self.rule == "fairness_top" and any(
-                x.dtype != torch.float32 for x in T.leaves(dW)):
-            return None
         score = masks.shared_score_tree(self.rule, dW, dM, dV, self.split)
         return S.tree_shared_compress_fused(
             score, dW, dM, dV, self.alpha, self.mask_scope,

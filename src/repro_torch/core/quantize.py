@@ -11,7 +11,9 @@ Scalars that divide a tensor enter as tensors on the tensor's device:
 PyTorch's CUDA division by a Python scalar multiplies by its reciprocal,
 which is not the correctly rounded quotient the CPU and XLA take.
 
-A leaf split over a model axis or the FSDP axes (``view``, this rank's
+Every leaf is quantized through its :class:`ShardBlocks`: a whole leaf
+is one whose every dim is one part and whose group is none.  A leaf
+split over a model axis or the FSDP axes (``view``, this rank's
 :class:`ShardBlocks`) is quantized as the whole leaf: its elements are
 laid at their places in the whole leaf's blocks (the rows of the blocks
 this rank touches, zeros at every other rank's places), each rank
@@ -51,10 +53,11 @@ def _layout(place: tuple, shape: tuple, block: int, device: torch.device):
     int, a strided view), else ``base`` an int64 tensor and ``step``
     None."""
     whole = [n * p for n, (_, p) in zip(shape, place)]
-    last = max(d for d, (_, p) in enumerate(place) if p > 1)
+    split = [d for d, (_, p) in enumerate(place) if p > 1]
+    last = split[-1] if split else 0
     strides = [math.prod(whole[d + 1:]) for d in range(len(whole))]
     run = math.prod(shape[last:])
-    start = place[last][0] * shape[last] * strides[last]
+    start = place[last][0] * shape[last] * strides[last] if split else 0
     offs = np.full((1,), start, np.int64)
     for d in range(last):
         i0 = place[d][0] * shape[d]
@@ -81,12 +84,19 @@ class ShardBlocks:
     """This rank's shard of a split leaf on the whole leaf's quantizer
     blocks: ``group`` (a ``launch.mesh.ModelGroup``) holds the leaf's
     shards, ``place`` per dim ``(index, parts)``, ``shape`` the shard's
-    (``sparsify.LeafSplit.blocks`` makes it)."""
+    (``sparsify.LeafSplit.blocks`` makes it); :meth:`whole` a whole
+    leaf's."""
     group: object
     place: tuple
     shape: tuple
     block: int
     device: torch.device
+
+    @classmethod
+    def whole(cls, x: torch.Tensor, block: int) -> "ShardBlocks":
+        """A whole leaf ``x``: one part per dim, no group."""
+        return cls(None, ((0, 1),) * x.dim(), tuple(x.shape), block,
+                   x.device)
 
     def _layout(self):
         return _layout(self.place, self.shape, self.block, self.device)
@@ -127,21 +137,15 @@ class ShardBlocks:
     def reduce(self, part: torch.Tensor, op: str) -> torch.Tensor:
         """The whole leaf's ``(nb,)`` vector from this rank's per-row
         ``part``: zeros at the blocks it does not touch, then reduced
-        (``"max"`` or ``"sum"``) over the group."""
+        (``"max"`` or ``"sum"``) over the group (a whole leaf's rows are
+        all its blocks: ``part`` itself)."""
+        if self.group is None:
+            return part
         rows, n_blocks = self._layout()[:2]
         full = torch.zeros((n_blocks,), dtype=part.dtype,
                            device=part.device)
         full[rows] = part
         return self.group.all_reduce(full, op)
-
-
-def _blocks(x: torch.Tensor, block: int):
-    """``(nb, block)`` float32 view of flat x zero-padded to whole blocks,
-    and the element count."""
-    flat = x.reshape(-1).to(_F32)
-    n = flat.numel()
-    flat = torch.nn.functional.pad(flat, (0, (-n) % block))
-    return flat.reshape(-1, block), n
 
 
 def _scalar(value: float, like: torch.Tensor) -> torch.Tensor:
@@ -155,14 +159,11 @@ def sign_quant(x: torch.Tensor, block: int = 1024,
     (padding zeros counted).  Two-valued per block, so a sign bitplane and
     one float32 per block carry it exactly (``core/wire.pack_sign``).
     ``view``: ``x`` is this rank's shard of a split leaf (the module
-    docstring)."""
-    if view is None:
-        xb, n = _blocks(x, block)
-        scale = xb.abs().mean(dim=1, keepdim=True)
-        q = torch.where(xb >= 0, scale, -scale)
-        return q.reshape(-1)[:n].reshape(x.shape).to(x.dtype)
+    docstring); ``None``: a whole leaf."""
+    view = view or ShardBlocks.whole(x, block)
     xb = view.blocks(x)
-    scale = (view.reduce(xb.abs().sum(dim=1), "sum") / block)[view.rows]
+    sums = view.reduce(xb.abs().sum(dim=1), "sum")
+    scale = (sums / _scalar(float(block), sums))[view.rows]
     q = torch.where(xb >= 0, scale[:, None], -scale[:, None])
     return view.shard(q).to(x.dtype)
 
@@ -175,14 +176,9 @@ def uniform_encode(x: torch.Tensor, bits: int = 8, block: int = 1024,
     codes of x's shape in ``[-qmax, qmax]`` (qmax = 2**(bits-1) - 1) and
     (nb,) float32 scales ``max|block| / qmax + 1e-30``.  ``view``: ``x``
     is this rank's shard of a split leaf; the scales are then the whole
-    leaf's."""
+    leaf's; ``None``: a whole leaf."""
     qmax = 2.0 ** (bits - 1) - 1.0
-    if view is None:
-        xb, n = _blocks(x, block)
-        scale = xb.abs().amax(dim=1, keepdim=True) / _scalar(qmax, xb) \
-            + 1e-30
-        q = torch.round(xb / scale).clamp_(-qmax, qmax).to(torch.int32)
-        return q.reshape(-1)[:n].reshape(x.shape), scale.reshape(-1)
+    view = view or ShardBlocks.whole(x, block)
     xb = view.blocks(x)
     amax = view.reduce(xb.abs().amax(dim=1), "max")
     scales = amax / _scalar(qmax, amax) + 1e-30
@@ -196,9 +192,7 @@ def uniform_decode(codes: torch.Tensor, scales: torch.Tensor,
                    view: Optional[ShardBlocks] = None) -> torch.Tensor:
     """Exact dequantizer of :func:`uniform_encode` (float32 result);
     ``view`` as there, ``scales`` the whole leaf's."""
-    if view is None:
-        cb, n = _blocks(codes, block)
-        return (cb * scales[:, None]).reshape(-1)[:n].reshape(codes.shape)
+    view = view or ShardBlocks.whole(codes, block)
     return view.shard(view.blocks(codes) * scales[view.rows][:, None])
 
 

@@ -17,8 +17,10 @@
 //
 //     kept elements pass through as their bits.
 //
-// ssm_apply_ef takes one leaf of float32 or bfloat16 (every stream of the
-// call in that dtype); ssm_apply takes dw, dm and dv each in float32 or
+// ssm_apply_ef takes one leaf of float32 or bfloat16 (dw, dm, dv and the
+// outputs in that dtype) and a score of float32 or bfloat16 (the
+// fairness_top rule's float32 scores beside bfloat16 streams, as the TPU
+// kernel takes a score of any type); ssm_apply takes dw, dm and dv each in float32 or
 // bfloat16 (8 instantiations), each output in its input's dtype and zero
 // in that dtype, as the JAX kernel does.  tau is a float32 in device
 // memory (select_tau's result), so the compress never waits on the host.
@@ -30,7 +32,8 @@
 // drives all three selects and the residual, the score defaults to the dw
 // stream already in registers (no second read), and a grid-stride loop
 // moves 16 bytes per stream, thread and step (with streams of two dtypes,
-// 4 elements: 16 bytes of each float32 stream, 8 of each bfloat16 one);
+// the score's included, 4 elements: 16 bytes of each float32 stream, 8 of
+// each bfloat16 one);
 // the ragged tail and misaligned leaves go element by element.  The TPU
 // kernels' wrappers padded every leaf to an (8, 1024) tile and sent
 // smaller leaves to the jnp oracle; these kernels take any length.
@@ -50,12 +53,12 @@ constexpr int kThreads = 256;
 
 // One element.  kEF: the fused apply (value_dtype round trip, residual);
 // otherwise the plain apply, kept elements passing through as their bits.
-// The score has dw's type.
+// s: the score, widened to float32.
 template <typename Tw, typename Tm, typename Tv, bool kEF>
-__device__ __forceinline__ void apply1(float tau, int vdt, Tw s, Tw w, Tm m,
-                                       Tv v, Tw& sw, Tm& sm, Tv& sv,
+__device__ __forceinline__ void apply1(float tau, int vdt, float s, Tw w,
+                                       Tm m, Tv v, Tw& sw, Tm& sm, Tv& sv,
                                        Tw& err) {
-  const bool keep = fabsf(to_f32(s)) >= tau;
+  const bool keep = fabsf(s) >= tau;
   if constexpr (kEF) {
     sw = keep ? from_f32<Tw>(cast_value(to_f32(w), vdt)) : from_f32<Tw>(0.0f);
     sm = keep ? from_f32<Tm>(cast_value(to_f32(m), vdt)) : from_f32<Tm>(0.0f);
@@ -72,17 +75,18 @@ template <int A, int B>
 __host__ __device__ constexpr int min_c() { return A < B ? A : B; }
 
 // Elements per vector step: 16 bytes of the widest stream's type.
-template <typename Tw, typename Tm, typename Tv>
+template <typename Tw, typename Tm, typename Tv, typename Ts>
 __host__ __device__ constexpr int vec_n() {
-  return min_c<Pack<Tw>::kN, min_c<Pack<Tm>::kN, Pack<Tv>::kN>()>();
+  return min_c<min_c<Pack<Tw>::kN, Pack<Ts>::kN>(),
+               min_c<Pack<Tm>::kN, Pack<Tv>::kN>()>();
 }
 
 // The grid-stride loop both kernels run: packs of vec_n elements while
-// every pointer is aligned, then element by element.  score and err may be
-// null.
-template <typename Tw, typename Tm, typename Tv, bool kEF>
+// every pointer is aligned, then element by element.  score (of type Ts)
+// and err may be null.
+template <typename Tw, typename Tm, typename Tv, typename Ts, bool kEF>
 __device__ __forceinline__ void apply_loop(
-    float tau, const Tw* __restrict__ score, const Tw* __restrict__ w,
+    float tau, const Ts* __restrict__ score, const Tw* __restrict__ w,
     const Tm* __restrict__ m, const Tv* __restrict__ v, Tw* __restrict__ sw,
     Tm* __restrict__ sm, Tv* __restrict__ sv, Tw* __restrict__ err, int64_t n,
     int vdt, int vectorized) {
@@ -90,12 +94,12 @@ __device__ __forceinline__ void apply_loop(
   const int64_t tid = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   int64_t head = 0;
   if (vectorized) {
-    constexpr int N = vec_n<Tw, Tm, Tv>();
+    constexpr int N = vec_n<Tw, Tm, Tv, Ts>();
     const int64_t nv = n / N;
     for (int64_t i = tid; i < nv; i += stride) {
       const Pack<Tw, N> pw = load_pack<Tw, N>(w, i);
-      const Pack<Tw, N> ps = score != nullptr ? load_pack<Tw, N>(score, i)
-                                              : pw;
+      Pack<Ts, N> ps{};
+      if (score != nullptr) ps = load_pack<Ts, N>(score, i);
       const Pack<Tm, N> pm = load_pack<Tm, N>(m, i);
       const Pack<Tv, N> pv = load_pack<Tv, N>(v, i);
       Pack<Tw, N> ow, oe;
@@ -103,8 +107,9 @@ __device__ __forceinline__ void apply_loop(
       Pack<Tv, N> ov;
 #pragma unroll
       for (int e = 0; e < N; ++e)
-        apply1<Tw, Tm, Tv, kEF>(tau, vdt, ps.v[e], pw.v[e], pm.v[e], pv.v[e],
-                                ow.v[e], om.v[e], ov.v[e], oe.v[e]);
+        apply1<Tw, Tm, Tv, kEF>(
+            tau, vdt, score != nullptr ? to_f32(ps.v[e]) : to_f32(pw.v[e]),
+            pw.v[e], pm.v[e], pv.v[e], ow.v[e], om.v[e], ov.v[e], oe.v[e]);
       store_pack(sw, i, ow);
       store_pack(sm, i, om);
       store_pack(sv, i, ov);
@@ -117,8 +122,9 @@ __device__ __forceinline__ void apply_loop(
     Tm om;
     Tv ov;
     const Tw wi = w[i];
-    apply1<Tw, Tm, Tv, kEF>(tau, vdt, score != nullptr ? score[i] : wi, wi,
-                            m[i], v[i], ow, om, ov, oe);
+    apply1<Tw, Tm, Tv, kEF>(tau, vdt,
+                            score != nullptr ? to_f32(score[i]) : to_f32(wi),
+                            wi, m[i], v[i], ow, om, ov, oe);
     sw[i] = ow;
     sm[i] = om;
     sv[i] = ov;
@@ -127,16 +133,16 @@ __device__ __forceinline__ void apply_loop(
 }
 
 // Two entry points, so that a profile tells the two apart.
-template <typename T>
+template <typename T, typename Ts>
 __global__ void __launch_bounds__(kThreads)
 ssm_apply_ef_kernel(const float* __restrict__ tau_p,
-                    const T* __restrict__ score, const T* __restrict__ w,
+                    const Ts* __restrict__ score, const T* __restrict__ w,
                     const T* __restrict__ m, const T* __restrict__ v,
                     T* __restrict__ sw, T* __restrict__ sm,
                     T* __restrict__ sv, T* __restrict__ err, int64_t n,
                     int vdt, int vectorized) {
-  apply_loop<T, T, T, true>(*tau_p, score, w, m, v, sw, sm, sv, err, n, vdt,
-                            vectorized);
+  apply_loop<T, T, T, Ts, true>(*tau_p, score, w, m, v, sw, sm, sv, err, n,
+                                vdt, vectorized);
 }
 
 template <typename Tw, typename Tm, typename Tv>
@@ -145,8 +151,8 @@ ssm_apply_kernel(const float* __restrict__ tau_p, const Tw* __restrict__ w,
                  const Tm* __restrict__ m, const Tv* __restrict__ v,
                  Tw* __restrict__ sw, Tm* __restrict__ sm, Tv* __restrict__ sv,
                  int64_t n, int vectorized) {
-  apply_loop<Tw, Tm, Tv, false>(*tau_p, nullptr, w, m, v, sw, sm, sv, nullptr,
-                                n, 0, vectorized);
+  apply_loop<Tw, Tm, Tv, Tw, false>(*tau_p, nullptr, w, m, v, sw, sm, sv,
+                                    nullptr, n, 0, vectorized);
 }
 
 // A launch's pointers and sizes (score and err null where not given).
@@ -159,21 +165,21 @@ struct Args {
   cudaStream_t st;
 };
 
-template <typename Tw, typename Tm, typename Tv, bool kEF>
+template <typename Tw, typename Tm, typename Tv, typename Ts, bool kEF>
 int launch(const Args& a) {
   const bool vec = repro::aligned16(a.score) && repro::aligned16(a.w) &&
                    repro::aligned16(a.m) && repro::aligned16(a.v) &&
                    repro::aligned16(a.sw) && repro::aligned16(a.sm) &&
                    repro::aligned16(a.sv) && repro::aligned16(a.err);
-  constexpr int N = vec_n<Tw, Tm, Tv>();
+  constexpr int N = vec_n<Tw, Tm, Tv, Ts>();
   const int64_t work = vec ? a.n / N + N : a.n;
   const int grid = repro::stride_grid(work, kThreads);
   const auto* tw = static_cast<const Tw*>(a.w);
   const auto* tm = static_cast<const Tm*>(a.m);
   const auto* tv = static_cast<const Tv*>(a.v);
   if constexpr (kEF)
-    ssm_apply_ef_kernel<Tw><<<grid, kThreads, 0, a.st>>>(
-        a.tau, static_cast<const Tw*>(a.score), tw, tm, tv,
+    ssm_apply_ef_kernel<Tw, Ts><<<grid, kThreads, 0, a.st>>>(
+        a.tau, static_cast<const Ts*>(a.score), tw, tm, tv,
         static_cast<Tw*>(a.sw), static_cast<Tm*>(a.sm),
         static_cast<Tv*>(a.sv), static_cast<Tw*>(a.err), a.n, a.vdt,
         vec ? 1 : 0);
@@ -195,18 +201,21 @@ int with_type(int dtype, F&& f) {
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16; vdt: 0 none, 1 bfloat16, 2 float16.
-// score and err may be null (score = dw; no residual).
+// dtype (dw, dm, dv), score_dtype: 0 float32, 1 bfloat16; vdt: 0 none, 1
+// bfloat16, 2 float16.  score and err may be null (score = dw, and
+// score_dtype is then dtype; no residual).
 extern "C" int repro_ssm_apply_ef(const float* tau, const void* score,
                                   const void* w, const void* m, const void* v,
                                   void* sw, void* sm, void* sv, void* err,
-                                  int64_t n, int dtype, int vdt,
-                                  void* stream) {
+                                  int64_t n, int dtype, int score_dtype,
+                                  int vdt, void* stream) {
   const Args a{tau, score, w, m, v, sw, sm, sv, err, n, vdt,
                static_cast<cudaStream_t>(stream)};
   return with_type(dtype, [&](auto t) {
-    using T = decltype(t);
-    return launch<T, T, T, true>(a);
+    return with_type(score_dtype, [&](auto ts) {
+      using T = decltype(t);
+      return launch<T, T, T, decltype(ts), true>(a);
+    });
   });
 }
 
@@ -221,7 +230,8 @@ extern "C" int repro_ssm_apply(const float* tau, const void* w, const void* m,
   return with_type(dtype_w, [&](auto tw) {
     return with_type(dtype_m, [&](auto tm) {
       return with_type(dtype_v, [&](auto tv) {
-        return launch<decltype(tw), decltype(tm), decltype(tv), false>(a);
+        return launch<decltype(tw), decltype(tm), decltype(tv),
+                      decltype(tw), false>(a);
       });
     });
   });

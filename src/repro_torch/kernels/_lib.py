@@ -47,7 +47,7 @@ SIGNATURES = {
     "repro_count_ge": (_P, _P, _P, _P, _I64, _I, _I, _P),
     "repro_topk_workspace_words": (),
     "repro_apply_mask": (_P, _P, _P, _I64, _I, _P),
-    "repro_ssm_apply_ef": (_P,) * 9 + (_I64, _I, _I, _P),
+    "repro_ssm_apply_ef": (_P,) * 9 + (_I64, _I, _I, _I, _P),
     "repro_ssm_apply": (_P,) * 7 + (_I64, _I, _I, _I, _P),
 }
 

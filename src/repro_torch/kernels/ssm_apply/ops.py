@@ -10,9 +10,10 @@ Counterpart of ``repro/kernels/ssm_apply/{ssm_apply,ops,ref}.py``.
 ``ssm_apply`` is the 3-in/3-out apply without cast, score or residual
 (``ssm_apply_2d``); like the JAX package's, it has no caller on the
 training paths.  On a CUDA tensor each launches its kernel of
-``csrc/ssm_apply.cu`` (float32 or bfloat16 leaves of any length: every
-stream of an ``ssm_apply_ef`` call in one dtype, each stream of an
-``ssm_apply`` call in its own); on a CPU tensor each runs its plain
+``csrc/ssm_apply.cu`` (float32 or bfloat16 leaves of any length: dw, dm
+and dv of an ``ssm_apply_ef`` call in one dtype and its score in float32
+or that dtype, each stream of an ``ssm_apply`` call in its own); on a CPU
+tensor each runs its plain
 version, the composed arithmetic of the reference compress path.
 """
 from __future__ import annotations
@@ -55,7 +56,9 @@ def ssm_apply_ef(tau: torch.Tensor, dw, dm, dv,
                  with_residual: bool = True, value_dtype=None):
     """Fused compress pass over same-shape leaves: ``(sw, sm, sv)`` or
     ``(sw, sm, sv, err)``.  ``score`` defaults to ``dw`` (the ssm_w rule),
-    which the kernel then reads once.  ONE launch on the card."""
+    which the kernel then reads once; a given one is float32 or dw's
+    dtype (``fairness_top``'s float32 scores beside bfloat16 leaves).
+    ONE launch on the card."""
     if on_cpu(dw):
         return ssm_apply_ef_plain(tau, dw, dm, dv, score,
                                   with_residual=with_residual,
@@ -64,9 +67,12 @@ def ssm_apply_ef(tau: torch.Tensor, dw, dm, dv,
     code = leaf_dtype_code("dw", dw)
     dev = dw.device
     cuda_arg("tau", tau, _F32, (), dev, aligned=False)
-    for name, x in (("dw", dw), ("dm", dm), ("dv", dv), ("score", score)):
-        if x is not None:
-            cuda_arg(name, x, dw.dtype, dw.shape, dev, aligned=False)
+    for name, x in (("dw", dw), ("dm", dm), ("dv", dv)):
+        cuda_arg(name, x, dw.dtype, dw.shape, dev, aligned=False)
+    score_code = code
+    if score is not None:
+        score_code = leaf_dtype_code("score", score)
+        cuda_arg("score", score, score.dtype, dw.shape, dev, aligned=False)
     outs = [torch.empty_like(x) for x in (dw, dm, dv)]
     err = torch.empty_like(dw) if with_residual else None
     if is_fake(dw):
@@ -74,7 +80,7 @@ def ssm_apply_ef(tau: torch.Tensor, dw, dm, dv,
         return tuple(outs) + ((err,) if with_residual else ())
     _lib.launch("repro_ssm_apply_ef", ptr(tau), ptr(score), ptr(dw),
                 ptr(dm), ptr(dv), ptr(outs[0]), ptr(outs[1]), ptr(outs[2]),
-                ptr(err), dw.numel(), code, vdt, stream(dev))
+                ptr(err), dw.numel(), code, score_code, vdt, stream(dev))
     LAUNCHES["ssm_apply_ef"] += 1
     return tuple(outs) + ((err,) if with_residual else ())
 

@@ -17,9 +17,9 @@ the data group, or the leaf group of every rank) is selected as the whole
 leaf: each pass runs its kernel on this rank's shard, then the group
 reduces the result before the next step reads it (the absmax by MAX, each
 count by a SUM in float64, exact where the float32 count of a shard is),
-and the tile padding is that of the whole leaf, counted once, on the
-group's index 0 (the rank at 0 along every axis that splits the leaf).
-The kernels are the same.
+and the tile padding is that of the whole leaf, counted once after the
+sum: :func:`select_tau_leaves` with one leaf.  The kernels are the
+same.
 """
 from __future__ import annotations
 
@@ -120,15 +120,6 @@ def count_ge(taus: torch.Tensor, x: torch.Tensor,
     return out
 
 
-def _count_sum(counts: torch.Tensor, model) -> torch.Tensor:
-    """Shard counts summed over the model group: float32 counts of a
-    shard are exact integers, so their float64 sum is the whole leaf's
-    count, rounded once to float32 as its kernel rounds it."""
-    if model is None:
-        return counts
-    return model.all_reduce(counts.to(torch.float64)).to(_F32)
-
-
 def _two_passes(k: int, n: int, am: torch.Tensor, count):
     """The log2 pass and the linear refine from the absmax ``am`` and
     ``count(taus) -> float32[32]``: ``(tau, achieved_count)``."""
@@ -164,14 +155,11 @@ def select_tau(x: torch.Tensor, k: int, *, model=None, n: int = None):
     the achieved count equals JAX's, which includes the padding where tau
     comes out 0 (an all-zero leaf, or a subnormal absmax whose candidates
     underflow)."""
-    if n is None:
-        n = x.numel()
-    pad = (-n) % _TILE if model is None or model.index == 0 else 0
-    am = absmax(x)
     if model is not None:
-        am = model.all_reduce(am, "max")
-    return _two_passes(k, n, am, lambda taus: _count_sum(
-        count_ge(taus, x, pad), model))
+        return select_tau_leaves([x], k, [model], n)
+    n = x.numel()
+    return _two_passes(k, n, absmax(x),
+                       lambda taus: count_ge(taus, x, (-n) % _TILE))
 
 
 def reduce_leaves(vals, groups, op: str = "sum") -> list:
@@ -199,7 +187,10 @@ def select_tau_leaves(xs, k: int, groups, n: int):
     kernel on every tensor; the absmaxes are reduced by MAX and the counts
     by a float64 SUM within each group (one all-reduce per group and
     pass), then over the groups and the whole tensors, so tau and the
-    count are the raveled whole model's (its tile padding counted once).
+    count are the raveled whole model's (its tile padding counted once):
+    float32 counts of a shard are exact integers, so their float64 sum
+    is the whole count, rounded once to float32 as its kernel rounds
+    it.
     ``3 * len(xs)`` launches on the card."""
     pad = (-n) % _TILE
     am = torch.stack(reduce_leaves([absmax(x) for x in xs], groups,

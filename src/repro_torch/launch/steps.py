@@ -174,9 +174,10 @@ def build_train_step(cfg: ArchConfig, mesh, shape: ShapeSpec, *,
     rank, each rank holding ``global_batch / rows`` of them and its
     shard of every leaf.  ``algorithm``: any registered compressor, on
     either plan.  ``exact_topk``, ``mask_scope``: the masks (JAX's
-    builder fixes the production ones, threshold and per tensor; the
-    per-shard bitmap transport keeps alpha of each shard, so pass
-    ``aggregate="dense"`` where a shard may select more)."""
+    builder fixes the production ones, threshold and per tensor); other
+    masks on a model axis take ``aggregate="dense"``: the per-shard
+    bitmap transport keeps alpha of each shard, and would drop what an
+    exact or a global mask selects in a shard beyond it."""
     plan = plan or shd.plan_for(cfg.name)
     pair = (plan.clients, plan.train_params)
     if pair not in (("spatial", "tp"), ("virtual", "fsdp")):
@@ -188,6 +189,17 @@ def build_train_step(cfg: ArchConfig, mesh, shape: ShapeSpec, *,
         raise ValueError(f"the {plan.clients} clients take a mesh with "
                          f"{'no ' if virtual else ''}client axes, got "
                          f"{mesh.client_axes}")
+    if not virtual and aggregate is None:
+        # keyed on the compressor's transport tag: any sparse scheme gets
+        # the per-shard bitmap uplink
+        aggregate = ("sparse_gather" if transport_of(algorithm) in
+                     ("shared_sparse", "independent_sparse") else "dense")
+    if not virtual and aggregate == "sparse_gather" and \
+            mesh.model_size > 1 and (exact_topk or mask_scope != "per_tensor"):
+        raise ValueError(
+            f"exact_topk={exact_topk}, mask_scope={mask_scope!r} on a "
+            f"model axis: the per-shard bitmap transport keeps alpha of "
+            f"each shard; pass aggregate='dense'")
     mesh.check()
     multi_pod = "pod" in mesh.shape
     caxes = shd.client_axes(multi_pod)
@@ -206,12 +218,6 @@ def build_train_step(cfg: ArchConfig, mesh, shape: ShapeSpec, *,
         fsdp = None if dg is None else FSDP(dg, pspec, mesh.fsdp_axes)
     else:
         n_clients = mesh.n_clients
-        if aggregate is None:
-            # keyed on the compressor's transport tag: any sparse scheme
-            # gets the per-shard bitmap uplink
-            aggregate = ("sparse_gather" if transport_of(algorithm) in
-                         ("shared_sparse", "independent_sparse")
-                         else "dense")
         batch_lead = (1, max(1, shape.global_batch // n_clients))
         fsdp = None
     fed = FedConfig(

@@ -346,7 +346,10 @@ def test_cuda_ssm_apply_ef_matches_plain(cuda_device, dtype, n,
     dw, dm, sc = (_leaf(cuda_device, n, dtype, s) for s in (8, 9, 10))
     dv = _leaf(cuda_device, n, dtype, 11).abs()
     tau = TM.select_tau(dw, S.k_for(n, ALPHA))[0]
-    for score in (None, sc):
+    # a float32 score beside streams of either type (fairness_top's),
+    # aligned and not (the scalar path)
+    for score in (None, sc, sc.float(),
+                  _on_card(sc.float(), cuda_device, 1)):
         for with_residual in (True, False):
             kw = dict(with_residual=with_residual, value_dtype=value_dtype)
             reset_launches()
@@ -355,6 +358,7 @@ def test_cuda_ssm_apply_ef_matches_plain(cuda_device, dtype, n,
             b = SSM.ssm_apply_ef_plain(tau, dw, dm, dv, score, **kw)
             assert len(a) == len(b) == 3 + with_residual
             for x, y in zip(a, b):
+                assert x.dtype == dw.dtype
                 assert_bitwise(x, y, f"score={score is not None}")
 
 

@@ -162,7 +162,7 @@ def test_dry_run_predicts_every_algorithm(runs, case):
     * ``fairness_top`` adds one all-reduce of every model-split leaf's
       three float64 sums of squares, and per such leaf ``select_tau``'s
       absmax (float32) and two 32-candidate float64 counts; its kernels
-      launch once per leaf and pass (absmax, two counts, apply_mask)."""
+      launch once per leaf and pass (absmax, two counts, ssm_apply_ef)."""
     arch, alg = case.split(":")
     rec = runs["algorithms"][(arch, alg)]
     assert rec["status"] == "ok", rec.get("traceback", rec)
@@ -187,10 +187,10 @@ def test_dry_run_predicts_every_algorithm(runs, case):
             == extra
         if alg == "fairness_top":
             # a bfloat16 tree: its float32 scores take the selection
-            # passes and apply_mask on every shard (the fused apply reads
-            # a score of its leaf's type)
+            # passes, and the fused apply reads them beside the bfloat16
+            # streams, on every shard
             assert rec["launches_predicted"] == {
-                "absmax": L, "count_ge": 2 * L, "apply_mask": L}
+                "absmax": L, "count_ge": 2 * L, "ssm_apply_ef": L}
         return
     from repro_torch import sharding as shd
     n_virtual = shd.plan_for(arch).n_virtual

@@ -567,6 +567,20 @@ def test_round_outside_the_slice_raises(build, what):
         build(lambda p, b: p["w"].sum())
 
 
+@pytest.mark.parametrize("masks", [dict(exact_topk=True),
+                                   dict(mask_scope="global")])
+def test_exact_or_global_masks_refuse_the_bitmap_transport(masks):
+    """On a model axis the per-shard bitmap transport keeps alpha of each
+    shard, so ``build_train_step`` refuses exact or global masks with it
+    (the default for a sparse compressor) and names the dense fold."""
+    from repro_torch.configs import get_config, reduce_for_smoke
+    from repro_torch.launch import steps
+    with pytest.raises(ValueError, match="aggregate='dense'"):
+        steps.build_train_step(
+            reduce_for_smoke(get_config("starcoder2-3b")), _model_axis_mesh(),
+            steps.SHAPES["train_4k"], algorithm="fedadam_ssm", **masks)
+
+
 def test_quantized_step_runs_on_fsdp_leaves():
     """Efficient-Adam's step on FSDP leaves (mistral-large-123b's smoke
     config, the virtual/fsdp plan on a (data 2) view, its peer standing

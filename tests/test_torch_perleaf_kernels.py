@@ -430,6 +430,21 @@ def test_ssm_apply_ef_matches_jax(dtype, n, value_dtype, with_residual,
         assert_bitwise(a, b, f"output {i}")
 
 
+@pytest.mark.parametrize("n", LENGTHS)
+def test_ssm_apply_ef_float32_score_on_bfloat16_leaves_matches_jax(n):
+    """``fairness_top``'s float32 scores beside bfloat16 dw, dm, dv (the
+    TPU kernel widens a score of any type): every output bitwise JAX's,
+    in the streams' dtype."""
+    (jw, tw), (jm, tm_), (jv, tv) = _ssm_case(n, "bfloat16", n)[:3]
+    js, ts = _ssm_case(n, "float32", n + 1)[3]
+    jtau, _ = jtm.select_tau_kernel(js, S.k_for(n, ALPHA))
+    ref = jssm.ssm_apply_ef(jtau, jw, jm, jv, js)
+    out = ssm.ssm_apply_ef(torch.from_numpy(np.array(jtau)), tw, tm_, tv, ts)
+    for i, (a, b) in enumerate(zip(out, ref)):
+        assert a.dtype == torch.bfloat16
+        assert_bitwise(a, b, f"output {i}")
+
+
 # ---------------------------------------------------------------------------
 # The per-leaf fused compress on a mixed bfloat16 / float32 tree
 # ---------------------------------------------------------------------------
@@ -538,6 +553,39 @@ def test_mixed_tree_compressor_and_wire_match_jax(monkeypatch):
         for k in MIXED:
             assert a[k].dtype == b[k].dtype
             assert_bitwise(a[k], b[k], k)
+
+
+@pytest.mark.parametrize("scope", ["per_tensor", "global"])
+def test_mixed_tree_fairness_top_matches_jax(monkeypatch, scope):
+    """``fairness_top`` on the mixed tree, kernel backend: its float32
+    scores take the selection passes, then the fused apply beside each
+    leaf's own streams (no dtype bail to the composed masks).  Two
+    rounds with error feedback: the sparse triple and the residual
+    bitwise JAX's, the diagnostics within float32 summation order."""
+    from repro.core.compressors import Deltas as JDeltas
+    from repro.core.compressors.topk import SharedTopKCompressor as JShared
+    from repro_torch.core.compressors import Deltas
+    monkeypatch.setenv("REPRO_SPARSIFY_BACKEND", "kernel")
+    monkeypatch.setenv(S.SPARSIFY_BACKEND_ENV, "kernel")
+    (jw, tw), (jm, tm_), (jv, tv) = (_both(t) for t in _mixed_deltas(8))
+    kw = dict(rule="fairness_top", alpha=ALPHA, mask_scope=scope,
+              exact_topk=False, error_feedback=True)
+    jc, tc = JShared(**kw), SharedTopKCompressor(**kw)
+    assert tc._fused_compress(tw, tm_, tv, True) is not None
+    jst, tst = jc.init_state(jw), tc.init_state(tw)
+    for _ in range(2):                  # round 2 consumes the residual
+        jp, jst, jbits = jc.compress(JDeltas(jw, jm, jv), jst)
+        tp, tst, tbits = tc.compress(Deltas(tw, tm_, tv), tst)
+        assert tbits == jbits
+        for k in MIXED:
+            assert_bitwise(tst["err"][k], jst["err"][k], f"err[{k}]")
+            for a, b in zip(tp[:3], jp[:3]):
+                assert a[k].dtype == getattr(torch, MIXED[k][1])
+                assert_bitwise(a[k], b[k], k)
+        for name in tp.diag:
+            np.testing.assert_allclose(float(tp.diag[name]),
+                                       float(jp.diag[name]), rtol=1e-5,
+                                       err_msg=name)
 
 
 @pytest.mark.parametrize("scope", ["per_tensor", "global"])
