@@ -262,7 +262,19 @@ Phases:
    decode step again without counters for its wall (a train step's wall
    is the counted run's), and the achieved share of the dtype's peak
    FLOP/s; the combos that do not fit listed with their predictions;
-   records: ``chiprun_out/phase19.json`` and ``chiprun_out/dryrun/``.
+   records: ``chiprun_out/phase19.json`` and ``chiprun_out/dryrun/``;
+20. (after 19) split leaves, 4 gloo ranks of a (data 2, model 2) group
+   sharing the card: (a) the tp plan's round of each baseline and
+   ``fairness_top``, (b) the fsdp plan's of FedAdam, Efficient-Adam and
+   global FedAdam-Top, each at the dry run's predicted cut and against
+   the whole-leaf round; (c) the buffered-async driver, FedAdam-SSM under
+   churn for 2 server steps, as the tp plan's group cohort
+   (``async_tp``) and the fsdp plan's virtual clients (``async_fsdp``):
+   the event log, counts and bill equal to the whole-leaf driver's on
+   rank 0, the state within ``_async_vs_whole``'s bounds, exact
+   launches per client step, and absmax, count_ge and ssm_apply_ef
+   bitwise their plain versions on the first dispatch's inputs; records:
+   ``chiprun_out/phase20.json``.
 
 It prints a ``{"kernels": [...]}`` line, the card's name and power limit,
 and as its last line ``{"ok": true, "device": {...}}``.  Any failure
@@ -3832,18 +3844,21 @@ def _pinned(torch, x):
     return torch.empty(x.shape, dtype=x.dtype, pin_memory=True).copy_(x)
 
 
-def _to_first(torch, x, group):
+def _to_first(torch, x, group, pin=True):
     """Every copy of ``x`` over ``group`` (a list in the group's rank
     order) at the group's first rank, on the host; ``None`` at the others.
     A gather through the host (gloo gathers CPU tensors), moved as bytes
-    (gloo refuses bfloat16)."""
+    (gloo refuses bfloat16).  ``pin=False``: through pageable memory,
+    which a process gives back when freed (its pinned blocks stay cached
+    in the process)."""
     import torch.distributed as dist
     ranks = dist.get_process_group_ranks(group)
-    host = _pinned(torch, x)
+    host = _pinned(torch, x) if pin else x.cpu()
     if len(ranks) == 1:
         return [host]
     flat = host.reshape(-1).view(torch.uint8)
-    out = [torch.empty(flat.shape, dtype=torch.uint8, pin_memory=x.is_cuda)
+    out = [torch.empty(flat.shape, dtype=torch.uint8,
+                       pin_memory=x.is_cuda and pin)
            for _ in ranks] if dist.get_rank() == ranks[0] else None
     dist.gather(flat, out, dst=ranks[0], group=group)
     return None if out is None else \
@@ -3851,13 +3866,13 @@ def _to_first(torch, x, group):
 
 
 def _state_at_rank0(torch, state, specs, mesh, on_device=False,
-                    parts=("W", "M", "V")):
+                    parts=("W", "M", "V"), pin=True):
     """W, M, V whole and every client's residual whole (C, ...), on the
     host of global rank 0 (``None`` at every other rank): each leaf's
     shards gathered to its client's model index 0, then the residuals
     over model index 0's client group, leaf by leaf (only rank 0 keeps a
     model's worth of them).  ``on_device``: a whole-leaf state's W, M and
-    V stay where they are (on the card)."""
+    V stay where they are (on the card); ``pin``: as ``_to_first``'s."""
     import torch.distributed as dist
     from repro_torch import tree as T
     group = mesh.model_group
@@ -3867,8 +3882,9 @@ def _state_at_rank0(torch, state, specs, mesh, on_device=False,
 
     def whole(x, spec, need, here=False):
         if group is None:
-            return (x if here else _pinned(torch, x)) if need else None
-        parts = _to_first(torch, x, group)
+            return (x if here else _pinned(torch, x) if pin else x.cpu()) \
+                if need else None
+        parts = _to_first(torch, x, group, pin)
         if parts is None:
             return None
         dims = [d for d, e in enumerate(spec) if e == "model"]
@@ -3877,7 +3893,7 @@ def _state_at_rank0(torch, state, specs, mesh, on_device=False,
         shape = list(parts[0].shape)
         shape[dims[0]] *= len(parts)
         return torch.cat(parts, dims[0], out=torch.empty(
-            shape, dtype=x.dtype, pin_memory=x.is_cuda))
+            shape, dtype=x.dtype, pin_memory=x.is_cuda and pin))
 
     out = {p: [] for p in ("W", "M", "V")}
     for part in parts:
@@ -3891,7 +3907,7 @@ def _state_at_rank0(torch, state, specs, mesh, on_device=False,
     for x, sp in zip(errs, specs):
         w = whole(x[0], sp, True)
         if mesh.model_index == 0:
-            parts = _to_first(torch, w, mesh.group)
+            parts = _to_first(torch, w, mesh.group, pin)
             if first:
                 out["err"].append(torch.stack(parts))
     return out if first else None
@@ -3981,11 +3997,14 @@ def tensor_round(torch, mesh, cfg, algorithm, params, tokens, *, seq,
     return rec, host, captured
 
 
-def _tensor_vs_whole(torch, split, whole, drops, what):
+def _tensor_vs_whole(torch, split, whole, drops, what, widen=1,
+                     support_part="err"):
     """The split round's whole-state against the whole-leaf round's, leaf
     by leaf: the elements beyond ``TENSOR_TOL`` (``TENSOR_ERR_TOL`` for
-    the residual) of the leaf's largest must be no more than those whose
-    support differs between the two (a zero residual on one side only)
+    the residual; each ``widen`` times that) of the leaf's largest must
+    be no more than those whose
+    support differs between the two (a zero ``support_part`` on one side
+    only: the residual, or M after a first server step from zero M)
     plus the values the two transports' capacities dropped at that leaf,
     plus ``TENSOR_SHARE`` of the leaf's elements; beyond the dropped
     values, the supports may differ at ``TENSOR_SUPPORT_SHARE`` of the
@@ -3995,21 +4014,23 @@ def _tensor_vs_whole(torch, split, whole, drops, what):
     t0 = time.perf_counter()
     dev = torch.device("cuda") if torch.cuda.is_available() else \
         torch.device("cpu")
-    L = len(whole["W"])
+    L = len(whole["W"]) or len(whole[support_part])
     per_leaf = [0] * L
     for d in drops:                     # one list per run and rank
         k = len(d) // L                 # one pack per leaf and mask
         for i in range(L):
             per_leaf[i] += sum(d[i * k:(i + 1) * k])
     support = [int(((a.to(dev) == 0) != (b.to(dev) == 0)).sum())
-               for a, b in zip(split["err"], whole["err"])] or [0] * L
+               for a, b in zip(split[support_part], whole[support_part])] \
+        or [0] * L
     out = {"support_differs": sum(support),
            "dropped": sum(per_leaf), "beyond": {}, "beyond_10x": {},
            "max_rel_err": {}, "elements": sum(x.numel() for x in whole["W"]),
            "failures": []}
-    total = sum(x.numel() for x in whole["err"]) or 1
-    for part, t in (("W", TENSOR_TOL), ("M", TENSOR_TOL), ("V", TENSOR_TOL),
-                    ("err", TENSOR_ERR_TOL)):
+    total = sum(x.numel() for x in whole[support_part]) or 1
+    for part, t in (("W", TENSOR_TOL), ("M", TENSOR_TOL),
+                    ("V", TENSOR_TOL), ("err", TENSOR_ERR_TOL)):
+        t *= widen
         beyond, rel = [], []
         for i, (a, b) in enumerate(zip(split[part], whole[part])):
             a, b = a.to(dev).double(), b.to(dev).double()
@@ -4421,23 +4442,25 @@ def fsdp_step_bytes(cfg, mesh, seq, per_rank) -> dict:
             "gathered_layer_params": per_layer, "params": whole}
 
 
-def _whole_at_rank0(torch, leaves, specs, mesh):
+def _whole_at_rank0(torch, leaves, specs, mesh, pin=True):
     """The whole leaves of this rank's ``leaves`` (shards under ``specs``)
     on global rank 0's host, ``None`` elsewhere: each leaf's shards
-    gathered over every rank and placed at their blocks, leaf by leaf."""
+    gathered over every rank and placed at their blocks, leaf by leaf
+    (``pin``: as ``_to_first``'s)."""
     import dataclasses as dc
     import torch.distributed as dist
     from repro_torch.models import params as PM
     first = dist.get_rank() == 0
     out = []
     for x, sp in zip(leaves, specs):
-        parts = _to_first(torch, x, dist.group.WORLD)
+        parts = _to_first(torch, x, dist.group.WORLD, pin)
         if not first:
             continue
         shape = [n * math.prod(mesh.shape[a] for a in (
             () if e is None else (e,) if isinstance(e, str) else e))
             for n, e in zip(x.shape, sp)]
-        whole = torch.empty(shape, dtype=x.dtype, pin_memory=x.is_cuda)
+        whole = torch.empty(shape, dtype=x.dtype,
+                            pin_memory=x.is_cuda and pin)
         for r, part in enumerate(parts):
             whole[PM.shard_block(sp, shape, dc.replace(mesh, rank=r))] = part
         out.append(whole)
@@ -6292,12 +6315,289 @@ def p20_fsdp_case(torch, dist, mesh, cfg, alg, kw, pred, seed, seq, key,
     return rec
 
 
+#: (c) the buffered-async driver on split leaves (``make_async_round(...,
+#: mesh=, pspecs=)``): FedAdam-SSM with error feedback on each plan's
+#: view of the group, C = 2 clients (the tp plan's client axis, the fsdp
+#: plan's ``n_virtual``), K = 2, staleness at most 2, churn with drops
+#: and stragglers, 2 server steps; each against the port's whole-leaf
+#: driver (``client_exec="scan"``, no mesh), run once on rank 0 from the
+#: same weights, batches (2 sequences a client) and churn.  Seed 136's
+#: schedule: 6 dispatches in 4 groups (a group of 2), a drop, a
+#: staleness of 1, 4 landed.
+P20_ASYNC = (("async_tp", "tp"), ("async_fsdp", "fsdp"))
+P20_ASYNC_CLIENTS = 2
+P20_ASYNC_CFG = dict(buffer_size=2, max_staleness=2)
+P20_ASYNC_CHURN = dict(seed=136, jitter=3, straggler_prob=0.3, drop_prob=0.2)
+P20_ASYNC_STEPS = 2
+#: The async cases' cut: a tp rank's synchronous step alone peaks at 15
+#: GB at 2 repeats (phase 16 (b)), and the driver adds every client's
+#: residual shard and the records in flight; four such ranks ran the
+#: card out at 2 repeats even with the records held as their nonzeros.
+P20_ASYNC_REPEATS = 1
+#: FedAdam-SSM's bytes a client at the 2-repeat cut (PERF.md §2).
+P20_ASYNC_BILL_BYTES = 375_854_948
+
+
+def _async_state_at_rank0(torch, parts, err, specs, mesh, plan):
+    """A split state whole on global rank 0's host (``None`` elsewhere):
+    ``parts`` (W, M, V: this rank's shards) and ``err``, this rank's
+    residual shards of every client ``(C, ...)`` (or ``None``).  The tp
+    plan's ranks each hold every client's residual shard: each gives its
+    client's (its client index's) to ``_state_at_rank0``, which gathers
+    them over the client group.  Through pageable memory, which the
+    process gives back: pinned blocks stay cached in it, and phase 20's
+    ranks gather eight more cases' states after these (with pinned
+    gathers here the whole script ran out of a 96 GiB host beside one
+    H100)."""
+    import types
+    from repro_torch import tree as T
+    from repro_torch.models import params as PM
+    if plan == "tp":
+        i = mesh.client_index
+        cs = None if err is None else {"comp": {"err": [
+            x[i:i + 1] for x in err]}}
+        return _state_at_rank0(torch, types.SimpleNamespace(
+            **parts, client_state=cs), specs, mesh, pin=False)
+    host = {p: _whole_at_rank0(torch, parts[p], T.leaves(specs), mesh,
+                               pin=False) for p in ("W", "M", "V")}
+    cs_specs = [PM.Spec((None,) + tuple(sp)) for sp in T.leaves(specs)]
+    host["err"] = [] if err is None else \
+        _whole_at_rank0(torch, err, cs_specs, mesh, pin=False)
+    return host if mesh.rank == 0 else None
+
+
+def _log_first_step(torch, run, names):
+    """Wrap ``run``'s server steps ``names``: the first one's M copied to
+    the host (pageable), leaf by leaf, into the returned list."""
+    from repro_torch import tree as T
+    first = []
+
+    def wrap(inner):
+        def apply(*args):
+            out = inner(*args)
+            if not first:
+                first.extend(x.to("cpu", copy=True)
+                             for x in T.leaves(out[1]))
+            return out
+        return apply
+
+    for name in names:
+        setattr(run, name, wrap(getattr(run, name)))
+    return first
+
+
+def _async_vs_whole(torch, first, wfirst, split, whole, what):
+    """The split driver's state against the whole-leaf driver's: after
+    the first server step (both drivers' clients trained from the same
+    weights) M by ``_tensor_vs_whole``'s rule, the supports that differ
+    read off M's zeros (M starts at zero); after the last, W, M, V and
+    the residual by the same rule where no support differed at the first
+    step, else (the later clients trained from a W that differs by a
+    whole update where a support differed, and every gradient moves by a
+    little) each part within ten times its bound (W, M, V
+    ``TENSOR_ERR_TOL``, the residual ten times that) at all but those
+    supports and ``TENSOR_SHARE`` of a leaf's elements."""
+    s1 = _tensor_vs_whole(torch, {"W": [], "M": first, "V": [], "err": []},
+                          {"W": [], "M": wfirst, "V": [], "err": []}, [],
+                          f"{what} step 1", support_part="M")
+    parted = s1["support_differs"] > 0
+    out = _tensor_vs_whole(torch, split, whole, [], f"{what} final",
+                           widen=10 if parted else 1)
+    return dict(out, parted=parted, step1=s1,
+                failures=s1["failures"] + out["failures"])
+
+
+def _async_metrics(m):
+    return {k: m[k] for k in ("events", "server_steps", "landed", "dropped",
+                              "discarded", "buffer_pending",
+                              "bits_per_step", "loss_per_step")} | {
+        "uplink_bits": float(m["uplink_bits"])}
+
+
+def _async_build(cfg, seq, plan):
+    """``(shape, build keywords)`` of an async case's plan: FedAdam-SSM
+    with error feedback, C clients of ``TENSOR_PER_CLIENT`` sequences."""
+    import dataclasses as dc
+    from repro_torch.launch import steps
+    per = TENSOR_PER_CLIENT
+    build = dict(algorithm="fedadam_ssm", error_feedback=True,
+                 local_epochs=P20_EPOCHS)
+    if plan != "tp":
+        build["plan"] = fsdp_plan()
+    return dc.replace(steps.SHAPES["train_4k"], seq_len=seq, global_batch=(
+        per * P20_ASYNC_CLIENTS if plan == "tp" else per)), build
+
+
+def p20_async_reference(torch, cfg, seed, seq, tokens, dev):
+    """On global rank 0: the port's whole-leaf async driver
+    (``client_exec="scan"``, no mesh; its payloads billed as measured)
+    from ``cfg``'s weights drawn whole on the card, every client's
+    ``tokens`` and the churn; both cases' reference.  Returns its record,
+    M after its first server step and its final state (W, M, V, the
+    clients' residuals), on the host."""
+    from repro_torch import tree as T
+    from repro_torch.core import AsyncConfig, fed_init, make_async_round
+    from repro_torch.data import ChurnConfig, ChurnModel
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import mesh as MM
+    from repro_torch.launch import steps
+    from repro_torch.models.model import init_params
+    one = MM.ClientMesh(shape={"data": 1}, client_axes=(), rank=0,
+                        device=dev)
+    shape, build = _async_build(cfg, seq, "fsdp")
+    wb = steps.build_train_step(cfg, one, shape, **build)
+    fed = wb.static["fed"]
+    run = make_async_round(fed, wb.static["loss"],
+                           AsyncConfig(**P20_ASYNC_CFG),
+                           churn=ChurnModel(ChurnConfig(**P20_ASYNC_CHURN),
+                                            P20_ASYNC_CLIENTS))
+    state = fed_init(fed, init_params(cfg, seed=seed, device=dev))
+    first = _log_first_step(torch, run, ("_apply", "_apply_wire"))
+    _sync(torch, dev)
+    card = dev.type == "cuda"
+    if card:
+        torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    st, m = run(state, {"tokens": tokens.to(dev)}, rounds=P20_ASYNC_STEPS)
+    _sync(torch, dev)
+    rec = {"wall_s": time.perf_counter() - t0,
+           "peak_bytes": torch.cuda.max_memory_allocated() if card
+           else None, "launches": dict(LAUNCHES)} | _async_metrics(m)
+    whole = {p: [x.cpu() for x in T.leaves(getattr(st, p))]
+             for p in ("W", "M", "V")}
+    whole["err"] = [x.cpu() for x in T.leaves(st.client_state["comp"]["err"])]
+    del st, state, run, wb
+    _free(torch)
+    return rec, first, whole
+
+
+def p20_async_case(torch, dist, mesh, plan, key, cfg, seed, seq, tokens,
+                   ref, fixed_bill):
+    """(c): the split async driver on ``mesh`` (the tp plan's group
+    cohort or the fsdp plan's virtual clients), its wall, peak, launches
+    (exactly absmax L, count_ge 2L and ssm_apply_ef L per client step a
+    rank runs: a group's lane on the tp plan, every dispatched client on
+    the fsdp plan) and the bytes each group moves; the first dispatch's
+    kernel inputs at the largest leaf's shard captured on rank 0 (pinned
+    host copies, inside the timed run) and replayed against the plain
+    versions; on rank 0 against ``ref`` (``p20_async_reference``'s): the
+    event log, the counts and the bill equal, the state within
+    ``_async_vs_whole``'s bounds."""
+    from repro_torch import tree as T
+    from repro_torch.core import AsyncConfig, fed_init, make_async_round
+    from repro_torch.core.fed import local_batch
+    from repro_torch.data import ChurnConfig, ChurnModel
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import mesh as MM
+    from repro_torch.launch import steps
+    from repro_torch.models import params as PM
+    from repro_torch.models.model import abstract_params
+    dev, card = mesh.device, mesh.device.type == "cuda"
+    tp, C = plan == "tp", P20_ASYNC_CLIENTS
+    shape, build = _async_build(cfg, seq, plan)
+    bundle = steps.build_train_step(cfg, mesh, shape, **build)
+    fed, specs = bundle.static["fed"], bundle.static["pspecs"]
+    require(fed.n_clients == C, f"{key}: {fed.n_clients} clients")
+    run = make_async_round(fed, bundle.static["loss"],
+                           AsyncConfig(**P20_ASYNC_CFG),
+                           churn=ChurnModel(ChurnConfig(**P20_ASYNC_CHURN),
+                                            C),
+                           client_exec="shardmap" if tp else "scan",
+                           mesh=mesh, pspecs=specs)
+    state = fed_init(fed, PM.materialize_shards(
+        abstract_params(cfg), specs, mesh, seed, cfg.dtype, dev))
+    batches = {"tokens": tokens.to(dev)}
+    if not tp:
+        batches = local_batch(batches, mesh)
+    sizes = [x.numel() for x in T.leaves(state.W)]
+    first = _log_first_step(torch, run, ("_apply",))
+    cap = Capture(host=True) if mesh.rank == 0 else None
+    if cap is not None:
+        entry = _lm_entry_points()
+        for k in FSDP_KERNELS:
+            cap.wrap(*entry[k], k, LM_KERNELS[k][2], (max(sizes),),
+                     len(LM_PASSES.get(k, ("",))))
+    _sync(torch, dev)
+    held = torch.cuda.memory_allocated() if card else None
+    if card:
+        torch.cuda.reset_peak_memory_stats()
+    try:
+        with _collectives(MM) as moved:
+            reset_launches()
+            t0 = time.perf_counter()
+            st, m = run(state, batches, rounds=P20_ASYNC_STEPS)
+            _sync(torch, dev)
+            wall = time.perf_counter() - t0
+            launches = dict(LAUNCHES)
+    finally:
+        if cap is not None:
+            cap.restore()
+    disp = [e for e in m["events"] if e[1] == "dispatch"]
+    client_steps = len({e[0] for e in disp}) if tp else len(disp)
+    L = len(sizes)
+    want = {k: v * client_steps for k, v in per_client_round(
+        absmax=L, count_ge=2 * L, ssm_apply_ef=L).items() if v}
+    got = {k: v for k, v in launches.items() if v}
+    require(not card or got == want, f"phase 20 {key}: launches {got} "
+            f"against {want} ({client_steps} client steps a rank)")
+    rec = {"case": key, "plan": plan, "wall_s": wall, "held_bytes": held,
+           "peak_bytes": torch.cuda.max_memory_allocated() if card
+           else None, "collective_bytes": dict(moved),
+           "launches": launches, "launches_expected": want,
+           "client_steps": client_steps, "dispatches": len(disp),
+           "leaves": L, "shard_elements": sum(sizes)} | _async_metrics(m)
+    t0 = time.perf_counter()
+    split = _async_state_at_rank0(
+        torch, {p: T.leaves(getattr(st, p)) for p in ("W", "M", "V")},
+        T.leaves(st.client_state["comp"]["err"]), specs, mesh, plan)
+    first = _async_state_at_rank0(torch, {"W": [], "M": first, "V": []},
+                                  None, specs, mesh, plan)
+    rec["state_gather_s"] = time.perf_counter() - t0
+    del st, state, run, bundle
+    _free(torch)
+    if cap is not None:
+        captured = {k: [(a, kw) for calls in cap.args[k].values()
+                        for a, kw in calls] for k in cap.args}
+        rec["kernels"] = _replay_tensor_kernels(torch, captured, card,
+                                                False)
+        del captured, cap
+    if mesh.rank == 0:
+        wrec, wfirst, whole = ref
+        rec["whole_leaf"] = {k: v for k, v in wrec.items() if k != "events"}
+        for k in ("events", "server_steps", "landed", "dropped",
+                  "discarded", "buffer_pending", "bits_per_step",
+                  "uplink_bits"):
+            require(rec[k] == wrec[k], f"{key}: {k} {rec[k]} against the "
+                    f"whole-leaf driver's {wrec[k]}")
+        bill = float(torch.tensor(8.0 * P20_ASYNC_BILL_BYTES * rec["landed"],
+                                  dtype=torch.float32))
+        require(not fixed_bill or rec["uplink_bits"] == bill,
+                f"{key}: bill {rec['uplink_bits']} against {bill}")
+        require(rec["server_steps"] == P20_ASYNC_STEPS
+                and rec["dropped"] >= 1
+                and len({e[0] for e in disp}) < len(disp),
+                f"{key}: the schedule lost its drop or its group of 2")
+        a, b = rec["loss_per_step"], wrec["loss_per_step"]
+        require(max(abs(x - y) for x, y in zip(a, b))
+                <= 1e-5 * max(abs(y) for y in b),
+                f"{key}: losses {a} against {b}")
+        rec["vs_whole_leaf"] = _async_vs_whole(
+            torch, first["M"], wfirst, split, whole,
+            f"{key} split vs whole")
+    del split, first
+    _free(torch)
+    dist.barrier()
+    return rec
+
+
 def p20_run(torch, dist, mesh, seed, pred_dir, smoke=False):
     """Phase 20's cases on this rank of a (data 2, model 2) gloo group
-    (``mesh``: any view of it): (a) ``P20_TP`` on its spatial view (client
-    axis "data"), (b) ``P20_FSDP`` on its virtual view (no client axes:
-    the client group is the data group).  Each case waits for its
-    prediction and runs at its repeats.  Returns the cases' records and
+    (``mesh``: any view of it): (c) ``P20_ASYNC`` first, then (a)
+    ``P20_TP`` on its spatial view (client axis "data"), (b) ``P20_FSDP``
+    on its virtual view (no client axes: the client group is the data
+    group).  Each case of (a) and (b) waits for its prediction and runs
+    at its repeats.  Returns the cases' records and
     ``phase_s``."""
     import dataclasses as dc
     from repro_torch.launch import train
@@ -6308,6 +6608,31 @@ def p20_run(torch, dist, mesh, seed, pred_dir, smoke=False):
     t_phase = time.perf_counter()
     C = tmesh.n_clients
     seq = 32 if smoke else TENSOR_SEQ
+    repeats = 2 if smoke else P20_ASYNC_REPEATS
+    cfg = _tensor_cfg(TENSOR_ARCH, repeats, "float32", smoke)
+    # (c) first, while the predictor predicts (a) and (b)'s cuts
+    t0 = time.perf_counter()
+    tokens = train.build_client_batches(
+        cfg, P20_ASYNC_CLIENTS, TENSOR_PER_CLIENT, seq, seed=seed,
+        device="cpu")["tokens"]
+    ref = p20_async_reference(torch, cfg, seed, seq, tokens, dev) \
+        if mesh.rank == 0 else None
+    dist.barrier()
+    ref_s = time.perf_counter() - t0
+    for key, plan in P20_ASYNC:
+        t0 = time.perf_counter()
+        rec = p20_async_case(torch, dist, tmesh if plan == "tp" else vmesh,
+                             plan, key, cfg, seed, seq, tokens, ref,
+                             not smoke and repeats == 2)
+        rec.update(repeats=repeats, case_s=time.perf_counter() - t0,
+                   reference_s=ref_s)
+        out[key] = rec
+        if mesh.rank == 0:
+            log(f"phase 20 {key}: " + json.dumps(
+                {k: v for k, v in rec.items()
+                 if k not in ("kernels", "events")}))
+    del ref
+    _free(torch)
     host = {}
     for key, plan, alg, kw in p20_cases():
         pred = _p20_prediction(pred_dir, key)
@@ -6401,19 +6726,21 @@ def _p20_record(ranks, pred_dir, wall):
     (ROOT / "chiprun_out" / "phase20.json").write_text(json.dumps(
         {"ranks": ranks, "predictions": preds}, indent=1, default=str))
     r0 = ranks[0]
-    keys = [k for k, *_ in p20_cases()]
+    keys = [k for k, *_ in p20_cases()] + [k for k, _ in P20_ASYNC]
     summary = {k: {kk: r0[k].get(kk) for kk in (
         "repeats", "cuts", "wall_s", "peak_bytes", "predicted_peak_bytes",
         "uplink_bits", "collective_bytes", "launches_predicted",
-        "case_s")} for k in keys}
+        "case_s", "client_steps", "landed", "dropped", "held_bytes",
+        "state_gather_s")} for k in keys}
     for k in keys:
-        summary[k]["whole_leaf_wall_s"] = r0[k].get("whole_leaf", {}).get(
-            "wall_s")
+        for kk in ("wall_s", "peak_bytes"):
+            summary[k][f"whole_leaf_{kk}"] = r0[k].get(
+                "whole_leaf", {}).get(kk)
         vs = r0[k].get("vs_whole_leaf", {})
         summary[k]["max_rel_err"] = vs.get("max_rel_err")
     log(f"phase 20: {FSDP_WORLD} gloo ranks on the card ({smi_line()}) "
         f"in {wall:.1f} s, cuts "
-        f"{ {k: r0[k]['cuts'] for k in keys} }: " + json.dumps(summary))
+        f"{ {k: r0[k].get('cuts') for k in keys} }: " + json.dumps(summary))
     failures = [f for k in keys
                 for f in r0[k].get("vs_whole_leaf", {}).get("failures", [])]
     require(not failures, "; ".join(failures))
@@ -6678,7 +7005,9 @@ def main(argv=None):
             if shard:
                 k["max_abs_err"] = max(k["max_abs_err"], *(
                     r["max_abs_err"] for r in shard.values()))
-                k[f"at_phase20_{case}"] = shard
+                label = case if case.startswith("async_") else \
+                    f"phase20_{case}"
+                k[f"at_{label}"] = shard
     require(sorted(k["name"] for k in kernels)
             == sorted((*KERNELS, *LM_KERNELS)), "a kernel was not measured")
     phase(7, "starcoder2 smoke rounds card vs CPU")

@@ -30,13 +30,30 @@ builders are ``jax.jit``-wrapped; here they are plain functions.  A group
 of simultaneous dispatches runs two ways:
 
 * ``client_exec="scan"``: a loop over its clients;
-* ``client_exec="shardmap"``: one client per rank of a
+* ``client_exec="shardmap"``: one client per row of a
   :class:`~repro_torch.launch.mesh.ClientMesh`, as the spatial round
   runs them (:func:`make_mesh_cohort_exec`).  The event loop is
   replicated on every rank (the churn is seeded); a group is padded to
-  the world size by repeating its last client, rank r runs lane r, the
-  lanes' outputs are all-gathered and the padded lanes discarded.  The
-  step keeps the wire round trip, as the JAX cohort's does.
+  the mesh's clients by repeating its last client, the ranks of client
+  index i run lane i, the lanes' outputs are all-gathered over the
+  client group and the padded lanes discarded.
+
+Both run on split leaves too, with ``mesh`` and the params' specs
+(``pspecs``), as the synchronous round does: the group cohort on a
+model axis above 1 (the ``tp`` plans: each rank holds its model shard of
+W, M, V and of every client's state, stacked ``(C, ...)``), and the
+scan cohort on a mesh with FSDP axes (the ``fsdp`` plans' virtual
+clients: each rank holds its shards and its ``fed.local_batch`` slice of
+each client's batch).  The masks, scales and norms are the whole
+leaves' (``sparsify.LeafSplit``).  On whole leaves the step keeps the
+wire round trip, as the JAX cohort's does, and a landed update is
+buffered as its payload and billed at its measured bytes; on split
+leaves a shard's payload would be packed with a shard's capacity, so
+the step hands over the encoder's carriers, the records in flight and
+in the buffer hold their nonzeros (:class:`Nonzeros`), the server step
+folds them in arrival order, and each landed update is billed at the
+whole leaves' static layout, as the synchronous round bills them.  The metrics and the bill are the whole
+leaves', the same on every rank.
 """
 from __future__ import annotations
 
@@ -53,8 +70,7 @@ from repro_torch.core import aggregate, compressors, wire
 from repro_torch.core.compressors import Deltas
 from repro_torch.core.fed import (
     FedConfig, FedState, active_client_count, check_ported,
-    make_client_step, make_server_apply, run_clients_stacked,
-    stack_payloads)
+    make_round_client_step, make_server_apply, stack_payloads)
 from repro_torch.data.churn import ChurnConfig, ChurnModel
 
 _F32 = torch.float32
@@ -107,58 +123,161 @@ class AsyncConfig:
 # ---------------------------------------------------------------------------
 
 
-def make_cohort_exec(fed: FedConfig, loss_fn: Callable,
-                     comp: Optional[compressors.Compressor] = None):
+def _client(tree, c: int):
+    """Client ``c``'s slice of a client-stacked ``(C, ...)`` tree (views),
+    or ``None``."""
+    return None if tree is None else T.tree_map(lambda x: x[c], tree)
+
+
+class Nonzeros:
+    """A carrier leaf held as its nonzeros (flat indices and values) while
+    it waits in flight or in the buffer: a mask's carriers are mostly
+    zeros.  :meth:`dense` gives the leaf back; a zero of either sign
+    comes back as +0.0, which adds the same to every FedAvg sum."""
+
+    __slots__ = ("shape", "idx", "vals")
+
+    def __init__(self, shape, idx, vals):
+        self.shape, self.idx, self.vals = shape, idx, vals
+
+    def dense(self) -> torch.Tensor:
+        out = self.vals.new_zeros(self.shape.numel())
+        out[self.idx] = self.vals
+        return out.reshape(self.shape)
+
+
+def hold_nonzeros(x: torch.Tensor):
+    """``x`` as :class:`Nonzeros` where under a third of it is nonzero
+    (the index and the value then take less than the dense leaf), else
+    ``x``."""
+    flat = x.reshape(-1)
+    idx = flat.nonzero().squeeze(1)
+    if 3 * idx.numel() >= flat.numel():
+        return x
+    return Nonzeros(x.shape, idx, flat[idx])
+
+
+def _dense(leaf):
+    return leaf.dense() if isinstance(leaf, Nonzeros) else leaf
+
+
+def _held(out, held: bool):
+    """A client step's ``(sW, sM, sV, new_cstate, mets)``, with ``held``
+    each carrier leaf as :func:`hold_nonzeros` holds it."""
+    if not held:
+        return out
+    return tuple(T.tree_map(hold_nonzeros, o) if j < 3 else o
+                 for j, o in enumerate(out))
+
+
+def make_cohort_exec(client_step: Callable, held: bool = False):
     """A group of simultaneously dispatched clients, one after another
-    through ``fed.make_client_step`` (``fed.run_clients_stacked``, as
-    ``round_vmap`` runs them), so each client's outputs are bitwise the
-    synchronous driver's.  ``exec_cohort(W, M, V, batches, cstates) ->
-    (sW, sM, sV, new_cs, mets)``, inputs and outputs stacked ``(G, ...)``
-    (``cstates`` and ``new_cs`` None without client state)."""
-    client_step = make_client_step(fed, loss_fn, comp)
+    through the round's ``client_step`` (``fed.make_round_client_step``),
+    so each client's outputs are bitwise the synchronous driver's.
+    ``exec_cohort(W, M, V, batches, cstates, group)``: ``batches`` and
+    ``cstates`` client-stacked ``(C, ...)`` (``cstates`` None without
+    client state), client ``c`` of ``group`` on slice ``c``; returns one
+    ``(sW, sM, sV, new_cstate, mets)`` per client of ``group``, in its
+    order; with ``held`` each carrier leaf as :func:`hold_nonzeros`
+    holds it."""
 
-    def exec_cohort(W, M, V, batches, cstates):
-        G = T.leaves(batches)[0].shape[0]
-        return run_clients_stacked(client_step, W, M, V, batches, cstates,
-                                   G)
+    def exec_cohort(W, M, V, batches, cstates, group):
+        return [_held(client_step(W, M, V, _client(batches, c),
+                                  _client(cstates, c)), held)
+                for c in group]
+
+    return exec_cohort
+
+
+def make_mesh_cohort_exec(client_step: Callable, mesh, held: bool = False):
+    """The cohort on the client group, ``exec_cohort`` as
+    :func:`make_cohort_exec`'s: the group padded to the clients of
+    ``mesh`` by repeating its last client, the ranks of client index i
+    run lane i's ``client_step`` (on a model axis above 1 each on its
+    shards of the leaves and of the client state), every output is
+    all-gathered over the client group leaf by leaf (with ``held`` a
+    carrier leaf as its nonzeros, :func:`_gather_nonzeros`), and the
+    padded lanes' parts are dropped
+    at once; the same outputs on every rank of a model index.  The
+    records hold each client's gathered parts alone, so a client's
+    record never keeps another's alive."""
+
+    def exec_cohort(W, M, V, batches, cstates, group):
+        n = mesh.n_clients
+        if len(group) > n:
+            raise ValueError(f"{len(group)} simultaneous dispatches on a "
+                             f"group of {n} clients")
+        lanes = list(group) + [group[-1]] * (n - len(group))
+        c = lanes[mesh.client_index]
+        out = list(client_step(W, M, V, _client(batches, c),
+                               _client(cstates, c)))
+        parts = []
+        for j, o in enumerate(out):
+            # this rank's output goes once gathered
+            out[j] = None
+            parts.append(None if o is None else _gather_clients(
+                mesh, o, len(group), held and j < 3))
+        return [tuple(None if p is None else p[i] for p in parts)
+                for i in range(len(group))]
 
     return exec_cohort
 
 
-def make_mesh_cohort_exec(fed: FedConfig, loss_fn: Callable, mesh,
-                          comp: Optional[compressors.Compressor] = None):
-    """The cohort on the client group: ``exec_cohort(W, M, V, batches,
-    cstates)`` with ``(G, ...)`` inputs, G the world size of ``mesh``:
-    rank r runs client r's step (``fed.make_client_step``, the wire round
-    trip kept), and every output is all-gathered into ``(G, ...)``, the
-    same on every rank."""
-    client_step = make_client_step(fed, loss_fn, comp)
+def _gather_clients(mesh, tree, n: int, held: bool = False) -> list:
+    """The first ``n`` clients' ``tree`` over the client group, one tree
+    each (the others' parts freed); with ``held`` each leaf as
+    :func:`hold_nonzeros` holds it (:func:`_gather_nonzeros`)."""
+    gather = _gather_nonzeros if held else \
+        (lambda mesh, x: mesh.all_gather_list(x))
+    leaves, td = T.flatten(tree)
+    parts = [gather(mesh, x)[:n] for x in leaves]
+    return [td.unflatten([p[i] for p in parts]) for i in range(n)]
 
-    def exec_cohort(W, M, V, batches, cstates):
-        r = mesh.rank
-        pick = lambda t: None if t is None else T.tree_map(
-            lambda x: x[r], t)
-        out = client_step(W, M, V, pick(batches), pick(cstates))
-        return tuple(None if o is None else T.tree_map(mesh.all_gather, o)
-                     for o in out)
 
-    return exec_cohort
+def _gather_nonzeros(mesh, x: torch.Tensor) -> list:
+    """Every client's ``x`` over the client group as
+    :func:`hold_nonzeros` holds it, gathered as the nonzeros alone (the
+    counts, then the indices and values padded to the largest count)
+    where every client's is under a third nonzero, else whole: the same
+    leaves as gathering ``x`` whole and holding each, in fewer bytes."""
+    flat = x.reshape(-1)
+    idx = flat.nonzero().squeeze(1)
+    counts = [int(c) for c in mesh.all_gather_list(
+        torch.tensor([idx.numel()], dtype=torch.int64, device=x.device))]
+    if any(3 * c >= flat.numel() for c in counts):
+        return [hold_nonzeros(p) for p in mesh.all_gather_list(x)]
+    most = max(counts)
+    if most == 0:
+        return [Nonzeros(x.shape, idx, flat[idx]) for _ in counts]
+    pad = lambda t: torch.cat([t, t.new_zeros(most - t.numel())])
+    idxs = mesh.all_gather_list(pad(idx))
+    vals = mesh.all_gather_list(pad(flat[idx]))
+    return [Nonzeros(x.shape, i[:c], v[:c])
+            for i, v, c in zip(idxs, vals, counts)]
 
 
 def make_buffer_apply(fed: FedConfig,
                       comp: Optional[compressors.Compressor] = None):
     """One server step from a full buffer: ``apply(W, M, V, bufW, bufM,
-    bufV, weights) -> (W', M', V')``, buffers stacked ``(K, ...)``,
-    ``weights`` the (K,) effective weights (FedAvg weight x staleness
-    scale), folded in ``round_scan``'s order and arithmetic."""
+    bufV, weights) -> (W', M', V')``, buffers the K landed carriers in
+    arrival order (lists of trees, whose leaves may be :class:`Nonzeros`),
+    ``weights`` the (K,) effective weights
+    (FedAvg weight x staleness scale), folded in ``round_scan``'s order
+    and arithmetic (``aggregate.weighted_fold``, as
+    ``ordered_weighted_sum`` folds a stack) without stacking them."""
     server_apply = make_server_apply(fed, comp)
 
+    def fold(trees, w):
+        acc = None
+        for k, tree in enumerate(trees):
+            acc = aggregate.weighted_fold(acc, w[k],
+                                          T.tree_map(_dense, tree))
+        return acc
+
     def buffer_apply(W, M, V, bufW, bufM, bufV, weights):
-        aW = aggregate.ordered_weighted_sum(bufW, weights)
-        aM = aggregate.ordered_weighted_sum(bufM, weights)
-        aV = aggregate.ordered_weighted_sum(bufV, weights)
-        return server_apply(W, M, V, aW, aM, aV,
-                            aggregate.weight_total(weights))
+        w = weights.to(_F32)
+        return server_apply(W, M, V, fold(bufW, w), fold(bufM, w),
+                            fold(bufV, w), aggregate.weight_total(weights))
 
     return buffer_apply
 
@@ -209,29 +328,17 @@ class AsyncRoundDriver:
 
     def __init__(self, fed: FedConfig, loss_fn: Callable,
                  acfg: AsyncConfig, churn: Optional[ChurnModel] = None,
-                 client_exec: str = "scan", mesh=None):
+                 client_exec: str = "scan", mesh=None, pspecs=None):
         if client_exec not in ("scan", "shardmap"):
             raise ValueError(f"client_exec={client_exec!r}: scan | "
                              "shardmap")
-        if mesh is not None and mesh.fsdp_axes:
-            from repro_torch.launch.mesh import FSDP_ITEM_REMAINDER
-            raise NotImplementedError(
-                "the async driver on a mesh with FSDP axes "
-                f"{mesh.fsdp_axes} (the virtual clients' leaves split over "
-                f"them) is not ported: {FSDP_ITEM_REMAINDER}")
         if client_exec == "shardmap":
             if not fed.client_axes or mesh is None:
                 raise ValueError("the shardmap cohort needs fed.client_axes "
                                  "and the client group (mesh=)")
             mesh.check()
-            if mesh.model_size > 1:
-                from repro_torch.launch.mesh import TENSOR_ITEM
-                raise NotImplementedError(
-                    "the async group cohort on a model axis above 1 (split "
-                    f"leaves) is not ported yet: {TENSOR_ITEM}")
         else:
-            check_ported(fed)
-            mesh = None
+            check_ported(fed, mesh)
         self.fed = fed
         self.mesh = mesh
         self.acfg = acfg
@@ -240,36 +347,23 @@ class AsyncRoundDriver:
         if self.churn.n_clients != fed.n_clients:
             raise ValueError(f"churn model of {self.churn.n_clients} "
                              f"clients for {fed.n_clients}")
-        self._comp = compressors.make_compressor(fed)
-        self._exec = make_cohort_exec(fed, loss_fn, self._comp) \
-            if mesh is None else \
-            make_mesh_cohort_exec(fed, loss_fn, mesh, self._comp)
+        self._comp, self._split, step = make_round_client_step(
+            fed, loss_fn, mesh, pspecs)
+        # on split leaves the records hold the carriers (no payload):
+        # as their nonzeros
+        held = self._split is not None
+        self._exec = make_cohort_exec(step, held) \
+            if client_exec == "scan" else \
+            make_mesh_cohort_exec(step, mesh, held)
         self._apply = make_buffer_apply(fed, self._comp)
         self._apply_wire = make_wire_buffer_apply(fed, self._comp)
 
-    def _run_group(self, W, M, V, batches, cs, group, has_cs):
+    def _run_group(self, W, M, V, batches, cs, group):
         """The clients of ``group`` (all dispatched at one tick) against
-        the snapshot (W, M, V); one record per client, in group order.  On
-        the client group the group runs in lanes of the world size, the
-        last client repeated, and the padded lanes are discarded."""
-        lanes = list(group)
-        if self.mesh is not None:
-            world = self.mesh.world_size
-            if len(lanes) > world:
-                raise ValueError(f"{len(lanes)} simultaneous dispatches on "
-                                 f"a group of {world} ranks")
-            lanes += [lanes[-1]] * (world - len(lanes))
-        take = lambda t: T.tree_map(
-            lambda x: torch.stack([x[c] for c in lanes]), t)
-        sW, sM, sV, ncs, mets = self._exec(
-            W, M, V, take(batches), take(cs) if has_cs else None)
-        out = []
-        for i in range(len(group)):
-            pick = lambda t: T.tree_map(lambda x: x[i], t)
-            out.append(dict(sW=pick(sW), sM=pick(sM), sV=pick(sV),
-                            ncs=(pick(ncs) if has_cs else None),
-                            loss=mets["loss"][i]))
-        return out
+        the snapshot (W, M, V); one record per client, in group order."""
+        return [dict(sW=sW, sM=sM, sV=sV, ncs=ncs, loss=mets["loss"])
+                for sW, sM, sV, ncs, mets in self._exec(W, M, V, batches, cs,
+                                                        group)]
 
     def __call__(self, state: FedState, batches, weights=None, *,
                  rounds: int = 1, max_events: Optional[int] = None):
@@ -302,11 +396,17 @@ class AsyncRoundDriver:
         server_round = int(state.round)
         round0 = server_round
 
-        sizes = tuple(x.numel() for x in T.leaves(W))
-        # wire mode: buffer the payloads and bill their measured bytes;
-        # the analytic count only where there is no wire realization
-        wire_mode = self._comp.wire_bits_per_client(sizes) is not None
-        bits_client = self._comp.bits_per_client(sum(sizes))
+        split = self._split
+        sizes = tuple(x.numel() for x in T.leaves(W)) if split is None \
+            else split.sizes(W)
+        layout_bits = self._comp.wire_bits_per_client(sizes)
+        # wire mode (whole leaves): buffer the payloads and bill their
+        # measured bytes.  Else buffer the carriers and bill the whole
+        # leaves' static layout, the analytic count where there is no wire
+        # realization (the synchronous round's bill)
+        wire_mode = split is None and layout_bits is not None
+        bits_client = layout_bits if layout_bits is not None \
+            else self._comp.bits_per_client(sum(sizes))
 
         # participation: the dispatch pool is the n_active clients that
         # the churn model admits; everyone else never dispatches
@@ -346,8 +446,7 @@ class AsyncRoundDriver:
                 while q and q[0][0] == t and q[0][2] == _EV_DISPATCH:
                     group.append(heapq.heappop(q)[3])
                     n_events += 1
-                records = self._run_group(W, M, V, batches, cs, group,
-                                          has_cs)
+                records = self._run_group(W, M, V, batches, cs, group)
                 for gc, rec in zip(group, records):
                     a = attempts[gc]
                     attempts[gc] += 1
@@ -392,9 +491,6 @@ class AsyncRoundDriver:
                 buffer.append(dict(rec, stale=stale, w=eff_w))
                 events.append((t, "deliver", c, stale))
                 if len(buffer) == K:
-                    stack = lambda key: T.tree_map(
-                        lambda *xs: torch.stack(xs),
-                        *[e[key] for e in buffer])
                     wts = torch.tensor([e["w"] for e in buffer],
                                        dtype=_F32)
                     if device.type == "cuda":
@@ -407,8 +503,9 @@ class AsyncRoundDriver:
                             stack_payloads([e["wire"] for e in buffer]),
                             wts)
                     else:
-                        W, M, V = self._apply(W, M, V, stack("sW"),
-                                              stack("sM"), stack("sV"), wts)
+                        W, M, V = self._apply(
+                            W, M, V, *([e[key] for e in buffer]
+                                       for key in ("sW", "sM", "sV")), wts)
                     server_round += 1
                     steps += 1
                     bits_per_step.append(bits_total - sum(bits_per_step))
@@ -443,11 +540,17 @@ def make_async_round(fed: FedConfig, loss_fn: Callable,
                      acfg: Optional[AsyncConfig] = None, *,
                      churn: Optional[ChurnModel] = None,
                      client_exec: str = "scan",
-                     mesh=None) -> AsyncRoundDriver:
+                     mesh=None, pspecs=None) -> AsyncRoundDriver:
     """Build the buffered-async driver (mirrors ``make_fl_round``):
     ``run(state, batches, weights=None, rounds=1) -> (state, metrics)``
     on the synchronous round's :class:`FedState`, so the two drivers
     take each other's checkpoints.  ``client_exec="shardmap"`` runs the
-    cohorts on the client group ``mesh``."""
+    cohorts on the client group ``mesh``.  On split leaves (a model axis
+    above 1 with the shardmap cohort, FSDP axes with the scan cohort)
+    ``pspecs`` are the params' specs, as ``make_fl_round`` takes them:
+    the state's leaves and every client's state ``(C, ...)`` are this
+    rank's shards, ``loss_fn`` runs the split layers, and on FSDP axes
+    ``batches`` is this rank's ``fed.local_batch``."""
     return AsyncRoundDriver(fed, loss_fn, acfg or AsyncConfig(),
-                            churn=churn, client_exec=client_exec, mesh=mesh)
+                            churn=churn, client_exec=client_exec, mesh=mesh,
+                            pspecs=pspecs)

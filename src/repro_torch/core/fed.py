@@ -231,6 +231,24 @@ def _leaf_split(fed: FedConfig, mesh, pspecs):
     return S.LeafSplit(tuple(groups[k] for k in kinds), dims)
 
 
+def make_round_client_step(fed: FedConfig, loss_fn: Callable, mesh=None,
+                           pspecs=None):
+    """``(comp, split, client_step)``: the round's compressor, with the
+    ``sparsify.LeafSplit`` of :func:`_leaf_split` on split leaves (else
+    ``split`` is ``None``), and its client step.  On split leaves a
+    payload would pack each shard with a shard's capacity, not the whole
+    leaf's, so the step hands over the encoder's carriers and builds no
+    payload (the round trip is bitwise where no capacity drops a value);
+    on whole leaves it keeps the wire round trip.  The synchronous round
+    and the async driver both build theirs here."""
+    comp = compressors.make_compressor(fed)
+    split = _leaf_split(fed, mesh, pspecs)
+    if split is not None:
+        comp = dataclasses.replace(comp, split=split)
+    return comp, split, make_client_step(fed, loss_fn, comp,
+                                         wire_roundtrip=split is None)
+
+
 def local_clients(tree, mesh):
     """This rank's slice ``(1, ...)`` of a client-stacked ``(C, ...)``
     tree (a batch, a client state): its client's, the counterpart of JAX
@@ -535,17 +553,9 @@ def make_fl_round(fed: FedConfig, loss_fn: Callable,
     ``batches`` is then this rank's :func:`local_batch`, and ``loss_fn``
     returns the whole batch's loss on every rank."""
     check_ported(fed, mesh)
-    comp = compressors.make_compressor(fed)
-    split = _leaf_split(fed, mesh, pspecs)
-    if split is not None:
-        comp = dataclasses.replace(comp, split=split)
+    comp, split, client_step = make_round_client_step(fed, loss_fn, mesh,
+                                                      pspecs)
     n_active = active_client_count(fed)
-    # on split leaves a payload would pack each shard with a shard's
-    # capacity, not the whole leaf's: the scan round's clients hand over
-    # the encoder's carriers instead (the round trip is bitwise where no
-    # capacity drops a value), as the spatial step does
-    client_step = make_client_step(fed, loss_fn, comp,
-                                   wire_roundtrip=split is None)
     # the spatial step skips the (bitwise) wire round trip and builds no
     # payload: its transport is the per-shard bitmap aggregate
     mesh_client_step = make_client_step(fed, loss_fn, comp,

@@ -73,14 +73,11 @@ import torch.distributed as dist
 
 from repro_torch.device import DeviceLike, resolve_device
 
-#: The ROADMAP item of the tensor-parallel half: a model axis above 1
-#: (what is left of it: the async driver's group cohort there).
-TENSOR_ITEM = "ROADMAP §1.10(a)"
 #: What the port does not run of ROADMAP §1.10(b), the ``virtual``
 #: clients and the ``fsdp`` plans: FSDP leaves beside client axes (the
-#: spatial round), the async driver on an FSDP mesh, and the
-#: spatial/fsdp and virtual/tp plan pairs, which no plan of the zoo uses.
-#: Every compressor runs on split leaves (``core/sparsify.LeafSplit``).
+#: spatial round), and the spatial/fsdp and virtual/tp plan pairs, which
+#: no plan of the zoo uses.  Every compressor, the synchronous round and
+#: the async driver run on split leaves (``core/sparsify.LeafSplit``).
 FSDP_ITEM_REMAINDER = "ROADMAP §1.10(b) remainder"
 #: The axes the ``fsdp`` rules split a leaf's ``embed`` dim over, in
 #: their order there (``sharding.fsdp_axes``: data before pod).
@@ -433,9 +430,14 @@ class ClientMesh:
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
         """``(C, *x.shape)``: every client's ``x`` over this rank's client
         group, in client order."""
-        return torch.stack(_gather_list(
-            x, self.n_clients, self.group, self._name(self.client_axes),
-            self._ranks_along(self.client_axes)))
+        return torch.stack(self.all_gather_list(x))
+
+    def all_gather_list(self, x: torch.Tensor) -> list:
+        """Every client's ``x`` over this rank's client group, in client
+        order, a tensor each."""
+        return _gather_list(x, self.n_clients, self.group,
+                            self._name(self.client_axes),
+                            self._ranks_along(self.client_axes))
 
     def close(self) -> None:
         """Leave the group (every process group of this process)."""

@@ -82,7 +82,11 @@ class StepBundle:
     ...)``); ``batch_shapes``: this rank's batch, leading ``(1,
     per_client)`` (spatial) or ``(n_virtual, global_batch / rows)``
     (virtual); ``static``: the configuration's bookkeeping, with the
-    params' specs (``"pspecs"``).
+    params' specs (``"pspecs"``) and the split loss (``"loss"``), which
+    with ``"fed"`` build the same plan's buffered-async driver
+    (``core/async_fed.make_async_round(fed, loss, ..., mesh=,
+    pspecs=)``: the spatial plans' group cohort, the virtual plans'
+    scan cohort).
 
     A prefill or serve step: ``fn`` as the module docstring says;
     ``init(params, sharded=False)``: this rank's parameter shards (as they
@@ -265,7 +269,7 @@ def build_train_step(cfg: ArchConfig, mesh, shape: ShapeSpec, *,
         args=lambda params, device: (init(params, sharded=True),
                                      _batch(cfg, batch_shapes, device)),
         static=dict(kind="train", n_clients=n_clients, plan=plan, fed=fed,
-                    fsdp=fsdp,
+                    fsdp=fsdp, loss=loss,
                     text_len=text_len, n_front=n_front, remat=remat,
                     pspecs=pspec, loop_trips=_loop_trips(
                         cfg, "train", local_epochs=local_epochs,

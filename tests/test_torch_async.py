@@ -177,6 +177,29 @@ def _per_client_bits(fed, st):
     return make_compressor(fed).wire_bits_per_client(sizes)
 
 
+@pytest.mark.parametrize("algorithm", ["fedadam_ssm", "fedadam_top"])
+def test_measured_bill_is_the_static_layout(algorithm):
+    """On whole leaves the driver bills each landed update at its measured
+    payload bytes; under churn they equal the static layout
+    (``wire_bits_per_client`` of the leaves' sizes) that split leaves are
+    billed at, update by update and step by step: the shared-mask
+    payload (FedAdam-SSM) and the three-mask one (FedAdam-Top)."""
+    C = 6
+    params, batches, loss_t, _ = _toy(C)
+    fed = _fed(C, algorithm=algorithm)
+    K = 3
+    run = make_async_round(fed, loss_t,
+                           AsyncConfig(buffer_size=K, max_staleness=2),
+                           churn=ChurnModel(ChurnConfig(**_CHURN), C))
+    st0 = fed_init(fed, to_torch(params))
+    _, mets = run(st0, to_torch(batches), rounds=3)
+    per = _per_client_bits(fed, st0)
+    assert run._split is None and per is not None
+    assert mets["dropped"] > 0 and mets["landed"] >= 3 * K
+    assert float(mets["uplink_bits"]) == mets["landed"] * per
+    assert mets["bits_per_step"] == [K * per] * 3
+
+
 def test_drop_keeps_state_and_is_not_billed():
     C = 4
     params, batches, loss_t, _ = _toy(C)
@@ -279,16 +302,15 @@ def test_churn_model_is_the_jax_model():
 
 
 def test_shardmap_exec_raises():
-    """The group cohort needs its group, refuses one with a model axis
-    above 1 (split leaves: ROADMAP §1.10(a)), and one with an axis beyond
-    the client axes and "model" (§1.10(b))."""
+    """The group cohort needs its group, and refuses one with an axis
+    beyond the client axes and "model" (§1.10(b)).  On a model axis above
+    1 it runs (tests/test_torch_async_split.py)."""
     from repro_torch.launch.mesh import ClientMesh
     fed = _fed(2, client_mode="vmap", client_axes=("data",))
     with pytest.raises(ValueError, match="mesh="):
         make_async_round(fed, lambda p, b: p["w"].sum(),
                          client_exec="shardmap")
-    for shape, item in (({"data": 2, "model": 2}, r"§1\.10\(a\)"),
-                        ({"data": 2, "expert": 2}, r"§1\.10\(b\)")):
+    for shape, item in (({"data": 2, "expert": 2}, r"§1\.10\(b\)"),):
         mesh = ClientMesh(shape=shape, client_axes=("data",), rank=0,
                           device=torch.device("cpu"))
         with pytest.raises(NotImplementedError, match=item):

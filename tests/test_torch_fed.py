@@ -30,8 +30,8 @@ from _torch_parity import (assert_bitwise, jax_packed_oracles,  # noqa: F401
 from repro.core import fed as jfed
 from repro.models import vision as jvision
 from repro.optim import adam as jadam
-from repro_torch.core import (FedConfig, fed_init, make_async_round,
-                              make_fl_round, make_server_apply)
+from repro_torch.core import (FedConfig, fed_init, make_fl_round,
+                              make_server_apply)
 from repro_torch.data import (client_batches, dirichlet_partition,
                               synthetic_image_dataset)
 from repro_torch.models import vision
@@ -537,6 +537,18 @@ def _serve_on_unknown_axis(loss):
         steps.SHAPES["decode_32k"])
 
 
+def _train_step_of_plan(mesh, clients, train_params):
+    """``build_train_step`` of the smoke starcoder2-3b under a plan pair
+    that no plan of the zoo uses."""
+    from repro_torch.configs import get_config, reduce_for_smoke
+    from repro_torch.launch import steps
+    from repro_torch.sharding import DeployPlan
+    return steps.build_train_step(
+        reduce_for_smoke(get_config("starcoder2-3b")), mesh,
+        steps.SHAPES["train_4k"],
+        plan=DeployPlan(clients=clients, train_params=train_params))
+
+
 _SPATIAL = FedConfig(client_mode="vmap", client_axes=("data",),
                      n_clients=1)
 _REMAINDER = r"§1\.10\(b\) remainder"
@@ -545,22 +557,21 @@ _REMAINDER = r"§1\.10\(b\) remainder"
 @pytest.mark.parametrize("build,what", [
     (lambda loss: make_fl_round(_SPATIAL, loss, mesh=_unknown_axis_mesh()),
      _REMAINDER),
-    (lambda loss: make_async_round(_SPATIAL, loss, client_exec="shardmap",
-                                   mesh=_model_axis_mesh()),
-     r"§1\.10\(a\)"),
-    (lambda loss: make_async_round(FedConfig(n_clients=2), loss,
-                                   mesh=_fsdp_mesh()), _REMAINDER),
+    (lambda loss: _train_step_of_plan(_model_axis_mesh(), "spatial",
+                                      "fsdp"), _REMAINDER),
+    (lambda loss: _train_step_of_plan(_fsdp_mesh(), "virtual", "tp"),
+     _REMAINDER),
     (_serve_on_unknown_axis, _REMAINDER),
 ])
 def test_round_outside_the_slice_raises(build, what):
-    """What stays outside the port raises naming its ROADMAP item: a mesh
-    axis beyond the client axes, "model" and a virtual mesh's FSDP axes
-    (§1.10(b)'s remainder), the async driver's group cohort on a model
-    axis above 1 (§1.10(a)), the async driver on a mesh whose data axes
-    split the leaves, and a serve step on a mesh with such an axis (both
-    §1.10(b)'s remainder).  The spatial round on a model axis, the
-    virtual clients' FSDP round with every compressor and the sharded
-    prefill and serve steps themselves run (tests/test_torch_tensor.py,
+    """What stays outside the port raises naming its ROADMAP item, all
+    §1.10(b)'s remainder: a mesh axis beyond the client axes, "model" and
+    a virtual mesh's FSDP axes, the spatial/fsdp and virtual/tp train
+    plan pairs (no plan of the zoo uses them), and a serve step on a mesh
+    with such an axis.  The spatial round on a model axis, the virtual
+    clients' FSDP round with every compressor, the async driver on both
+    (tests/test_torch_async_split.py) and the sharded prefill and serve
+    steps themselves run (tests/test_torch_tensor.py,
     tests/test_torch_fsdp.py, tests/test_torch_serve_mesh.py, and
     :func:`test_quantized_step_runs_on_fsdp_leaves`)."""
     with pytest.raises(NotImplementedError, match=what):
