@@ -3844,35 +3844,88 @@ def _pinned(torch, x):
     return torch.empty(x.shape, dtype=x.dtype, pin_memory=True).copy_(x)
 
 
-def _to_first(torch, x, group, pin=True):
+def _keep(torch, x, to):
+    """A copy of ``x`` where ``to`` says: ``"pinned"`` or ``"pageable"``
+    host memory (a host tensor stays as it is), or the ``"card"``.
+    Pageable memory goes back to the system when freed; a process keeps
+    its pinned blocks cached."""
+    if to == "card":
+        return x.clone()
+    return _pinned(torch, x) if to == "pinned" else x.cpu()
+
+
+def _empty_kept(torch, shape, x, to):
+    """An empty tensor of ``x``'s dtype where ``_keep(x, to)`` puts it."""
+    return torch.empty(shape, dtype=x.dtype,
+                       device=x.device if to == "card" else "cpu",
+                       pin_memory=x.is_cuda and to == "pinned")
+
+
+def _to_first(torch, x, group, to="pinned"):
     """Every copy of ``x`` over ``group`` (a list in the group's rank
-    order) at the group's first rank, on the host; ``None`` at the others.
-    A gather through the host (gloo gathers CPU tensors), moved as bytes
-    (gloo refuses bfloat16).  ``pin=False``: through pageable memory,
-    which a process gives back when freed (its pinned blocks stay cached
-    in the process)."""
+    order) at the group's first rank, kept as ``_keep(x, to)`` keeps
+    them; ``None`` at the others.  A card's copies are read where they
+    lie (:func:`_ipc_to_first`); host tensors go through a gloo gather,
+    as bytes (gloo refuses bfloat16)."""
     import torch.distributed as dist
     ranks = dist.get_process_group_ranks(group)
-    host = _pinned(torch, x) if pin else x.cpu()
+    host = lambda t: _keep(torch, t, to)
     if len(ranks) == 1:
-        return [host]
-    flat = host.reshape(-1).view(torch.uint8)
-    out = [torch.empty(flat.shape, dtype=torch.uint8,
-                       pin_memory=x.is_cuda and pin)
-           for _ in ranks] if dist.get_rank() == ranks[0] else None
+        return [host(x)]
+    if x.is_cuda:
+        return _ipc_to_first(torch, x, group, ranks, host)
+    flat = x.contiguous().reshape(-1).view(torch.uint8)
+    out = [torch.empty_like(flat) for _ in ranks] \
+        if dist.get_rank() == ranks[0] else None
     dist.gather(flat, out, dst=ranks[0], group=group)
     return None if out is None else \
         [o.view(x.dtype).reshape(x.shape) for o in out]
 
 
+def _ipc_to_first(torch, x, group, ranks, host):
+    """``_to_first`` of a card's tensor, the group's ranks being processes
+    on the one card: each other rank hands the first a CUDA IPC handle to
+    a copy of ``x`` (pickled through gloo), the first copies each peer's
+    straight to where ``host`` keeps it, and the others keep their copies
+    until it has (a barrier).  The copy lies in a segment of its own: the
+    caching allocator's expandable segments do not export a handle.  A
+    gloo gather stages every byte through the host instead: 0.4-0.5 GB/s
+    (PERF.md §5)."""
+    import torch.distributed as dist
+    from torch.multiprocessing.reductions import reduce_tensor
+    first = dist.get_rank() == ranks[0]
+    handle = mine = None
+    if not first:
+        setting = torch.cuda.memory._set_allocator_settings
+        setting("expandable_segments:False")
+        try:
+            mine = x.clone(memory_format=torch.contiguous_format)
+        finally:
+            setting("expandable_segments:" + str("expandable_segments:True"
+                    in os.environ.get("PYTORCH_CUDA_ALLOC_CONF", "")))
+        handle = reduce_tensor(mine)
+    handles = [None] * len(ranks) if first else None
+    dist.gather_object(handle, handles, dst=ranks[0], group=group)
+    out = None
+    if first:
+        out = []
+        for h in handles:
+            peer = x if h is None else h[0](*h[1])
+            out.append(host(peer))
+            del peer
+    dist.barrier(group=group)
+    return out
+
+
 def _state_at_rank0(torch, state, specs, mesh, on_device=False,
-                    parts=("W", "M", "V"), pin=True):
-    """W, M, V whole and every client's residual whole (C, ...), on the
-    host of global rank 0 (``None`` at every other rank): each leaf's
-    shards gathered to its client's model index 0, then the residuals
-    over model index 0's client group, leaf by leaf (only rank 0 keeps a
-    model's worth of them).  ``on_device``: a whole-leaf state's W, M and
-    V stay where they are (on the card); ``pin``: as ``_to_first``'s."""
+                    parts=("W", "M", "V"), to="pinned"):
+    """W, M, V whole and every client's residual whole (C, ...), at
+    global rank 0 (``None`` at every other rank), kept as ``_keep(x,
+    to)`` keeps them: each leaf's shards gathered to its client's model
+    index 0, then the residuals over model index 0's client group, leaf
+    by leaf (only rank 0 keeps a model's worth of them).  ``on_device``:
+    a whole-leaf state's W, M and V stay where they are (on the
+    card)."""
     import torch.distributed as dist
     from repro_torch import tree as T
     group = mesh.model_group
@@ -3882,9 +3935,8 @@ def _state_at_rank0(torch, state, specs, mesh, on_device=False,
 
     def whole(x, spec, need, here=False):
         if group is None:
-            return (x if here else _pinned(torch, x) if pin else x.cpu()) \
-                if need else None
-        parts = _to_first(torch, x, group, pin)
+            return (x if here else _keep(torch, x, to)) if need else None
+        parts = _to_first(torch, x, group, to)
         if parts is None:
             return None
         dims = [d for d, e in enumerate(spec) if e == "model"]
@@ -3892,8 +3944,8 @@ def _state_at_rank0(torch, state, specs, mesh, on_device=False,
             return parts[0]
         shape = list(parts[0].shape)
         shape[dims[0]] *= len(parts)
-        return torch.cat(parts, dims[0], out=torch.empty(
-            shape, dtype=x.dtype, pin_memory=x.is_cuda and pin))
+        return torch.cat(parts, dims[0],
+                         out=_empty_kept(torch, shape, x, to))
 
     out = {p: [] for p in ("W", "M", "V")}
     for part in parts:
@@ -3907,7 +3959,7 @@ def _state_at_rank0(torch, state, specs, mesh, on_device=False,
     for x, sp in zip(errs, specs):
         w = whole(x[0], sp, True)
         if mesh.model_index == 0:
-            parts = _to_first(torch, w, mesh.group, pin)
+            parts = _to_first(torch, w, mesh.group, to)
             if first:
                 out["err"].append(torch.stack(parts))
     return out if first else None
@@ -4442,25 +4494,24 @@ def fsdp_step_bytes(cfg, mesh, seq, per_rank) -> dict:
             "gathered_layer_params": per_layer, "params": whole}
 
 
-def _whole_at_rank0(torch, leaves, specs, mesh, pin=True):
+def _whole_at_rank0(torch, leaves, specs, mesh, to="pinned"):
     """The whole leaves of this rank's ``leaves`` (shards under ``specs``)
-    on global rank 0's host, ``None`` elsewhere: each leaf's shards
-    gathered over every rank and placed at their blocks, leaf by leaf
-    (``pin``: as ``_to_first``'s)."""
+    at global rank 0, kept as ``_keep(x, to)`` keeps them, ``None``
+    elsewhere: each leaf's shards gathered over every rank and placed at
+    their blocks, leaf by leaf."""
     import dataclasses as dc
     import torch.distributed as dist
     from repro_torch.models import params as PM
     first = dist.get_rank() == 0
     out = []
     for x, sp in zip(leaves, specs):
-        parts = _to_first(torch, x, dist.group.WORLD, pin)
+        parts = _to_first(torch, x, dist.group.WORLD, to)
         if not first:
             continue
         shape = [n * math.prod(mesh.shape[a] for a in (
             () if e is None else (e,) if isinstance(e, str) else e))
             for n, e in zip(x.shape, sp)]
-        whole = torch.empty(shape, dtype=x.dtype,
-                            pin_memory=x.is_cuda and pin)
+        whole = _empty_kept(torch, shape, x, to)
         for r, part in enumerate(parts):
             whole[PM.shard_block(sp, shape, dc.replace(mesh, rank=r))] = part
         out.append(whole)
@@ -6334,19 +6385,17 @@ P20_ASYNC_STEPS = 2
 #: residual shard and the records in flight; four such ranks ran the
 #: card out at 2 repeats even with the records held as their nonzeros.
 P20_ASYNC_REPEATS = 1
-#: FedAdam-SSM's bytes a client at the 2-repeat cut (PERF.md §2).
-P20_ASYNC_BILL_BYTES = 375_854_948
 
 
 def _async_state_at_rank0(torch, parts, err, specs, mesh, plan):
-    """A split state whole on global rank 0's host (``None`` elsewhere):
-    ``parts`` (W, M, V: this rank's shards) and ``err``, this rank's
-    residual shards of every client ``(C, ...)`` (or ``None``).  The tp
-    plan's ranks each hold every client's residual shard: each gives its
-    client's (its client index's) to ``_state_at_rank0``, which gathers
-    them over the client group.  Through pageable memory, which the
-    process gives back: pinned blocks stay cached in it, and phase 20's
-    ranks gather eight more cases' states after these (with pinned
+    """A split state whole on global rank 0's card (``None`` elsewhere),
+    where the comparison runs: ``parts`` (W, M, V: this rank's shards)
+    and ``err``, this rank's residual shards of every client ``(C, ...)``
+    (or ``None``).  The tp plan's ranks each hold every client's
+    residual shard: each gives its client's (its client index's) to
+    ``_state_at_rank0``, which gathers them over the client group.  Not
+    through the host: pageable copies of a peer's shards run at 1-2
+    GB/s, and pinned blocks stay cached in a process (with pinned
     gathers here the whole script ran out of a 96 GiB host beside one
     H100)."""
     import types
@@ -6357,13 +6406,13 @@ def _async_state_at_rank0(torch, parts, err, specs, mesh, plan):
         cs = None if err is None else {"comp": {"err": [
             x[i:i + 1] for x in err]}}
         return _state_at_rank0(torch, types.SimpleNamespace(
-            **parts, client_state=cs), specs, mesh, pin=False)
-    host = {p: _whole_at_rank0(torch, parts[p], T.leaves(specs), mesh,
-                               pin=False) for p in ("W", "M", "V")}
+            **parts, client_state=cs), specs, mesh, to="card")
+    whole = {p: _whole_at_rank0(torch, parts[p], T.leaves(specs), mesh,
+                                to="card") for p in ("W", "M", "V")}
     cs_specs = [PM.Spec((None,) + tuple(sp)) for sp in T.leaves(specs)]
-    host["err"] = [] if err is None else \
-        _whole_at_rank0(torch, err, cs_specs, mesh, pin=False)
-    return host if mesh.rank == 0 else None
+    whole["err"] = [] if err is None else \
+        _whole_at_rank0(torch, err, cs_specs, mesh, to="card")
+    return whole if mesh.rank == 0 else None
 
 
 def _log_first_step(torch, run, names):
@@ -6473,7 +6522,7 @@ def p20_async_reference(torch, cfg, seed, seq, tokens, dev):
 
 
 def p20_async_case(torch, dist, mesh, plan, key, cfg, seed, seq, tokens,
-                   ref, fixed_bill):
+                   ref):
     """(c): the split async driver on ``mesh`` (the tp plan's group
     cohort or the fsdp plan's virtual clients), its wall, peak, launches
     (exactly absmax L, count_ge 2L and ssm_apply_ef L per client step a
@@ -6548,13 +6597,17 @@ def p20_async_case(torch, dist, mesh, plan, key, cfg, seed, seq, tokens,
            "client_steps": client_steps, "dispatches": len(disp),
            "leaves": L, "shard_elements": sum(sizes)} | _async_metrics(m)
     t0 = time.perf_counter()
+    # every rank's cache goes back before rank 0 holds whole leaves
+    del state, run, bundle
+    _free(torch)
     split = _async_state_at_rank0(
         torch, {p: T.leaves(getattr(st, p)) for p in ("W", "M", "V")},
         T.leaves(st.client_state["comp"]["err"]), specs, mesh, plan)
-    first = _async_state_at_rank0(torch, {"W": [], "M": first, "V": []},
-                                  None, specs, mesh, plan)
+    del st
+    first = _async_state_at_rank0(
+        torch, {"W": [], "M": [x.to(dev) for x in first], "V": []}, None,
+        specs, mesh, plan)
     rec["state_gather_s"] = time.perf_counter() - t0
-    del st, state, run, bundle
     _free(torch)
     if cap is not None:
         captured = {k: [(a, kw) for calls in cap.args[k].values()
@@ -6570,10 +6623,6 @@ def p20_async_case(torch, dist, mesh, plan, key, cfg, seed, seq, tokens,
                   "uplink_bits"):
             require(rec[k] == wrec[k], f"{key}: {k} {rec[k]} against the "
                     f"whole-leaf driver's {wrec[k]}")
-        bill = float(torch.tensor(8.0 * P20_ASYNC_BILL_BYTES * rec["landed"],
-                                  dtype=torch.float32))
-        require(not fixed_bill or rec["uplink_bits"] == bill,
-                f"{key}: bill {rec['uplink_bits']} against {bill}")
         require(rec["server_steps"] == P20_ASYNC_STEPS
                 and rec["dropped"] >= 1
                 and len({e[0] for e in disp}) < len(disp),
@@ -6605,7 +6654,7 @@ def p20_run(torch, dist, mesh, seed, pred_dir, smoke=False):
     vmesh = dc.replace(mesh, client_axes=())
     dev = mesh.device
     out = {}
-    t_phase = time.perf_counter()
+    t_phase, t_wall = time.perf_counter(), time.time()
     C = tmesh.n_clients
     seq = 32 if smoke else TENSOR_SEQ
     repeats = 2 if smoke else P20_ASYNC_REPEATS
@@ -6622,8 +6671,7 @@ def p20_run(torch, dist, mesh, seed, pred_dir, smoke=False):
     for key, plan in P20_ASYNC:
         t0 = time.perf_counter()
         rec = p20_async_case(torch, dist, tmesh if plan == "tp" else vmesh,
-                             plan, key, cfg, seed, seq, tokens, ref,
-                             not smoke and repeats == 2)
+                             plan, key, cfg, seed, seq, tokens, ref)
         rec.update(repeats=repeats, case_s=time.perf_counter() - t0,
                    reference_s=ref_s)
         out[key] = rec
@@ -6633,9 +6681,14 @@ def p20_run(torch, dist, mesh, seed, pred_dir, smoke=False):
                  if k not in ("kernels", "events")}))
     del ref
     _free(torch)
+    out["async_s"] = time.perf_counter() - t_phase
     host = {}
     for key, plan, alg, kw in p20_cases():
         pred = _p20_prediction(pred_dir, key)
+        # (c)'s cost to the phase: the first case would otherwise start
+        # when its prediction was written
+        out.setdefault("first_prediction_s", (
+            Path(pred_dir) / f"{key}.json").stat().st_mtime - t_wall)
         require(pred["fits"], f"phase 20 {key}: predicted not to fit at "
                 f"any of {P20_REPEATS} repeats: {pred['cuts']}")
         cfg = _tensor_cfg(TENSOR_ARCH, pred["repeats"], "float32", smoke)
@@ -6738,6 +6791,12 @@ def _p20_record(ranks, pred_dir, wall):
                 "whole_leaf", {}).get(kk)
         vs = r0[k].get("vs_whole_leaf", {})
         summary[k]["max_rel_err"] = vs.get("max_rel_err")
+    # (c) ran while the predictor predicted (a) and (b): what it added to
+    # the phase is the time past the first prediction's
+    ready = max(0.0, r0["first_prediction_s"])
+    summary["async"] = {"async_s": r0["async_s"], "first_prediction_s":
+                        r0["first_prediction_s"], "added_s":
+                        max(r0["async_s"], ready) - ready}
     log(f"phase 20: {FSDP_WORLD} gloo ranks on the card ({smi_line()}) "
         f"in {wall:.1f} s, cuts "
         f"{ {k: r0[k].get('cuts') for k in keys} }: " + json.dumps(summary))

@@ -22,14 +22,15 @@ of :mod:`repro_torch.data.churn`, so a simulation replays bitwise from
 its seed, and the event schedule is the JAX package's for the same seed.
 
 The per-client work and the server arithmetic are the synchronous
-round's own builders (``fed.make_client_step`` and
-``fed.run_clients_stacked``, ``fed.make_server_apply``, and the scan
-fold: ``aggregate.ordered_weighted_sum`` / ``wire_gather_sum`` /
-``weight_total``).  The JAX
-builders are ``jax.jit``-wrapped; here they are plain functions.  A group
-of simultaneous dispatches runs two ways:
+round's own builders (``fed.make_round_client_step``,
+``fed.make_server_apply``, and the scan fold:
+``aggregate.weighted_fold`` over the buffer's list in arrival order /
+``wire_gather_sum`` / ``weight_total``).  The JAX builders are
+``jax.jit``-wrapped; here they are plain functions.  A group of
+simultaneous dispatches runs two ways:
 
-* ``client_exec="scan"``: a loop over its clients;
+* ``client_exec="scan"``: a loop over its clients through
+  ``client_step``;
 * ``client_exec="shardmap"``: one client per row of a
   :class:`~repro_torch.launch.mesh.ClientMesh`, as the spatial round
   runs them (:func:`make_mesh_cohort_exec`).  The event loop is
@@ -45,14 +46,15 @@ W, M, V and of every client's state, stacked ``(C, ...)``), and the
 scan cohort on a mesh with FSDP axes (the ``fsdp`` plans' virtual
 clients: each rank holds its shards and its ``fed.local_batch`` slice of
 each client's batch).  The masks, scales and norms are the whole
-leaves' (``sparsify.LeafSplit``).  On whole leaves the step keeps the
-wire round trip, as the JAX cohort's does, and a landed update is
-buffered as its payload and billed at its measured bytes; on split
-leaves a shard's payload would be packed with a shard's capacity, so
-the step hands over the encoder's carriers, the records in flight and
-in the buffer hold their nonzeros (:class:`Nonzeros`), the server step
-folds them in arrival order, and each landed update is billed at the
-whole leaves' static layout, as the synchronous round bills them.  The metrics and the bill are the whole
+leaves' (``sparsify.LeafSplit``).  On the group cohort the records in
+flight hold each carrier leaf as its nonzeros (:class:`Nonzeros`),
+gathered that way.  On whole leaves the step keeps the wire round
+trip, as the JAX cohort's does, and a landed update is buffered as its
+payload and billed at its measured bytes; on split leaves a shard's
+payload would be packed with a shard's capacity, so the buffer keeps
+the carriers, the server step folds them in arrival order, and each
+landed update is billed at the whole leaves' static layout, as the
+synchronous round bills them.  The metrics and the bill are the whole
 leaves', the same on every rank.
 """
 from __future__ import annotations
@@ -161,16 +163,7 @@ def _dense(leaf):
     return leaf.dense() if isinstance(leaf, Nonzeros) else leaf
 
 
-def _held(out, held: bool):
-    """A client step's ``(sW, sM, sV, new_cstate, mets)``, with ``held``
-    each carrier leaf as :func:`hold_nonzeros` holds it."""
-    if not held:
-        return out
-    return tuple(T.tree_map(hold_nonzeros, o) if j < 3 else o
-                 for j, o in enumerate(out))
-
-
-def make_cohort_exec(client_step: Callable, held: bool = False):
+def make_cohort_exec(client_step: Callable):
     """A group of simultaneously dispatched clients, one after another
     through the round's ``client_step`` (``fed.make_round_client_step``),
     so each client's outputs are bitwise the synchronous driver's.
@@ -178,28 +171,26 @@ def make_cohort_exec(client_step: Callable, held: bool = False):
     ``cstates`` client-stacked ``(C, ...)`` (``cstates`` None without
     client state), client ``c`` of ``group`` on slice ``c``; returns one
     ``(sW, sM, sV, new_cstate, mets)`` per client of ``group``, in its
-    order; with ``held`` each carrier leaf as :func:`hold_nonzeros`
-    holds it."""
+    order."""
 
     def exec_cohort(W, M, V, batches, cstates, group):
-        return [_held(client_step(W, M, V, _client(batches, c),
-                                  _client(cstates, c)), held)
-                for c in group]
+        return [client_step(W, M, V, _client(batches, c),
+                            _client(cstates, c)) for c in group]
 
     return exec_cohort
 
 
-def make_mesh_cohort_exec(client_step: Callable, mesh, held: bool = False):
+def make_mesh_cohort_exec(client_step: Callable, mesh):
     """The cohort on the client group, ``exec_cohort`` as
     :func:`make_cohort_exec`'s: the group padded to the clients of
     ``mesh`` by repeating its last client, the ranks of client index i
     run lane i's ``client_step`` (on a model axis above 1 each on its
     shards of the leaves and of the client state), every output is
-    all-gathered over the client group leaf by leaf (with ``held`` a
-    carrier leaf as its nonzeros, :func:`_gather_nonzeros`), and the
-    padded lanes' parts are dropped
-    at once; the same outputs on every rank of a model index.  The
-    records hold each client's gathered parts alone, so a client's
+    all-gathered over the client group leaf by leaf, and the padded
+    lanes' parts are dropped at once; the same outputs on every rank of
+    a model index.  Every rank holds every client's carriers: a carrier
+    leaf is gathered and held as its nonzeros (:func:`_gather_nonzeros`).
+    The records hold each client's gathered parts alone, so a client's
     record never keeps another's alive."""
 
     def exec_cohort(W, M, V, batches, cstates, group):
@@ -216,16 +207,16 @@ def make_mesh_cohort_exec(client_step: Callable, mesh, held: bool = False):
             # this rank's output goes once gathered
             out[j] = None
             parts.append(None if o is None else _gather_clients(
-                mesh, o, len(group), held and j < 3))
+                mesh, o, len(group), j < 3))
         return [tuple(None if p is None else p[i] for p in parts)
                 for i in range(len(group))]
 
     return exec_cohort
 
 
-def _gather_clients(mesh, tree, n: int, held: bool = False) -> list:
+def _gather_clients(mesh, tree, n: int, held: bool) -> list:
     """The first ``n`` clients' ``tree`` over the client group, one tree
-    each (the others' parts freed); with ``held`` each leaf as
+    each (the others' parts freed); with ``held`` (a carrier) each leaf as
     :func:`hold_nonzeros` holds it (:func:`_gather_nonzeros`)."""
     gather = _gather_nonzeros if held else \
         (lambda mesh, x: mesh.all_gather_list(x))
@@ -349,12 +340,8 @@ class AsyncRoundDriver:
                              f"clients for {fed.n_clients}")
         self._comp, self._split, step = make_round_client_step(
             fed, loss_fn, mesh, pspecs)
-        # on split leaves the records hold the carriers (no payload):
-        # as their nonzeros
-        held = self._split is not None
-        self._exec = make_cohort_exec(step, held) \
-            if client_exec == "scan" else \
-            make_mesh_cohort_exec(step, mesh, held)
+        self._exec = make_cohort_exec(step) if client_exec == "scan" \
+            else make_mesh_cohort_exec(step, mesh)
         self._apply = make_buffer_apply(fed, self._comp)
         self._apply_wire = make_wire_buffer_apply(fed, self._comp)
 
@@ -480,8 +467,9 @@ class AsyncRoundDriver:
                 if wire_mode:
                     # the landed bytes, repacked from the decoded carriers
                     # (the pack is idempotent on them), billed as measured
-                    rec["wire"] = self._comp.pack_wire(
-                        Deltas(rec["sW"], rec["sM"], rec["sV"]))
+                    rec["wire"] = self._comp.pack_wire(Deltas(*(
+                        T.tree_map(_dense, rec[k])
+                        for k in ("sW", "sM", "sV"))))
                     rec["sW"] = rec["sM"] = rec["sV"] = None
                     bits_total += 8 * wire.payload_nbytes(rec["wire"])
                 else:

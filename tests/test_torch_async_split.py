@@ -307,3 +307,20 @@ def _hold(got, ref, differed, parted, tol, n, what):
         assert wide <= differed + SUPPORT_SHARE * n, (what, wide, differed)
     else:
         assert beyond <= differed, (what, beyond, differed)
+
+
+@pytest.mark.parametrize("view", ["tp", "fsdp"])
+def test_async_split_degenerate_and_handoff_are_the_sync_round(spawn, view):
+    """With zero churn and K = C, 2 server steps of the split driver are
+    bit for bit 2 split synchronous rounds (the tp plan's dense fold, the
+    virtual plan's scan round), and round 2 by the driver from round 1's
+    synchronous state (the checkpoint handoff) is round 2, on every rank;
+    the driver bills what the synchronous rounds bill."""
+    for rank, rk in enumerate(spawn[1]):
+        got = rk["degenerate"][view]
+        what = (view, rank)
+        assert got["steps"] == (2, 1), (what, got["steps"])
+        assert got["async_bitwise"], what
+        assert got["handoff_bitwise"], what
+        assert got["async_bits"] == sum(got["sync_bits"]), (what, got)
+        assert got["handoff_bits"] == got["sync_bits"][1], (what, got)
